@@ -6,29 +6,52 @@ one NVIDIA card: the quickest proof that the port still starts on the GPU.
 
 Phases, each of which raises on failure (exit code 1, no result line):
 
-1. the card's name and power limit; build kernel K1 (ESVO traversal,
-   ``csrc/traversal.cu``) from the sources in this checkout with nvcc;
-2. K1 against its plain-torch twin on the card: a random depth-4 octree with
-   4096 random rays, and the 256x256 primary rays of the depth-9 terrain.
-   Hit, leaf value and face id must agree on every lane, t and uv within
-   1e-4 (both round every operation once, so they should agree exactly);
-3. the main path: build ``minecraft_chunk_scene(depth=9)`` (512^3 voxels)
-   and run ``Renderer(256x256, 5 bounces, branch_count=10, target_spp=20)``
-   to the end — passes of 1, 1, 1, 1, 6 and 10 samples, so both
-   ``render_pass`` and ``render_pass_branched`` run.  The frame must be
-   finite with a positive mean, and K1 must have been launched;
-4. frame parity: one 64x64, 5-bounce frame of the depth-9 scene from a
-   fixed uniform block, through K1 and through the twin; per-lane rtol and
-   atol 2e-3, at most 0.1% of the lanes outside;
-5. timing: forward ms of a 256x256, 5-bounce ``trace_paths`` frame (median
-   of 5 after a warm-up), with nominal and live rays per second.
+1. the card's name and power limit; build the kernels from the sources in
+   this checkout, one nvcc per source, started together: the traversal
+   (``csrc/traversal.cu``: K1, K2 alpha accept, K3r recording walk) and P2
+   (``csrc/uniforms.cu``, Philox uniforms);
+2. every kernel against its plain-torch twin on the card, timed beside its
+   bound (and, for P2, beside ``torch.rand``):
+   - K1 on a random depth-4 octree (4096 rays with an active mask) and on
+     the 256x256 primaries of the depth-9 terrain;
+   - P2 on the (65536, 5, 21) uniform block and on a ragged size, bit for
+     bit;
+   - K2 on the 256x256 primaries of the depth-9 cutout scene and on its
+     8 training views at 512x512; K3r on the 256x256 primaries of both
+     depth-9 scenes and on the 8 training views of both.
+   Hit, leaf value, face id, fetch counts and record count / mats / face
+   must agree on every lane; t, uv and the record's uu / vv within 1e-4 (all
+   of them round every operation once, so they should agree exactly);
+3. the forward main path: ``Renderer(256x256, 5 bounces, branch_count=10,
+   target_spp=20)`` on ``minecraft_chunk_scene(depth=9)`` to the end —
+   passes of 1, 1, 1, 1, 6 and 10 samples; the frame must be finite with a
+   positive mean, and K1 and P2 must have been launched;
+4. frame parity: one 64x64, 5-bounce frame of each depth-9 scene from a
+   fixed uniform block, through the kernels and through the twins; per-lane
+   rtol and atol 2e-3, at most 0.1% of the lanes outside;
+5. timing of the forward frame (256x256, 5 bounces, median of 5 after a
+   warm-up), with nominal and live rays per second;
+6. bench.py's fwd+bwd step (``jax.grad`` of the mean radiance into atlas and
+   emittance, bench.py:61-71) on the depth-9 terrain at 256x256 and
+   5 bounces: median of 5 after a warm-up, rays/s, peak memory; and the
+   gradient through the kernels against the gradient through the twins at
+   64x64, per element within rtol 1e-5 / atol 1e-7 (the backward of the
+   atlas gather accumulates in an order the card does not fix);
+7. the training entry point: ``cli train`` (``inverse_render``, soft weight
+   0.25) with the JAX CLI's defaults of 8 views at 512x512 for 3 steps, on
+   ``--scene chunk --depth 9`` (K1, K3r, P2) and on ``--scene cutout
+   --depth 9`` (K2, K3r, P2): finite losses, the parameters written, wall
+   seconds per step.
 
-The script names only the port; jax is blocked before anything is
-imported.
+The launch counts of the main paths (phases 3, 6 and 7) are set to 0 just
+before each path and read just after; the kernels' comparisons with their
+twins do not count.  The script names only the port; jax and the JAX
+package are blocked before anything is imported.
 
 The last line of standard output is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-It exits non-zero without a CUDA card.
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
+the line before it the card's name and power limit, and the one before
+that the kernels' JSON line.  It exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -38,16 +61,37 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
 import numpy as np
 
-KERNEL_SOURCE = "octree_pathtracing_tpu_torch/csrc/traversal.cu"
-KERNEL_REPLACES = "octree_pathtracing_tpu/ops/traversal.py:459"
 WIDTH = HEIGHT = 256
 N_BOUNCES = 5
 DEPTH = 9
+TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS = 8, 512, 3
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# arithmetic per fetched node row: up to two examinations of ~30 float
+# operations each, plus the slot select
+OPS_PER_FETCH = 64
+# bytes per ray the traversal reads (origin, dir) and writes (hit, t, face,
+# uv, leaf, voxel corner and size, fetch count); K3r adds its record
+RAY_BYTES = 24 + 41
+RECORD_BYTES = 4 + 4 * 16
+PHILOX_OPS_PER_BLOCK = 112  # 10 rounds of 2 mul-hi/lo pairs, 4 xor, 2 key adds; 4 float maps
+
+KERNELS = {
+    "esvo_traverse": ("octree_pathtracing_tpu_torch/csrc/traversal.cu",
+                      "octree_pathtracing_tpu/ops/traversal.py:459"),
+    "esvo_traverse_alpha": ("octree_pathtracing_tpu_torch/csrc/traversal.cu",
+                            "octree_pathtracing_tpu/render/hit.py:104"),
+    "esvo_traverse_record": ("octree_pathtracing_tpu_torch/csrc/traversal.cu",
+                             "octree_pathtracing_tpu/diff/soft.py:96"),
+    "philox_uniforms": ("octree_pathtracing_tpu_torch/csrc/uniforms.cu",
+                        "tools/profile_pallas.py:114"),
+}
 
 
 def log(msg: str):
@@ -79,42 +123,103 @@ def cuda_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def compare_hits(k, r, label: str) -> float:
-    """Fail unless K1's result ``k`` matches the twin's ``r`` on every lane;
-    returns the largest absolute difference of t, uv and the voxel corner."""
-    mismatch = {f: int((getattr(k, f) != getattr(r, f)).sum()) for f in ("hit", "leaf_value", "face_id")}
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S, n_ops / OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def traversal_bound(res, record: bool = False):
+    """The traversal's bound on one call's result: the node rows its lanes
+    fetched (32 B each) plus the rays' inputs and outputs, against
+    OPS_PER_FETCH operations per row."""
+    fetches = int(res.fetches.sum())
+    lanes = int(res.hit.shape[0])
+    n_bytes = fetches * 32 + lanes * (RAY_BYTES + (RECORD_BYTES if record else 0))
+    return bound(n_bytes, fetches * OPS_PER_FETCH) + (fetches,)
+
+
+def compare_hits(k, r, label: str, k_rec=None, r_rec=None) -> float:
+    """Fail unless a kernel's result ``k`` (and record) matches the twin's
+    ``r`` on every lane; returns the largest absolute difference of t, uv,
+    the voxel corner and the record's uu / vv."""
+    mismatch = {f: int((getattr(k, f) != getattr(r, f)).sum()) for f in ("hit", "leaf_value", "face_id", "fetches")}
     h = r.hit
     t_err = (k.t[h] - r.t[h]).abs()
     t_bad = int((t_err > 1e-4 * r.t[h].abs().clamp(min=1.0)).sum())
     uv_err = (k.uv[h] - r.uv[h]).abs()
     uv_bad = int((uv_err > 1e-4).any(dim=-1).sum())
     vpos_err = (k.voxel_pos[h] - r.voxel_pos[h]).abs()
-    err = max(float(x.max()) if x.numel() else 0.0 for x in (t_err, uv_err, vpos_err))
+    errs = [t_err, uv_err, vpos_err]
+    if k_rec is not None:
+        for f in ("count", "mats", "face"):
+            mismatch[f"record_{f}"] = int((getattr(k_rec, f) != getattr(r_rec, f)).sum())
+        rec_err = [(getattr(k_rec, f) - getattr(r_rec, f)).abs() for f in ("uu", "vv")]
+        uv_bad += int(sum(int((e > 1e-4).sum()) for e in rec_err))
+        errs += rec_err
+    err = max(float(x.max()) if x.numel() else 0.0 for x in errs)
     log(f"  {label}: lanes={r.hit.numel()} hits={int(h.sum())} mismatches={mismatch} "
         f"t_out_of_tol={t_bad} uv_out_of_tol={uv_bad} max_abs_err={err!r} "
-        f"steps k1={int(k.steps)} twin={int(r.steps)}")
+        f"steps kernel={int(k.steps)} twin={int(r.steps)}")
     if any(mismatch.values()) or t_bad or uv_bad:
-        raise AssertionError(f"K1 disagrees with its twin on {label}")
+        raise AssertionError(f"kernel disagrees with its twin on {label}")
     return err
 
 
+def reset_counts(mods):
+    for fn in mods:
+        fn.launches = 0
+
+
 def main() -> int:
-    # The port never needs jax; block it so that no module reached from here
-    # loads it.
+    # The port never needs jax or the JAX package; block both so that no
+    # module reached from here loads them.
     sys.modules["jax"] = None
+    sys.modules["octree_pathtracing_tpu"] = None
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
         return 1
 
-    from octree_pathtracing_tpu_torch import BUILD_DIR
+    from octree_pathtracing_tpu_torch import BUILD_DIR, cli
+    from octree_pathtracing_tpu_torch.io.checkpoint import load_arrays
     from octree_pathtracing_tpu_torch.io.image import save_image
-    from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene, octree_from_grid, pixel_grid_rays
+    from octree_pathtracing_tpu_torch.models import (
+        cutout_chunk_scene,
+        minecraft_chunk_scene,
+        octree_from_grid,
+        pixel_grid_rays,
+    )
+    from octree_pathtracing_tpu_torch.ops import random as prandom
     from octree_pathtracing_tpu_torch.ops import traversal
-    from octree_pathtracing_tpu_torch.ops.traversal import pack_nodes, traverse, traverse_reference
-    from octree_pathtracing_tpu_torch.render import Renderer, trace_paths, trace_paths_census
-    from octree_pathtracing_tpu_torch.render import pathtracer, renderer
+    from octree_pathtracing_tpu_torch.ops.random import philox_uniforms, philox_uniforms_reference
+    from octree_pathtracing_tpu_torch.ops.traversal import (
+        pack_nodes,
+        traverse,
+        traverse_alpha,
+        traverse_alpha_reference,
+        traverse_record,
+        traverse_record_reference,
+        traverse_reference,
+    )
+    from octree_pathtracing_tpu_torch.parallel import apply_params
+    from octree_pathtracing_tpu_torch.render import Renderer, pathtracer, renderer, trace_paths, trace_paths_census
+    from octree_pathtracing_tpu_torch.render.hit import accept_tables
+
+    wrappers = {"esvo_traverse": traverse, "esvo_traverse_alpha": traverse_alpha,
+                "esvo_traverse_record": traverse_record, "philox_uniforms": philox_uniforms}
+    main_path_launches = dict.fromkeys(wrappers, 0)
+
+    def read_counts(path: str, required):
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        for name, n in counts.items():
+            main_path_launches[name] += n
+        log(f"  launches on {path}: {counts}")
+        missing = [name for name in required if counts[name] <= 0]
+        if missing:
+            raise AssertionError(f"{path} never launched {missing}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -123,17 +228,39 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
+    out_dir = os.path.join(BUILD_DIR, "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
 
-    # ---- 1. build K1 from the checkout's sources
+    # ---- 1. build the kernels from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    info = traversal._library().build_info
-    log(f"phase 1 build: K1 loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s) -> {os.path.relpath(info['path'])}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            log(f"  ptxas: {line.strip()}")
+    builds, errors = {}, []
 
-    # ---- 2. K1 against its twin on the card
+    def build(name, loader):
+        try:
+            builds[name] = loader()
+        except Exception as e:  # re-raised below, after both builds end
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=a)
+               for a in (("traversal", traversal._library), ("uniforms", prandom._library))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    log(f"phase 1 build: both libraries loaded in {time.perf_counter() - t0:.2f} s")
+    for name, lib in builds.items():
+        info = lib.build_info
+        log(f"  {name}: nvcc {info['seconds']:.2f} s -> {os.path.relpath(info['path'])}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line or "Compiling" in line:
+                log(f"    ptxas: {line.strip()}")
+
+    results = {name: {} for name in wrappers}
+
+    # ---- 2. every kernel against its twin on the card
+    log("phase 2 kernels vs twins:")
     rng = np.random.default_rng(2024)
     s = 16
     grid = (rng.random((s, s, s)) < 0.12).astype(np.uint32) * rng.integers(1, 10, (s, s, s)).astype(np.uint32)
@@ -147,82 +274,161 @@ def main() -> int:
     d = torch.from_numpy(d.astype(np.float32)).to(dev)
     active = torch.from_numpy(rng.random(4096) < 0.8).to(dev)
     args = (nodes, tree.root, tree.depth, tree.scale(), o, d, 1024.0, active)
-    log("phase 2 kernel vs twin:")
-    err = compare_hits(traverse(*args), traverse_reference(*args), "random depth-4 octree, 4096 rays")
+    err_k1 = compare_hits(traverse(*args), traverse_reference(*args), "K1, random depth-4 octree, 4096 rays")
 
     t0 = time.perf_counter()
     scene_cpu, cam_cpu = minecraft_chunk_scene(depth=DEPTH)
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cut_cpu, cut_cam_cpu = cutout_chunk_scene(depth=DEPTH)
+    cut_build_s = time.perf_counter() - t0
     scene, cam = scene_cpu.to(dev), cam_cpu.to(dev)
+    cut, cut_cam = cut_cpu.to(dev), cut_cam_cpu.to(dev)
     torch.cuda.synchronize()
-    table_mb = scene.nodes.numel() * 4 / 1e6
     log(f"  depth-{DEPTH} terrain built in {build_s:.2f} s on the host: {scene.n_nodes} nodes, "
-        f"{table_mb:.1f} MB node table")
-    o, d = pixel_grid_rays(cam, WIDTH, HEIGHT)
-    o = o.contiguous()
-    prim = (scene.nodes, scene.root, scene.depth, scene.octree_scale, o, d, 1024.0, None)
-    k_res = traverse(*prim)
-    err = max(err, compare_hits(k_res, traverse_reference(*prim), f"depth-{DEPTH} terrain, {WIDTH}x{HEIGHT} primaries"))
-    k1_ms = cuda_ms(lambda: traverse(*prim), 50)
-    twin_ms = cuda_ms(lambda: traverse_reference(*prim), 3)
-    log(f"  K1 {k1_ms!r} ms, twin {twin_ms!r} ms on the {WIDTH}x{HEIGHT} depth-{DEPTH} primaries "
-        f"(max fetches per ray {int(k_res.steps)}) [{card}]")
+        f"{scene.nodes.numel() * 4 / 1e6:.1f} MB node table; cutout scene {cut_build_s:.2f} s, "
+        f"{cut.n_nodes} nodes")
 
-    # ---- 3. the main path: the progressive renderer
-    log("phase 3 main path:")
+    def primaries(sc, camera, w, h):
+        po, pd = pixel_grid_rays(camera, w, h)
+        return (sc.nodes, sc.root, sc.depth, sc.octree_scale, po.contiguous(), pd.contiguous())
+
+    def training_rays(sc):
+        rays = [pixel_grid_rays(c.to(dev), TRAIN_RES, TRAIN_RES) for c in cli.orbit_cameras(sc.depth, TRAIN_VIEWS)]
+        return (sc.nodes, sc.root, sc.depth, sc.octree_scale,
+                torch.cat([r[0] for r in rays]).contiguous(), torch.cat([r[1] for r in rays]).contiguous())
+
+    # K1 on the terrain primaries (the forward and fwd+bwd paths' shape)
+    prim = primaries(scene, cam, WIDTH, HEIGHT)
+    k_res = traverse(*prim)
+    err_k1 = max(err_k1, compare_hits(k_res, traverse_reference(*prim), f"K1, depth-{DEPTH} terrain, {WIDTH}x{HEIGHT} primaries"))
+    bound_ms, bound_by, fetches = traversal_bound(k_res)
+    results["esvo_traverse"] = dict(
+        max_abs_err=err_k1, ms=cuda_ms(lambda: traverse(*prim), 50),
+        plain_ms=cuda_ms(lambda: traverse_reference(*prim), 3), bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  K1 {results['esvo_traverse']['ms']!r} ms, twin {results['esvo_traverse']['plain_ms']!r} ms, "
+        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows fetched, max {int(k_res.steps)} per ray) "
+        f"on the {WIDTH}x{HEIGHT} depth-{DEPTH} primaries [{card}]")
+
+    # P2 on the bench's uniform block and on a ragged size, bit for bit
+    n_block = WIDTH * HEIGHT * N_BOUNCES * 21
+    err_p2 = 0.0
+    for n in (n_block, n_block - 3, 1001):
+        got = philox_uniforms(12345, 7, n, dev)
+        want = philox_uniforms_reference(12345, 7, n, dev)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err_p2 = max(err_p2, float((got - want).abs().max()))
+        log(f"  P2 n={n}: bit-equal {equal}, range [{float(got.min())!r}, {float(got.max())!r}), "
+            f"mean {float(got.mean())!r}")
+        if not equal or float(got.max()) >= 1.0 or float(got.min()) < 0.0:
+            raise AssertionError(f"P2 disagrees with its twin at n={n}")
+    p2_bound = bound(4 * n_block, (n_block // 4) * PHILOX_OPS_PER_BLOCK)
+    results["philox_uniforms"] = dict(
+        max_abs_err=err_p2, ms=cuda_ms(lambda: philox_uniforms(12345, 7, n_block, dev), 200),
+        plain_ms=cuda_ms(lambda: philox_uniforms_reference(12345, 7, n_block, dev), 10),
+        bound_ms=p2_bound[0], bound_by=p2_bound[1],
+        library_ms=cuda_ms(lambda: torch.rand((WIDTH * HEIGHT, N_BOUNCES, 21), device=dev), 200))
+    log(f"  P2 {results['philox_uniforms']['ms']!r} ms, twin {results['philox_uniforms']['plain_ms']!r} ms, "
+        f"torch.rand {results['philox_uniforms']['library_ms']!r} ms, bound {p2_bound[0]!r} ms ({p2_bound[1]}) "
+        f"on the ({WIDTH * HEIGHT}, {N_BOUNCES}, 21) block [{card}]")
+
+    # K2 on the cutout scene: the 256^2 primaries, then the training views
+    cut_tables = accept_tables(cut)
+    cprim = primaries(cut, cut_cam, WIDTH, HEIGHT)
+    err_k2 = compare_hits(traverse_alpha(*cprim, cut_tables), traverse_alpha_reference(*cprim, cut_tables),
+                          f"K2, depth-{DEPTH} cutout, {WIDTH}x{HEIGHT} primaries")
+    k2_256 = (cuda_ms(lambda: traverse_alpha(*cprim, cut_tables), 50),
+              cuda_ms(lambda: traverse_alpha_reference(*cprim, cut_tables), 3))
+    log(f"  K2 {k2_256[0]!r} ms, twin {k2_256[1]!r} ms on the {WIDTH}x{HEIGHT} cutout primaries [{card}]")
+    ctrain = training_rays(cut)
+    k_res = traverse_alpha(*ctrain, cut_tables)
+    err_k2 = max(err_k2, compare_hits(k_res, traverse_alpha_reference(*ctrain, cut_tables),
+                                      f"K2, depth-{DEPTH} cutout, {TRAIN_VIEWS} training views at {TRAIN_RES}^2"))
+    bound_ms, bound_by, fetches = traversal_bound(k_res)
+    results["esvo_traverse_alpha"] = dict(
+        max_abs_err=err_k2, ms=cuda_ms(lambda: traverse_alpha(*ctrain, cut_tables), 10),
+        plain_ms=cuda_ms(lambda: traverse_alpha_reference(*ctrain, cut_tables), 1),
+        bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  K2 {results['esvo_traverse_alpha']['ms']!r} ms, twin {results['esvo_traverse_alpha']['plain_ms']!r} ms, "
+        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the cutout training views [{card}]")
+
+    # K3r on both scenes: the 256^2 primaries, then the training views
+    terrain_tables = accept_tables(scene)
+    err_k3 = 0.0
+    for label, rays, tables in (("terrain", prim, terrain_tables), ("cutout", cprim, cut_tables)):
+        k_res, k_rec = traverse_record(*rays, tables)
+        r_res, r_rec = traverse_record_reference(*rays, tables)
+        err_k3 = max(err_k3, compare_hits(k_res, r_res, f"K3r, depth-{DEPTH} {label}, {WIDTH}x{HEIGHT} primaries", k_rec, r_rec))
+        log(f"  K3r {cuda_ms(lambda: traverse_record(*rays, tables), 50)!r} ms, twin "
+            f"{cuda_ms(lambda: traverse_record_reference(*rays, tables), 3)!r} ms on the {WIDTH}x{HEIGHT} "
+            f"{label} primaries; surfaces per ray {torch.bincount(k_rec.count).tolist()} [{card}]")
+    k3 = {}
+    for label, rays, tables in (("terrain", training_rays(scene), terrain_tables), ("cutout", ctrain, cut_tables)):
+        k_res, k_rec = traverse_record(*rays, tables)
+        r_res, r_rec = traverse_record_reference(*rays, tables)
+        err_k3 = max(err_k3, compare_hits(k_res, r_res, f"K3r, depth-{DEPTH} {label}, {TRAIN_VIEWS} training views at {TRAIN_RES}^2", k_rec, r_rec))
+        k3[label] = (rays, tables, k_res)
+    rays, tables, k_res = k3["terrain"]
+    bound_ms, bound_by, fetches = traversal_bound(k_res, record=True)
+    results["esvo_traverse_record"] = dict(
+        max_abs_err=err_k3, ms=cuda_ms(lambda: traverse_record(*rays, tables), 10),
+        plain_ms=cuda_ms(lambda: traverse_record_reference(*rays, tables), 1),
+        bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  K3r {results['esvo_traverse_record']['ms']!r} ms, twin {results['esvo_traverse_record']['plain_ms']!r} ms, "
+        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the terrain training views [{card}]")
+    del k3, ctrain, rays, tables
+
+    # ---- 3. the forward main path: the progressive renderer
+    log("phase 3 forward main path (Renderer):")
     passes = []
     real_pass, real_branched = renderer.render_pass, renderer.render_pass_branched
 
     def count_pass(*a, **kw):
-        passes.append(("render_pass", a[7]))
+        passes.append(("render_pass", a[8]))
         return real_pass(*a, **kw)
 
     def count_branched(*a, **kw):
-        passes.append(("render_pass_branched", a[7]))
+        passes.append(("render_pass_branched", a[8]))
         return real_branched(*a, **kw)
 
-    traverse.launches = 0
     r = Renderer(scene=scene, camera=cam, width=WIDTH, height=HEIGHT, n_bounces=N_BOUNCES,
                  branch_count=10, target_spp=20, seed=0)
+    reset_counts(wrappers.values())
     t0 = time.perf_counter()
     with mock.patch.object(renderer, "render_pass", count_pass), \
             mock.patch.object(renderer, "render_pass_branched", count_branched):
         while r.step():
             torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = traverse.launches
+    read_counts("the Renderer", ("esvo_traverse", "philox_uniforms"))
     frame = r.framebuffer
-    log(f"  passes {passes}; spp {r.spp}; {render_s:.2f} s; K1 launches {launches}")
-    kinds = {p[0] for p in passes}
-    if r.spp != 20 or kinds != {"render_pass", "render_pass_branched"}:
+    log(f"  passes {passes}; spp {r.spp}; {render_s:.2f} s")
+    if r.spp != 20 or {p[0] for p in passes} != {"render_pass", "render_pass_branched"}:
         raise AssertionError(f"renderer did not run both pass kinds to 20 spp: {passes}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched K1")
     if not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
         raise AssertionError("rendered frame is not finite with a positive mean")
-    out_dir = os.path.join(BUILD_DIR, "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     ppm = save_image(os.path.join(out_dir, f"chunk_d{DEPTH}_{WIDTH}.ppm"), frame)
     log(f"  frame mean {float(frame.mean())!r}, finite; wrote {os.path.relpath(ppm)}")
 
-    # ---- 4. frame parity: K1 path against the twin path
+    # ---- 4. frame parity: kernel paths against twin paths
     w = h = 64
-    po, pd = pixel_grid_rays(cam, w, h)
     u = torch.from_numpy(np.random.default_rng(7).random((w * h, N_BOUNCES, 21), dtype=np.float32)).to(dev)
-    got = trace_paths(scene, po, pd, u)
-    with mock.patch.object(pathtracer, "traverse", traverse_reference):
-        want = trace_paths(scene, po, pd, u)
-    bad = int((~torch.isclose(got, want, rtol=2e-3, atol=2e-3).all(dim=-1)).sum())
-    frame_err = float((got - want).abs().max())
-    log(f"phase 4 frame parity {w}x{h}x{N_BOUNCES}: bad lanes {bad}/{w * h}, max abs diff {frame_err!r}")
-    if bad > 0.001 * w * h or not bool(torch.isfinite(got).all()):
-        raise AssertionError("K1 frame disagrees with the twin frame")
+    for label, sc, camera in (("terrain", scene, cam), ("cutout", cut, cut_cam)):
+        po, pd = pixel_grid_rays(camera, w, h)
+        got = trace_paths(sc, po, pd, u)
+        with mock.patch.object(pathtracer, "traverse", traverse_reference), \
+                mock.patch.object(pathtracer, "traverse_alpha", traverse_alpha_reference):
+            want = trace_paths(sc, po, pd, u)
+        bad = int((~torch.isclose(got, want, rtol=2e-3, atol=2e-3).all(dim=-1)).sum())
+        log(f"phase 4 frame parity, {label} {w}x{h}x{N_BOUNCES}: bad lanes {bad}/{w * h}, "
+            f"max abs diff {float((got - want).abs().max())!r}")
+        if bad > 0.001 * w * h or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"kernel frame disagrees with the twin frame ({label})")
 
     # ---- 5. timing of the forward frame
     fo, fd = pixel_grid_rays(cam, WIDTH, HEIGHT)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    fu = pathtracer.draw_uniforms(gen, WIDTH * HEIGHT, N_BOUNCES)
+    fu = pathtracer.draw_uniforms(1, 0, WIDTH * HEIGHT, N_BOUNCES, dev)
     _, live = trace_paths_census(scene, fo, fd, fu)
     times = []
     for i in range(6):
@@ -235,18 +441,86 @@ def main() -> int:
     frame_ms = statistics.median(times)
     rays_nominal = WIDTH * HEIGHT * N_BOUNCES
     rays_live = int(live.sum())
-    log(f"phase 5 timing [{card}]")
+    log(f"phase 5 forward timing [{card}]")
     log(f"  frame_ms {frame_ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) "
         f"depth {DEPTH} {WIDTH}x{HEIGHT} bounces {N_BOUNCES} [{card}]")
     log(f"  rays_nominal {rays_nominal} rays_per_s_nominal {rays_nominal / (frame_ms / 1e3)!r} [{card}]")
     log(f"  rays_live {rays_live} live_per_bounce {live.tolist()} "
         f"rays_per_s_live {rays_live / (frame_ms / 1e3)!r} [{card}]")
 
-    log(json.dumps({"kernels": [{
-        "name": "esvo_traverse", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": k1_ms, "plain_ms": twin_ms,
-    }]}))
+    # ---- 6. bench.py's fwd+bwd step
+    log(f"phase 6 fwd+bwd (bench.py:61-71) [{card}]")
+
+    def fwdbwd(sc, o, d, uu):
+        p = {"atlas": sc.atlas.detach().clone().requires_grad_(True),
+             "emittance": sc.materials.emittance.detach().clone().requires_grad_(True)}
+        loss = trace_paths(apply_params(sc, p), o, d, uu).mean()
+        loss.backward()
+        return loss.detach(), p["atlas"].grad, p["emittance"].grad
+
+    reset_counts(wrappers.values())
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g_atlas, g_emit = fwdbwd(scene, fo, fd, fu)
+        torch.cuda.synchronize()
+        if i:  # the first run is the warm-up
+            times.append((time.perf_counter() - t0) * 1e3)
+    read_counts("the fwd+bwd step", ("esvo_traverse",))
+    fwdbwd_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not (bool(torch.isfinite(g_atlas).all()) and bool(torch.isfinite(g_emit).all())
+            and float(g_atlas.abs().max()) > 0 and float(g_emit.abs().max()) > 0):
+        raise AssertionError("fwd+bwd gradients are not finite and nonzero")
+    log(f"  fwdbwd_ms {fwdbwd_ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) "
+        f"depth {DEPTH} {WIDTH}x{HEIGHT} bounces {N_BOUNCES}; loss {float(loss)!r} [{card}]")
+    log(f"  rays_per_s_fwdbwd_nominal {rays_nominal / (fwdbwd_ms / 1e3)!r} "
+        f"rays_per_s_fwdbwd_live {rays_live / (fwdbwd_ms / 1e3)!r} [{card}]")
+    log(f"  max_memory_allocated {peak} bytes ({peak / 2**20:.1f} MiB) [{card}]")
+
+    po, pd = pixel_grid_rays(cam, w, h)
+    got = fwdbwd(scene, po, pd, u)
+    with mock.patch.object(pathtracer, "traverse", traverse_reference):
+        want = fwdbwd(scene, po, pd, u)
+    for name, g, wg in zip(("loss", "atlas", "emittance"), got, want):
+        torch.testing.assert_close(g, wg, rtol=1e-5, atol=1e-7, msg=lambda m, name=name: f"{name}: {m}")
+    log(f"  gradient through the kernels = through the twins at {w}x{h} (rtol 1e-5, atol 1e-7): "
+        f"atlas max abs diff {float((got[1] - want[1]).abs().max())!r}, "
+        f"emittance max abs diff {float((got[2] - want[2]).abs().max())!r}")
+
+    # ---- 7. the training entry point
+    for scene_name, required in (("chunk", ("esvo_traverse", "esvo_traverse_record", "philox_uniforms")),
+                                 ("cutout", ("esvo_traverse_alpha", "esvo_traverse_record", "philox_uniforms"))):
+        out = os.path.join(out_dir, f"params_{scene_name}.npz")
+        argv = ["train", "--scene", scene_name, "--depth", str(DEPTH), "--views", str(TRAIN_VIEWS),
+                "--width", str(TRAIN_RES), "--height", str(TRAIN_RES), "--steps", str(TRAIN_STEPS),
+                "--device", "cuda", "-o", out]
+        log(f"phase 7 training: cli {' '.join(argv)}")
+        parsed = cli.build_parser().parse_args(argv)
+        reset_counts(wrappers.values())
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = parsed.fn(parsed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read_counts(f"cli train --scene {scene_name}", required)
+        saved = load_arrays(out)
+        if not all(np.isfinite(res.losses)) or len(res.losses) != TRAIN_STEPS:
+            raise AssertionError(f"training losses not finite: {res.losses}")
+        if saved["atlas"].shape != tuple(res.params["atlas"].shape) or not np.isfinite(saved["atlas"]).all():
+            raise AssertionError("trained parameters were not written")
+        log(f"  losses {res.losses}; wall s per step {res.step_seconds}; whole command {wall:.2f} s; "
+            f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=main_path_launches[name], library_ms=None)
+        row.update(results[name])
+        kernels.append(row)
+    log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -4,16 +4,20 @@ PyTorch, with its traversal written by hand in CUDA for Hopper (sm_90a).
 A port of ``octree_pathtracing_tpu`` (the JAX package, which stays the
 reference).  The layout mirrors it module for module:
 
-- ``ops``    : ESVO traversal (CUDA kernel + plain-torch twin), BRDF
-               sampling, texture atlas
+- ``octree`` : the numpy octree builder (dense grid -> node pool)
+- ``ops``    : ESVO traversal in three modes (CUDA kernels + plain-torch
+               twins), Philox uniforms (CUDA kernel + twin), BRDF sampling,
+               texture atlas
 - ``models`` : scene tables as dataclasses of tensors — camera, sun,
                materials, procedural scenes, conversion from the JAX scene
 - ``render`` : hit resolution, wavefront path tracer, progressive renderer
-- ``io``     : image output (PNG through PIL when present, PPM otherwise)
-- ``utils``  : JSON-line metrics
+- ``diff``   : relaxed-visibility (soft) radiance and inverse rendering
+- ``parallel``: grafting trainable parameters into a scene
+- ``io``     : image output (PNG through PIL when present, PPM otherwise),
+               array checkpoints
+- ``utils``  : JSON-line metrics, the nvcc build
 
-The numpy-only octree builders of ``octree_pathtracing_tpu.octree`` are
-reused as they are; nothing in this package imports ``jax``.
+Nothing in this package imports ``jax`` or the JAX package.
 """
 
 import os

@@ -1,13 +1,16 @@
-"""Command line: render and info.
+"""Command line: render, train and info.
 
 Usage:
   python -m octree_pathtracing_tpu_torch.cli render --scene chunk --depth 9 \\
       --width 256 --height 256 --spp 20 -o build/chunk.ppm
+  python -m octree_pathtracing_tpu_torch.cli train --scene chunk --depth 9 \\
+      --views 8 --steps 3 -o build/params.npz
   python -m octree_pathtracing_tpu_torch.cli info --scene chunk --depth 9
 
-Frames go to image files (PPM where PIL is missing), one JSON metrics line
-per render pass goes to stderr.  ``--device`` defaults to the first CUDA
-card when there is one and to the CPU otherwise; every line says which.
+Frames go to image files (PPM where PIL is missing), trained parameters to
+an ``.npz``; one JSON metrics line per render pass or training step goes to
+stderr.  ``--device`` defaults to the first CUDA card when there is one and
+to the CPU otherwise; every line says which.
 """
 
 from __future__ import annotations
@@ -20,18 +23,20 @@ import time
 
 from . import BUILD_DIR
 
-SCENES = ("sphere", "cornell", "chunk")
+SCENES = ("sphere", "cornell", "chunk", "cutout")
 SCENE_CACHE = os.path.join(BUILD_DIR, "scenes")
 
 
 def _build_scene(args):
-    from .models import cornell_scene, minecraft_chunk_scene, sphere_scene
+    from .models import cornell_scene, cutout_chunk_scene, minecraft_chunk_scene, sphere_scene
 
     if args.world:
         raise NotImplementedError("--world (region ingestion): ROADMAP queue 1, item 8")
     depth = args.depth if args.depth else 6
     if args.scene == "chunk":
         return minecraft_chunk_scene(depth=depth, cache_dir=SCENE_CACHE)
+    if args.scene == "cutout":
+        return cutout_chunk_scene(depth=depth, cache_dir=SCENE_CACHE)
     return {"sphere": sphere_scene, "cornell": cornell_scene}[args.scene](depth=depth)
 
 
@@ -84,6 +89,50 @@ def cmd_render(args):
     print(f"wrote {path} at {r.spp} spp on {dev_name}")
 
 
+def orbit_cameras(depth: int, n_views: int):
+    """``n_views`` cameras on a circle around the scene, looking at a point
+    above its centre (the JAX CLI's training views)."""
+    import numpy as np
+
+    from .models import Camera
+
+    s = 1 << depth
+    cams = []
+    for i in range(n_views):
+        ang = 2 * np.pi * i / n_views
+        eye = (s * (0.5 + 0.9 * np.cos(ang)), s * 0.75, s * (0.5 + 0.9 * np.sin(ang)))
+        cams.append(Camera.look_at(eye=eye, center=(s * 0.5, s * 0.3, s * 0.5)))
+    return cams
+
+
+def cmd_train(args):
+    """Render targets from ``--views`` orbit cameras, then fit (atlas,
+    emittance) from a grey start with ``inverse_render`` (soft weight 0.25)
+    for ``--steps`` Adam steps.  Returns the ``InverseResult``."""
+    import torch
+
+    from .diff import inverse_render, render_views
+    from .io.checkpoint import save_arrays
+    from .utils.metrics import METRICS
+
+    dev = _device(args.device)
+    dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    with METRICS.phase("scene_build", scene=args.scene, depth=args.depth):
+        scene, _ = _build_scene(args)
+    scene = scene.to(dev)
+    cams = [c.to(dev) for c in orbit_cameras(scene.depth, args.views)]
+    targets = render_views(scene, cams, args.width, args.height, seed=args.seed)
+    res = inverse_render(scene, cams, targets, args.width, args.height, steps=args.steps,
+                         lr=args.lr, seed=args.seed)
+    for i, (loss, wall_s) in enumerate(zip(res.losses, res.step_seconds)):
+        METRICS.emit("train_step", step=i, loss=loss, wall_s=round(wall_s, 4),
+                     lanes=args.views * args.width * args.height, device=dev_name)
+    save_arrays(args.output, res.params)
+    print(f"loss {res.losses[0]:.5f} -> {res.losses[-1]:.5f} over {args.steps} steps "
+          f"on {dev_name}; wrote {args.output}")
+    return res
+
+
 def cmd_info(args):
     scene, _ = _build_scene(args)
     print(f"octree: depth={scene.depth} nodes={scene.n_nodes} scale={scene.octree_scale}")
@@ -91,7 +140,7 @@ def cmd_info(args):
     print(f"opaque_only={scene.opaque_only} shadow_binary={scene.shadow_binary}")
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="octree_pathtracing_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -114,12 +163,24 @@ def main(argv=None):
     r.add_argument("--device", default="", help="torch device (default: cuda if present, else cpu)")
     r.set_defaults(fn=cmd_render)
 
+    t = sub.add_parser("train")
+    common(t)
+    t.add_argument("--steps", type=int, default=50)
+    t.add_argument("--views", type=int, default=8)
+    t.add_argument("--lr", type=float, default=5e-2)
+    t.add_argument("--device", default="", help="torch device (default: cuda if present, else cpu)")
+    t.set_defaults(fn=cmd_train)
+
     i = sub.add_parser("info")
     common(i)
     i.set_defaults(fn=cmd_info)
+    return p
 
-    args = p.parse_args(argv)
-    return args.fn(args)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+    return 0
 
 
 if __name__ == "__main__":

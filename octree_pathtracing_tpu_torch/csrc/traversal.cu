@@ -1,11 +1,21 @@
-// Kernel K1: ESVO first-hit traversal of the packed sparse-voxel octree,
-// one thread per ray.
+// ESVO first-hit traversal of the packed sparse-voxel octree, one thread per
+// ray, in three compile-time modes of one kernel body (`template <int MODE>`):
 //
-// Replaces: octree_pathtracing_tpu/ops/traversal.py `traverse` with its
-// `_init`, `_step`, `_examine` and `_hit_info` (no accept callback,
-// k_examine = 2, untiled).  The JAX version steps a whole ray batch in
-// lockstep under one lax.while_loop; here every thread walks its own ray
-// to a leaf, a miss, or MAX_STEPS node fetches, and exits on its own.
+//   MODE 0 — kernel K1, no accept: the first leaf candidate is the hit.
+//   MODE 1 — kernel K2, the in-loop alpha accept.
+//   MODE 2 — kernel K3r, the recording walk: record the first K_SURFACES = 4
+//            surfaces per ray, accept the 4th.
+//
+// Replaces: octree_pathtracing_tpu/ops/traversal.py `traverse` (:459) with
+// its `_init`, `_step`, `_examine` and `_hit_info` (k_examine = 2,
+// untiled), and, for the accept modes, the callback protocol of :563-596 —
+// MODE 1 with render/hit.py `make_accept_fn` (:104) and
+// `_leaf_alpha_classes` (:72), MODE 2 with diff/soft.py
+// `_make_recording_accept` (:69) / `record_surfaces` (:96) over
+// render/hit.py `_surface_of_candidate` (:155), all for scenes without
+// block models.  The JAX version steps a whole ray batch in lockstep under
+// one lax.while_loop; here every thread walks its own ray to an accepted
+// leaf, a miss, or MAX_STEPS node fetches, and exits on its own.
 //
 // What bounds it: dependent node-row fetches.  Each step reads one 32-byte
 // row of the (N, 8) int32 node table (two 16-byte __ldg loads) whose
@@ -13,7 +23,12 @@
 // decision on it (twice when the first decision stays inside the same
 // parent).  The depth-9 terrain's table is 893,830 rows = 28.6 MB, so it
 // stays resident in the H100's 50 MB L2; the cost is L2 latency per step,
-// hidden only by the number of rays in flight.
+// hidden only by the number of rays in flight.  The accept modes add, per
+// leaf candidate, one leaf_material and one texture_index word, the
+// `rejectable` byte (MODE 1) and one texel's alpha (4 bytes) — far fewer
+// bytes than the node rows, since there are far fewer candidates than
+// fetches.  MODE 2's four record rows live in registers (K is a
+// compile-time constant and every row index is unrolled).
 //
 // This first version is simple and right; making it fast (stack in
 // registers or shared memory, ray sorting, persistent threads) is later work.
@@ -36,6 +51,13 @@
 // - The epsilon clamp of tiny direction components keeps the sign of rd.
 // - An inactive lane starts as MISS and fetches nothing; its outputs are
 //   still derived from its initial state, exactly like the reference's.
+// - The accept (modes 1, 2) runs after the step in which a lane's status
+//   became CANDIDATE, on the hit info of that state.  A rejected lane goes
+//   back to ACTIVE with `reject` set: its next examination may neither hit
+//   nor push, so it ADVANCEs past the rejected leaf, and clears `reject`.
+// - The texel index repeats ops/texture.sample_atlas: clamp u and v to
+//   [0, 1], flip v, multiply by the layer's width / height as floats,
+//   truncate to int, clip to the layer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,6 +70,8 @@
 #define MISS 2
 #define VALUE_MASK 0x3FFFFFFF
 #define EPSILON_F 1.1920929e-7f
+#define ALPHA_EPSILON_F 5e-8f  // Ray::EPSILON, ops/shading.EPSILON
+#define K_SURFACES 4
 
 struct Ray {
   float ro[3], rd[3], t_coef[3], t_bias[3];
@@ -59,8 +83,25 @@ struct State {
   int index, parent, scale;
   float scale_exp2, t_min, t_max, h;
   int status, cand;
+  bool reject;
   int stack_idx[STACK_ROWS];
   float stack_t[STACK_ROWS];
+};
+
+// The alpha-test tables of modes 1 and 2 (unused by mode 0).
+struct AlphaTables {
+  const int* leaf_material;  // (L,)
+  const int* texture_index;  // (M,)
+  const float* atlas;        // (T, H, W, 4)
+  const int* sizes;          // (T, 2) per-layer (h, w), or null: all (H, W)
+  const uint8_t* rejectable; // (L,), mode 1 only
+  int n_leaf, n_mat, n_layer, atlas_h, atlas_w;
+};
+
+struct Record {
+  int count;
+  int mat[K_SURFACES], face[K_SURFACES];
+  float uu[K_SURFACES], vv[K_SURFACES];
 };
 
 __device__ __forceinline__ int child_word(int4 lo, int4 hi, int slot) {
@@ -71,8 +112,14 @@ __device__ __forceinline__ int child_word(int4 lo, int4 hi, int slot) {
 
 // One PUSH / ADVANCE / POP / hit decision against a fetched row.  Returns
 // true when the lane did a same-parent ADVANCE (the row can be reused).
+template <int MODE>
 __device__ __forceinline__ bool examine(State& s, const Ray& r, int4 lo, int4 hi,
                                         int scale_base, float max_dst) {
+  bool rejected = false;
+  if (MODE != 0) {  // the flag forces this examination's ADVANCE, then clears
+    rejected = s.reject;
+    s.reject = false;
+  }
   if (s.t_min > max_dst) {  // loop-top distance cap
     s.status = MISS;
     return false;
@@ -87,14 +134,14 @@ __device__ __forceinline__ bool examine(State& s, const Ray& r, int4 lo, int4 hi
   bool leafb = ((uint32_t)word >> 31) != 0;
   bool valid = present && (s.t_min <= s.t_max);
 
-  if (valid && leafb && s.t_min > 0.0f) {  // leaf candidate: the first hit
+  if (valid && leafb && s.t_min > 0.0f && !rejected) {  // leaf candidate
     s.status = CANDIDATE;
     s.cand = value;
     return false;
   }
   float half = s.scale_exp2 * 0.5f;
   float tv_max = fminf(s.t_max, tc_max);
-  if (valid && !leafb && s.t_min <= tv_max) {  // PUSH into the child
+  if (valid && !leafb && s.t_min <= tv_max && !rejected) {  // PUSH into the child
     int rel = s.scale - scale_base;  // in [0, depth) on a well-formed tree
     if (tc_max < s.h && rel >= 0 && rel < STACK_ROWS) {
       s.stack_idx[rel] = s.parent;
@@ -159,14 +206,88 @@ __device__ __forceinline__ bool examine(State& s, const Ray& r, int4 lo, int4 hi
   return false;
 }
 
+// _hit_info: entry face, uv and the unmirrored voxel corner of a state.
+__device__ __forceinline__ void hit_info(const Ray& r, const State& s, int& face,
+                                         float& uu, float& vv, float unm[3]) {
+  float tch[3];
+  for (int a = 0; a < 3; ++a) {
+    bool m = (r.mirror >> a) & 1;
+    unm[a] = m ? (3.0f - s.scale_exp2) - s.pos[a] : s.pos[a];
+    tch[a] = (s.pos[a] + s.scale_exp2) * r.t_coef[a] - r.t_bias[a];
+  }
+  float tc_min = fmaxf(fmaxf(tch[0], tch[1]), tch[2]);
+  int axis = (tch[0] == tc_min) ? 0 : ((tch[1] == tc_min) ? 1 : 2);
+  float rd_ax = r.rd[axis];
+  face = axis * 2 + (int)(__float_as_uint(rd_ax) >> 31);
+  int a1 = axis == 0 ? 2 : 0;
+  int a2 = axis == 1 ? 2 : 1;
+  uu = (r.ro[a1] + r.rd[a1] * tc_min - unm[a1]) / s.scale_exp2;
+  vv = (r.ro[a2] + r.rd[a2] * tc_min - unm[a2]) / s.scale_exp2;
+  bool neg = rd_ax < 0.0f;
+  if (neg && axis != 1) uu = 1.0f - uu;
+  if (neg && axis == 1) vv = 1.0f - vv;
+}
+
+__device__ __forceinline__ float clamp01(float x) {
+  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
+}
+
+// The texel alpha sample_atlas returns for (layer, u, v).
+__device__ __forceinline__ float texel_alpha(const AlphaTables& tb, int layer, float u, float v) {
+  int th = tb.atlas_h, tw = tb.atlas_w;
+  if (tb.sizes != nullptr) {
+    th = tb.sizes[2 * layer];
+    tw = tb.sizes[2 * layer + 1];
+  }
+  float uu = clamp01(u);
+  float vv = 1.0f - clamp01(v);
+  int i = max((int)(uu * (float)tw), 0);
+  int j = max((int)(vv * (float)th), 0);
+  i = i > tw - 1 ? tw - 1 : i;
+  j = j > th - 1 ? th - 1 : j;
+  return __ldg(tb.atlas + (((size_t)layer * tb.atlas_h + j) * tb.atlas_w + i) * 4 + 3);
+}
+
+// The accept of a fresh candidate; false sends the lane back to ACTIVE.
+template <int MODE>
+__device__ __forceinline__ bool accept(const State& s, const Ray& r, const AlphaTables& tb,
+                                       Record& rec) {
+  int face;
+  float uu, vv, unm[3];
+  hit_info(r, s, face, uu, vv, unm);
+  int lv = min(max(s.cand, 0), tb.n_leaf - 1);
+  if (MODE == 1 && !tb.rejectable[lv]) return true;  // no texel of it can reject
+  // table indices clip like XLA's gathers (in range on any scene make_scene built)
+  int mat = min(max(__ldg(tb.leaf_material + lv), 0), tb.n_mat - 1);
+  int layer = min(max(__ldg(tb.texture_index + mat), 0), tb.n_layer - 1);
+  bool is_surface = texel_alpha(tb, layer, uu, vv) > ALPHA_EPSILON_F;
+  if (MODE == 1) return is_surface;
+  if (!is_surface) return false;
+#pragma unroll
+  for (int k = 0; k < K_SURFACES; ++k) {  // unrolled: the rows stay in registers
+    if (k == rec.count) {
+      rec.mat[k] = mat;
+      rec.face[k] = face;
+      rec.uu[k] = uu;
+      rec.vv[k] = vv;
+    }
+  }
+  rec.count += 1;
+  return rec.count >= K_SURFACES;
+}
+
+template <int MODE>
 __global__ void esvo_traverse_kernel(
     const int4* __restrict__ nodes, int root, int depth, float octree_scale,
     float inv_scale, float max_dst, const float* __restrict__ origins,
     const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
-    uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
+    AlphaTables tb, uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
     int* __restrict__ face_out, float* __restrict__ uv_out,
     int* __restrict__ leaf_out, float* __restrict__ vpos_out,
-    float* __restrict__ vsize_out, int* __restrict__ steps_out) {
+    float* __restrict__ vsize_out, int* __restrict__ steps_out,
+    int* __restrict__ rec_count, int* __restrict__ rec_mats,
+    int* __restrict__ rec_face, float* __restrict__ rec_uu,
+    float* __restrict__ rec_vv) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int scale_base = MAX_SCALE - depth;
@@ -210,42 +331,41 @@ __global__ void esvo_traverse_kernel(
   s.h = s.t_max;
   s.status = (active == nullptr || active[i]) ? ACTIVE : MISS;
   s.cand = 0;
+  s.reject = false;
   for (int k = 0; k <= depth; ++k) {
     s.stack_idx[k] = 0;
     s.stack_t[k] = 0.0f;
   }
+  Record rec;
+  rec.count = 0;
+#pragma unroll
+  for (int k = 0; k < K_SURFACES; ++k) {
+    rec.mat[k] = 0;
+    rec.face[k] = 0;
+    rec.uu[k] = 0.0f;
+    rec.vv[k] = 0.0f;
+  }
 
-  // ---- the walk: one row fetch per step, up to two decisions on it
+  // ---- the walk: one row fetch per step, up to two decisions on it, then
+  // the accept of a fresh candidate
   int steps = 0;
   while (s.status == ACTIVE && steps < MAX_STEPS) {
     const int4* row = nodes + 2 * (size_t)s.parent;
     int4 lo = __ldg(row);
     int4 hi = __ldg(row + 1);
-    if (examine(s, r, lo, hi, scale_base, max_dst)) {
-      examine(s, r, lo, hi, scale_base, max_dst);
+    if (examine<MODE>(s, r, lo, hi, scale_base, max_dst)) {
+      examine<MODE>(s, r, lo, hi, scale_base, max_dst);
+    }
+    if (MODE != 0 && s.status == CANDIDATE && !accept<MODE>(s, r, tb, rec)) {
+      s.status = ACTIVE;
+      s.reject = true;
     }
     ++steps;
   }
 
-  // ---- _hit_info: entry face, uv and voxel corner of the final state
-  float unm[3], tch[3];
-  for (int a = 0; a < 3; ++a) {
-    bool m = (r.mirror >> a) & 1;
-    unm[a] = m ? (3.0f - s.scale_exp2) - s.pos[a] : s.pos[a];
-    tch[a] = (s.pos[a] + s.scale_exp2) * r.t_coef[a] - r.t_bias[a];
-  }
-  float tc_min = fmaxf(fmaxf(tch[0], tch[1]), tch[2]);
-  int axis = (tch[0] == tc_min) ? 0 : ((tch[1] == tc_min) ? 1 : 2);
-  float rd_ax = r.rd[axis];
-  int face = axis * 2 + (int)(__float_as_uint(rd_ax) >> 31);
-  int a1 = axis == 0 ? 2 : 0;
-  int a2 = axis == 1 ? 2 : 1;
-  float uu = (r.ro[a1] + r.rd[a1] * tc_min - unm[a1]) / s.scale_exp2;
-  float vv = (r.ro[a2] + r.rd[a2] * tc_min - unm[a2]) / s.scale_exp2;
-  bool neg = rd_ax < 0.0f;
-  if (neg && axis != 1) uu = 1.0f - uu;
-  if (neg && axis == 1) vv = 1.0f - vv;
-
+  int face;
+  float uu, vv, unm[3];
+  hit_info(r, s, face, uu, vv, unm);
   bool hit = s.status == CANDIDATE;
   hit_out[i] = hit;
   t_out[i] = hit ? s.t_min * inv_scale : __int_as_float(0x7f800000);
@@ -256,24 +376,83 @@ __global__ void esvo_traverse_kernel(
   for (int a = 0; a < 3; ++a) vpos_out[3 * i + a] = (unm[a] - 1.0f) * inv_scale;
   vsize_out[i] = s.scale_exp2 * inv_scale;
   steps_out[i] = steps;
+  if (MODE == 2) {
+    rec_count[i] = rec.count;
+#pragma unroll
+    for (int k = 0; k < K_SURFACES; ++k) {
+      rec_mats[k * n + i] = rec.mat[k];
+      rec_face[k * n + i] = rec.face[k];
+      rec_uu[k * n + i] = rec.uu[k];
+      rec_vv[k * n + i] = rec.vv[k];
+    }
+  }
 }
 
+template <int MODE>
+static int launch(const void* nodes, int root, int depth, float octree_scale,
+                  float inv_scale, float max_dst, const void* origins,
+                  const void* dirs, const void* active, int n, AlphaTables tb,
+                  void* hit, void* t, void* face, void* uv, void* leaf,
+                  void* vpos, void* vsize, void* steps, void* rec_count,
+                  void* rec_mats, void* rec_face, void* rec_uu, void* rec_vv,
+                  void* stream) {
+  if (n == 0) return 0;
+  if (depth < 1 || depth > MAX_SCALE) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  esvo_traverse_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
+      (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb,
+      (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
+      (float*)vpos, (float*)vsize, (int*)steps, (int*)rec_count,
+      (int*)rec_mats, (int*)rec_face, (float*)rec_uu, (float*)rec_vv);
+  return (int)cudaGetLastError();
+}
+
+// K1: no accept.
 extern "C" int esvo_traverse(const void* nodes, int root, int depth,
                              float octree_scale, float inv_scale, float max_dst,
                              const void* origins, const void* dirs,
                              const void* active, int n, void* hit, void* t,
                              void* face, void* uv, void* leaf, void* vpos,
                              void* vsize, void* steps, void* stream) {
-  if (n == 0) return 0;
-  if (depth < 1 || depth > MAX_SCALE) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  esvo_traverse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
-      (const float*)origins, (const float*)dirs, (const uint8_t*)active, n,
-      (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
-      (float*)vpos, (float*)vsize, (int*)steps);
-  return (int)cudaGetLastError();
+  AlphaTables tb = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0};
+  return launch<0>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
+                   dirs, active, n, tb, hit, t, face, uv, leaf, vpos, vsize,
+                   steps, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
+}
+
+// K2: the in-loop alpha accept.
+extern "C" int esvo_traverse_alpha(
+    const void* nodes, int root, int depth, float octree_scale, float inv_scale,
+    float max_dst, const void* origins, const void* dirs, const void* active,
+    int n, const void* leaf_material, int n_leaf, const void* texture_index,
+    int n_mat, const void* atlas, int n_layer, int atlas_h, int atlas_w,
+    const void* sizes, const void* rejectable, void* hit, void* t, void* face,
+    void* uv, void* leaf, void* vpos, void* vsize, void* steps, void* stream) {
+  AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
+                    (const float*)atlas, (const int*)sizes,
+                    (const uint8_t*)rejectable, n_leaf, n_mat, n_layer, atlas_h, atlas_w};
+  return launch<1>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
+                   dirs, active, n, tb, hit, t, face, uv, leaf, vpos, vsize,
+                   steps, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
+}
+
+// K3r: record the first K_SURFACES surfaces, accept the last.
+extern "C" int esvo_traverse_record(
+    const void* nodes, int root, int depth, float octree_scale, float inv_scale,
+    float max_dst, const void* origins, const void* dirs, const void* active,
+    int n, const void* leaf_material, int n_leaf, const void* texture_index,
+    int n_mat, const void* atlas, int n_layer, int atlas_h, int atlas_w,
+    const void* sizes, void* hit, void* t, void* face, void* uv, void* leaf,
+    void* vpos, void* vsize, void* steps, void* rec_count, void* rec_mats,
+    void* rec_face, void* rec_uu, void* rec_vv, void* stream) {
+  AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
+                    (const float*)atlas, (const int*)sizes, nullptr, n_leaf,
+                    n_mat, n_layer, atlas_h, atlas_w};
+  return launch<2>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
+                   dirs, active, n, tb, hit, t, face, uv, leaf, vpos, vsize,
+                   steps, rec_count, rec_mats, rec_face, rec_uu, rec_vv, stream);
 }
 
 extern "C" const char* esvo_error_string(int code) {

@@ -2,6 +2,8 @@ from .camera import Camera, get_rays, normalize_pixel_coords, pixel_grid_rays
 from .materials import MaterialTable, air, gather_rows, make_material_table
 from .procedural import (
     cornell_scene,
+    cutout_chunk_scene,
+    cutout_terrain_grid,
     minecraft_chunk_scene,
     octree_from_grid,
     sphere_scene,
@@ -20,6 +22,8 @@ __all__ = [
     "gather_rows",
     "make_material_table",
     "cornell_scene",
+    "cutout_chunk_scene",
+    "cutout_terrain_grid",
     "minecraft_chunk_scene",
     "octree_from_grid",
     "sphere_scene",

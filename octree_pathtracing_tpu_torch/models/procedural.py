@@ -1,6 +1,7 @@
 """Procedural scenes (port of ``models/procedural.py``): the voxel sphere,
-the Cornell box and the Minecraft-style terrain chunk, built on the host by
-the numpy octree builder of ``octree_pathtracing_tpu.octree``."""
+the Cornell box, the Minecraft-style terrain chunk and its cutout variant
+(trees with alpha-holed leaf canopies), built on the host by the port's
+numpy octree builder (``octree/``)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,7 @@ import os
 
 import numpy as np
 
-from octree_pathtracing_tpu.octree.build import build_from_dense
-from octree_pathtracing_tpu.octree.node_pool import Octree
-
+from ..octree import Octree, build_from_dense
 from ..ops.texture import build_atlas
 from .camera import Camera
 from .materials import FLAG_OPAQUE, FLAG_SOLID, air, make_material_table
@@ -153,15 +152,17 @@ def terrain_grid(depth: int, seed: int = 0) -> np.ndarray:
     return grid
 
 
-def _terrain_octree(depth: int, seed: int, cache_dir: str | None) -> Octree:
+def _cached_octree(name: str, grid_fn, depth: int, seed: int, cache_dir: str | None) -> Octree:
+    """``octree_from_grid(grid_fn(depth, seed))``, cached as npz under
+    ``cache_dir`` when one is given."""
     cache_path = None
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
-        cache_path = os.path.join(cache_dir, f"terrain_d{depth}_s{seed}.npz")
+        cache_path = os.path.join(cache_dir, f"{name}_d{depth}_s{seed}.npz")
         if os.path.exists(cache_path):
             z = np.load(cache_path)
             return Octree(z["mask"], z["data"], int(z["root"]), int(z["depth"]))
-    tree = octree_from_grid(terrain_grid(depth, seed))
+    tree = octree_from_grid(grid_fn(depth, seed))
     if cache_path:
         tmp = f"{cache_path}.{os.getpid()}.tmp.npz"
         np.savez_compressed(
@@ -177,7 +178,7 @@ def minecraft_chunk_scene(depth: int = 5, seed: int = 0, cache_dir: str | None =
 
     ``cache_dir``: optional directory caching the built node pool as npz."""
     s = 1 << depth
-    tree = _terrain_octree(depth, seed, cache_dir)
+    tree = _cached_octree("terrain", terrain_grid, depth, seed, cache_dir)
     textures = [
         _solid_texture((255, 0, 255)),
         _solid_texture((60, 180, 60)),
@@ -193,6 +194,84 @@ def minecraft_chunk_scene(depth: int = 5, seed: int = 0, cache_dir: str | None =
         dict(texture_index=3),
         dict(texture_index=4, emittance=6.0),
         dict(texture_index=5, ior=1.33, specular=0.1, flags=FLAG_OPAQUE | FLAG_SOLID),
+    ]
+    scene = make_scene(tree, make_material_table(materials), build_atlas(textures))
+    camera = Camera.look_at(eye=(-s * 0.4, s * 0.8, -s * 0.4), center=(s * 0.5, s * 0.3, s * 0.5))
+    return scene, camera
+
+
+def _cutout_leaf_texture(size=16, seed=3):
+    """Leaf-style cutout texture: alpha is exactly {0, 255}, so every leaf
+    candidate needs the in-loop alpha test."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((size, size, 4), np.uint8)
+    img[..., 1] = rng.integers(120, 200, (size, size))
+    img[..., 0] = 30
+    img[..., 2] = 30
+    img[..., 3] = np.where(rng.random((size, size)) < 0.72, 255, 0)
+    return img
+
+
+def cutout_terrain_grid(depth: int, seed: int = 0) -> np.ndarray:
+    """``terrain_grid`` plus trees: opaque trunks (material 6) and leaf
+    canopies (material 7) with an alpha-holed texture.  Raises at depth 2,
+    as the reference does (``rng.integers(2, s - 3)`` with s = 4)."""
+    rng = np.random.default_rng(seed + 1000)
+    s = 1 << depth
+    TRUNK, LEAF = 6, 7
+    grid = terrain_grid(depth, seed)
+    # the grass surface per column, read off the grid itself (material 1)
+    grass_y = np.argmax(grid[:, ::-1, :] == 1, axis=1)
+    surface = (s - 1 - grass_y).astype(np.int64)  # y of grass; s-1 if none
+    n_trees = max(2, s // 8)
+    tx = rng.integers(2, s - 3, n_trees)
+    tz = rng.integers(2, s - 3, n_trees)
+    th = rng.integers(3, max(4, s // 12) + 3, n_trees)
+    for x, z, h in zip(tx, tz, th):
+        y0 = surface[x, z] + 1
+        if y0 + h + 2 >= s:
+            continue
+        grid[x, y0 : y0 + h, z] = TRUNK
+        # canopy: a 3-5 wide leafy blob around the trunk top
+        r = int(rng.integers(1, 3))
+        xs = slice(max(0, x - r), min(s, x + r + 1))
+        zs = slice(max(0, z - r), min(s, z + r + 1))
+        ys = slice(y0 + h - 1, min(s, y0 + h + 2))
+        canopy = grid[xs, ys, zs]
+        canopy[canopy == 0] = LEAF
+        grid[xs, ys, zs] = canopy
+    return grid
+
+
+def cutout_chunk_scene(depth: int = 5, seed: int = 0, cache_dir: str | None = None):
+    """The terrain chunk with trees whose leaf canopies have alpha holes and
+    with translucent water: ``opaque_only`` and ``shadow_binary`` are both
+    False, so every traversal runs the in-loop alpha accept (kernel K2).
+
+    ``cache_dir``: optional directory caching the built node pool as npz."""
+    s = 1 << depth
+    tree = _cached_octree("cutout", cutout_terrain_grid, depth, seed, cache_dir)
+    water = _solid_texture((50, 90, 220))
+    water[..., 3] = 150  # translucent
+    textures = [
+        _solid_texture((255, 0, 255)),
+        _solid_texture((60, 180, 60)),  # grass
+        _solid_texture((134, 96, 67)),  # dirt
+        _solid_texture((130, 130, 130)),  # stone
+        _solid_texture((255, 220, 120)),  # glowstone
+        water,
+        _solid_texture((90, 60, 30)),  # trunk
+        _cutout_leaf_texture(),  # leaves (alpha {0, 255})
+    ]
+    materials = [
+        air(),
+        dict(texture_index=1),
+        dict(texture_index=2),
+        dict(texture_index=3),
+        dict(texture_index=4, emittance=6.0),
+        dict(texture_index=5, ior=1.33, specular=0.1, flags=FLAG_OPAQUE | FLAG_SOLID),
+        dict(texture_index=6),
+        dict(texture_index=7),
     ]
     scene = make_scene(tree, make_material_table(materials), build_atlas(textures))
     camera = Camera.look_at(eye=(-s * 0.4, s * 0.8, -s * 0.4), center=(s * 0.5, s * 0.3, s * 0.5))

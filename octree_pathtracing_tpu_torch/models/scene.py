@@ -46,7 +46,7 @@ class Scene:
     emitters_enabled: bool = True
     f_sub_surface: float = F_SUB_SURFACE_DEFAULT
     # True when no leaf can be rejected by an alpha test: the traversal then
-    # runs without an accept callback (the only traversal this port has)
+    # runs without the in-loop alpha accept (K1 instead of K2)
     opaque_only: bool = False
     # True when every reachable texel alpha is exactly 1
     shadow_binary: bool = False
@@ -115,7 +115,7 @@ def make_scene(
     brick: bool = False,
     **kwargs,
 ) -> Scene:
-    """Build a scene from a numpy ``Octree`` (``octree_pathtracing_tpu.octree``).
+    """Build a scene from a numpy ``Octree`` (``octree/``).
 
     Block models, analytic primitives, the brick layout and emitter
     sampling are not ported yet and raise ``NotImplementedError``."""

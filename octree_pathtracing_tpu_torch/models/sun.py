@@ -97,6 +97,10 @@ class Sun:
         moved = {f: getattr(self, f).to(device) for f in _TENSOR_FIELDS}
         return Sun(**moved, draw_texture=self.draw_texture)
 
+    @property
+    def luminosity_pdf(self):
+        return 1.0 / self.luminosity
+
 
 def _f32(x):
     return torch.tensor(np.float32(x))

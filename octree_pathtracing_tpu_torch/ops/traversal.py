@@ -1,17 +1,28 @@
-"""ESVO first-hit traversal: kernel K1 (CUDA, ``csrc/traversal.cu``), its
-plain-torch twin, and the wrapper that picks between them by device.
+"""ESVO first-hit traversal in three modes — CUDA kernels (one template
+body in ``csrc/traversal.cu``), their plain-torch twins, and the wrappers
+that pick between them by device:
 
-Port of ``octree_pathtracing_tpu/ops/traversal.py:traverse`` with no accept
-callback.  :func:`traverse` launches the CUDA kernel for CUDA tensors (or
-raises) and runs :func:`traverse_reference` for CPU tensors; there is no
-fallback from one to the other.
+- :func:`traverse` — kernel K1, no accept callback;
+- :func:`traverse_alpha` — kernel K2, the in-loop alpha accept of
+  ``render/hit.make_accept_fn`` (a candidate whose texel alpha is
+  <= ``ALPHA_EPSILON`` falls through to ADVANCE; leaves that cannot reject
+  are accepted without the texel fetch);
+- :func:`traverse_record` — kernel K3r, the recording walk of
+  ``diff/soft.record_surfaces``: the first ``K_SURFACES`` surfaces per ray
+  are recorded as (mat, face, uu, vv) and the last one is accepted.
 
-The twin is a direct port of the JAX ``_init`` / ``_step`` / ``_examine`` /
-``_hit_info``: component-major ``(3, B)`` masked tensor updates under a
-Python loop capped at ``MAX_STEPS`` iterations, two examinations per fetched
-node row (the second only for lanes whose first was a same-parent ADVANCE).
-The kernel runs the same decisions one thread per ray; both round every
-operation once, so they agree bit for bit.
+Port of ``octree_pathtracing_tpu/ops/traversal.py:traverse`` with those
+accept callbacks, for scenes without block models.  Each wrapper launches
+its CUDA kernel for CUDA tensors (or raises) and runs its twin for CPU
+tensors; there is no fallback from one to the other.
+
+The twins are a direct port of the JAX ``_init`` / ``_step`` / ``_examine``
+/ ``_hit_info`` and the accept protocol: component-major ``(3, B)`` masked
+tensor updates under a Python loop capped at ``MAX_STEPS`` iterations, two
+examinations per fetched node row (the second only for lanes whose first was
+a same-parent ADVANCE), then the accept of the lanes whose status became
+CANDIDATE in that step.  The kernels run the same decisions one thread per
+ray; both round every operation once, so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -23,11 +34,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .texture import Atlas, sample_atlas
+
 MAX_STEPS = 1000
 MAX_SCALE = 23
 EPSILON = 1.1920929e-7  # 2^-23
 
 ACTIVE, CANDIDATE, MISS = 0, 1, 2
+ALPHA_EPSILON = 5e-8  # Ray::EPSILON (ops/shading.EPSILON): alpha at or below is a hole
+K_SURFACES = 4  # surfaces recorded per ray by traverse_record
 
 VALUE_MASK = 0x3FFFFFFF  # low 30 bits: child index / leaf value
 PRESENT_BIT = 30
@@ -46,6 +61,27 @@ class HitResult(NamedTuple):
     voxel_pos: torch.Tensor  # (B, 3) world-space voxel min corner
     voxel_size: torch.Tensor  # (B,) world-space voxel side
     steps: torch.Tensor  # () int32 — max node fetches over the lanes
+    fetches: torch.Tensor  # (B,) int32 — node fetches per lane
+
+
+class AlphaTables(NamedTuple):
+    """What the alpha accept reads (``render/hit.accept_tables`` builds it)."""
+
+    leaf_material: torch.Tensor  # (L,) int32: leaf value -> material
+    texture_index: torch.Tensor  # (M,) int32: material -> atlas layer
+    atlas: torch.Tensor  # (T, H, W, 4) float32 texels
+    sizes: torch.Tensor | None  # (T, 2) int32 per-layer (h, w), or None
+    rejectable: torch.Tensor  # (L,) bool: some texel of the leaf is a hole
+
+
+class SurfaceRecord(NamedTuple):
+    """The surfaces :func:`traverse_record` crossed, front to back."""
+
+    count: torch.Tensor  # (B,) int32 surfaces recorded (<= K_SURFACES)
+    mats: torch.Tensor  # (K, B) int32 material of each
+    face: torch.Tensor  # (K, B) int32 entry face of each
+    uu: torch.Tensor  # (K, B) float32
+    vv: torch.Tensor  # (K, B) float32
 
 
 def pack_nodes(child_mask, child_data):
@@ -111,6 +147,7 @@ def _init(root, octree_scale, origins, dirs, stack_rows):
         stack_t=torch.zeros((stack_rows, b), dtype=f32, device=dev),
         status=zi.clone(),
         cand=zi.clone(),
+        reject=torch.zeros((b,), dtype=torch.bool, device=dev),
     )
     return consts, state
 
@@ -135,12 +172,14 @@ def _examine(row, c, s, scale_base, max_dst, act_mask):
     leafb = word < 0  # bit 31
     valid = present & (t_min <= t_max)
     live = active & ~dist_miss
-    is_hit = live & valid & leafb & (t_min > 0.0)
+    # a lane whose candidate the accept rejected must ADVANCE past it
+    rejected = s["reject"]
+    is_hit = live & valid & leafb & (t_min > 0.0) & ~rejected
 
     half = se * 0.5
     t_center = half[None, :] * c["t_coef"] + t_corner
     tv_max = torch.minimum(t_max, tc_max)
-    do_push = live & valid & ~leafb & (t_min <= tv_max)
+    do_push = live & valid & ~leafb & (t_min <= tv_max) & ~rejected
     do_adv = live & ~is_hit & ~do_push
 
     # ---- PUSH ----
@@ -212,6 +251,7 @@ def _examine(row, c, s, scale_base, max_dst, act_mask):
         stack_t=stack_t,
         status=status,
         cand=cand,
+        reject=torch.where(active, False, rejected),
     ), same_parent
 
 
@@ -249,9 +289,39 @@ def _check_depth(depth: int):
         raise ValueError(f"octree depth {depth} outside 1..{MAX_SCALE}")
 
 
-def traverse_reference(nodes_packed, root, depth, octree_scale, origins, dirs, max_dst=1024.0, active=None):
-    """Plain-torch twin of kernel K1 (any device).  Same signature and
-    result as :func:`traverse`."""
+def _alpha_accept(c, s, tables: AlphaTables, mode: int, fresh, rec):
+    """The accept of the twins, on every lane (only ``fresh`` lanes count):
+    mode 1 passes non-rejectable leaves and texels above ALPHA_EPSILON;
+    mode 2 records each surface into ``rec`` and passes the K-th.  Table
+    indices clip as the kernel's (and XLA's gathers) do.
+    Returns (ok (B,) bool, rec)."""
+    face, uu, vv, _ = _hit_info(c, s)
+    n_leaf = tables.leaf_material.shape[0]
+    lv = torch.clamp(s["cand"], 0, n_leaf - 1).long()
+    mat = torch.clamp(tables.leaf_material[lv], 0, tables.texture_index.shape[0] - 1)
+    layer = torch.clamp(tables.texture_index[mat.long()], 0, tables.atlas.shape[0] - 1)
+    atlas = tables.atlas if tables.sizes is None else Atlas(tables.atlas, tables.sizes)
+    is_surface = sample_atlas(atlas, layer, uu, vv)[:, 3] > ALPHA_EPSILON
+    if mode == 1:
+        return is_surface | ~tables.rejectable[lv], rec
+    is_surface = fresh & is_surface
+    rows = torch.arange(K_SURFACES, dtype=torch.int32, device=lv.device)[:, None]
+    sel = is_surface[None, :] & (rows == rec.count[None, :])
+    count = rec.count + is_surface.to(torch.int32)
+    rec = SurfaceRecord(
+        count=count,
+        mats=torch.where(sel, mat[None, :], rec.mats),
+        face=torch.where(sel, face[None, :], rec.face),
+        uu=torch.where(sel, uu[None, :], rec.uu),
+        vv=torch.where(sel, vv[None, :], rec.vv),
+    )
+    return is_surface & (count >= K_SURFACES), rec
+
+
+def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
+                    active, tables):
+    """The twins' walk: mode 0 (K1), 1 (K2) or 2 (K3r).
+    Returns (HitResult, SurfaceRecord or None)."""
     _check_depth(depth)
     scale_base = MAX_SCALE - int(depth)
     c, s = _init(root, octree_scale, origins, dirs, int(depth) + 1)
@@ -259,6 +329,10 @@ def traverse_reference(nodes_packed, root, depth, octree_scale, origins, dirs, m
         s["status"] = torch.where(active, s["status"], MISS).to(torch.int32)
     max_dst_c = float(np.float32(max_dst * octree_scale))
     steps = torch.zeros_like(s["status"])
+    rec = None
+    if mode == 2:
+        zi = torch.zeros((K_SURFACES, steps.shape[0]), dtype=torch.int32, device=steps.device)
+        rec = SurfaceRecord(steps.clone(), zi, zi.clone(), zi.float(), zi.float())
     for _ in range(MAX_STEPS):
         live = s["status"] == ACTIVE
         if not bool(live.any()):
@@ -266,12 +340,19 @@ def traverse_reference(nodes_packed, root, depth, octree_scale, origins, dirs, m
         row = nodes_packed[s["parent"].long()]  # (B, 8): the step's one fetch
         s, same_parent = _examine(row, c, s, scale_base, max_dst_c, None)
         s, _ = _examine(row, c, s, scale_base, max_dst_c, same_parent)
+        if mode:
+            fresh = live & (s["status"] == CANDIDATE)
+            if bool(fresh.any()):
+                ok, rec = _alpha_accept(c, s, tables, mode, fresh, rec)
+                rej = fresh & ~ok
+                s["status"] = torch.where(rej, ACTIVE, s["status"]).to(torch.int32)
+                s["reject"] = s["reject"] | rej
         steps += live.to(torch.int32)
 
     inv_scale = 1.0 / octree_scale
     hit = s["status"] == CANDIDATE
     face, uu, vv, unmirrored_pos = _hit_info(c, s)
-    return HitResult(
+    res = HitResult(
         hit=hit,
         t=torch.where(hit, s["t_min"] * inv_scale, float("inf")),
         face_id=torch.where(hit, face, -1).to(torch.int32),
@@ -280,26 +361,57 @@ def traverse_reference(nodes_packed, root, depth, octree_scale, origins, dirs, m
         voxel_pos=((unmirrored_pos - 1.0) * inv_scale).T.contiguous(),
         voxel_size=s["scale_exp2"] * inv_scale,
         steps=steps.max() if steps.numel() else torch.zeros((), dtype=torch.int32),
+        fetches=steps,
     )
+    return res, rec
+
+
+def traverse_reference(nodes_packed, root, depth, octree_scale, origins, dirs, max_dst=1024.0,
+                       active=None):
+    """Plain-torch twin of kernel K1 (any device).  Same signature and
+    result as :func:`traverse`."""
+    return _walk_reference(0, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
+                           active, None)[0]
+
+
+def traverse_alpha_reference(nodes_packed, root, depth, octree_scale, origins, dirs,
+                             tables: AlphaTables, max_dst=1024.0):
+    """Plain-torch twin of kernel K2 (any device).  Same signature and
+    result as :func:`traverse_alpha`."""
+    return _walk_reference(1, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
+                           None, tables)[0]
+
+
+def traverse_record_reference(nodes_packed, root, depth, octree_scale, origins, dirs,
+                              tables: AlphaTables, max_dst=1024.0):
+    """Plain-torch twin of kernel K3r (any device).  Same signature and
+    result as :func:`traverse_record`."""
+    return _walk_reference(2, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
+                           None, tables)
 
 
 @functools.cache
 def _library():
-    """K1's shared library, built at first use."""
+    """The traversal kernels' shared library (K1, K2, K3r), built at first use."""
     from ..utils.cuda_build import load_library
 
     # IEEE rounding of every operation, no FMA contraction: the twin and the
     # JAX reference round each multiply and add separately (see the source note)
     lib = load_library("traversal", ("-fmad=false",))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.esvo_traverse.argtypes = [vp, ci, ci, cf, cf, cf, vp, vp, vp, ci] + [vp] * 8 + [vp]
-    lib.esvo_traverse.restype = ci
+    head = [vp, ci, ci, cf, cf, cf, vp, vp, vp, ci]  # nodes .. n
+    tables = [vp, ci, vp, ci, vp, ci, ci, ci, vp]  # leaf_material .. sizes
+    lib.esvo_traverse.argtypes = head + [vp] * 8 + [vp]
+    lib.esvo_traverse_alpha.argtypes = head + tables + [vp] + [vp] * 8 + [vp]
+    lib.esvo_traverse_record.argtypes = head + tables + [vp] * 8 + [vp] * 5 + [vp]
+    for fn in (lib.esvo_traverse, lib.esvo_traverse_alpha, lib.esvo_traverse_record):
+        fn.restype = ci
     lib.esvo_error_string.argtypes = [ci]
     lib.esvo_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_cuda_inputs(nodes, origins, dirs, active):
+def _check_cuda_inputs(nodes, origins, dirs, active, tables):
     dev = origins.device
     b = origins.shape[0]
     checks = [
@@ -316,13 +428,28 @@ def _check_cuda_inputs(nodes, origins, dirs, active):
             (active.dtype == torch.bool and active.shape == (b,) and active.is_contiguous()
              and active.device == dev, "active must be a contiguous (B,) bool on the rays' device")
         )
+    if tables is not None:
+        lm, ti, atlas, sizes, rej = tables
+        n_layer = atlas.shape[0] if atlas.dim() == 4 else 0
+        checks += [
+            (lm.dtype == torch.int32 and lm.dim() == 1 and lm.shape[0] > 0, "leaf_material must be (L,) int32"),
+            (ti.dtype == torch.int32 and ti.dim() == 1 and ti.shape[0] > 0, "texture_index must be (M,) int32"),
+            (atlas.dtype == torch.float32 and atlas.dim() == 4 and atlas.shape[3] == 4 and n_layer > 0,
+             "atlas must be (T, H, W, 4) float32"),
+            (sizes is None or (sizes.dtype == torch.int32 and sizes.shape == (n_layer, 2)),
+             "sizes must be None or (T, 2) int32"),
+            (rej.dtype == torch.bool and rej.shape == lm.shape, "rejectable must be (L,) bool"),
+            (all(x.is_contiguous() and x.device == dev for x in (lm, ti, atlas, rej))
+             and (sizes is None or (sizes.is_contiguous() and sizes.device == dev)),
+             "tables must be contiguous and on the rays' device"),
+        ]
     for ok, msg in checks:
         if not ok:
             raise ValueError(f"traverse: {msg}")
 
 
-def _traverse_cuda(nodes, root, depth, octree_scale, origins, dirs, max_dst, active):
-    _check_cuda_inputs(nodes, origins, dirs, active)
+def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dirs, max_dst, active, tables):
+    _check_cuda_inputs(nodes, origins, dirs, active, tables)
     b = origins.shape[0]
     dev = origins.device
     f32, i32 = torch.float32, torch.int32
@@ -334,24 +461,54 @@ def _traverse_cuda(nodes, root, depth, octree_scale, origins, dirs, max_dst, act
         leaf_value=torch.empty((b,), dtype=i32, device=dev),
         voxel_pos=torch.empty((b, 3), dtype=f32, device=dev),
         voxel_size=torch.empty((b,), dtype=f32, device=dev),
-        steps=torch.empty((b,), dtype=i32, device=dev),
+        steps=torch.zeros((), dtype=i32, device=dev),
+        fetches=torch.empty((b,), dtype=i32, device=dev),
     )
+    rec = None
+    if mode == 2:
+        rec = SurfaceRecord(
+            count=torch.empty((b,), dtype=i32, device=dev),
+            mats=torch.empty((K_SURFACES, b), dtype=i32, device=dev),
+            face=torch.empty((K_SURFACES, b), dtype=i32, device=dev),
+            uu=torch.empty((K_SURFACES, b), dtype=f32, device=dev),
+            vv=torch.empty((K_SURFACES, b), dtype=f32, device=dev),
+        )
     if b == 0:  # an empty batch launches nothing
-        return out._replace(steps=torch.zeros((), dtype=i32, device=dev))
+        return out, rec
     lib = _library()
+    head = (nodes.data_ptr(), int(root), int(depth), float(octree_scale),
+            float(1.0 / octree_scale), float(np.float32(max_dst * octree_scale)),
+            origins.data_ptr(), dirs.data_ptr(), None if active is None else active.data_ptr(), b)
+    outs = tuple(x.data_ptr() for x in out[:7]) + (out.fetches.data_ptr(),)
+    if tables is not None:
+        lm, ti, atlas, sizes, rej = tables
+        tabs = (lm.data_ptr(), lm.shape[0], ti.data_ptr(), ti.shape[0], atlas.data_ptr(),
+                atlas.shape[0], atlas.shape[1], atlas.shape[2],
+                None if sizes is None else sizes.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.esvo_traverse(
-            nodes.data_ptr(), int(root), int(depth), float(octree_scale),
-            float(1.0 / octree_scale), float(np.float32(max_dst * octree_scale)),
-            origins.data_ptr(), dirs.data_ptr(),
-            None if active is None else active.data_ptr(), b,
-            *(x.data_ptr() for x in out), stream,
-        )
+        if mode == 0:
+            rc = lib.esvo_traverse(*head, *outs, stream)
+        elif mode == 1:
+            rc = lib.esvo_traverse_alpha(*head, *tabs, rej.data_ptr(), *outs, stream)
+        else:
+            rc = lib.esvo_traverse_record(*head, *tabs, *outs, *(x.data_ptr() for x in rec), stream)
     if rc != 0:
-        raise RuntimeError(f"esvo_traverse launch failed: {lib.esvo_error_string(rc).decode()}")
-    traverse.launches += 1
-    return out._replace(steps=out.steps.max())
+        raise RuntimeError(f"esvo traversal (mode {mode}) launch failed: {lib.esvo_error_string(rc).decode()}")
+    wrapper.launches += 1
+    return out._replace(steps=out.fetches.max()), rec
+
+
+def _dispatch(wrapper, mode, *args):
+    """The kernel of ``mode`` for CUDA rays, its twin for CPU rays.
+    Returns (HitResult, SurfaceRecord or None)."""
+    nodes, root, depth, octree_scale, origins = args[:5]
+    _check_depth(depth)
+    if origins.device.type == "cuda":
+        return _traverse_cuda(wrapper, mode, *args)
+    if origins.device.type == "cpu":
+        return _walk_reference(mode, *args)
+    raise ValueError(f"traverse: unsupported device {origins.device}")
 
 
 def traverse(nodes_packed, root, depth, octree_scale, origins, dirs, max_dst=1024.0, active=None):
@@ -362,15 +519,40 @@ def traverse(nodes_packed, root, depth, octree_scale, origins, dirs, max_dst=102
     space; ``max_dst``: world-space distance cap; ``active``: optional (B,)
     bool — False lanes start as MISS and fetch nothing.
 
-    CUDA tensors launch kernel K1 (``csrc/traversal.cu``) and count the
-    launch in ``traverse.launches``; CPU tensors run
+    CUDA tensors launch kernel K1 (``csrc/traversal.cu``, mode 0) and count
+    the launch in ``traverse.launches``; CPU tensors run
     :func:`traverse_reference`.  Any other device raises."""
-    _check_depth(depth)
-    if origins.device.type == "cuda":
-        return _traverse_cuda(nodes_packed, root, depth, octree_scale, origins, dirs, max_dst, active)
-    if origins.device.type == "cpu":
-        return traverse_reference(nodes_packed, root, depth, octree_scale, origins, dirs, max_dst, active)
-    raise ValueError(f"traverse: unsupported device {origins.device}")
+    return _dispatch(traverse, 0, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
+                     active, None)[0]
+
+
+def traverse_alpha(nodes_packed, root, depth, octree_scale, origins, dirs, tables: AlphaTables,
+                   max_dst=1024.0):
+    """:func:`traverse` with the in-loop alpha accept: a leaf candidate whose
+    leaf is ``tables.rejectable`` and whose texel alpha at the hit uv is
+    <= ``ALPHA_EPSILON`` is rejected, and the ray walks on past it.
+
+    CUDA tensors launch kernel K2 (mode 1) and count the launch in
+    ``traverse_alpha.launches``; CPU tensors run
+    :func:`traverse_alpha_reference`."""
+    return _dispatch(traverse_alpha, 1, nodes_packed, root, depth, octree_scale, origins, dirs,
+                     max_dst, None, tables)[0]
+
+
+def traverse_record(nodes_packed, root, depth, octree_scale, origins, dirs, tables: AlphaTables,
+                    max_dst=1024.0):
+    """Walk each ray through its first ``K_SURFACES`` surfaces (candidates
+    whose texel alpha is above ``ALPHA_EPSILON``), recording each, and
+    accept the last.  Returns (HitResult, SurfaceRecord); ``rejectable`` is
+    not read.
+
+    CUDA tensors launch kernel K3r (mode 2) and count the launch in
+    ``traverse_record.launches``; CPU tensors run
+    :func:`traverse_record_reference`."""
+    return _dispatch(traverse_record, 2, nodes_packed, root, depth, octree_scale, origins, dirs,
+                     max_dst, None, tables)
 
 
 traverse.launches = 0
+traverse_alpha.launches = 0
+traverse_record.launches = 0

@@ -12,9 +12,12 @@ state is left as it is, which is exactly what the full-batch update does to
 it.  The JAX package's TPU scheduling (tiles, straggler drain, sort
 schedule, beam) has no counterpart: it never changed the output.
 
-Covered: all-opaque scenes (no accept callback in the traversal), sun
+Covered: all-opaque scenes (kernel K1, no accept in the traversal) and
+scenes with alpha-holed textures (kernel K2, the in-loop alpha accept), sun
 strategies without shadow rays, no emitter sampling.  Anything else raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item.  Gradients flow into the
+atlas texels and the material table through the shading; the traversal is
+detached.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ from ..ops.shading import (
     refract_dir,
     specular_reflect_dir,
 )
+from ..ops.random import philox_uniforms
 from ..ops.texture import sample_atlas
-from ..ops.traversal import HitResult, traverse
-from .hit import resolve_hit
+from ..ops.traversal import HitResult, traverse, traverse_alpha
+from .hit import accept_tables, resolve_hit
 
 MAX_BOUNCES = 5
 
@@ -52,23 +56,23 @@ def check_supported(scene: Scene):
         )
     if scene.emitter_sampling != EmitterSampling.NONE:
         raise NotImplementedError("emitter sampling: ROADMAP queue 1, item 6")
-    if not scene.opaque_only:
-        raise NotImplementedError(
-            "alpha-tested leaves need the in-loop accept (K2): ROADMAP queue 1, item 5"
-        )
+
+
+def _albedo_at(scene: Scene, mat_id, uv):
+    """(B, 4) texel of material ``mat_id`` at ``uv``; differentiable in the
+    atlas."""
+    layer = scene.materials.texture_index[mat_id.long()]
+    return sample_atlas(scene.atlas, layer, uv[:, 0], uv[:, 1])
 
 
 def _trace(scene: Scene, origins, dirs) -> HitResult:
-    """First-hit traversal of every lane given, detached from autograd."""
-    return traverse(
-        scene.nodes,
-        scene.root,
-        scene.depth,
-        scene.octree_scale,
-        origins.detach().contiguous(),
-        dirs.detach().contiguous(),
-        MAX_DIST,
-    )
+    """First accepted hit of every lane given, detached from autograd: K1 on
+    all-opaque scenes, K2 (the in-loop alpha accept) otherwise."""
+    args = (scene.nodes, scene.root, scene.depth, scene.octree_scale,
+            origins.detach().contiguous(), dirs.detach().contiguous())
+    if scene.opaque_only:
+        return traverse(*args, MAX_DIST)
+    return traverse_alpha(*args, accept_tables(scene), MAX_DIST)
 
 
 def _init_state(origins, dirs):
@@ -261,8 +265,10 @@ def trace_paths_branched(scene: Scene, origins, dirs, uniforms):
     return st["radiance"].reshape(b, k, 3).mean(dim=1)
 
 
-def draw_uniforms(generator: torch.Generator, n_lanes: int, n_bounces: int = MAX_BOUNCES):
-    """Draw the uniform block for a batch on the generator's device."""
-    return torch.rand(
-        (n_lanes, n_bounces, N_UNIFORMS), generator=generator, device=generator.device
-    )
+def draw_uniforms(seed: int, counter: int, n_lanes: int, n_bounces: int = MAX_BOUNCES,
+                  device="cuda"):
+    """The (n_lanes, n_bounces, N_UNIFORMS) uniform block of stream
+    ``counter`` under ``seed``, drawn on ``device`` by ``philox_uniforms``
+    (kernel P2 on a CUDA device)."""
+    n = int(n_lanes) * int(n_bounces) * N_UNIFORMS
+    return philox_uniforms(seed, counter, n, device).reshape(n_lanes, n_bounces, N_UNIFORMS)

@@ -3,8 +3,10 @@
 The whole frame is one lane batch: ray generation with per-pass jitter,
 the wavefront path trace, and the running-average update
 ``fb = (fb * spp + new) / (spp + n)`` on a framebuffer on the scene's
-device, with the reference's branch-count warmup schedule.  Random draws
-come from one ``torch.Generator`` on that device, seeded by ``seed``.
+device, with the reference's branch-count warmup schedule.  Every random
+draw (pixel jitter and uniform block) is ``philox_uniforms(seed, counter)``
+on that device: the renderer keeps an integer seed and a draw counter and
+no generator state, and each draw takes the next counter.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..models.camera import Camera, pixel_grid_rays
 from ..models.scene import Scene
+from ..ops.random import philox_uniforms
 from ..ops.texture import float_to_u8
 from .pathtracer import MAX_BOUNCES, draw_uniforms, trace_paths, trace_paths_branched
 
@@ -30,9 +33,9 @@ def branch_schedule(current_spp: int, branch_count: int) -> int:
     return branch_count
 
 
-def _jittered_rays(camera: Camera, width: int, height: int, generator: torch.Generator):
+def _jittered_rays(camera: Camera, width: int, height: int, seed: int, counter: int):
     dim = float(max(width, height))
-    u = torch.rand((width * height, 2), generator=generator, device=generator.device)
+    u = philox_uniforms(seed, counter, width * height * 2, camera.eye.device).reshape(-1, 2)
     jitter = u * (2.0 / dim) - 1.0 / dim  # uniform in [-1/dim, 1/dim)
     return pixel_grid_rays(camera, width, height, jitter)
 
@@ -48,18 +51,22 @@ def render_pass(
     camera: Camera,
     framebuffer,
     current_spp: int,
-    generator: torch.Generator,
+    seed: int,
+    counter: int,
     width: int,
     height: int,
     spp_this_pass: int,
     n_bounces: int = MAX_BOUNCES,
 ):
     """One progressive pass of ``spp_this_pass`` jittered samples per pixel,
-    folded into the running average.  Returns (framebuffer, new_spp)."""
-    new_color = torch.zeros((width * height, 3), dtype=torch.float32, device=framebuffer.device)
-    for _ in range(spp_this_pass):
-        origins, dirs = _jittered_rays(camera, width, height, generator)
-        u = draw_uniforms(generator, width * height, n_bounces)
+    folded into the running average.  Sample ``k`` draws its jitter from
+    stream ``counter + 2k`` and its uniforms from ``counter + 2k + 1``.
+    Returns (framebuffer, new_spp)."""
+    dev = framebuffer.device
+    new_color = torch.zeros((width * height, 3), dtype=torch.float32, device=dev)
+    for k in range(spp_this_pass):
+        origins, dirs = _jittered_rays(camera, width, height, seed, counter + 2 * k)
+        u = draw_uniforms(seed, counter + 2 * k + 1, width * height, n_bounces, dev)
         new_color += trace_paths(scene, origins, dirs, u)
     return _accumulate(framebuffer, current_spp, new_color, spp_this_pass)
 
@@ -69,18 +76,21 @@ def render_pass_branched(
     camera: Camera,
     framebuffer,
     current_spp: int,
-    generator: torch.Generator,
+    seed: int,
+    counter: int,
     width: int,
     height: int,
     branches: int,
     n_bounces: int = MAX_BOUNCES,
 ):
     """One pass with first-hit branch replication: one jittered primary ray
-    per pixel and ``branches`` continuations from its first hit, worth
-    ``branches`` samples in the running average."""
+    per pixel (stream ``counter``) and ``branches`` continuations from its
+    first hit (uniforms from stream ``counter + 1``), worth ``branches``
+    samples in the running average."""
     n_px = width * height
-    origins, dirs = _jittered_rays(camera, width, height, generator)
-    u = draw_uniforms(generator, n_px * branches, n_bounces).reshape(n_px, branches, n_bounces, -1)
+    origins, dirs = _jittered_rays(camera, width, height, seed, counter)
+    u = draw_uniforms(seed, counter + 1, n_px * branches, n_bounces, framebuffer.device)
+    u = u.reshape(n_px, branches, n_bounces, -1)
     new_color = trace_paths_branched(scene, origins, dirs, u) * branches
     return _accumulate(framebuffer, current_spp, new_color, branches)
 
@@ -88,7 +98,7 @@ def render_pass_branched(
 @dataclasses.dataclass
 class Renderer:
     """Progressive path-traced renderer: ``step`` runs one pass, ``reset``
-    starts over."""
+    starts over.  ``counter`` is the next Philox stream to draw from."""
 
     scene: Scene
     camera: Camera
@@ -106,8 +116,7 @@ class Renderer:
         dev = self.scene.device
         self.framebuffer = torch.zeros((self.height, self.width, 3), dtype=torch.float32, device=dev)
         self.current_spp = 0
-        self.generator = torch.Generator(device=dev)
-        self.generator.manual_seed(self.seed)
+        self.counter = 0
 
     @property
     def spp(self) -> int:
@@ -120,12 +129,13 @@ class Renderer:
         if spp_now >= self.target_spp:
             return False
         n = min(branch_schedule(spp_now, self.branch_count), self.target_spp - spp_now)
-        args = (self.scene, self.camera, self.framebuffer, spp_now, self.generator,
+        args = (self.scene, self.camera, self.framebuffer, spp_now, self.seed, self.counter,
                 self.width, self.height, n, self.n_bounces)
         if n > 1:
             self.framebuffer, self.current_spp = render_pass_branched(*args)
         else:
             self.framebuffer, self.current_spp = render_pass(*args)
+        self.counter += 2 * n  # at most two draws per sample: jitter and uniforms
         return True
 
     def get_image(self) -> np.ndarray:

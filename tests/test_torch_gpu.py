@@ -1,4 +1,7 @@
-"""Kernel K1 against its plain-torch twin on a CUDA card.
+"""The port's kernels against their plain-torch twins on a CUDA card: the
+traversal in its three modes (K1, K2 alpha accept, K3r recording walk) and
+P2 (Philox uniforms), and the path tracer's frame and gradients through the
+kernels against the same through the twins.
 
 Every test here is marked ``gpu`` and skips where there is no card.  The
 file imports no jax (the machine with the card has none), so it runs there
@@ -11,9 +14,25 @@ import numpy as np
 import pytest
 import torch
 
-from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene, octree_from_grid, pixel_grid_rays
-from octree_pathtracing_tpu_torch.ops.traversal import pack_nodes, traverse, traverse_reference
+from octree_pathtracing_tpu_torch.models import (
+    cutout_chunk_scene,
+    minecraft_chunk_scene,
+    octree_from_grid,
+    pixel_grid_rays,
+)
+from octree_pathtracing_tpu_torch.ops.random import philox_uniforms, philox_uniforms_reference
+from octree_pathtracing_tpu_torch.ops.traversal import (
+    pack_nodes,
+    traverse,
+    traverse_alpha,
+    traverse_alpha_reference,
+    traverse_record,
+    traverse_record_reference,
+    traverse_reference,
+)
+from octree_pathtracing_tpu_torch.parallel import apply_params
 from octree_pathtracing_tpu_torch.render import pathtracer
+from octree_pathtracing_tpu_torch.render.hit import accept_tables
 
 MAX_DIST = 1024.0
 
@@ -21,7 +40,7 @@ MAX_DIST = 1024.0
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (kernel K1 runs only there)")
+        pytest.skip("needs a CUDA card (the port's kernels run only there)")
     return torch.device("cuda")
 
 
@@ -43,7 +62,7 @@ def _random_case(depth, n, seed, dev):
 
 def _assert_equal_results(k, r):
     """Both round every operation once: equal on every lane."""
-    for f in ("hit", "face_id", "leaf_value", "t", "uv", "voxel_pos", "voxel_size", "steps"):
+    for f in ("hit", "face_id", "leaf_value", "t", "uv", "voxel_pos", "voxel_size", "steps", "fetches"):
         assert torch.equal(getattr(k, f), getattr(r, f)), f
 
 
@@ -101,3 +120,61 @@ def test_empty_batch_launches_nothing(cuda):
     res = traverse(nodes, tree.root, tree.depth, tree.scale(), o[:0], d[:0])
     assert traverse.launches == before
     assert res.hit.shape == (0,) and res.uv.shape == (0, 2) and int(res.steps) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536 * 5 * 21, 1001, 7])
+def test_philox_kernel_matches_twin_bit_for_bit(cuda, n):
+    before = philox_uniforms.launches
+    got = philox_uniforms(2**40 + 3, 2**33 + 5, n, cuda)
+    assert philox_uniforms.launches == before + 1
+    want = philox_uniforms_reference(2**40 + 3, 2**33 + 5, n, cuda)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and torch.equal(got, want)
+    assert philox_uniforms(0, 0, 0, cuda).shape == (0,) and philox_uniforms.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("build", [cutout_chunk_scene, minecraft_chunk_scene])
+def test_accept_kernels_match_twins(cuda, build):
+    scene, cam = build(depth=6)
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 96, 64)
+    args = (scene.nodes, scene.root, scene.depth, scene.octree_scale, o.contiguous(), d)
+    tables = accept_tables(scene)
+    before = (traverse_alpha.launches, traverse_record.launches)
+    _assert_equal_results(traverse_alpha(*args, tables), traverse_alpha_reference(*args, tables))
+    k, k_rec = traverse_record(*args, tables)
+    r, r_rec = traverse_record_reference(*args, tables)
+    torch.cuda.synchronize()
+    assert (traverse_alpha.launches, traverse_record.launches) == (before[0] + 1, before[1] + 1)
+    _assert_equal_results(k, r)
+    for f in k_rec._fields:
+        assert torch.equal(getattr(k_rec, f), getattr(r_rec, f)), f
+    assert (k_rec.count >= 2).any()
+
+
+@pytest.mark.gpu
+def test_alpha_frame_and_gradients_through_kernels_match_twins(cuda, monkeypatch):
+    scene, cam = cutout_chunk_scene(depth=6)
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 48, 32)
+    u = torch.from_numpy(np.random.default_rng(5).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+
+    def run():
+        p = {"atlas": scene.atlas.clone().requires_grad_(True),
+             "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+        rad = pathtracer.trace_paths(apply_params(scene, p), o, d, u)
+        rad.mean().backward()
+        return rad.detach(), p["atlas"].grad, p["emittance"].grad
+
+    before = traverse_alpha.launches
+    got = run()
+    assert traverse_alpha.launches > before
+    monkeypatch.setattr(pathtracer, "traverse_alpha", traverse_alpha_reference)
+    want = run()
+    torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
+    # the atlas gradient is a scatter-add whose order the card does not fix
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+    assert torch.isfinite(got[1]).all() and got[1].abs().max() > 0

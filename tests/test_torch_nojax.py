@@ -1,5 +1,6 @@
-"""The port runs where jax is absent (the machine with the card has none):
-a jax-blocked CLI render, and a source scan for jax imports."""
+"""The port runs where jax and the JAX package are absent (the machine with
+the card has neither): jax-blocked CLI render and train runs, and a source
+scan for imports of jax or of ``octree_pathtracing_tpu``."""
 
 import os
 import re
@@ -31,8 +32,38 @@ def test_cli_render_with_jax_blocked(tmp_path):
     assert data.startswith(b"P6\n8 6\n255\n") and len(data) == len(b"P6\n8 6\n255\n") + 8 * 6 * 3
 
 
+_TRAIN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["octree_pathtracing_tpu"] = None  # the JAX package is not needed either
+from octree_pathtracing_tpu_torch.cli import main
+from octree_pathtracing_tpu_torch.io.checkpoint import load_arrays
+main(["train", "--scene", "cutout", "--depth", "3", "--width", "6", "--height", "4", "--views", "2",
+      "--steps", "2", "--device", "cpu", "-o", sys.argv[1]])
+p = load_arrays(sys.argv[1])
+assert p["atlas"].shape == (8, 16, 16, 4) and p["emittance"].shape == (8,)
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+"""
+
+
+def test_cli_train_with_jax_blocked(tmp_path):
+    out = tmp_path / "params.npz"
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN, str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "over 2 steps on cpu" in proc.stdout
+    steps = [line for line in proc.stderr.splitlines() if '"train_step"' in line]
+    assert len(steps) == 2
+
+
 def test_no_port_source_imports_jax():
-    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    pattern = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b"
+        r"|import\s+octree_pathtracing_tpu(?!_torch)\b|from\s+octree_pathtracing_tpu(?!_torch)\b)",
+        re.M,
+    )
     sources = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]

@@ -117,12 +117,15 @@ def test_refused_paths_raise():
         dataclasses.replace(scene, sun_sampling=SunSampling.high_quality()),
         dataclasses.replace(scene, sun_sampling=SunSampling.fast()),
         dataclasses.replace(scene, emitter_sampling="one"),
-        dataclasses.replace(scene, opaque_only=False),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trace_paths(bad, o, d, u)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trace_paths_branched(bad, o, d, u[:, None])
+    # alpha-tested scenes run the in-loop accept (K2) now; on an all-opaque
+    # atlas it accepts every candidate, so the frame is K1's
+    alpha = dataclasses.replace(scene, opaque_only=False)
+    torch.testing.assert_close(trace_paths(alpha, o, d, u), trace_paths(scene, o, d, u), rtol=0, atol=0)
     from octree_pathtracing_tpu.octree import build_from_dense
 
     tree = build_from_dense(np.ones((4, 4, 4), np.uint32))

@@ -196,7 +196,7 @@ def test_resolve_hit(rng, scenes):
     jres = JHitResult(*(jnp.asarray(x) for x in (hit, t, face, uv, leaf.astype(np.uint32), vpos, vsize)),
                       steps=jnp.int32(0))
     tres = THitResult(*(torch.from_numpy(x) for x in (hit, t, face, uv, leaf, vpos, vsize)),
-                      steps=torch.tensor(0))
+                      steps=torch.tensor(0), fetches=torch.zeros(B, dtype=torch.int32))
     got = thit.resolve_hit(tscene, torch.from_numpy(o), torch.from_numpy(d), tres)
     want = jhit.resolve_hit(jscene, jnp.asarray(o), jnp.asarray(d), jres)
     for g, w in zip(got, want):
