@@ -4,12 +4,14 @@ PyTorch, with its traversal written by hand in CUDA for Hopper (sm_90a).
 A port of ``octree_pathtracing_tpu`` (the JAX package, which stays the
 reference).  The layout mirrors it module for module:
 
-- ``octree`` : the numpy octree builder (dense grid -> node pool)
-- ``ops``    : ESVO traversal in three modes (CUDA kernels + plain-torch
-               twins), Philox uniforms (CUDA kernel + twin), BRDF sampling,
-               texture atlas
+- ``octree`` : the numpy octree builder (dense grid -> node pool), leaf
+               enumeration
+- ``ops``    : ESVO traversal in four modes (CUDA kernels + plain-torch
+               twins), Philox uniforms and the row gather (CUDA kernels +
+               twins), BRDF sampling, texture atlas
 - ``models`` : scene tables as dataclasses of tensors — camera, sun,
-               materials, procedural scenes, conversion from the JAX scene
+               materials, the emitter table, procedural scenes, conversion
+               from the JAX scene
 - ``render`` : hit resolution, wavefront path tracer, progressive renderer
 - ``diff``   : relaxed-visibility (soft) radiance and inverse rendering
 - ``parallel``: grafting trainable parameters into a scene

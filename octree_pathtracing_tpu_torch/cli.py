@@ -3,14 +3,17 @@
 Usage:
   python -m octree_pathtracing_tpu_torch.cli render --scene chunk --depth 9 \\
       --width 256 --height 256 --spp 20 -o build/chunk.ppm
+  python -m octree_pathtracing_tpu_torch.cli render --scene cutout --depth 9 \\
+      --sun high_quality --emitter-sampling one -o build/cutout.ppm
   python -m octree_pathtracing_tpu_torch.cli train --scene chunk --depth 9 \\
       --views 8 --steps 3 -o build/params.npz
   python -m octree_pathtracing_tpu_torch.cli info --scene chunk --depth 9
 
 Frames go to image files (PPM where PIL is missing), trained parameters to
 an ``.npz``; one JSON metrics line per render pass or training step goes to
-stderr.  ``--device`` defaults to the first CUDA card when there is one and
-to the CPU otherwise; every line says which.
+stderr.  ``--device`` defaults to the first CUDA card; without a card the
+command fails unless ``--device cpu`` asks for the CPU, where every kernel's
+plain-torch twin runs.  Every line says which device ran.
 """
 
 from __future__ import annotations
@@ -23,12 +26,20 @@ import time
 
 from . import BUILD_DIR
 
-SCENES = ("sphere", "cornell", "chunk", "cutout")
+SCENES = ("sphere", "cornell", "room", "chunk", "cutout", "scattered")
+EMITTER_SAMPLING = ("scene", "none", "one", "one_block", "all")
 SCENE_CACHE = os.path.join(BUILD_DIR, "scenes")
 
 
 def _build_scene(args):
-    from .models import cornell_scene, cutout_chunk_scene, minecraft_chunk_scene, sphere_scene
+    from .models import (
+        cornell_scene,
+        cutout_chunk_scene,
+        emissive_room_scene,
+        minecraft_chunk_scene,
+        scattered_lights_scene,
+        sphere_scene,
+    )
 
     if args.world:
         raise NotImplementedError("--world (region ingestion): ROADMAP queue 1, item 8")
@@ -37,22 +48,34 @@ def _build_scene(args):
         return minecraft_chunk_scene(depth=depth, cache_dir=SCENE_CACHE)
     if args.scene == "cutout":
         return cutout_chunk_scene(depth=depth, cache_dir=SCENE_CACHE)
-    return {"sphere": sphere_scene, "cornell": cornell_scene}[args.scene](depth=depth)
+    builders = {"sphere": sphere_scene, "cornell": cornell_scene, "room": emissive_room_scene,
+                "scattered": scattered_lights_scene}
+    return builders[args.scene](depth=depth)
 
 
 def _device(name: str):
+    """The device ``--device`` names, the first CUDA card by default.  A CUDA
+    device without a card is an error: the command never moves to the CPU
+    unless it is asked to."""
     import torch
 
-    if name:
-        return torch.device(name)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = torch.device(name or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: the port's kernels run only on the card; pass --device cpu to run "
+            "their plain-torch twins on the CPU"
+        )
+    return dev
 
 
 def cmd_render(args):
+    """Render ``--spp`` samples per pixel progressively and write the frame.
+    Returns the ``Renderer``."""
     import torch
 
     from .config import sun_sampling_from_name
     from .io.image import save_image
+    from .models.emitters import with_emitter_sampling
     from .render.renderer import Renderer
     from .utils.metrics import METRICS
 
@@ -60,6 +83,7 @@ def cmd_render(args):
     with METRICS.phase("scene_build", scene=args.scene, depth=args.depth):
         scene, camera = _build_scene(args)
     scene = dataclasses.replace(scene, sun_sampling=sun_sampling_from_name(args.sun))
+    scene = with_emitter_sampling(scene, args.emitter_sampling)
     r = Renderer(
         scene=scene.to(dev),
         camera=camera.to(dev),
@@ -87,6 +111,7 @@ def cmd_render(args):
         )
     path = save_image(args.output, r.framebuffer)
     print(f"wrote {path} at {r.spp} spp on {dev_name}")
+    return r
 
 
 def orbit_cameras(depth: int, n_views: int):
@@ -160,7 +185,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--bounces", type=int, default=5, help="path depth cap")
     r.add_argument("--sun", default="importance",
                    choices=["off", "non_luminous", "fast", "importance", "high_quality"])
-    r.add_argument("--device", default="", help="torch device (default: cuda if present, else cpu)")
+    r.add_argument("--emitter-sampling", default="scene", choices=EMITTER_SAMPLING,
+                   help="block-light NEE: 'one' samples one face of one emissive leaf per diffuse "
+                        "bounce, 'one_block' all faces of one leaf, 'all' all faces of every leaf "
+                        "(models/emitters.py); 'none' turns it off; 'scene' keeps the scene's own")
+    r.add_argument("--device", default="", help="torch device (default: cuda; cpu runs the kernels' twins)")
     r.set_defaults(fn=cmd_render)
 
     t = sub.add_parser("train")
@@ -168,7 +197,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--steps", type=int, default=50)
     t.add_argument("--views", type=int, default=8)
     t.add_argument("--lr", type=float, default=5e-2)
-    t.add_argument("--device", default="", help="torch device (default: cuda if present, else cpu)")
+    t.add_argument("--device", default="", help="torch device (default: cuda; cpu runs the kernels' twins)")
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("info")

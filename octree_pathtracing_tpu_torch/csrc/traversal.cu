@@ -1,10 +1,14 @@
 // ESVO first-hit traversal of the packed sparse-voxel octree, one thread per
-// ray, in three compile-time modes of one kernel body (`template <int MODE>`):
+// ray, in four compile-time modes of one kernel body (`template <int MODE>`):
 //
 //   MODE 0 — kernel K1, no accept: the first leaf candidate is the hit.
 //   MODE 1 — kernel K2, the in-loop alpha accept.
 //   MODE 2 — kernel K3r, the recording walk: record the first K_SURFACES = 4
 //            surfaces per ray, accept the 4th.
+//   MODE 3 — kernel K3s, the shadow walk: record each alpha surface the ray
+//            crosses (material, uv and, on request, world t) with a running
+//            alpha budget w *= 1 - alpha; stop on the 4th surface or when the
+//            budget reaches 0 (strict mode zeroes it on an IOR change).
 //
 // Replaces: octree_pathtracing_tpu/ops/traversal.py `traverse` (:459) with
 // its `_init`, `_step`, `_examine` and `_hit_info` (k_examine = 2,
@@ -12,8 +16,9 @@
 // MODE 1 with render/hit.py `make_accept_fn` (:104) and
 // `_leaf_alpha_classes` (:72), MODE 2 with diff/soft.py
 // `_make_recording_accept` (:69) / `record_surfaces` (:96) over
-// render/hit.py `_surface_of_candidate` (:155), all for scenes without
-// block models.  The JAX version steps a whole ray batch in lockstep under
+// render/hit.py `_surface_of_candidate` (:155), MODE 3 with render/hit.py
+// `make_shadow_accept_fn` (:223) and `shadow_state_init` (:187), all for
+// scenes without block models.  The JAX version steps a whole ray batch in lockstep under
 // one lax.while_loop; here every thread walks its own ray to an accepted
 // leaf, a miss, or MAX_STEPS node fetches, and exits on its own.
 //
@@ -27,8 +32,10 @@
 // leaf candidate, one leaf_material and one texture_index word, the
 // `rejectable` byte (MODE 1) and one texel's alpha (4 bytes) — far fewer
 // bytes than the node rows, since there are far fewer candidates than
-// fetches.  MODE 2's four record rows live in registers (K is a
-// compile-time constant and every row index is unrolled).
+// fetches.  The record rows of modes 2 and 3 live in registers (K is a
+// compile-time constant and every row index is unrolled).  MODE 3 reads, per
+// candidate, the leaf's binary-class byte and, for a non-binary leaf, the
+// texel alpha; two IOR words in strict mode.
 //
 // This first version is simple and right; making it fast (stack in
 // registers or shared memory, ray sorting, persistent threads) is later work.
@@ -58,6 +65,12 @@
 // - The texel index repeats ops/texture.sample_atlas: clamp u and v to
 //   [0, 1], flip v, multiply by the layer's width / height as floats,
 //   truncate to int, clip to the layer.
+// - MODE 3 follows make_shadow_accept_fn's arithmetic: a binary-class leaf
+//   (every texel alpha exactly 1) is a surface of alpha 1 recorded with the
+//   entry face's uv and no atlas fetch; the budget is w * (1 - alpha), one
+//   rounded subtract then one rounded multiply; t is t_min * inv_scale as
+//   the accept protocol passes it (traversal.py:575); the walk stops when
+//   the count reaches K_SURFACES or w <= 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,13 +108,28 @@ struct AlphaTables {
   const float* atlas;        // (T, H, W, 4)
   const int* sizes;          // (T, 2) per-layer (h, w), or null: all (H, W)
   const uint8_t* rejectable; // (L,), mode 1 only
+  const uint8_t* binary;     // (L,), mode 3 only: every texel alpha is exactly 1
+  const float* ior;          // (M,), mode 3 only
   int n_leaf, n_mat, n_layer, atlas_h, atlas_w;
 };
 
+// What the shadow walk (mode 3) reads besides the tables, and writes besides
+// the record.
+struct ShadowIO {
+  const int* cur_mat;  // (B,) the lane's medium: the strict test's first material
+  int strict;
+  float* w;            // (B,) the alpha budget left
+  int* cm;             // (B,) the medium after the last recorded surface
+  float* ts;           // (K, B) world t of each surface, or null
+};
+
+// The surfaces a lane recorded (modes 2 and 3; w, cm and ts in mode 3 only).
 struct Record {
   int count;
   int mat[K_SURFACES], face[K_SURFACES];
-  float uu[K_SURFACES], vv[K_SURFACES];
+  float uu[K_SURFACES], vv[K_SURFACES], ts[K_SURFACES];
+  float w;
+  int cm;
 };
 
 __device__ __forceinline__ int child_word(int4 lo, int4 hi, int slot) {
@@ -251,7 +279,7 @@ __device__ __forceinline__ float texel_alpha(const AlphaTables& tb, int layer, f
 // The accept of a fresh candidate; false sends the lane back to ACTIVE.
 template <int MODE>
 __device__ __forceinline__ bool accept(const State& s, const Ray& r, const AlphaTables& tb,
-                                       Record& rec) {
+                                       int strict, float inv_scale, Record& rec) {
   int face;
   float uu, vv, unm[3];
   hit_info(r, s, face, uu, vv, unm);
@@ -259,6 +287,33 @@ __device__ __forceinline__ bool accept(const State& s, const Ray& r, const Alpha
   if (MODE == 1 && !tb.rejectable[lv]) return true;  // no texel of it can reject
   // table indices clip like XLA's gathers (in range on any scene make_scene built)
   int mat = min(max(__ldg(tb.leaf_material + lv), 0), tb.n_mat - 1);
+  if (MODE == 3) {
+    float alpha = 1.0f;  // a binary-class leaf: a total blocker, no texel fetch
+    if (!tb.binary[lv]) {
+      int layer = min(max(__ldg(tb.texture_index + mat), 0), tb.n_layer - 1);
+      alpha = texel_alpha(tb, layer, uu, vv);
+      if (!(alpha > ALPHA_EPSILON_F)) return false;  // a hole: walk on
+    }
+    float w = rec.w * (1.0f - alpha);
+    if (strict) {
+      int cm = min(max(rec.cm, 0), tb.n_mat - 1);
+      if (__ldg(tb.ior + cm) != __ldg(tb.ior + mat)) w = 0.0f;
+    }
+    float t_world = s.t_min * inv_scale;
+#pragma unroll
+    for (int k = 0; k < K_SURFACES; ++k) {  // unrolled: the rows stay in registers
+      if (k == rec.count) {
+        rec.mat[k] = mat;
+        rec.uu[k] = uu;
+        rec.vv[k] = vv;
+        rec.ts[k] = t_world;
+      }
+    }
+    rec.count += 1;
+    rec.w = w;
+    rec.cm = mat;
+    return rec.count >= K_SURFACES || w <= 0.0f;
+  }
   int layer = min(max(__ldg(tb.texture_index + mat), 0), tb.n_layer - 1);
   bool is_surface = texel_alpha(tb, layer, uu, vv) > ALPHA_EPSILON_F;
   if (MODE == 1) return is_surface;
@@ -281,7 +336,7 @@ __global__ void esvo_traverse_kernel(
     const int4* __restrict__ nodes, int root, int depth, float octree_scale,
     float inv_scale, float max_dst, const float* __restrict__ origins,
     const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
-    AlphaTables tb, uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
+    AlphaTables tb, ShadowIO sh, uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
     int* __restrict__ face_out, float* __restrict__ uv_out,
     int* __restrict__ leaf_out, float* __restrict__ vpos_out,
     float* __restrict__ vsize_out, int* __restrict__ steps_out,
@@ -338,12 +393,15 @@ __global__ void esvo_traverse_kernel(
   }
   Record rec;
   rec.count = 0;
+  rec.w = 1.0f;
+  rec.cm = MODE == 3 ? sh.cur_mat[i] : 0;
 #pragma unroll
   for (int k = 0; k < K_SURFACES; ++k) {
     rec.mat[k] = 0;
     rec.face[k] = 0;
     rec.uu[k] = 0.0f;
     rec.vv[k] = 0.0f;
+    rec.ts[k] = __int_as_float(0x7f800000);
   }
 
   // ---- the walk: one row fetch per step, up to two decisions on it, then
@@ -356,7 +414,7 @@ __global__ void esvo_traverse_kernel(
     if (examine<MODE>(s, r, lo, hi, scale_base, max_dst)) {
       examine<MODE>(s, r, lo, hi, scale_base, max_dst);
     }
-    if (MODE != 0 && s.status == CANDIDATE && !accept<MODE>(s, r, tb, rec)) {
+    if (MODE != 0 && s.status == CANDIDATE && !accept<MODE>(s, r, tb, sh.strict, inv_scale, rec)) {
       s.status = ACTIVE;
       s.reject = true;
     }
@@ -386,13 +444,25 @@ __global__ void esvo_traverse_kernel(
       rec_vv[k * n + i] = rec.vv[k];
     }
   }
+  if (MODE == 3) {
+    rec_count[i] = rec.count;
+    sh.w[i] = rec.w;
+    sh.cm[i] = rec.cm;
+#pragma unroll
+    for (int k = 0; k < K_SURFACES; ++k) {
+      rec_mats[k * n + i] = rec.mat[k];
+      rec_uu[k * n + i] = rec.uu[k];
+      rec_vv[k * n + i] = rec.vv[k];
+      if (sh.ts != nullptr) sh.ts[k * n + i] = rec.ts[k];
+    }
+  }
 }
 
 template <int MODE>
 static int launch(const void* nodes, int root, int depth, float octree_scale,
                   float inv_scale, float max_dst, const void* origins,
                   const void* dirs, const void* active, int n, AlphaTables tb,
-                  void* hit, void* t, void* face, void* uv, void* leaf,
+                  ShadowIO sh, void* hit, void* t, void* face, void* uv, void* leaf,
                   void* vpos, void* vsize, void* steps, void* rec_count,
                   void* rec_mats, void* rec_face, void* rec_uu, void* rec_vv,
                   void* stream) {
@@ -402,7 +472,7 @@ static int launch(const void* nodes, int root, int depth, float octree_scale,
   const int blocks = (n + threads - 1) / threads;
   esvo_traverse_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
-      (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb,
+      (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb, sh,
       (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
       (float*)vpos, (float*)vsize, (int*)steps, (int*)rec_count,
       (int*)rec_mats, (int*)rec_face, (float*)rec_uu, (float*)rec_vv);
@@ -416,9 +486,10 @@ extern "C" int esvo_traverse(const void* nodes, int root, int depth,
                              const void* active, int n, void* hit, void* t,
                              void* face, void* uv, void* leaf, void* vpos,
                              void* vsize, void* steps, void* stream) {
-  AlphaTables tb = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0};
+  AlphaTables tb = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0};
+  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
   return launch<0>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
-                   dirs, active, n, tb, hit, t, face, uv, leaf, vpos, vsize,
+                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
                    steps, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
 }
 
@@ -432,9 +503,11 @@ extern "C" int esvo_traverse_alpha(
     void* uv, void* leaf, void* vpos, void* vsize, void* steps, void* stream) {
   AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
                     (const float*)atlas, (const int*)sizes,
-                    (const uint8_t*)rejectable, n_leaf, n_mat, n_layer, atlas_h, atlas_w};
+                    (const uint8_t*)rejectable, nullptr, nullptr, n_leaf, n_mat,
+                    n_layer, atlas_h, atlas_w};
+  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
   return launch<1>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
-                   dirs, active, n, tb, hit, t, face, uv, leaf, vpos, vsize,
+                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
                    steps, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
 }
 
@@ -448,11 +521,32 @@ extern "C" int esvo_traverse_record(
     void* vpos, void* vsize, void* steps, void* rec_count, void* rec_mats,
     void* rec_face, void* rec_uu, void* rec_vv, void* stream) {
   AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
-                    (const float*)atlas, (const int*)sizes, nullptr, n_leaf,
-                    n_mat, n_layer, atlas_h, atlas_w};
+                    (const float*)atlas, (const int*)sizes, nullptr, nullptr,
+                    nullptr, n_leaf, n_mat, n_layer, atlas_h, atlas_w};
+  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
   return launch<2>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
-                   dirs, active, n, tb, hit, t, face, uv, leaf, vpos, vsize,
+                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
                    steps, rec_count, rec_mats, rec_face, rec_uu, rec_vv, stream);
+}
+
+// K3s: the shadow walk.  `ts` may be null (the sun walk records no t).
+extern "C" int esvo_traverse_shadow(
+    const void* nodes, int root, int depth, float octree_scale, float inv_scale,
+    float max_dst, const void* origins, const void* dirs, const void* active,
+    int n, const void* leaf_material, int n_leaf, const void* texture_index,
+    int n_mat, const void* atlas, int n_layer, int atlas_h, int atlas_w,
+    const void* sizes, const void* binary, const void* ior, const void* cur_mat,
+    int strict, void* hit, void* t, void* face, void* uv, void* leaf, void* vpos,
+    void* vsize, void* steps, void* rec_count, void* rec_mats, void* rec_uu,
+    void* rec_vv, void* w, void* cm, void* ts, void* stream) {
+  AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
+                    (const float*)atlas, (const int*)sizes, nullptr,
+                    (const uint8_t*)binary, (const float*)ior, n_leaf, n_mat,
+                    n_layer, atlas_h, atlas_w};
+  ShadowIO sh = {(const int*)cur_mat, strict, (float*)w, (int*)cm, (float*)ts};
+  return launch<3>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
+                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
+                   steps, rec_count, rec_mats, nullptr, rec_uu, rec_vv, stream);
 }
 
 extern "C" const char* esvo_error_string(int code) {

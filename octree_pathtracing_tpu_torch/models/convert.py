@@ -16,12 +16,16 @@ import torch
 
 from ..ops.texture import Atlas
 from ..ops.traversal import pack_nodes
+from .emitters import EmitterTable
 from .materials import MaterialTable
 from .scene import Scene
 from .sun import Sun, SunSampling
 
 _SUN_FIELDS = [f.name for f in dataclasses.fields(Sun) if f.name != "draw_texture"]
 _MATERIAL_INT_FIELDS = ("flags", "texture_index", "tint_index")
+_EMITTER_ARRAYS = {"pos": np.float32, "size": np.float32, "mat": np.int32,
+                   "grid_idx": np.int32, "grid_w": np.float32}
+_EMITTER_STATICS = ("grid_bits", "cell_size", "lam")
 
 
 def _t(x, dtype):
@@ -44,13 +48,16 @@ def scene_from_numpy(
     f_sub_surface: float = 0.3,
     opaque_only: bool = False,
     shadow_binary: bool = False,
+    emitters: dict | None = None,
 ) -> Scene:
     """Scene from numpy leaves.
 
     ``materials``: column name -> (M,) array (the MaterialTable fields);
     ``atlas``: (T, H, W, 4) float32 with ``atlas_sizes`` (T, 2) for a
     variable-resolution atlas, or ``atlas_sizes=None``; ``sun``: field name
-    -> array for every tensor field of :class:`Sun`, plus ``draw_texture``."""
+    -> array for every tensor field of :class:`Sun`, plus ``draw_texture``;
+    ``emitters``: None or field name -> value for every field of
+    :class:`EmitterTable` (``grid_idx`` / ``grid_w`` may be None)."""
     table = MaterialTable(
         **{
             k: _t(materials[k], np.int32 if k in _MATERIAL_INT_FIELDS else np.float32)
@@ -65,6 +72,14 @@ def scene_from_numpy(
         draw_texture=bool(sun.get("draw_texture", True)),
     )
     nodes = pack_nodes(_t(child_mask, np.int64), _t(child_data, np.int64))
+    em_table = None
+    if emitters is not None:
+        em_table = EmitterTable(
+            **{k: None if emitters[k] is None else _t(emitters[k], dt) for k, dt in _EMITTER_ARRAYS.items()},
+            grid_bits=int(emitters["grid_bits"]),
+            cell_size=float(emitters["cell_size"]),
+            lam=float(emitters["lam"]),
+        )
     return Scene(
         nodes=nodes,
         root=int(root),
@@ -73,6 +88,7 @@ def scene_from_numpy(
         atlas=atlas_t,
         sun=sun_t,
         leaf_material=_t(leaf_material, np.int32),
+        emitters=em_table,
         sun_sampling=dataclasses.replace(sun_sampling) if sun_sampling else SunSampling.importance(),
         emitter_sampling=emitter_sampling,
         emitters_enabled=bool(emitters_enabled),
@@ -84,7 +100,7 @@ def scene_from_numpy(
 
 def scene_from_jax_arrays(jscene) -> Scene:
     """Port scene from a JAX-package ``Scene`` (plain octree, no block
-    models, primitives or emitter table)."""
+    models or primitives), its emitter table included."""
     if jscene.models is not None or jscene.prims is not None:
         raise NotImplementedError("block models / primitives: ROADMAP queue 1, item 7")
     if hasattr(jscene.octree, "bricks"):
@@ -93,6 +109,11 @@ def scene_from_jax_arrays(jscene) -> Scene:
     m = jscene.materials
     atlas = jscene.atlas
     sizes = getattr(atlas, "sizes", None)
+    em = jscene.emitters
+    emitters = None
+    if em is not None:
+        emitters = {k: None if getattr(em, k) is None else np.asarray(getattr(em, k)) for k in _EMITTER_ARRAYS}
+        emitters.update({k: getattr(em, k) for k in _EMITTER_STATICS})
     return scene_from_numpy(
         child_mask=np.asarray(tree.child_mask),
         child_data=np.asarray(tree.child_data),
@@ -110,4 +131,5 @@ def scene_from_jax_arrays(jscene) -> Scene:
         f_sub_surface=jscene.f_sub_surface,
         opaque_only=jscene.opaque_only,
         shadow_binary=jscene.shadow_binary,
+        emitters=emitters,
     )

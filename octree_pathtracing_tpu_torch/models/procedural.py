@@ -1,6 +1,7 @@
 """Procedural scenes (port of ``models/procedural.py``): the voxel sphere,
 the Cornell box, the Minecraft-style terrain chunk and its cutout variant
-(trees with alpha-holed leaf canopies), built on the host by the port's
+(trees with alpha-holed leaf canopies), and the two emitter-sampling rooms
+(a ceiling light, scattered floor lights), built on the host by the port's
 numpy octree builder (``octree/``)."""
 
 from __future__ import annotations
@@ -275,4 +276,72 @@ def cutout_chunk_scene(depth: int = 5, seed: int = 0, cache_dir: str | None = No
     ]
     scene = make_scene(tree, make_material_table(materials), build_atlas(textures))
     camera = Camera.look_at(eye=(-s * 0.4, s * 0.8, -s * 0.4), center=(s * 0.5, s * 0.3, s * 0.5))
+    return scene, camera
+
+
+def emissive_room_scene(depth: int = 3):
+    """Closed diffuse room lit only by its emissive ceiling: no ray escapes,
+    so all light is emitter transport.  Built with ``EmitterSampling.ONE``."""
+    s = 1 << depth
+    grid = np.zeros((s, s, s), np.uint32)
+    W, L = 1, 2
+    grid[0, :, :] = W
+    grid[s - 1, :, :] = W
+    grid[:, 0, :] = W
+    grid[:, :, 0] = W
+    grid[:, :, s - 1] = W
+    grid[:, s - 1, :] = L  # the whole ceiling emits
+
+    tree = octree_from_grid(grid)
+    textures = [
+        _solid_texture((255, 0, 255)),
+        _solid_texture((210, 210, 210)),
+        _solid_texture((255, 240, 220)),
+    ]
+    materials = [air(), dict(texture_index=1), dict(texture_index=2, emittance=4.0)]
+    scene = make_scene(
+        tree,
+        make_material_table(materials),
+        build_atlas(textures),
+        sun=make_sun(altitude=-np.pi / 2),
+        emitter_sampling="one",
+    )
+    camera = Camera.look_at(eye=(s * 0.52, s * 0.43, s * 0.55), center=(s * 0.21, s * 0.35, s * 0.2))
+    return scene, camera
+
+
+def scattered_lights_scene(depth: int = 5, n_lights: int = 150, seed: int = 1):
+    """Closed dark room with ``n_lights`` small emissive blocks scattered over
+    the floor, and the camera near one corner: nearby lights dominate, which
+    the spatial pick (``models/emitters.build_spatial_grid``) favours.
+    Built with ``EmitterSampling.ONE``."""
+    rng = np.random.default_rng(seed)
+    s = 1 << depth
+    grid = np.zeros((s, s, s), np.uint32)
+    W, L = 1, 2
+    grid[0, :, :] = W
+    grid[s - 1, :, :] = W
+    grid[:, 0, :] = W
+    grid[:, s - 1, :] = W
+    grid[:, :, 0] = W
+    grid[:, :, s - 1] = W
+    lx = rng.integers(1, s - 1, n_lights)
+    lz = rng.integers(1, s - 1, n_lights)
+    grid[lx, 1, lz] = L  # the lights sit on the floor (y = 1)
+
+    tree = octree_from_grid(grid)
+    textures = [
+        _solid_texture((255, 0, 255)),
+        _solid_texture((140, 140, 140)),
+        _solid_texture((255, 230, 180)),
+    ]
+    materials = [air(), dict(texture_index=1), dict(texture_index=2, emittance=12.0)]
+    scene = make_scene(
+        tree,
+        make_material_table(materials),
+        build_atlas(textures),
+        sun=make_sun(altitude=-np.pi / 2),
+        emitter_sampling="one",
+    )
+    camera = Camera.look_at(eye=(s * 0.12, s * 0.3, s * 0.12), center=(s * 0.45, s * 0.1, s * 0.45))
     return scene, camera

@@ -1,5 +1,5 @@
-"""Scene — packed octree + material table + texture atlas + sun + strategy
-flags (port of ``models/scene.py``).
+"""Scene — packed octree + material table + texture atlas + sun + emitter
+table + strategy flags (port of ``models/scene.py``).
 
 The octree lives as the packed ``(N, 8)`` int32 node table of
 :func:`ops.traversal.pack_nodes` (flags in the child words), which is what
@@ -41,6 +41,8 @@ class Scene:
     atlas: Any  # (T, H, W, 4) linear float32 tensor, or an Atlas
     sun: Sun
     leaf_material: torch.Tensor  # (L,) int32: leaf value -> material id
+    # emissive-leaf table for emitter sampling (models/emitters.py), or None
+    emitters: Any = None
     sun_sampling: SunSampling = dataclasses.field(default_factory=SunSampling.importance)
     emitter_sampling: str = EmitterSampling.NONE
     emitters_enabled: bool = True
@@ -72,6 +74,7 @@ class Scene:
             atlas=self.atlas.to(device),
             sun=self.sun.to(device),
             leaf_material=self.leaf_material.to(device),
+            emitters=None if self.emitters is None else self.emitters.to(device),
         )
 
 
@@ -115,18 +118,18 @@ def make_scene(
     brick: bool = False,
     **kwargs,
 ) -> Scene:
-    """Build a scene from a numpy ``Octree`` (``octree/``).
+    """Build a scene from a numpy ``Octree`` (``octree/``).  With an
+    ``emitter_sampling`` other than NONE and no ``emitters`` given, the
+    emissive-leaf table is built from the octree.
 
-    Block models, analytic primitives, the brick layout and emitter
-    sampling are not ported yet and raise ``NotImplementedError``."""
+    Block models, analytic primitives and the brick layout are not ported
+    and raise ``NotImplementedError``."""
     if models is not None:
         raise NotImplementedError("block models: ROADMAP queue 1, item 7")
     if prims is not None:
         raise NotImplementedError("analytic primitives: ROADMAP queue 1, item 7")
     if brick or hasattr(octree, "bricks"):  # a BrickOctree
         raise NotImplementedError("the brick layout is not ported (ROADMAP queue 1, 'Not to port')")
-    if kwargs.get("emitter_sampling", EmitterSampling.NONE) != EmitterSampling.NONE:
-        raise NotImplementedError("emitter sampling: ROADMAP queue 1, item 6")
     if sun is None:
         sun = make_sun()
     if leaf_material is None:
@@ -136,6 +139,11 @@ def make_scene(
         opaque_only, shadow_binary = _alpha_flags(atlas, materials.texture_index)
         kwargs.setdefault("opaque_only", opaque_only)
         kwargs.setdefault("shadow_binary", shadow_binary)
+    leaf_material = torch.as_tensor(leaf_material, dtype=torch.int32)
+    if kwargs.get("emitter_sampling", EmitterSampling.NONE) != EmitterSampling.NONE and "emitters" not in kwargs:
+        from .emitters import build_emitter_table
+
+        kwargs["emitters"] = build_emitter_table(octree, leaf_material, materials)
     nodes = pack_nodes(
         torch.from_numpy(np.asarray(octree.child_mask).astype(np.int64)),
         torch.from_numpy(np.asarray(octree.child_data).astype(np.int64)),
@@ -147,6 +155,6 @@ def make_scene(
         materials=materials,
         atlas=atlas,
         sun=sun,
-        leaf_material=torch.as_tensor(leaf_material, dtype=torch.int32),
+        leaf_material=leaf_material,
         **kwargs,
     )

@@ -1,4 +1,4 @@
-"""ESVO first-hit traversal in three modes — CUDA kernels (one template
+"""ESVO first-hit traversal in four modes — CUDA kernels (one template
 body in ``csrc/traversal.cu``), their plain-torch twins, and the wrappers
 that pick between them by device:
 
@@ -9,7 +9,11 @@ that pick between them by device:
   are accepted without the texel fetch);
 - :func:`traverse_record` — kernel K3r, the recording walk of
   ``diff/soft.record_surfaces``: the first ``K_SURFACES`` surfaces per ray
-  are recorded as (mat, face, uu, vv) and the last one is accepted.
+  are recorded as (mat, face, uu, vv) and the last one is accepted;
+- :func:`traverse_shadow` — kernel K3s, the shadow walk of
+  ``render/hit.make_shadow_accept_fn``: every alpha surface the ray crosses
+  is recorded as (mat, uu, vv[, t]) under a running alpha budget, and the
+  walk stops at the ``K_SURFACES``-th surface or when the budget is spent.
 
 Port of ``octree_pathtracing_tpu/ops/traversal.py:traverse`` with those
 accept callbacks, for scenes without block models.  Each wrapper launches
@@ -72,6 +76,8 @@ class AlphaTables(NamedTuple):
     atlas: torch.Tensor  # (T, H, W, 4) float32 texels
     sizes: torch.Tensor | None  # (T, 2) int32 per-layer (h, w), or None
     rejectable: torch.Tensor  # (L,) bool: some texel of the leaf is a hole
+    binary: torch.Tensor  # (L,) bool: every texel alpha is 1 (shadow walk)
+    ior: torch.Tensor  # (M,) float32 material IOR (shadow walk, strict)
 
 
 class SurfaceRecord(NamedTuple):
@@ -82,6 +88,19 @@ class SurfaceRecord(NamedTuple):
     face: torch.Tensor  # (K, B) int32 entry face of each
     uu: torch.Tensor  # (K, B) float32
     vv: torch.Tensor  # (K, B) float32
+
+
+class ShadowState(NamedTuple):
+    """What :func:`traverse_shadow` recorded (``render/hit.shadow_state_init``
+    without the drained walk's ``t_last``)."""
+
+    count: torch.Tensor  # (B,) int32 surfaces recorded (<= K_SURFACES)
+    w: torch.Tensor  # (B,) float32 alpha budget left
+    cm: torch.Tensor  # (B,) int32 medium after the last surface (cur_mat before any)
+    mats: torch.Tensor  # (K, B) int32
+    uu: torch.Tensor  # (K, B) float32
+    vv: torch.Tensor  # (K, B) float32
+    ts: torch.Tensor | None  # (K, B) float32 world t (inf when unused), or None
 
 
 def pack_nodes(child_mask, child_data):
@@ -318,21 +337,72 @@ def _alpha_accept(c, s, tables: AlphaTables, mode: int, fresh, rec):
     return is_surface & (count >= K_SURFACES), rec
 
 
+def _shadow_accept(c, s, tables: AlphaTables, fresh, st: ShadowState, strict: bool, inv_scale):
+    """The shadow walk's accept (``make_shadow_accept_fn``), on every lane
+    (only ``fresh`` lanes count).  A binary-class leaf is a surface of alpha
+    exactly 1 with the entry face's uv; any other leaf is a surface when its
+    texel alpha is above ALPHA_EPSILON.  Returns (stop (B,) bool, state)."""
+    _, uu, vv, _ = _hit_info(c, s)
+    n_leaf, n_mat = tables.leaf_material.shape[0], tables.texture_index.shape[0]
+    lv = torch.clamp(s["cand"], 0, n_leaf - 1).long()
+    mat = torch.clamp(tables.leaf_material[lv], 0, n_mat - 1)
+    layer = torch.clamp(tables.texture_index[mat.long()], 0, tables.atlas.shape[0] - 1)
+    atlas = tables.atlas if tables.sizes is None else Atlas(tables.atlas, tables.sizes)
+    texel = sample_atlas(atlas, layer, uu, vv)[:, 3]
+    is_bin = tables.binary[lv]
+    alpha = torch.where(is_bin, 1.0, texel)
+    is_surface = fresh & (is_bin | (texel > ALPHA_EPSILON))
+    new_w = st.w * (1.0 - alpha)
+    if strict:
+        ior_change = tables.ior[torch.clamp(st.cm, 0, n_mat - 1).long()] != tables.ior[mat.long()]
+        new_w = torch.where(ior_change, 0.0, new_w)
+    rows = torch.arange(K_SURFACES, dtype=torch.int32, device=lv.device)[:, None]
+    sel = is_surface[None, :] & (rows == st.count[None, :])
+    count = st.count + is_surface.to(torch.int32)
+    w = torch.where(is_surface, new_w, st.w)
+    ts = st.ts
+    if ts is not None:
+        ts = torch.where(sel, (s["t_min"] * inv_scale)[None, :], ts)
+    st = ShadowState(
+        count=count,
+        w=w,
+        cm=torch.where(is_surface, mat, st.cm),
+        mats=torch.where(sel, mat[None, :], st.mats),
+        uu=torch.where(sel, uu[None, :], st.uu),
+        vv=torch.where(sel, vv[None, :], st.vv),
+        ts=ts,
+    )
+    return is_surface & ((count >= K_SURFACES) | (w <= 0.0)), st
+
+
 def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
-                    active, tables):
-    """The twins' walk: mode 0 (K1), 1 (K2) or 2 (K3r).
-    Returns (HitResult, SurfaceRecord or None)."""
+                    active, tables, shadow=None):
+    """The twins' walk: mode 0 (K1), 1 (K2), 2 (K3r) or 3 (K3s, with
+    ``shadow = (cur_mat, strict, record_t)``).
+    Returns (HitResult, SurfaceRecord / ShadowState or None)."""
     _check_depth(depth)
     scale_base = MAX_SCALE - int(depth)
     c, s = _init(root, octree_scale, origins, dirs, int(depth) + 1)
     if active is not None:
         s["status"] = torch.where(active, s["status"], MISS).to(torch.int32)
     max_dst_c = float(np.float32(max_dst * octree_scale))
+    inv_scale = 1.0 / octree_scale
     steps = torch.zeros_like(s["status"])
     rec = None
+    zi = torch.zeros((K_SURFACES, steps.shape[0]), dtype=torch.int32, device=steps.device)
     if mode == 2:
-        zi = torch.zeros((K_SURFACES, steps.shape[0]), dtype=torch.int32, device=steps.device)
         rec = SurfaceRecord(steps.clone(), zi, zi.clone(), zi.float(), zi.float())
+    elif mode == 3:
+        cur_mat, strict, record_t = shadow
+        rec = ShadowState(
+            count=steps.clone(),
+            w=torch.ones_like(steps, dtype=torch.float32),
+            cm=cur_mat.to(torch.int32),
+            mats=zi,
+            uu=zi.float(),
+            vv=zi.float(),
+            ts=torch.full_like(zi, float("inf"), dtype=torch.float32) if record_t else None,
+        )
     for _ in range(MAX_STEPS):
         live = s["status"] == ACTIVE
         if not bool(live.any()):
@@ -343,13 +413,15 @@ def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs
         if mode:
             fresh = live & (s["status"] == CANDIDATE)
             if bool(fresh.any()):
-                ok, rec = _alpha_accept(c, s, tables, mode, fresh, rec)
+                if mode == 3:
+                    ok, rec = _shadow_accept(c, s, tables, fresh, rec, shadow[1], inv_scale)
+                else:
+                    ok, rec = _alpha_accept(c, s, tables, mode, fresh, rec)
                 rej = fresh & ~ok
                 s["status"] = torch.where(rej, ACTIVE, s["status"]).to(torch.int32)
                 s["reject"] = s["reject"] | rej
         steps += live.to(torch.int32)
 
-    inv_scale = 1.0 / octree_scale
     hit = s["status"] == CANDIDATE
     face, uu, vv, unmirrored_pos = _hit_info(c, s)
     res = HitResult(
@@ -375,11 +447,11 @@ def traverse_reference(nodes_packed, root, depth, octree_scale, origins, dirs, m
 
 
 def traverse_alpha_reference(nodes_packed, root, depth, octree_scale, origins, dirs,
-                             tables: AlphaTables, max_dst=1024.0):
+                             tables: AlphaTables, max_dst=1024.0, active=None):
     """Plain-torch twin of kernel K2 (any device).  Same signature and
     result as :func:`traverse_alpha`."""
     return _walk_reference(1, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
-                           None, tables)[0]
+                           active, tables)[0]
 
 
 def traverse_record_reference(nodes_packed, root, depth, octree_scale, origins, dirs,
@@ -390,9 +462,18 @@ def traverse_record_reference(nodes_packed, root, depth, octree_scale, origins, 
                            None, tables)
 
 
+def traverse_shadow_reference(nodes_packed, root, depth, octree_scale, origins, dirs,
+                              tables: AlphaTables, cur_mat, strict: bool, record_t: bool,
+                              max_dst=1024.0, active=None):
+    """Plain-torch twin of kernel K3s (any device).  Same signature and
+    result as :func:`traverse_shadow`."""
+    return _walk_reference(3, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
+                           active, tables, (cur_mat, bool(strict), bool(record_t)))
+
+
 @functools.cache
 def _library():
-    """The traversal kernels' shared library (K1, K2, K3r), built at first use."""
+    """The traversal kernels' shared library (K1, K2, K3r, K3s), built at first use."""
     from ..utils.cuda_build import load_library
 
     # IEEE rounding of every operation, no FMA contraction: the twin and the
@@ -404,14 +485,16 @@ def _library():
     lib.esvo_traverse.argtypes = head + [vp] * 8 + [vp]
     lib.esvo_traverse_alpha.argtypes = head + tables + [vp] + [vp] * 8 + [vp]
     lib.esvo_traverse_record.argtypes = head + tables + [vp] * 8 + [vp] * 5 + [vp]
-    for fn in (lib.esvo_traverse, lib.esvo_traverse_alpha, lib.esvo_traverse_record):
+    lib.esvo_traverse_shadow.argtypes = head + tables + [vp, vp, vp, ci] + [vp] * 8 + [vp] * 7 + [vp]
+    for fn in (lib.esvo_traverse, lib.esvo_traverse_alpha, lib.esvo_traverse_record,
+               lib.esvo_traverse_shadow):
         fn.restype = ci
     lib.esvo_error_string.argtypes = [ci]
     lib.esvo_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_cuda_inputs(nodes, origins, dirs, active, tables):
+def _check_cuda_inputs(nodes, origins, dirs, active, tables, mode, cur_mat):
     dev = origins.device
     b = origins.shape[0]
     checks = [
@@ -429,7 +512,7 @@ def _check_cuda_inputs(nodes, origins, dirs, active, tables):
              and active.device == dev, "active must be a contiguous (B,) bool on the rays' device")
         )
     if tables is not None:
-        lm, ti, atlas, sizes, rej = tables
+        lm, ti, atlas, sizes, rej = tables.leaf_material, tables.texture_index, tables.atlas, tables.sizes, tables.rejectable
         n_layer = atlas.shape[0] if atlas.dim() == 4 else 0
         checks += [
             (lm.dtype == torch.int32 and lm.dim() == 1 and lm.shape[0] > 0, "leaf_material must be (L,) int32"),
@@ -443,13 +526,26 @@ def _check_cuda_inputs(nodes, origins, dirs, active, tables):
              and (sizes is None or (sizes.is_contiguous() and sizes.device == dev)),
              "tables must be contiguous and on the rays' device"),
         ]
+    if mode == 3:
+        bi, ior = tables.binary, tables.ior
+        checks += [
+            (bi.dtype == torch.bool and bi.shape == lm.shape and bi.is_contiguous()
+             and bi.device == dev, "binary must be a contiguous (L,) bool on the rays' device"),
+            (ior.dtype == torch.float32 and ior.shape == ti.shape
+             and ior.is_contiguous() and ior.device == dev,
+             "ior must be a contiguous (M,) float32 on the rays' device"),
+            (cur_mat.dtype == torch.int32 and cur_mat.shape == (b,) and cur_mat.is_contiguous()
+             and cur_mat.device == dev, "cur_mat must be a contiguous (B,) int32 on the rays' device"),
+        ]
     for ok, msg in checks:
         if not ok:
             raise ValueError(f"traverse: {msg}")
 
 
-def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dirs, max_dst, active, tables):
-    _check_cuda_inputs(nodes, origins, dirs, active, tables)
+def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dirs, max_dst, active, tables,
+                   shadow=None):
+    cur_mat, strict, record_t = shadow if mode == 3 else (None, False, False)
+    _check_cuda_inputs(nodes, origins, dirs, active, tables, mode, cur_mat)
     b = origins.shape[0]
     dev = origins.device
     f32, i32 = torch.float32, torch.int32
@@ -473,6 +569,16 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
             uu=torch.empty((K_SURFACES, b), dtype=f32, device=dev),
             vv=torch.empty((K_SURFACES, b), dtype=f32, device=dev),
         )
+    elif mode == 3:
+        rec = ShadowState(
+            count=torch.empty((b,), dtype=i32, device=dev),
+            w=torch.empty((b,), dtype=f32, device=dev),
+            cm=torch.empty((b,), dtype=i32, device=dev),
+            mats=torch.empty((K_SURFACES, b), dtype=i32, device=dev),
+            uu=torch.empty((K_SURFACES, b), dtype=f32, device=dev),
+            vv=torch.empty((K_SURFACES, b), dtype=f32, device=dev),
+            ts=torch.empty((K_SURFACES, b), dtype=f32, device=dev) if record_t else None,
+        )
     if b == 0:  # an empty batch launches nothing
         return out, rec
     lib = _library()
@@ -481,7 +587,7 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
             origins.data_ptr(), dirs.data_ptr(), None if active is None else active.data_ptr(), b)
     outs = tuple(x.data_ptr() for x in out[:7]) + (out.fetches.data_ptr(),)
     if tables is not None:
-        lm, ti, atlas, sizes, rej = tables
+        lm, ti, atlas, sizes = tables.leaf_material, tables.texture_index, tables.atlas, tables.sizes
         tabs = (lm.data_ptr(), lm.shape[0], ti.data_ptr(), ti.shape[0], atlas.data_ptr(),
                 atlas.shape[0], atlas.shape[1], atlas.shape[2],
                 None if sizes is None else sizes.data_ptr())
@@ -490,9 +596,15 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
         if mode == 0:
             rc = lib.esvo_traverse(*head, *outs, stream)
         elif mode == 1:
-            rc = lib.esvo_traverse_alpha(*head, *tabs, rej.data_ptr(), *outs, stream)
-        else:
+            rc = lib.esvo_traverse_alpha(*head, *tabs, tables.rejectable.data_ptr(), *outs, stream)
+        elif mode == 2:
             rc = lib.esvo_traverse_record(*head, *tabs, *outs, *(x.data_ptr() for x in rec), stream)
+        else:
+            rc = lib.esvo_traverse_shadow(
+                *head, *tabs, tables.binary.data_ptr(), tables.ior.data_ptr(), cur_mat.data_ptr(),
+                int(strict), *outs, rec.count.data_ptr(), rec.mats.data_ptr(), rec.uu.data_ptr(),
+                rec.vv.data_ptr(), rec.w.data_ptr(), rec.cm.data_ptr(),
+                None if rec.ts is None else rec.ts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"esvo traversal (mode {mode}) launch failed: {lib.esvo_error_string(rc).decode()}")
     wrapper.launches += 1
@@ -501,7 +613,7 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
 
 def _dispatch(wrapper, mode, *args):
     """The kernel of ``mode`` for CUDA rays, its twin for CPU rays.
-    Returns (HitResult, SurfaceRecord or None)."""
+    Returns (HitResult, SurfaceRecord / ShadowState or None)."""
     nodes, root, depth, octree_scale, origins = args[:5]
     _check_depth(depth)
     if origins.device.type == "cuda":
@@ -527,7 +639,7 @@ def traverse(nodes_packed, root, depth, octree_scale, origins, dirs, max_dst=102
 
 
 def traverse_alpha(nodes_packed, root, depth, octree_scale, origins, dirs, tables: AlphaTables,
-                   max_dst=1024.0):
+                   max_dst=1024.0, active=None):
     """:func:`traverse` with the in-loop alpha accept: a leaf candidate whose
     leaf is ``tables.rejectable`` and whose texel alpha at the hit uv is
     <= ``ALPHA_EPSILON`` is rejected, and the ray walks on past it.
@@ -536,7 +648,7 @@ def traverse_alpha(nodes_packed, root, depth, octree_scale, origins, dirs, table
     ``traverse_alpha.launches``; CPU tensors run
     :func:`traverse_alpha_reference`."""
     return _dispatch(traverse_alpha, 1, nodes_packed, root, depth, octree_scale, origins, dirs,
-                     max_dst, None, tables)[0]
+                     max_dst, active, tables)[0]
 
 
 def traverse_record(nodes_packed, root, depth, octree_scale, origins, dirs, tables: AlphaTables,
@@ -553,6 +665,25 @@ def traverse_record(nodes_packed, root, depth, octree_scale, origins, dirs, tabl
                      max_dst, None, tables)
 
 
+def traverse_shadow(nodes_packed, root, depth, octree_scale, origins, dirs, tables: AlphaTables,
+                    cur_mat, strict: bool, record_t: bool, max_dst=1024.0, active=None):
+    """The shadow walk: record each alpha surface the ray crosses, front to
+    back, with a running alpha budget ``w *= 1 - alpha`` that starts at 1;
+    stop at the ``K_SURFACES``-th surface or when ``w <= 0``.  A leaf of the
+    ``tables.binary`` class is a surface of alpha 1 read without a texel
+    fetch.  ``strict`` zeroes the budget when a surface's IOR differs from
+    the medium's (``cur_mat`` (B,) int32 before the first surface);
+    ``record_t`` records each surface's world t as well.  ``active``: False
+    lanes start as MISS and fetch nothing.  Returns (HitResult, ShadowState).
+
+    CUDA tensors launch kernel K3s (mode 3) and count the launch in
+    ``traverse_shadow.launches``; CPU tensors run
+    :func:`traverse_shadow_reference`."""
+    return _dispatch(traverse_shadow, 3, nodes_packed, root, depth, octree_scale, origins, dirs,
+                     max_dst, active, tables, (cur_mat, bool(strict), bool(record_t)))
+
+
 traverse.launches = 0
 traverse_alpha.launches = 0
 traverse_record.launches = 0
+traverse_shadow.launches = 0

@@ -1,7 +1,9 @@
 """The backward of the port's path tracer: gradients of bench.py's loss (the
 mean radiance of ``trace_paths`` over ``apply_params``) into the atlas and
 the emittance, against ``jax.grad`` on the same JAX-drawn uniform block and
-against central differences; ``apply_params``; a fixed-block descent.
+against central differences, on the sphere, the Cornell box and the
+emissive room under ``EmitterSampling.ONE`` (gradients through the emitter
+NEE and its shadow walk); ``apply_params``; a fixed-block descent.
 
 Gate: rtol 1e-3 / atol 1e-5 against ``jax.grad`` (XLA and torch may differ
 by an ulp in sin / cos / pow, ROADMAP section 3); the central-difference
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from octree_pathtracing_tpu.models import cornell_scene as jax_cornell
+from octree_pathtracing_tpu.models import emissive_room_scene as jax_room
 from octree_pathtracing_tpu.models import sphere_scene as jax_sphere
 from octree_pathtracing_tpu.models.camera import pixel_grid_rays as jax_rays
 from octree_pathtracing_tpu.parallel.shard import apply_params as jax_apply_params
@@ -29,7 +32,7 @@ from octree_pathtracing_tpu_torch.ops.texture import Atlas
 from octree_pathtracing_tpu_torch.parallel import apply_params, render_loss
 from octree_pathtracing_tpu_torch.render import draw_uniforms, trace_paths
 
-CASES = {"sphere_atlas": (jax_sphere, 0), "cornell_emittance": (jax_cornell, 1)}
+CASES = {"sphere_atlas": (jax_sphere, 0), "cornell_emittance": (jax_cornell, 1), "room_one": (jax_room, 2)}
 
 
 def _jax_case(name):
@@ -81,7 +84,7 @@ def test_gradients_match_jax_grad(jax_cases, name):
     for k in ("atlas", "emittance"):
         assert np.isfinite(grads[k]).all(), k
         np.testing.assert_allclose(grads[k], case["grads"][k], rtol=1e-3, atol=1e-5, err_msg=k)
-    watched = {"sphere_atlas": "atlas", "cornell_emittance": "emittance"}[name]
+    watched = {"sphere_atlas": "atlas", "cornell_emittance": "emittance", "room_one": "emittance"}[name]
     assert np.abs(grads[watched]).max() > 1e-3  # the case exercises its parameter
 
 
@@ -162,3 +165,33 @@ def test_inverse_loss_deterministic_descent():
             params["emittance"].clamp_(min=0.0)
         losses.append(float(loss.detach()))
     assert all(b < a for a, b in zip(losses, losses[1:])), losses
+
+
+def test_open_scene_emitter_gradient_is_finite():
+    """Under ``EmitterSampling.ONE`` on a scene rays escape from, the JAX
+    package's gradient turns NaN (a miss's hit point lies at infinity and
+    its masked NEE term is NaN; ROADMAP section 3).  The port's gradient is
+    finite, and equals JAX's wherever JAX's is finite."""
+    from octree_pathtracing_tpu.models import minecraft_chunk_scene as jax_chunk
+    from octree_pathtracing_tpu.models.emitters import build_emitter_table as jax_emitter_table
+    from octree_pathtracing_tpu.models.sun import SunSampling as JaxSunSampling
+
+    jscene, cam = jax_chunk(depth=4)
+    jscene = dataclasses.replace(
+        jscene, sun_sampling=JaxSunSampling.high_quality(), emitter_sampling="one",
+        emitters=jax_emitter_table(jscene.octree, jscene.leaf_material, jscene.materials))
+    o, d = jax_rays(cam, 12, 8)
+    u = jax_draw_uniforms(jax.random.PRNGKey(0), o.shape[0], n_bounces=3)
+    params = {"atlas": jscene.atlas, "emittance": jscene.materials.emittance}
+    want = jax.jit(jax.grad(lambda p: jnp.mean(jax_trace_paths(jax_apply_params(jscene, p), o, d, u))))(params)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    assert np.isnan(want["atlas"]).any()
+
+    case = dict(scene=scene_from_jax_arrays(jscene), rays=(torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d))),
+                u=torch.from_numpy(np.array(u)))
+    _, _, grads = _port_grads(case)
+    for k in ("atlas", "emittance"):
+        assert np.isfinite(grads[k]).all(), k
+        ok = np.isfinite(want[k])
+        np.testing.assert_allclose(grads[k][ok], want[k][ok], rtol=1e-3, atol=1e-5, err_msg=k)
+    assert grads["emittance"][4] > 1e-4  # the glowstone lights the frame through the NEE
