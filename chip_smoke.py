@@ -12,11 +12,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    shadow walk), P2 (``csrc/uniforms.cu``, Philox uniforms) and P1
    (``csrc/gather.cu``, row gather);
 2. every kernel against its plain-torch twin on the card, timed beside its
-   bound (and, for P2, beside ``torch.rand``):
+   bound; P1 and P2 twice, by call (CUDA events around back-to-back calls:
+   what an eager caller pays, host path included) and on the device alone
+   (the same calls captured in a CUDA graph and replayed), beside the same
+   two times of ``torch.index_select`` and ``torch.rand``:
    - K1 on a random depth-4 octree (4096 rays with an active mask) and on
      the 256x256 primaries of the depth-9 terrain;
-   - P2 on the (65536, 5, 21) uniform block and on a ragged size, bit for
-     bit;
+   - P2 on the (65536, 5, 21) uniform block and on ragged sizes (one not a
+     multiple of the grid's stride), bit for bit;
    - K2 on the 256x256 primaries of the depth-9 cutout scene and on its
      8 training views at 512x512; K3r on the 256x256 primaries of both
      depth-9 scenes and on the 8 training views of both;
@@ -25,10 +28,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      (strict, no t), and toward ``sample_emitter_point`` points (t
      recorded, the attenuation truncated at ``max_t``); beside K1 on the
      same rays;
-   - P1 at the probe's shape (a (131072, 8) int32 table, 4096 indices) and
-     at the emitter grid's ((4096, 8) float32 ``grid_w`` of the cutout, the
-     65536 supercells of its primaries' hit points), bit for bit, beside
-     ``torch.index_select``.
+   - P1 at the probe's shape (a (131072, 8) int32 table, 4096 int32 and
+     int64 indices) and at the emitter grid's (the cutout's (4096, 8)
+     ``grid_idx`` and ``grid_w`` at the 65536 supercells of its primaries'
+     hit points), one table at a time and both in one launch (the emitter
+     pick's ``row_gather_pair``), bit for bit, beside ``torch.index_select``.
    Hit, leaf value, face id, fetch counts and record count / mats / face
    must agree on every lane; t, uv and the record's uu / vv within 1e-4 (all
    of them round every operation once, so they should agree exactly); K3s's
@@ -40,7 +44,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3b. the light-sampling entry point: ``cli render --scene cutout --depth 9
    --width 256 --height 256 --spp 20 --sun high_quality --emitter-sampling
    one --device cuda``; the frame must be finite with a positive mean, and
-   K2, K3s, P1 and P2 must have been launched;
+   K2, K3s, P1 and P2 must have been launched, P1 once per spatial emitter
+   pick (both gathers in one launch);
 4. frame parity: one 64x64, 5-bounce frame of each depth-9 scene from a
    fixed uniform block, through the kernels and through the twins, with the
    IMPORTANCE sun and with HIGH_QUALITY + ``EmitterSampling.ONE``; per-lane
@@ -82,7 +87,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -132,31 +136,6 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    """``name, power.limit`` of the card in use, as nvidia-smi prints them."""
-    lines = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-    idx = int(first) if first.isdigit() else 0
-    return lines[idx] if idx < len(lines) else lines[0]
-
-
-def cuda_ms(fn, repeats: int) -> float:
-    """Mean device ms per call over ``repeats`` calls, after one warm-up."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / repeats
-
-
 def bound(n_bytes: float, n_ops: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the float32 rate."""
@@ -175,11 +154,12 @@ def traversal_bound(res, record_bytes: int = 0):
     return bound(n_bytes, fetches * OPS_PER_FETCH) + (fetches,)
 
 
-def gather_bound(table, n_out: int):
-    """P1's bound: the indices and the output rows, and the table's rows read
-    once (the rows gathered, or the whole table when that is smaller)."""
-    row = table.shape[1] * 4
-    return bound(n_out * (4 + row) + min(table.shape[0], n_out) * row, 0)
+def gather_bound(table, idx, tables: int = 1):
+    """P1's bound: the indices, and per table the output rows and the
+    table's rows read once (the rows gathered, or the whole table when that
+    is smaller)."""
+    row, n_out = table.shape[1] * 4, idx.numel()
+    return bound(n_out * idx.element_size() + tables * (n_out + min(table.shape[0], n_out)) * row, 0)
 
 
 def compare_hits(k, r, label: str, k_rec=None, r_rec=None) -> float:
@@ -241,7 +221,12 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.ops import gather
     from octree_pathtracing_tpu_torch.ops import random as prandom
     from octree_pathtracing_tpu_torch.ops import traversal
-    from octree_pathtracing_tpu_torch.ops.gather import row_gather, row_gather_reference
+    from octree_pathtracing_tpu_torch.ops.gather import (
+        row_gather,
+        row_gather_pair,
+        row_gather_pair_reference,
+        row_gather_reference,
+    )
     from octree_pathtracing_tpu_torch.ops.random import philox_uniforms, philox_uniforms_reference
     from octree_pathtracing_tpu_torch.ops.shading import OFFSET
     from octree_pathtracing_tpu_torch.ops.traversal import (
@@ -258,6 +243,7 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.parallel import apply_params
     from octree_pathtracing_tpu_torch.render import Renderer, pathtracer, renderer, trace_paths, trace_paths_census
     from octree_pathtracing_tpu_torch.render.hit import accept_tables
+    from octree_pathtracing_tpu_torch.utils.timing import both, call_ms, card_line
 
     wrappers = {"esvo_traverse": traverse, "esvo_traverse_alpha": traverse_alpha,
                 "esvo_traverse_record": traverse_record, "esvo_traverse_shadow": traverse_shadow,
@@ -269,7 +255,7 @@ def main() -> int:
         with mock.patch.object(pathtracer, "traverse", traverse_reference), \
                 mock.patch.object(pathtracer, "traverse_alpha", traverse_alpha_reference), \
                 mock.patch.object(pathtracer, "traverse_shadow", traverse_shadow_reference), \
-                mock.patch.object(emitters, "row_gather", row_gather_reference):
+                mock.patch.object(emitters, "row_gather_pair", row_gather_pair_reference):
             yield
 
     def high_quality(sc, emitter_sampling="none"):
@@ -323,6 +309,8 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line or "Compiling" in line:
                 log(f"    ptxas: {line.strip()}")
+    p2_grid = prandom._library().philox_resident_blocks()
+    log(f"  P2's grid: {p2_grid} blocks of 256 threads (SMs x resident blocks)")
 
     results = {name: {} for name in wrappers}
 
@@ -371,16 +359,17 @@ def main() -> int:
     err_k1 = max(err_k1, compare_hits(k_res, traverse_reference(*prim), f"K1, depth-{DEPTH} terrain, {WIDTH}x{HEIGHT} primaries"))
     bound_ms, bound_by, fetches = traversal_bound(k_res)
     results["esvo_traverse"] = dict(
-        max_abs_err=err_k1, ms=cuda_ms(lambda: traverse(*prim), 50),
-        plain_ms=cuda_ms(lambda: traverse_reference(*prim), 3), bound_ms=bound_ms, bound_by=bound_by)
+        max_abs_err=err_k1, ms=call_ms(lambda: traverse(*prim), 50),
+        plain_ms=call_ms(lambda: traverse_reference(*prim), 3), bound_ms=bound_ms, bound_by=bound_by)
     log(f"  K1 {results['esvo_traverse']['ms']!r} ms, twin {results['esvo_traverse']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows fetched, max {int(k_res.steps)} per ray) "
         f"on the {WIDTH}x{HEIGHT} depth-{DEPTH} primaries [{card}]")
 
-    # P2 on the bench's uniform block and on a ragged size, bit for bit
+    # P2 on the bench's uniform block and on ragged sizes, bit for bit: one
+    # not a multiple of the grid's stride (2 blocks of 4 outputs per thread)
     n_block = WIDTH * HEIGHT * N_BOUNCES * 21
     err_p2 = 0.0
-    for n in (n_block, n_block - 3, 1001):
+    for n in (n_block, n_block - 3, 1001, 7, 3 * p2_grid * 256 * 8 + 4099):
         got = philox_uniforms(12345, 7, n, dev)
         want = philox_uniforms_reference(12345, 7, n, dev)
         torch.cuda.synchronize()
@@ -391,13 +380,16 @@ def main() -> int:
         if not equal or float(got.max()) >= 1.0 or float(got.min()) < 0.0:
             raise AssertionError(f"P2 disagrees with its twin at n={n}")
     p2_bound = bound(4 * n_block, (n_block // 4) * PHILOX_OPS_PER_BLOCK)
+    p2 = both(lambda: philox_uniforms(12345, 7, n_block, dev))
+    rand = both(lambda: torch.rand((WIDTH * HEIGHT, N_BOUNCES, 21), device=dev))
     results["philox_uniforms"] = dict(
-        max_abs_err=err_p2, ms=cuda_ms(lambda: philox_uniforms(12345, 7, n_block, dev), 200),
-        plain_ms=cuda_ms(lambda: philox_uniforms_reference(12345, 7, n_block, dev), 10),
+        max_abs_err=err_p2, ms=p2["call_ms"], device_ms=p2["device_ms"],
+        plain_ms=call_ms(lambda: philox_uniforms_reference(12345, 7, n_block, dev), 10),
         bound_ms=p2_bound[0], bound_by=p2_bound[1],
-        library_ms=cuda_ms(lambda: torch.rand((WIDTH * HEIGHT, N_BOUNCES, 21), device=dev), 200))
-    log(f"  P2 {results['philox_uniforms']['ms']!r} ms, twin {results['philox_uniforms']['plain_ms']!r} ms, "
-        f"torch.rand {results['philox_uniforms']['library_ms']!r} ms, bound {p2_bound[0]!r} ms ({p2_bound[1]}) "
+        library_ms=rand["call_ms"], library_device_ms=rand["device_ms"])
+    log(f"  P2 call {p2['call_ms']!r} ms, device {p2['device_ms']!r} ms ({p2['device_by']}); torch.rand call "
+        f"{rand['call_ms']!r} ms, device {rand['device_ms']!r} ms ({rand['device_by']}); twin "
+        f"{results['philox_uniforms']['plain_ms']!r} ms; bound {p2_bound[0]!r} ms ({p2_bound[1]}) "
         f"on the ({WIDTH * HEIGHT}, {N_BOUNCES}, 21) block [{card}]")
 
     # K2 on the cutout scene: the 256^2 primaries, then the training views
@@ -405,8 +397,8 @@ def main() -> int:
     cprim = primaries(cut, cut_cam, WIDTH, HEIGHT)
     err_k2 = compare_hits(traverse_alpha(*cprim, cut_tables), traverse_alpha_reference(*cprim, cut_tables),
                           f"K2, depth-{DEPTH} cutout, {WIDTH}x{HEIGHT} primaries")
-    k2_256 = (cuda_ms(lambda: traverse_alpha(*cprim, cut_tables), 50),
-              cuda_ms(lambda: traverse_alpha_reference(*cprim, cut_tables), 3))
+    k2_256 = (call_ms(lambda: traverse_alpha(*cprim, cut_tables), 50),
+              call_ms(lambda: traverse_alpha_reference(*cprim, cut_tables), 3))
     log(f"  K2 {k2_256[0]!r} ms, twin {k2_256[1]!r} ms on the {WIDTH}x{HEIGHT} cutout primaries [{card}]")
     ctrain = training_rays(cut)
     k_res = traverse_alpha(*ctrain, cut_tables)
@@ -414,8 +406,8 @@ def main() -> int:
                                       f"K2, depth-{DEPTH} cutout, {TRAIN_VIEWS} training views at {TRAIN_RES}^2"))
     bound_ms, bound_by, fetches = traversal_bound(k_res)
     results["esvo_traverse_alpha"] = dict(
-        max_abs_err=err_k2, ms=cuda_ms(lambda: traverse_alpha(*ctrain, cut_tables), 10),
-        plain_ms=cuda_ms(lambda: traverse_alpha_reference(*ctrain, cut_tables), 1),
+        max_abs_err=err_k2, ms=call_ms(lambda: traverse_alpha(*ctrain, cut_tables), 10),
+        plain_ms=call_ms(lambda: traverse_alpha_reference(*ctrain, cut_tables), 1),
         bound_ms=bound_ms, bound_by=bound_by)
     log(f"  K2 {results['esvo_traverse_alpha']['ms']!r} ms, twin {results['esvo_traverse_alpha']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the cutout training views [{card}]")
@@ -427,8 +419,8 @@ def main() -> int:
         k_res, k_rec = traverse_record(*rays, tables)
         r_res, r_rec = traverse_record_reference(*rays, tables)
         err_k3 = max(err_k3, compare_hits(k_res, r_res, f"K3r, depth-{DEPTH} {label}, {WIDTH}x{HEIGHT} primaries", k_rec, r_rec))
-        log(f"  K3r {cuda_ms(lambda: traverse_record(*rays, tables), 50)!r} ms, twin "
-            f"{cuda_ms(lambda: traverse_record_reference(*rays, tables), 3)!r} ms on the {WIDTH}x{HEIGHT} "
+        log(f"  K3r {call_ms(lambda: traverse_record(*rays, tables), 50)!r} ms, twin "
+            f"{call_ms(lambda: traverse_record_reference(*rays, tables), 3)!r} ms on the {WIDTH}x{HEIGHT} "
             f"{label} primaries; surfaces per ray {torch.bincount(k_rec.count).tolist()} [{card}]")
     k3 = {}
     for label, rays, tables in (("terrain", training_rays(scene), terrain_tables), ("cutout", ctrain, cut_tables)):
@@ -439,8 +431,8 @@ def main() -> int:
     rays, tables, k_res = k3["terrain"]
     bound_ms, bound_by, fetches = traversal_bound(k_res, RECORD_BYTES)
     results["esvo_traverse_record"] = dict(
-        max_abs_err=err_k3, ms=cuda_ms(lambda: traverse_record(*rays, tables), 10),
-        plain_ms=cuda_ms(lambda: traverse_record_reference(*rays, tables), 1),
+        max_abs_err=err_k3, ms=call_ms(lambda: traverse_record(*rays, tables), 10),
+        plain_ms=call_ms(lambda: traverse_record_reference(*rays, tables), 1),
         bound_ms=bound_ms, bound_by=bound_by)
     log(f"  K3r {results['esvo_traverse_record']['ms']!r} ms, twin {results['esvo_traverse_record']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the terrain training views [{card}]")
@@ -489,19 +481,19 @@ def main() -> int:
         if label == "sun":
             sun_args, sun_res = sargs, k_res
         else:
-            em_ms = (cuda_ms(lambda: traverse_shadow(*sargs), 50),
-                     cuda_ms(lambda: traverse(*sargs[:6], 1024.0, sargs[-1]), 50),
-                     cuda_ms(lambda: traverse_alpha(*sargs[:6], cut_tables, 1024.0, sargs[-1]), 50))
+            em_ms = (call_ms(lambda: traverse_shadow(*sargs), 50),
+                     call_ms(lambda: traverse(*sargs[:6], 1024.0, sargs[-1]), 50),
+                     call_ms(lambda: traverse_alpha(*sargs[:6], cut_tables, 1024.0, sargs[-1]), 50))
             log(f"  K3s {em_ms[0]!r} ms; on the same rays K1 {em_ms[1]!r} ms, K2 {em_ms[2]!r} ms; "
                 f"the {WIDTH}x{HEIGHT} cutout emitter walk, bound {traversal_bound(k_res, SHADOW_BYTES + SHADOW_T_BYTES)[0]!r} ms "
                 f"[{card}]")
     bound_ms, bound_by, fetches = traversal_bound(sun_res, SHADOW_BYTES)
     results["esvo_traverse_shadow"] = dict(
-        max_abs_err=err_k3s, ms=cuda_ms(lambda: traverse_shadow(*sun_args), 50),
-        plain_ms=cuda_ms(lambda: traverse_shadow_reference(*sun_args), 3), bound_ms=bound_ms, bound_by=bound_by)
+        max_abs_err=err_k3s, ms=call_ms(lambda: traverse_shadow(*sun_args), 50),
+        plain_ms=call_ms(lambda: traverse_shadow_reference(*sun_args), 3), bound_ms=bound_ms, bound_by=bound_by)
     same_rays = sun_args[:6] + (1024.0,)
-    k1_same = cuda_ms(lambda: traverse(*same_rays, sun_args[-1]), 50)
-    k2_same = cuda_ms(lambda: traverse_alpha(*same_rays[:6], cut_tables, 1024.0, sun_args[-1]), 50)
+    k1_same = call_ms(lambda: traverse(*same_rays, sun_args[-1]), 50)
+    k2_same = call_ms(lambda: traverse_alpha(*same_rays[:6], cut_tables, 1024.0, sun_args[-1]), 50)
     log(f"  K3s {results['esvo_traverse_shadow']['ms']!r} ms, twin {results['esvo_traverse_shadow']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows); on the same rays K1 {k1_same!r} ms, "
         f"K2 {k2_same!r} ms; the {WIDTH}x{HEIGHT} cutout sun walk [{card}]")
@@ -514,25 +506,46 @@ def main() -> int:
     gsz = 1 << cut_em.grid_bits
     cell = torch.clamp(((hp + (0.01 * cut_em.cell_size) * hn) / cut_em.cell_size).to(torch.int32), 0, gsz - 1)
     cells = ((cell[:, 0] * gsz + cell[:, 1]) * gsz + cell[:, 2]).contiguous()
-    gathers = (("the probe's (131072, 8) int32 table, 4096 indices", probe, probe_idx),
-               (f"grid_idx {tuple(cut_em.grid_idx.shape)} int32, {cells.numel()} indices", cut_em.grid_idx, cells),
-               (f"grid_w {tuple(cut_em.grid_w.shape)} float32, {cells.numel()} indices", cut_em.grid_w, cells))
+    n_cells = cells.numel()
+    gathers = (("the probe's (131072, 8) int32 table, 4096 int32 indices", probe, probe_idx),
+               ("the probe's table, 4096 int64 indices", probe, probe_idx.long()),
+               (f"grid_idx {tuple(cut_em.grid_idx.shape)} int32, {n_cells} indices", cut_em.grid_idx, cells),
+               (f"grid_w {tuple(cut_em.grid_w.shape)} float32, {n_cells} indices", cut_em.grid_w, cells))
     for label, table, idx in gathers:
         got, want = row_gather(table, idx), row_gather_reference(table, idx)
         torch.cuda.synchronize()
-        equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
-        idx_long = idx.long()
-        p1 = dict(
-            max_abs_err=float((got.view(torch.int32) != want.view(torch.int32)).sum()),
-            ms=cuda_ms(lambda t=table, i=idx: row_gather(t, i), 200),
-            plain_ms=cuda_ms(lambda t=table, i=idx: row_gather_reference(t, i), 200),
-            library_ms=cuda_ms(lambda t=table, i=idx_long: torch.index_select(t, 0, i), 200))
-        p1["bound_ms"], p1["bound_by"] = gather_bound(table, idx.numel())
-        log(f"  P1 {label}: bit-equal {equal}; {p1['ms']!r} ms, twin {p1['plain_ms']!r} ms, "
-            f"torch.index_select {p1['library_ms']!r} ms, bound {p1['bound_ms']!r} ms ({p1['bound_by']}) [{card}]")
-        if not equal:
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"P1 disagrees with its twin on {label}")
-    results["row_gather"] = p1  # the main path's shape: grid_w over the 256^2 lanes
+        idx_long = idx.long()
+        k = both(lambda t=table, i=idx: row_gather(t, i))
+        lib = both(lambda t=table, i=idx_long: torch.index_select(t, 0, i))
+        plain = call_ms(lambda t=table, i=idx: row_gather_reference(t, i))
+        b_ms, b_by = gather_bound(table, idx)
+        log(f"  P1 {label}: bit-equal; call {k['call_ms']!r} ms, device {k['device_ms']!r} ms ({k['device_by']}); "
+            f"torch.index_select call {lib['call_ms']!r} ms, device {lib['device_ms']!r} ms ({lib['device_by']}); "
+            f"twin {plain!r} ms; bound {b_ms!r} ms ({b_by}) [{card}]")
+    # the emitter pick's two gathers in one launch: the main path's P1
+    pair_tables = (cut_em.grid_idx, cut_em.grid_w)
+    for idx in (cells, cells.long()):
+        got, want = row_gather_pair(*pair_tables, idx), row_gather_pair_reference(*pair_tables, idx)
+        torch.cuda.synchronize()
+        if not all(torch.equal(k.view(torch.int32), r.view(torch.int32)) for k, r in zip(got, want)):
+            raise AssertionError(f"P1's pair disagrees with its twin ({idx.dtype} indices)")
+    cells_long = cells.long()
+    k = both(lambda: row_gather_pair(*pair_tables, cells))
+    lib = both(lambda: (torch.index_select(pair_tables[0], 0, cells_long),
+                        torch.index_select(pair_tables[1], 0, cells_long)))
+    b_ms, b_by = gather_bound(cut_em.grid_idx, cells, tables=2)
+    results["row_gather"] = dict(  # the main path's call: the pair over the 256^2 lanes
+        variant="row_gather_pair (grid_idx + grid_w, one launch)", max_abs_err=0.0,
+        ms=k["call_ms"], device_ms=k["device_ms"],
+        plain_ms=call_ms(lambda: row_gather_pair_reference(*pair_tables, cells)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        two_index_select_ms=lib["call_ms"], two_index_select_device_ms=lib["device_ms"])
+    log(f"  P1 pair grid_idx + grid_w, {n_cells} int32 and int64 indices: bit-equal; call {k['call_ms']!r} ms, "
+        f"device {k['device_ms']!r} ms ({k['device_by']}); two torch.index_select call {lib['call_ms']!r} ms, "
+        f"device {lib['device_ms']!r} ms ({lib['device_by']}); twin {results['row_gather']['plain_ms']!r} ms; "
+        f"bound {b_ms!r} ms ({b_by}) [{card}]")
     del walks, sun_args, sun_res, first, probe, probe_idx
 
     # ---- 3. the forward main path: the progressive renderer
@@ -573,13 +586,24 @@ def main() -> int:
             "-o", os.path.join(out_dir, f"cutout_d{DEPTH}_{WIDTH}_nee.ppm")]
     log(f"phase 3b light sampling: cli {' '.join(argv)}")
     parsed = cli.build_parser().parse_args(argv)
+    picks = []
+    real_pick = emitters._spatial_pick
+
+    def count_pick(em, *a, **kw):
+        picks.append(em.grid_idx is not None)  # a spatial pick gathers its rows through P1
+        return real_pick(em, *a, **kw)
+
     reset_counts(wrappers.values())
     t0 = time.perf_counter()
-    r = parsed.fn(parsed)
+    with mock.patch.object(emitters, "_spatial_pick", count_pick):
+        r = parsed.fn(parsed)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     read_counts("cli render --sun high_quality --emitter-sampling one",
                 ("esvo_traverse_alpha", "esvo_traverse_shadow", "row_gather", "philox_uniforms"))
+    log(f"  spatial emitter picks {sum(picks)}, P1 launches {row_gather.launches} (one per pick)")
+    if row_gather.launches != sum(picks):
+        raise AssertionError(f"P1 launched {row_gather.launches} times for {sum(picks)} spatial picks")
     frame = r.framebuffer
     if r.spp != 20 or not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
         raise AssertionError("the light-sampling frame is not finite with a positive mean at 20 spp")

@@ -21,6 +21,8 @@ import functools
 
 import torch
 
+from ..utils.cuda_build import on_current_stream
+
 _MASK = 0xFFFFFFFF
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -81,21 +83,21 @@ def _library():
     vp, ci, cu, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
     lib.philox_uniforms.argtypes = [vp, cll, cu, cu, cu, cu, vp]
     lib.philox_uniforms.restype = ci
+    lib.philox_resident_blocks.argtypes = []
+    lib.philox_resident_blocks.restype = ci
     lib.philox_error_string.argtypes = [ci]
     lib.philox_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _philox_cuda(seed: int, counter: int, n: int, device):
-    out = torch.empty((n,), dtype=torch.float32, device=device)
+    dev = torch.cuda.current_device() if device.index is None else device.index
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:  # an empty draw launches nothing
         return out
     lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.philox_uniforms(
-            out.data_ptr(), n, seed & _MASK, seed >> 32, counter & _MASK, counter >> 32, stream
-        )
+    rc = on_current_stream(lib.philox_uniforms, dev, out.data_ptr(), n, seed & _MASK, seed >> 32,
+                           counter & _MASK, counter >> 32)
     if rc != 0:
         raise RuntimeError(f"philox_uniforms launch failed: {lib.philox_error_string(rc).decode()}")
     philox_uniforms.launches += 1

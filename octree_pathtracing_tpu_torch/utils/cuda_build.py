@@ -5,7 +5,7 @@
 name carries a hash of the source and the flags, so an edited kernel is
 rebuilt and an unchanged one is loaded as built.  Nothing is compiled at
 import time: each kernel's wrapper builds and loads its library once, at
-its first launch.
+its first launch.  :func:`on_current_stream` is the wrappers' launch path.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 from .. import BUILD_DIR
 
@@ -57,3 +59,18 @@ def load_library(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     lib.build_info = info
     return lib
+
+
+def on_current_stream(fn, device_index: int, *args):
+    """``fn(*args, stream)``, with ``stream`` PyTorch's current stream on
+    card ``device_index`` (the capture stream while a CUDA graph captures).
+    A C entry point launches on the current card, so the device guard is
+    entered only when ``device_index`` is not the current card.  Returns
+    what ``fn`` returns."""
+    # the raw handle, as PyTorch's own kernel launchers take it: building a
+    # torch.cuda.Stream for its .cuda_stream costs microseconds per launch
+    stream = torch._C._cuda_getCurrentRawStream(device_index)
+    if device_index == torch._C._cuda_getDevice():  # torch.cuda.current_device() less its lazy-init check
+        return fn(*args, stream)
+    with torch.cuda.device(device_index):
+        return fn(*args, stream)

@@ -1,8 +1,9 @@
 """The port's kernels against their plain-torch twins on a CUDA card: the
 traversal in its four modes (K1, K2 alpha accept, K3r recording walk, K3s
-shadow walk), P2 (Philox uniforms) and P1 (row gather), and the path
-tracer's frame and gradients through the kernels against the same through
-the twins, with and without light sampling.
+shadow walk), P2 (Philox uniforms) and P1 (row gather, from one table and
+from two), also captured in a CUDA graph, and the path tracer's frame and
+gradients through the kernels against the same through the twins, with and
+without light sampling.
 
 Every test here is marked ``gpu`` and skips where there is no card.  The
 file imports no jax (the machine with the card has none), so it runs there
@@ -27,7 +28,13 @@ from octree_pathtracing_tpu_torch.models import (
 )
 from octree_pathtracing_tpu_torch.models import emitters
 from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
-from octree_pathtracing_tpu_torch.ops.gather import row_gather, row_gather_reference
+from octree_pathtracing_tpu_torch.ops import random as prandom
+from octree_pathtracing_tpu_torch.ops.gather import (
+    row_gather,
+    row_gather_pair,
+    row_gather_pair_reference,
+    row_gather_reference,
+)
 from octree_pathtracing_tpu_torch.ops.random import philox_uniforms, philox_uniforms_reference
 from octree_pathtracing_tpu_torch.ops.shading import OFFSET
 from octree_pathtracing_tpu_torch.ops.traversal import (
@@ -134,8 +141,11 @@ def test_empty_batch_launches_nothing(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [65536 * 5 * 21, 1001, 7])
+@pytest.mark.parametrize("n", [65536 * 5 * 21, 1001, 7, 10_000_019])
 def test_philox_kernel_matches_twin_bit_for_bit(cuda, n):
+    if n == 10_000_019:  # the grid-stride loop ends inside a pass of the grid
+        stride = prandom._library().philox_resident_blocks() * 256 * 2 * 4
+        assert stride > 0 and n % stride and (n // 4) % stride
     before = philox_uniforms.launches
     got = philox_uniforms(2**40 + 3, 2**33 + 5, n, cuda)
     assert philox_uniforms.launches == before + 1
@@ -237,13 +247,14 @@ def test_shadow_kernel_matches_twin(cuda, build, strict, record_t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("n_rows,width,dtype", [(1 << 17, 8, torch.int32), (4096, 8, torch.float32),
                                                  (4096, 3, torch.float32)])
-def test_row_gather_matches_twin_bit_for_bit(cuda, n_rows, width, dtype):
+def test_row_gather_matches_twin_bit_for_bit(cuda, n_rows, width, dtype, index_dtype):
     g = torch.Generator().manual_seed(n_rows + width)
     table = torch.randint(-2**31, 2**31 - 1, (n_rows, width), generator=g, dtype=torch.int32)
     table = table.view(dtype).to(cuda)
-    idx = torch.randint(-5, n_rows + 5, (65536,), generator=g, dtype=torch.int32).to(cuda)  # some clip
+    idx = torch.randint(-5, n_rows + 5, (65536,), generator=g, dtype=torch.int32).to(index_dtype).to(cuda)
     before = row_gather.launches
     got = row_gather(table, idx)
     want = row_gather_reference(table, idx)
@@ -251,6 +262,54 @@ def test_row_gather_matches_twin_bit_for_bit(cuda, n_rows, width, dtype):
     assert row_gather.launches == before + 1
     assert got.dtype == dtype and torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert row_gather(table, idx[:0]).shape == (0, width) and row_gather.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("width", [8, 3])
+def test_row_gather_pair_matches_twin_bit_for_bit(cuda, width, index_dtype):
+    """The emitter pick's shape: (4096, K) grid_idx (int32) and grid_w
+    (float32), 65536 lanes' supercells, some of them clipped."""
+    g = torch.Generator().manual_seed(width)
+    a = torch.randint(0, 128, (4096, width), generator=g, dtype=torch.int32).to(cuda)
+    b = torch.rand((4096, width), generator=g).to(cuda)
+    idx = torch.randint(-5, 4096 + 5, (65536,), generator=g).to(index_dtype).to(cuda)
+    before = row_gather.launches
+    got = row_gather_pair(a, b, idx)
+    want = row_gather_pair_reference(a, b, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1  # one launch for both tables
+    for k, r, t in zip(got, want, (a, b)):
+        assert k.dtype == t.dtype and torch.equal(k.view(torch.int32), r.view(torch.int32))
+    assert [x.shape for x in row_gather_pair(a, b, idx[:0])] == [(0, width)] * 2
+    assert row_gather.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_kernels_replay_in_a_cuda_graph(cuda):
+    """P1 (one and two tables) and P2 launch through ctypes on PyTorch's
+    current stream, so a CUDA graph captures them; replays equal eager."""
+    g = torch.Generator().manual_seed(9)
+    a = torch.randint(0, 128, (4096, 8), generator=g, dtype=torch.int32).to(cuda)
+    b = torch.rand((4096, 8), generator=g).to(cuda)
+    idx = torch.randint(0, 4096, (65536,), generator=g, dtype=torch.int32).to(cuda)
+
+    def run():
+        return (row_gather(a, idx), *row_gather_pair(a, b, idx), philox_uniforms(3, 4, 100_003, cuda))
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for x in captured:
+        x.zero_()
+    before = (row_gather.launches, philox_uniforms.launches)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (row_gather.launches, philox_uniforms.launches) == before  # a replay calls no wrapper
+    for k, e in zip(captured, eager):
+        assert torch.equal(k.view(torch.int32), e.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -278,7 +337,7 @@ def test_light_sampling_frame_and_gradients_through_kernels_match_twins(cuda, mo
     for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
                        ("traverse_shadow", traverse_shadow_reference)):
         monkeypatch.setattr(pathtracer, name, twin)
-    monkeypatch.setattr(emitters, "row_gather", row_gather_reference)
+    monkeypatch.setattr(emitters, "row_gather_pair", row_gather_pair_reference)
     want = run()
     torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
     for g, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
