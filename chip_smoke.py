@@ -9,12 +9,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
 1. the card's name and power limit; build the kernels from the sources in
    this checkout, one nvcc per source, started together: the traversal
    (``csrc/traversal.cu``: K1, K2 alpha accept, K3r recording walk, K3s
-   shadow walk), P2 (``csrc/uniforms.cu``, Philox uniforms) and P1
-   (``csrc/gather.cu``, row gather);
+   shadow walk, and K2q, their block-model variant), K7
+   (``csrc/prims.cu``, the analytic-primitive scan), P2
+   (``csrc/uniforms.cu``, Philox uniforms) and P1 (``csrc/gather.cu``, row
+   gather);
 2. every kernel against its plain-torch twin on the card, timed beside its
-   bound; P1 and P2 twice, by call (CUDA events around back-to-back calls:
-   what an eager caller pays, host path included) and on the device alone
-   (the same calls captured in a CUDA graph and replayed), beside the same
+   bound twice, by call (CUDA events around back-to-back calls: what an
+   eager caller pays, host path included) and on the device alone (the same
+   calls captured in a CUDA graph and replayed); P1 and P2 beside the same
    two times of ``torch.index_select`` and ``torch.rand``:
    - K1 on a random depth-4 octree (4096 rays with an active mask) and on
      the 256x256 primaries of the depth-9 terrain;
@@ -33,10 +35,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      ``grid_idx`` and ``grid_w`` at the 65536 supercells of its primaries'
      hit points), one table at a time and both in one launch (the emitter
      pick's ``row_gather_pair``), bit for bit, beside ``torch.index_select``.
+   - K2q in each of its modes on ``plant_scene(depth=9)``: modes 1 and 2 on
+     the 256x256 primaries, mode 3 on shadow rays from their hits toward
+     sun directions (strict, no t) and toward random directions of the hit
+     face's hemisphere (t recorded); K7 on the 256x256 primaries of
+     ``analytic_sphere_scene(depth=9)``; both by call and on the device.
    Hit, leaf value, face id, fetch counts and record count / mats / face
    must agree on every lane; t, uv and the record's uu / vv within 1e-4 (all
-   of them round every operation once, so they should agree exactly); K3s's
+   of them round every operation alike, so they should agree exactly); K3s's
    record (count, w, medium, mats, uu, vv, ts) must be equal bit for bit;
+   K2q's results, records and quad surfaces bit for bit; K7's hit,
+   material, t and normal bit for bit and its uv within 1e-6 (CUDA's acosf
+   and atan2f may differ from PyTorch's by an ulp);
 3. the forward main path: ``Renderer(256x256, 5 bounces, branch_count=10,
    target_spp=20)`` on ``minecraft_chunk_scene(depth=9)`` to the end —
    passes of 1, 1, 1, 1, 6 and 10 samples; the frame must be finite with a
@@ -46,10 +56,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    one --device cuda``; the frame must be finite with a positive mean, and
    K2, K3s, P1 and P2 must have been launched, P1 once per spatial emitter
    pick (both gathers in one launch);
+3c. the block-model entry point: ``cli render --scene plant --depth 9
+   --width 256 --height 256 --spp 20 --sun high_quality --device cuda``;
+   the frame must be finite with a positive mean, and K2q (modes 1 and 3)
+   and P2 must have been launched and no twin run;
 4. frame parity: one 64x64, 5-bounce frame of each depth-9 scene from a
    fixed uniform block, through the kernels and through the twins, with the
-   IMPORTANCE sun and with HIGH_QUALITY + ``EmitterSampling.ONE``; per-lane
-   rtol and atol 2e-3, at most 0.1% of the lanes outside;
+   IMPORTANCE sun and with HIGH_QUALITY + ``EmitterSampling.ONE``, and of
+   the plant field (HIGH_QUALITY) and the analytic scene (IMPORTANCE and
+   HIGH_QUALITY); per-lane rtol and atol 2e-3, at most 0.1% of the lanes
+   outside;
 5. timing of the forward frame (256x256, 5 bounces, median of 5 after a
    warm-up), with nominal and live rays per second;
 6. bench.py's fwd+bwd step (``jax.grad`` of the mean radiance into atlas and
@@ -63,15 +79,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
    with its glowstone emitters, HIGH_QUALITY + ``EmitterSampling.ONE``),
    each forward and fwd+bwd at phase 5's shape, with rays/s and peak
    memory; the gradients must be finite; the emitter count of each scene;
+6c. the block-model and primitive lines at phase 5's shape: the depth-9
+   plant field under its HIGH_QUALITY sun (K2q's mode 1 for the bounces, its
+   mode 3 for the sun walks) and the depth-9 analytic scene under
+   IMPORTANCE and HIGH_QUALITY (K1, K7 per bounce and per shadow ray),
+   forward and fwd+bwd, timed as phases 5 and 6; K2q and K7 must have been
+   launched and no twin run;
 7. the training entry point: ``cli train`` (``inverse_render``, soft weight
    0.25) with the JAX CLI's defaults of 8 views at 512x512 for 3 steps, on
    ``--scene chunk --depth 9`` (K1, K3r, P2) and on ``--scene cutout
    --depth 9`` (K2, K3r, P2): finite losses, the parameters written, wall
-   seconds per step.
+   seconds per step; and ``cli train --scene plant --depth 9`` at 2 views
+   of 128x128 for 2 steps (K2q in all three modes, P2).
 
-The launch counts of the main paths (phases 3, 3b, 6, 6b and 7) are set
-to 0 just before each path and read just after; the kernels' comparisons
-with their twins do not count.  The script names only the port; jax and the JAX
+The launch counts of the main paths (phases 3, 3b, 3c, 6, 6b, 6c and 7) are
+set to 0 just before each path and read just after; the kernels'
+comparisons with their twins do not count.  The script names only the port; jax and the JAX
 package are blocked before anything is imported.
 
 The last line of standard output is
@@ -111,6 +134,17 @@ RECORD_BYTES = 4 + 4 * 16
 # 4 ts more when t is recorded
 SHADOW_BYTES = 4 + 12 + 4 * 12
 SHADOW_T_BYTES = 16
+# K2q mode 1's quad surface out per lane: found, material, uv, normal, t
+QUAD_OUT_BYTES = 1 + 4 + 8 + 12 + 4
+# K2q, per candidate: the leaf's model id and the model's flags, start,
+# count and face material (5 words); per quad tested one 84-byte row and,
+# where it is hit, one texel alpha
+MODEL_ROW_BYTES = 20
+QUAD_ROW_BYTES = 84
+OPS_PER_QUAD = 60  # a quad test: 3 dot products, 2 cross products, the division and compares
+# K7, per lane: origin and direction in; hit, t, material, uv, normal out
+PRIM_RAY_BYTES = 24 + 29
+OPS_PER_SPHERE, OPS_PER_PRIM_QUAD = 45, 60
 PHILOX_OPS_PER_BLOCK = 112  # 10 rounds of 2 mul-hi/lo pairs, 4 xor, 2 key adds; 4 float maps
 
 KERNELS = {
@@ -126,7 +160,14 @@ KERNELS = {
                         "tools/profile_pallas.py:114"),
     "row_gather": ("octree_pathtracing_tpu_torch/csrc/gather.cu",
                    "tools/profile_pallas.py:67"),
+    "esvo_traverse_models": ("octree_pathtracing_tpu_torch/csrc/traversal.cu",
+                             "octree_pathtracing_tpu/render/hit.py:39"),
+    "prims_intersect": ("octree_pathtracing_tpu_torch/csrc/prims.cu",
+                        "octree_pathtracing_tpu/models/prims.py:71"),
 }
+# the block-model and primitive lines at bench.py's shapes: (name, scene, sun)
+MODEL_CELLS = (("plant", "plant", "high_quality"), ("analytic", "analytic", "importance"),
+               ("analytic_hq", "analytic", "high_quality"))
 # bench.py's lines and BASELINE's config 3 at bench.py's shapes:
 # (name, scene, emitter sampling); every one runs the HIGH_QUALITY sun
 LIGHT_CELLS = (("nee", "terrain", "none"), ("cutout", "cutout", "none"), ("config3", "terrain", "one"))
@@ -162,11 +203,24 @@ def gather_bound(table, idx, tables: int = 1):
     return bound(n_out * idx.element_size() + tables * (n_out + min(table.shape[0], n_out)) * row, 0)
 
 
-def compare_hits(k, r, label: str, k_rec=None, r_rec=None) -> float:
+def compare_hits(k, r, label: str, k_rec=None, r_rec=None, exact: bool = False) -> float:
     """Fail unless a kernel's result ``k`` (and record) matches the twin's
     ``r`` on every lane; returns the largest absolute difference of t, uv,
-    the voxel corner and the record's uu / vv."""
+    the voxel corner and the record's uu / vv.  ``exact``: every field, the
+    record's and the quad surfaces' too, must be equal bit for bit."""
     mismatch = {f: int((getattr(k, f) != getattr(r, f)).sum()) for f in ("hit", "leaf_value", "face_id", "fetches")}
+    if exact:
+        for f in ("t", "uv", "voxel_pos", "voxel_size"):
+            mismatch[f] = int((~((getattr(k, f) == getattr(r, f)) | (getattr(k, f).isnan() & getattr(r, f).isnan()))).sum())
+        if (k.quad is None) != (r.quad is None):
+            raise AssertionError(f"only one side returned quad surfaces on {label}")
+        if k.quad is not None:
+            for f in k.quad._fields:
+                mismatch[f"quad_{f}"] = int((getattr(k.quad, f) != getattr(r.quad, f)).sum())
+        if k_rec is not None:
+            for f in k_rec._fields:
+                if getattr(k_rec, f) is not None:
+                    mismatch[f"record_{f}"] = int((getattr(k_rec, f) != getattr(r_rec, f)).sum())
     h = r.hit
     t_err = (k.t[h] - r.t[h]).abs()
     t_bad = int((t_err > 1e-4 * r.t[h].abs().clamp(min=1.0)).sum())
@@ -176,7 +230,8 @@ def compare_hits(k, r, label: str, k_rec=None, r_rec=None) -> float:
     errs = [t_err, uv_err, vpos_err]
     if k_rec is not None:
         for f in ("count", "mats", "face"):
-            mismatch[f"record_{f}"] = int((getattr(k_rec, f) != getattr(r_rec, f)).sum())
+            if f in k_rec._fields:
+                mismatch[f"record_{f}"] = int((getattr(k_rec, f) != getattr(r_rec, f)).sum())
         rec_err = [(getattr(k_rec, f) - getattr(r_rec, f)).abs() for f in ("uu", "vv")]
         uv_bad += int(sum(int((e > 1e-4).sum()) for e in rec_err))
         errs += rec_err
@@ -189,9 +244,13 @@ def compare_hits(k, r, label: str, k_rec=None, r_rec=None) -> float:
     return err
 
 
-def reset_counts(mods):
-    for fn in mods:
-        fn.launches = 0
+def prim_bound(prims, lanes: int):
+    """K7's bound: each ray in and out once, the tables once, against the
+    arithmetic of every sphere and quad test."""
+    n_quads = 0 if prims.quads is None else prims.quads.count
+    table_bytes = prims.n_spheres * 20 + n_quads * QUAD_ROW_BYTES
+    return bound(lanes * PRIM_RAY_BYTES + table_bytes,
+                 lanes * (prims.n_spheres * OPS_PER_SPHERE + n_quads * OPS_PER_PRIM_QUAD))
 
 
 def main() -> int:
@@ -209,13 +268,17 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.io.checkpoint import load_arrays
     from octree_pathtracing_tpu_torch.io.image import save_image
     from octree_pathtracing_tpu_torch.models import (
+        analytic_sphere_scene,
         cutout_chunk_scene,
         emitters,
         face_normals,
         minecraft_chunk_scene,
         octree_from_grid,
         pixel_grid_rays,
+        plant_scene,
     )
+    from octree_pathtracing_tpu_torch.models import prims as prims_mod
+    from octree_pathtracing_tpu_torch.models.prims import intersect_prims, intersect_prims_reference
     from octree_pathtracing_tpu_torch.models.emitters import sample_emitter_point, with_emitter_sampling
     from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
     from octree_pathtracing_tpu_torch.ops import gather
@@ -242,12 +305,41 @@ def main() -> int:
     )
     from octree_pathtracing_tpu_torch.parallel import apply_params
     from octree_pathtracing_tpu_torch.render import Renderer, pathtracer, renderer, trace_paths, trace_paths_census
-    from octree_pathtracing_tpu_torch.render.hit import accept_tables
-    from octree_pathtracing_tpu_torch.utils.timing import both, call_ms, card_line
+    from octree_pathtracing_tpu_torch.render.hit import accept_tables, resolve_hit
+    from octree_pathtracing_tpu_torch.utils.timing import both, call_ms, card_line, device_ms
 
-    wrappers = {"esvo_traverse": traverse, "esvo_traverse_alpha": traverse_alpha,
-                "esvo_traverse_record": traverse_record, "esvo_traverse_shadow": traverse_shadow,
-                "philox_uniforms": philox_uniforms, "row_gather": row_gather}
+    # each kernel's launch count, as its wrapper keeps it (K2q's three modes
+    # count apart from K2, K3r and K3s in ``model_launches``)
+    counters = {
+        "esvo_traverse": (traverse, "launches"), "esvo_traverse_alpha": (traverse_alpha, "launches"),
+        "esvo_traverse_record": (traverse_record, "launches"),
+        "esvo_traverse_shadow": (traverse_shadow, "launches"),
+        "philox_uniforms": (philox_uniforms, "launches"), "row_gather": (row_gather, "launches"),
+        "esvo_traverse_models (mode 1)": (traverse_alpha, "model_launches"),
+        "esvo_traverse_models (mode 2)": (traverse_record, "model_launches"),
+        "esvo_traverse_models (mode 3)": (traverse_shadow, "model_launches"),
+        "prims_intersect": (intersect_prims, "launches"),
+    }
+    # the twins' own entry points, counted so that a main path can show it ran none
+    twin_calls = {"traversal twin": 0, "K7 twin": 0}
+    real_walk, real_prims_twin = traversal._walk_reference, prims_mod.intersect_prims_reference
+
+    def counting_walk(*a, **kw):
+        twin_calls["traversal twin"] += 1
+        return real_walk(*a, **kw)
+
+    def counting_prims_twin(*a, **kw):
+        twin_calls["K7 twin"] += 1
+        return real_prims_twin(*a, **kw)
+
+    traversal._walk_reference = counting_walk
+    prims_mod.intersect_prims_reference = counting_prims_twin
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        for name in twin_calls:
+            twin_calls[name] = 0
 
     @contextlib.contextmanager
     def twins():
@@ -255,6 +347,7 @@ def main() -> int:
         with mock.patch.object(pathtracer, "traverse", traverse_reference), \
                 mock.patch.object(pathtracer, "traverse_alpha", traverse_alpha_reference), \
                 mock.patch.object(pathtracer, "traverse_shadow", traverse_shadow_reference), \
+                mock.patch.object(pathtracer, "intersect_prims", intersect_prims_reference), \
                 mock.patch.object(emitters, "row_gather_pair", row_gather_pair_reference):
             yield
 
@@ -262,16 +355,18 @@ def main() -> int:
         """``sc`` under the HIGH_QUALITY sun and ``--emitter-sampling``."""
         return with_emitter_sampling(dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()),
                                      emitter_sampling)
-    main_path_launches = dict.fromkeys(wrappers, 0)
+    main_path_launches = dict.fromkeys(counters, 0)
 
     def read_counts(path: str, required):
-        counts = {name: fn.launches for name, fn in wrappers.items()}
+        counts = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
         for name, n in counts.items():
             main_path_launches[name] += n
-        log(f"  launches on {path}: {counts}")
+        log(f"  launches on {path}: {counts}; twin calls {twin_calls}")
         missing = [name for name in required if counts[name] <= 0]
         if missing:
             raise AssertionError(f"{path} never launched {missing}")
+        if any(twin_calls.values()):
+            raise AssertionError(f"{path} ran a twin on the card: {twin_calls}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -295,14 +390,14 @@ def main() -> int:
 
     threads = [threading.Thread(target=build, args=a)
                for a in (("traversal", traversal._library), ("uniforms", prandom._library),
-                         ("gather", gather._library))]
+                         ("gather", gather._library), ("prims", prims_mod._library))]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     if errors:
         raise errors[0]
-    log(f"phase 1 build: the three libraries loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1 build: the four libraries loaded in {time.perf_counter() - t0:.2f} s")
     for name, lib in builds.items():
         info = lib.build_info
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {os.path.relpath(info['path'])}")
@@ -312,7 +407,7 @@ def main() -> int:
     p2_grid = prandom._library().philox_resident_blocks()
     log(f"  P2's grid: {p2_grid} blocks of 256 threads (SMs x resident blocks)")
 
-    results = {name: {} for name in wrappers}
+    results = {name: {} for name in KERNELS}
 
     # ---- 2. every kernel against its twin on the card
     log("phase 2 kernels vs twins:")
@@ -360,8 +455,9 @@ def main() -> int:
     bound_ms, bound_by, fetches = traversal_bound(k_res)
     results["esvo_traverse"] = dict(
         max_abs_err=err_k1, ms=call_ms(lambda: traverse(*prim), 50),
+        device_ms=device_ms(lambda: traverse(*prim))[0],
         plain_ms=call_ms(lambda: traverse_reference(*prim), 3), bound_ms=bound_ms, bound_by=bound_by)
-    log(f"  K1 {results['esvo_traverse']['ms']!r} ms, twin {results['esvo_traverse']['plain_ms']!r} ms, "
+    log(f"  K1 {results['esvo_traverse']['ms']!r} ms (device {results['esvo_traverse']['device_ms']!r} ms), twin {results['esvo_traverse']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows fetched, max {int(k_res.steps)} per ray) "
         f"on the {WIDTH}x{HEIGHT} depth-{DEPTH} primaries [{card}]")
 
@@ -407,9 +503,10 @@ def main() -> int:
     bound_ms, bound_by, fetches = traversal_bound(k_res)
     results["esvo_traverse_alpha"] = dict(
         max_abs_err=err_k2, ms=call_ms(lambda: traverse_alpha(*ctrain, cut_tables), 10),
+        device_ms=device_ms(lambda: traverse_alpha(*ctrain, cut_tables), calls=10)[0],
         plain_ms=call_ms(lambda: traverse_alpha_reference(*ctrain, cut_tables), 1),
         bound_ms=bound_ms, bound_by=bound_by)
-    log(f"  K2 {results['esvo_traverse_alpha']['ms']!r} ms, twin {results['esvo_traverse_alpha']['plain_ms']!r} ms, "
+    log(f"  K2 {results['esvo_traverse_alpha']['ms']!r} ms (device {results['esvo_traverse_alpha']['device_ms']!r} ms), twin {results['esvo_traverse_alpha']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the cutout training views [{card}]")
 
     # K3r on both scenes: the 256^2 primaries, then the training views
@@ -432,9 +529,10 @@ def main() -> int:
     bound_ms, bound_by, fetches = traversal_bound(k_res, RECORD_BYTES)
     results["esvo_traverse_record"] = dict(
         max_abs_err=err_k3, ms=call_ms(lambda: traverse_record(*rays, tables), 10),
+        device_ms=device_ms(lambda: traverse_record(*rays, tables), calls=10)[0],
         plain_ms=call_ms(lambda: traverse_record_reference(*rays, tables), 1),
         bound_ms=bound_ms, bound_by=bound_by)
-    log(f"  K3r {results['esvo_traverse_record']['ms']!r} ms, twin {results['esvo_traverse_record']['plain_ms']!r} ms, "
+    log(f"  K3r {results['esvo_traverse_record']['ms']!r} ms (device {results['esvo_traverse_record']['device_ms']!r} ms), twin {results['esvo_traverse_record']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the terrain training views [{card}]")
     del k3, ctrain, rays, tables
 
@@ -471,8 +569,8 @@ def main() -> int:
                    for f in k_st._fields if getattr(k_st, f) is not None}
         if record_t:  # the emitter walk's attenuation, truncated short of the light
             max_t = dist * (1.0 - 1e-3)
-            k_att = pathtracer._stateful_att_from_state(cut, air, k_st, max_t, strict)
-            r_att = pathtracer._stateful_att_from_state(cut, air, r_st, max_t, strict)
+            k_att = pathtracer._stateful_att_from_state(cut, so, sd, air, k_st, max_t, strict)
+            r_att = pathtracer._stateful_att_from_state(cut, so, sd, air, r_st, max_t, strict)
             unequal["attenuation"] = int((k_att != r_att).sum())
         log(f"    record not bit-equal: {unequal}; surfaces per ray {torch.bincount(k_st.count).tolist()}; "
             f"budget spent on {int((k_st.w <= 0).sum())} lanes")
@@ -490,11 +588,12 @@ def main() -> int:
     bound_ms, bound_by, fetches = traversal_bound(sun_res, SHADOW_BYTES)
     results["esvo_traverse_shadow"] = dict(
         max_abs_err=err_k3s, ms=call_ms(lambda: traverse_shadow(*sun_args), 50),
+        device_ms=device_ms(lambda: traverse_shadow(*sun_args))[0],
         plain_ms=call_ms(lambda: traverse_shadow_reference(*sun_args), 3), bound_ms=bound_ms, bound_by=bound_by)
     same_rays = sun_args[:6] + (1024.0,)
     k1_same = call_ms(lambda: traverse(*same_rays, sun_args[-1]), 50)
     k2_same = call_ms(lambda: traverse_alpha(*same_rays[:6], cut_tables, 1024.0, sun_args[-1]), 50)
-    log(f"  K3s {results['esvo_traverse_shadow']['ms']!r} ms, twin {results['esvo_traverse_shadow']['plain_ms']!r} ms, "
+    log(f"  K3s {results['esvo_traverse_shadow']['ms']!r} ms (device {results['esvo_traverse_shadow']['device_ms']!r} ms), twin {results['esvo_traverse_shadow']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows); on the same rays K1 {k1_same!r} ms, "
         f"K2 {k2_same!r} ms; the {WIDTH}x{HEIGHT} cutout sun walk [{card}]")
 
@@ -548,6 +647,117 @@ def main() -> int:
         f"bound {b_ms!r} ms ({b_by}) [{card}]")
     del walks, sun_args, sun_res, first, probe, probe_idx
 
+    # K2q in its three modes on the depth-9 plant field, and K7 on the
+    # depth-9 analytic scene's primaries
+    t0 = time.perf_counter()
+    plant_cpu, plant_cam_cpu = plant_scene(depth=DEPTH)
+    plant_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ana_cpu, ana_cam_cpu = analytic_sphere_scene(depth=DEPTH)
+    ana_build_s = time.perf_counter() - t0
+    plant, plant_cam = plant_cpu.to(dev), plant_cam_cpu.to(dev)
+    ana, ana_cam = ana_cpu.to(dev), ana_cam_cpu.to(dev)
+    log(f"  depth-{DEPTH} plant field built in {plant_build_s:.2f} s: {plant.n_nodes} nodes, "
+        f"{plant.models.flags.shape[0]} models, {plant.models.quads.count} quads; analytic scene "
+        f"{ana_build_s:.2f} s: {ana.n_nodes} nodes, {ana.prims.n_spheres} sphere, {ana.prims.quads.count} quad")
+    plant_tables = accept_tables(plant)
+    pprim = primaries(plant, plant_cam, WIDTH, HEIGHT)
+
+    # the twin's candidates and quad tests on these rays, for the bound: a
+    # candidate reads its model row; a quad model's, its quads' rows
+    work = {"candidates": 0, "quad_rows": 0}
+    real_accept = traversal._alpha_accept
+
+    def counting_accept(c, s_, tables, mode, fresh, rec, inv_scale):
+        lv = s_["cand"][fresh].clamp(0, tables.leaf_model.shape[0] - 1).long()
+        model = tables.leaf_model[lv].clamp(0, tables.flags.shape[0] - 1).long()
+        scanned = (tables.flags[model] & 1) == 0
+        if mode == 1:  # a leaf that cannot reject is accepted unread
+            scanned = scanned & tables.rejectable[lv]
+        read = tables.rejectable[lv] if mode == 1 else torch.ones_like(scanned)
+        work["candidates"] += int(read.sum())
+        work["quad_rows"] += int(tables.quad_count[model][scanned].sum())
+        return real_accept(c, s_, tables, mode, fresh, rec, inv_scale)
+
+    with mock.patch.object(traversal, "_alpha_accept", counting_accept):
+        r_res = traverse_alpha_reference(*pprim, plant_tables)
+    k_res = traverse_alpha(*pprim, plant_tables)
+    err_k2q = compare_hits(k_res, r_res, f"K2q mode 1, depth-{DEPTH} plant field, {WIDTH}x{HEIGHT} primaries",
+                           exact=True)
+    log(f"    hits {int(k_res.hit.sum())}, of them on a plant's quad {int(k_res.quad.found.sum())}; the twin's "
+        f"candidates {work['candidates']}, quad rows tested {work['quad_rows']}")
+    n_bytes_k, n_ops_k = (work["candidates"] * MODEL_ROW_BYTES + work["quad_rows"] * QUAD_ROW_BYTES,
+                          work["quad_rows"] * OPS_PER_QUAD)
+    fetches = int(k_res.fetches.sum())
+    k2q_bound = bound(fetches * 32 + WIDTH * HEIGHT * (RAY_BYTES + QUAD_OUT_BYTES) + n_bytes_k,
+                      fetches * OPS_PER_FETCH + n_ops_k)
+    k2q = both(lambda: traverse_alpha(*pprim, plant_tables))
+    results["esvo_traverse_models"] = dict(
+        variant=f"mode 1 (the alpha accept with block models) on the {WIDTH}x{HEIGHT} depth-{DEPTH} plant primaries",
+        ms=k2q["call_ms"], device_ms=k2q["device_ms"],
+        plain_ms=call_ms(lambda: traverse_alpha_reference(*pprim, plant_tables), 2),
+        bound_ms=k2q_bound[0], bound_by=k2q_bound[1], library_ms=None)
+    log(f"  K2q mode 1 call {k2q['call_ms']!r} ms, device {k2q['device_ms']!r} ms ({k2q['device_by']}); twin "
+        f"{results['esvo_traverse_models']['plain_ms']!r} ms; bound {k2q_bound[0]!r} ms ({k2q_bound[1]}: {fetches} "
+        f"node rows, {work['quad_rows']} quad rows) on the {WIDTH}x{HEIGHT} plant primaries [{card}]")
+    k_res2, k_rec2 = traverse_record(*pprim, plant_tables)
+    r_res2, r_rec2 = traverse_record_reference(*pprim, plant_tables)
+    err_k2q = max(err_k2q, compare_hits(k_res2, r_res2, f"K2q mode 2, depth-{DEPTH} plant field, {WIDTH}x{HEIGHT} "
+                                        "primaries", k_rec2, r_rec2, exact=True))
+    m2 = both(lambda: traverse_record(*pprim, plant_tables))
+    log(f"  K2q mode 2 call {m2['call_ms']!r} ms, device {m2['device_ms']!r} ms; surfaces per ray "
+        f"{torch.bincount(k_rec2.count).tolist()} [{card}]")
+    # mode 3: from the primaries' hits, toward the sun (strict, no t) and
+    # toward random directions of the hit's hemisphere (t recorded)
+    hn = resolve_hit(plant, pprim[4], pprim[5], k_res)[2]
+    hp = torch.where(k_res.hit[:, None], pprim[4] + pprim[5] * k_res.t[:, None], pprim[4])
+    su = torch.from_numpy(np.random.default_rng(12).random((WIDTH * HEIGHT, 5), dtype=np.float32)).to(dev)
+    sun_dir = random_sun_direction(plant.sun, su[:, 0], su[:, 1]).contiguous()
+    rnd = torch.from_numpy(np.random.default_rng(13).standard_normal((WIDTH * HEIGHT, 3)).astype(np.float32)).to(dev)
+    rnd = rnd / rnd.norm(dim=-1, keepdim=True)
+    rnd = torch.where(((rnd * hn).sum(-1) < 0)[:, None], -rnd, rnd).contiguous()
+    air = torch.zeros((WIDTH * HEIGHT,), dtype=torch.int32, device=dev)
+    for label, sd, strict, record_t in (("sun", sun_dir, True, False), ("hemisphere", rnd, False, True)):
+        front = (sd * hn).sum(-1) > 0.0
+        so = (torch.where(front[:, None], hp, hp - OFFSET * hn) + sd * OFFSET).contiguous()
+        sargs = (plant.nodes, plant.root, plant.depth, plant.octree_scale, so, sd, plant_tables, air, strict,
+                 record_t, 1024.0, k_res.hit & front)
+        k_r3, k_st = traverse_shadow(*sargs)
+        r_r3, r_st = traverse_shadow_reference(*sargs)
+        err_k2q = max(err_k2q, compare_hits(k_r3, r_r3, f"K2q mode 3 {label} walk, depth-{DEPTH} plant field, "
+                                            f"{int(sargs[-1].sum())} of {WIDTH}x{HEIGHT} lanes active", k_st, r_st,
+                                            exact=True))
+        m3 = both(lambda: traverse_shadow(*sargs))
+        log(f"  K2q mode 3 {label} walk call {m3['call_ms']!r} ms, device {m3['device_ms']!r} ms; surfaces per "
+            f"ray {torch.bincount(k_st.count).tolist()} [{card}]")
+    results["esvo_traverse_models"]["max_abs_err"] = err_k2q
+
+    # K7 on the analytic scene's primaries
+    po, pd = pixel_grid_rays(ana_cam, WIDTH, HEIGHT)
+    po, pd = po.contiguous(), pd.contiguous()
+    k7 = intersect_prims(ana.prims, po, pd, 1024.0)
+    r7 = intersect_prims_reference(ana.prims, po, pd, 1024.0)
+    torch.cuda.synchronize()
+    unequal = {name: int((a != b).sum()) for name, a, b in zip(("hit", "t", "mat", "normal"),
+                                                               (k7[0], k7[1], k7[2], k7[4]),
+                                                               (r7[0], r7[1], r7[2], r7[4]))}
+    uv_err = float((k7[3] - r7[3]).abs().max())
+    log(f"  K7, depth-{DEPTH} analytic scene, {WIDTH}x{HEIGHT} primaries: hits {int(k7[0].sum())} "
+        f"(sphere {int((k7[0] & (k7[2] == 2)).sum())}, quad {int((k7[0] & (k7[2] == 3)).sum())}); not bit-equal "
+        f"{unequal}; uv max abs diff {uv_err!r}")
+    if any(unequal.values()) or not uv_err <= 1e-6:
+        raise AssertionError("K7 disagrees with its twin on the analytic primaries")
+    k7t = both(lambda: intersect_prims(ana.prims, po, pd, 1024.0))
+    k7_bound = prim_bound(ana.prims, WIDTH * HEIGHT)
+    results["prims_intersect"] = dict(
+        max_abs_err=uv_err, ms=k7t["call_ms"], device_ms=k7t["device_ms"],
+        plain_ms=call_ms(lambda: intersect_prims_reference(ana.prims, po, pd, 1024.0), 10),
+        bound_ms=k7_bound[0], bound_by=k7_bound[1], library_ms=None)
+    log(f"  K7 call {k7t['call_ms']!r} ms, device {k7t['device_ms']!r} ms ({k7t['device_by']}); twin "
+        f"{results['prims_intersect']['plain_ms']!r} ms; bound {k7_bound[0]!r} ms ({k7_bound[1]}) on the "
+        f"{WIDTH}x{HEIGHT} analytic primaries [{card}]")
+    del k_res, r_res, k_res2, r_res2, k_rec2, r_rec2, k_r3, r_r3, k_st, r_st, k7, r7
+
     # ---- 3. the forward main path: the progressive renderer
     log("phase 3 forward main path (Renderer):")
     passes = []
@@ -563,7 +773,7 @@ def main() -> int:
 
     r = Renderer(scene=scene, camera=cam, width=WIDTH, height=HEIGHT, n_bounces=N_BOUNCES,
                  branch_count=10, target_spp=20, seed=0)
-    reset_counts(wrappers.values())
+    reset_counts()
     t0 = time.perf_counter()
     with mock.patch.object(renderer, "render_pass", count_pass), \
             mock.patch.object(renderer, "render_pass_branched", count_branched):
@@ -593,7 +803,7 @@ def main() -> int:
         picks.append(em.grid_idx is not None)  # a spatial pick gathers its rows through P1
         return real_pick(em, *a, **kw)
 
-    reset_counts(wrappers.values())
+    reset_counts()
     t0 = time.perf_counter()
     with mock.patch.object(emitters, "_spatial_pick", count_pick):
         r = parsed.fn(parsed)
@@ -610,12 +820,32 @@ def main() -> int:
     log(f"  spp {r.spp}; frame mean {float(frame.mean())!r}, finite; {r.scene.emitters.count} emitters; "
         f"{render_s:.2f} s with the scene build [{card}]")
 
+    # ---- 3c. the block-model entry point
+    argv = ["render", "--scene", "plant", "--depth", str(DEPTH), "--width", str(WIDTH), "--height", str(HEIGHT),
+            "--spp", "20", "--sun", "high_quality", "--device", "cuda",
+            "-o", os.path.join(out_dir, f"plant_d{DEPTH}_{WIDTH}.ppm")]
+    log(f"phase 3c block models: cli {' '.join(argv)}")
+    parsed = cli.build_parser().parse_args(argv)
+    reset_counts()
+    t0 = time.perf_counter()
+    r = parsed.fn(parsed)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    read_counts("cli render --scene plant --sun high_quality",
+                ("esvo_traverse_models (mode 1)", "esvo_traverse_models (mode 3)", "philox_uniforms"))
+    frame = r.framebuffer
+    if r.spp != 20 or not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
+        raise AssertionError("the plant frame is not finite with a positive mean at 20 spp")
+    log(f"  spp {r.spp}; frame mean {float(frame.mean())!r}, finite; {render_s:.2f} s with the scene build [{card}]")
+
     # ---- 4. frame parity: kernel paths against twin paths
     w = h = 64
     u = torch.from_numpy(np.random.default_rng(7).random((w * h, N_BOUNCES, 21), dtype=np.float32)).to(dev)
     for label, sc, camera in (("terrain", scene, cam), ("cutout", cut, cut_cam),
                               ("terrain HIGH_QUALITY + ONE", high_quality(scene, "one"), cam),
-                              ("cutout HIGH_QUALITY + ONE", high_quality(cut, "one"), cut_cam)):
+                              ("cutout HIGH_QUALITY + ONE", high_quality(cut, "one"), cut_cam),
+                              ("plant field HIGH_QUALITY", plant, plant_cam), ("analytic", ana, ana_cam),
+                              ("analytic HIGH_QUALITY", high_quality(ana), ana_cam)):
         po, pd = pixel_grid_rays(camera, w, h)
         got = trace_paths(sc, po, pd, u)
         with twins():
@@ -658,7 +888,7 @@ def main() -> int:
         loss.backward()
         return loss.detach(), p["atlas"].grad, p["emittance"].grad
 
-    reset_counts(wrappers.values())
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for i in range(6):
@@ -704,7 +934,7 @@ def main() -> int:
         rays_live = int(live.sum())
         for step, fn in (("forward", lambda: trace_paths(sc, lo, ld, fu)),
                          ("fwd+bwd", lambda: fwdbwd(sc, lo, ld, fu))):
-            reset_counts(wrappers.values())
+            reset_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             times = []
             for i in range(6):
@@ -724,16 +954,55 @@ def main() -> int:
                 f"(live per bounce {live.tolist()}); max_memory_allocated "
                 f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card}]")
 
+    # ---- 6c. the block-model and primitive lines
+    log(f"phase 6c block models and primitives at bench.py's shapes [{card}]")
+    for name, which, sun in MODEL_CELLS:
+        sc, camera = (plant, plant_cam) if which == "plant" else (ana, ana_cam)
+        sc = dataclasses.replace(sc, sun_sampling=getattr(SunSampling, sun)())
+        lo, ld = pixel_grid_rays(camera, WIDTH, HEIGHT)
+        if which == "plant":
+            required = ("esvo_traverse_models (mode 1)", "esvo_traverse_models (mode 3)")
+        else:
+            required = ("esvo_traverse", "prims_intersect")
+        _, live = trace_paths_census(sc, lo, ld, fu)
+        rays_live = int(live.sum())
+        for step, fn in (("forward", lambda: trace_paths(sc, lo, ld, fu)),
+                         ("fwd+bwd", lambda: fwdbwd(sc, lo, ld, fu))):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            times = []
+            for i in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                if i:  # the first run is the warm-up
+                    times.append((time.perf_counter() - t0) * 1e3)
+            read_counts(f"the {name} line, {step}", required)
+            finite = torch.isfinite(out).all() if step == "forward" else all(torch.isfinite(x).all() for x in out)
+            if not bool(finite):
+                raise AssertionError(f"the {name} line's {step} is not finite")
+            ms = statistics.median(times)
+            log(f"  {name} {step}_ms {ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) "
+                f"{which} {sun.upper()} depth {DEPTH} {WIDTH}x{HEIGHT} bounces {N_BOUNCES}; "
+                f"rays_per_s_nominal {rays_nominal / (ms / 1e3)!r} rays_per_s_live {rays_live / (ms / 1e3)!r} "
+                f"(live per bounce {live.tolist()}); max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card}]")
+
     # ---- 7. the training entry point
-    for scene_name, required in (("chunk", ("esvo_traverse", "esvo_traverse_record", "philox_uniforms")),
-                                 ("cutout", ("esvo_traverse_alpha", "esvo_traverse_record", "philox_uniforms"))):
+    model_modes = tuple(f"esvo_traverse_models (mode {m})" for m in (1, 2, 3))
+    for scene_name, views, res_px, steps, required in (
+            ("chunk", TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS, ("esvo_traverse", "esvo_traverse_record", "philox_uniforms")),
+            ("cutout", TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS,
+             ("esvo_traverse_alpha", "esvo_traverse_record", "philox_uniforms")),
+            ("plant", 2, 128, 2, model_modes + ("philox_uniforms",))):
         out = os.path.join(out_dir, f"params_{scene_name}.npz")
-        argv = ["train", "--scene", scene_name, "--depth", str(DEPTH), "--views", str(TRAIN_VIEWS),
-                "--width", str(TRAIN_RES), "--height", str(TRAIN_RES), "--steps", str(TRAIN_STEPS),
+        argv = ["train", "--scene", scene_name, "--depth", str(DEPTH), "--views", str(views),
+                "--width", str(res_px), "--height", str(res_px), "--steps", str(steps),
                 "--device", "cuda", "-o", out]
         log(f"phase 7 training: cli {' '.join(argv)}")
         parsed = cli.build_parser().parse_args(argv)
-        reset_counts(wrappers.values())
+        reset_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         res = parsed.fn(parsed)
@@ -741,13 +1010,16 @@ def main() -> int:
         wall = time.perf_counter() - t0
         read_counts(f"cli train --scene {scene_name}", required)
         saved = load_arrays(out)
-        if not all(np.isfinite(res.losses)) or len(res.losses) != TRAIN_STEPS:
+        if not all(np.isfinite(res.losses)) or len(res.losses) != steps:
             raise AssertionError(f"training losses not finite: {res.losses}")
         if saved["atlas"].shape != tuple(res.params["atlas"].shape) or not np.isfinite(saved["atlas"]).all():
             raise AssertionError("trained parameters were not written")
         log(f"  losses {res.losses}; wall s per step {res.step_seconds}; whole command {wall:.2f} s; "
             f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
 
+    # K2q's row counts its three modes' launches
+    main_path_launches["esvo_traverse_models"] = sum(main_path_launches[m] for m in model_modes)
+    log(f"  K2q launches on the main paths by mode: {[main_path_launches[m] for m in model_modes]}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(name=name, route="cuda", source=source, replaces=replaces,

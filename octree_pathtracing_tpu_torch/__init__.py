@@ -6,11 +6,13 @@ reference).  The layout mirrors it module for module:
 
 - ``octree`` : the numpy octree builder (dense grid -> node pool), leaf
                enumeration
-- ``ops``    : ESVO traversal in four modes (CUDA kernels + plain-torch
-               twins), Philox uniforms and the row gather (CUDA kernels +
-               twins), BRDF sampling, texture atlas
+- ``ops``    : ESVO traversal in four modes and its block-model variant
+               (CUDA kernels + plain-torch twins), Philox uniforms and the
+               row gather (CUDA kernels + twins), quad and sphere geometry,
+               BRDF sampling, texture atlas
 - ``models`` : scene tables as dataclasses of tensors — camera, sun,
-               materials, the emitter table, procedural scenes, conversion
+               materials, block models, analytic primitives (the K7 kernel
+               + twin), the emitter table, procedural scenes, conversion
                from the JAX scene
 - ``render`` : hit resolution, wavefront path tracer, progressive renderer
 - ``diff``   : relaxed-visibility (soft) radiance and inverse rendering

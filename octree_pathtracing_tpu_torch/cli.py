@@ -7,6 +7,8 @@ Usage:
       --sun high_quality --emitter-sampling one -o build/cutout.ppm
   python -m octree_pathtracing_tpu_torch.cli train --scene chunk --depth 9 \\
       --views 8 --steps 3 -o build/params.npz
+  python -m octree_pathtracing_tpu_torch.cli render --scene plant --depth 9 \
+      --width 256 --height 256 --spp 20 -o build/plant.ppm
   python -m octree_pathtracing_tpu_torch.cli info --scene chunk --depth 9
 
 Frames go to image files (PPM where PIL is missing), trained parameters to
@@ -26,17 +28,19 @@ import time
 
 from . import BUILD_DIR
 
-SCENES = ("sphere", "cornell", "room", "chunk", "cutout", "scattered")
+SCENES = ("sphere", "analytic", "cornell", "room", "chunk", "cutout", "scattered", "plant")
 EMITTER_SAMPLING = ("scene", "none", "one", "one_block", "all")
 SCENE_CACHE = os.path.join(BUILD_DIR, "scenes")
 
 
 def _build_scene(args):
     from .models import (
+        analytic_sphere_scene,
         cornell_scene,
         cutout_chunk_scene,
         emissive_room_scene,
         minecraft_chunk_scene,
+        plant_scene,
         scattered_lights_scene,
         sphere_scene,
     )
@@ -48,8 +52,8 @@ def _build_scene(args):
         return minecraft_chunk_scene(depth=depth, cache_dir=SCENE_CACHE)
     if args.scene == "cutout":
         return cutout_chunk_scene(depth=depth, cache_dir=SCENE_CACHE)
-    builders = {"sphere": sphere_scene, "cornell": cornell_scene, "room": emissive_room_scene,
-                "scattered": scattered_lights_scene}
+    builders = {"sphere": sphere_scene, "analytic": analytic_sphere_scene, "cornell": cornell_scene,
+                "room": emissive_room_scene, "scattered": scattered_lights_scene, "plant": plant_scene}
     return builders[args.scene](depth=depth)
 
 
@@ -162,7 +166,14 @@ def cmd_info(args):
     scene, _ = _build_scene(args)
     print(f"octree: depth={scene.depth} nodes={scene.n_nodes} scale={scene.octree_scale}")
     print(f"materials: {scene.materials.count}; atlas: {tuple(scene.atlas.shape)}")
-    print(f"opaque_only={scene.opaque_only} shadow_binary={scene.shadow_binary}")
+    print(f"opaque_only={scene.opaque_only} shadow_binary={scene.shadow_binary} "
+          f"has_quad_models={scene.has_quad_models}")
+    if scene.models is not None:
+        m = scene.models
+        print(f"block models: {m.flags.shape[0]} models, {m.quads.count} quads")
+    if scene.prims is not None:
+        n_quads = 0 if scene.prims.quads is None else scene.prims.quads.count
+        print(f"primitives: {scene.prims.n_spheres} spheres, {n_quads} quads")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -10,6 +10,23 @@
 //            alpha budget w *= 1 - alpha; stop on the 4th surface or when the
 //            budget reaches 0 (strict mode zeroes it on an IOR change).
 //
+// Kernel K2q is the block-model variant of modes 1, 2 and 3 (`template <int
+// MODE, bool MODELS>`, its own __global__ and entry point per mode): a
+// candidate's material is its model's face material
+// face_material[model][clip(face, 0, 5)]; a simple model tests that
+// material's texel at the entry face's uv; a quad model tests up to
+// MAX_MODEL_QUADS quads in the voxel's frame, o_loc = (origin - voxel_pos) /
+// voxel_size, each with Quad::hit (quads.cuh) up to the best t so far, and
+// keeps the nearest whose texel alpha is above Ray::EPSILON; none found
+// rejects the candidate.  Mode 1 writes the winning quad's material, uv,
+// normal and world t (t_local * voxel_size) for render/hit.resolve_hit;
+// mode 2 records (material, uv, entry face); mode 3 records (material, uv
+// and the voxel entry's t, t_min * inv_scale) under the same alpha budget
+// and strict-IOR stop, a binary-class leaf staying a total blocker that
+// needs no texel fetch.  The variants without models compile to what they
+// were: their kernels take no model argument and every model branch is
+// `if constexpr`.
+//
 // Replaces: octree_pathtracing_tpu/ops/traversal.py `traverse` (:459) with
 // its `_init`, `_step`, `_examine` and `_hit_info` (k_examine = 2,
 // untiled), and, for the accept modes, the callback protocol of :563-596 —
@@ -17,8 +34,10 @@
 // `_leaf_alpha_classes` (:72), MODE 2 with diff/soft.py
 // `_make_recording_accept` (:69) / `record_surfaces` (:96) over
 // render/hit.py `_surface_of_candidate` (:155), MODE 3 with render/hit.py
-// `make_shadow_accept_fn` (:223) and `shadow_state_init` (:187), all for
-// scenes without block models.  The JAX version steps a whole ray batch in lockstep under
+// `make_shadow_accept_fn` (:223) and `shadow_state_init` (:187); K2q adds
+// the model branches of those callbacks with render/hit.py `_quad_scan`
+// (:39), over the world origins, voxel corner and voxel size that the
+// accept protocol passes (:569-578).  The JAX version steps a whole ray batch in lockstep under
 // one lax.while_loop; here every thread walks its own ray to an accepted
 // leaf, a miss, or MAX_STEPS node fetches, and exits on its own.
 //
@@ -36,6 +55,11 @@
 // compile-time constant and every row index is unrolled).  MODE 3 reads, per
 // candidate, the leaf's binary-class byte and, for a non-binary leaf, the
 // texel alpha; two IOR words in strict mode.
+//
+// K2q adds, per candidate of a model scene, the leaf's model id, the
+// model's flags, face material, quad start and count, and for a quad model
+// up to MAX_MODEL_QUADS quad rows of 84 bytes (21 words) and one texel per
+// quad hit; the scene's few models and quads stay in L1/L2.
 //
 // This first version is simple and right; making it fast (stack in
 // registers or shared memory, ray sorting, persistent threads) is later work.
@@ -75,6 +99,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quads.cuh"
+
 #define MAX_STEPS 1000
 #define MAX_SCALE 23
 #define STACK_ROWS (MAX_SCALE + 1)
@@ -85,10 +111,18 @@
 #define EPSILON_F 1.1920929e-7f
 #define ALPHA_EPSILON_F 5e-8f  // Ray::EPSILON, ops/shading.EPSILON
 #define K_SURFACES 4
+#define MAX_MODEL_QUADS 8
+#define FLAG_SIMPLE 1
 
 struct Ray {
   float ro[3], rd[3], t_coef[3], t_bias[3];
   int mirror;
+};
+
+// The ray as the caller gave it, in world space (K2q's quad scan; apart
+// from Ray, so that the variants without models never hold it).
+struct WorldRay {
+  float o[3], d[3];
 };
 
 struct State {
@@ -123,13 +157,37 @@ struct ShadowIO {
   float* ts;           // (K, B) world t of each surface, or null
 };
 
-// The surfaces a lane recorded (modes 2 and 3; w, cm and ts in mode 3 only).
+// K2q's block-model tables (ops/traversal.AlphaTables' model fields).
+struct ModelTables {
+  const int* leaf_model;     // (L,) leaf value -> model
+  const int* flags;          // (Mm,) FLAG_SIMPLE: a full cube
+  const int* face_material;  // (Mm, 6)
+  const int* quad_start;     // (Mm,)
+  const int* quad_count;     // (Mm,)
+  int n_leaf_model, n_model;
+  QuadTable quads;           // block-local quads
+};
+
+// Where K2q's mode 1 writes the accepted quad surface of each lane.
+struct QuadOut {
+  uint8_t* found;  // (B,)
+  int* mat;        // (B,)
+  float* uv;       // (B, 2)
+  float* normal;   // (B, 3)
+  float* t;        // (B,) world t
+};
+
+// The surfaces a lane recorded (modes 2 and 3; w, cm and ts in mode 3 only)
+// and, in K2q's mode 1, the quad surface it accepted.
 struct Record {
   int count;
   int mat[K_SURFACES], face[K_SURFACES];
   float uu[K_SURFACES], vv[K_SURFACES], ts[K_SURFACES];
   float w;
   int cm;
+  bool q_found;
+  int q_mat;
+  float q_uv[2], q_normal[3], q_t;
 };
 
 __device__ __forceinline__ int child_word(int4 lo, int4 hi, int slot) {
@@ -276,30 +334,110 @@ __device__ __forceinline__ float texel_alpha(const AlphaTables& tb, int layer, f
   return __ldg(tb.atlas + (((size_t)layer * tb.atlas_h + j) * tb.atlas_w + i) * 4 + 3);
 }
 
+__device__ __forceinline__ int clip(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+
+// The atlas layer of material `mat` (in [0, n_mat)).
+__device__ __forceinline__ int layer_of(const AlphaTables& tb, int mat) {
+  return clip(__ldg(tb.texture_index + mat), 0, tb.n_layer - 1);
+}
+
+// K2q's quad scan (render/hit.py _quad_scan): the quads of `model` in the
+// frame of the voxel (corner vpos, side vs); the nearest hit whose texel
+// alpha is above ALPHA_EPSILON.  Returns its index, or -1.
+__device__ __forceinline__ int quad_scan(const AlphaTables& tb, const ModelTables& mt,
+                                         int model, const WorldRay& w, const float vpos[3], float vs,
+                                         float& best_t, float& best_u, float& best_v,
+                                         float& best_alpha) {
+  float o_loc[3];
+  for (int a = 0; a < 3; ++a) o_loc[a] = (w.o[a] - vpos[a]) / vs;
+  int start = __ldg(mt.quad_start + model);
+  int count = __ldg(mt.quad_count + model);
+  int best_q = -1;
+  best_t = __int_as_float(0x7f800000);
+  for (int k = 0; k < MAX_MODEL_QUADS && k < count; ++k) {
+    int q = clip(start + k, 0, mt.quads.count - 1);
+    float t, uu, vv;
+    if (!quad_hit(mt.quads, q, o_loc, w.d, best_t, t, uu, vv)) continue;
+    float alpha = texel_alpha(tb, layer_of(tb, clip(__ldg(mt.quads.material + q), 0, tb.n_mat - 1)), uu, vv);
+    if (alpha > ALPHA_EPSILON_F && t < best_t) {
+      best_t = t;
+      best_u = uu;
+      best_v = vv;
+      best_alpha = alpha;
+      best_q = q;
+    }
+  }
+  return best_q;
+}
+
+// The surface of a fresh candidate (render/hit.py _surface_of_candidate):
+// false where there is none (a hole, or a quad model whose quads the ray
+// misses); else its material, uv and texel alpha (1 for a binary-class
+// leaf in mode 3, which needs no texel fetch).  K2q's mode 1 keeps the
+// accepted quad's surface in `rec`.
+template <int MODE, bool MODELS>
+__device__ __forceinline__ bool surface(const State& s, const WorldRay& w, const AlphaTables& tb,
+                                        const ModelTables& mt, float inv_scale, int face, int lv,
+                                        const float unm[3], float& uu, float& vv, int& mat,
+                                        float& alpha, Record& rec) {
+  // table indices clip like XLA's gathers (in range on any scene make_scene built)
+  if constexpr (MODELS) {
+    int model = clip(__ldg(mt.leaf_model + clip(s.cand, 0, mt.n_leaf_model - 1)), 0, mt.n_model - 1);
+    mat = clip(__ldg(mt.face_material + 6 * model + clip(face, 0, 5)), 0, tb.n_mat - 1);
+    if (MODE == 3 && tb.binary[lv]) return true;  // a total blocker, no texel fetch
+    if (__ldg(mt.flags + model) & FLAG_SIMPLE) {
+      alpha = texel_alpha(tb, layer_of(tb, mat), uu, vv);
+      return alpha > ALPHA_EPSILON_F;
+    }
+    // a quad model: its nearest quad hit with a texel, in the voxel's frame
+    float vpos[3], vs = s.scale_exp2 * inv_scale, best_t;
+    for (int a = 0; a < 3; ++a) vpos[a] = (unm[a] - 1.0f) * inv_scale;
+    int q = quad_scan(tb, mt, model, w, vpos, vs, best_t, uu, vv, alpha);
+    if (q < 0) return false;
+    mat = clip(__ldg(mt.quads.material + q), 0, tb.n_mat - 1);
+    if (MODE == 1) {
+      rec.q_found = true;
+      rec.q_mat = mat;
+      rec.q_uv[0] = uu;
+      rec.q_uv[1] = vv;
+      for (int a = 0; a < 3; ++a) rec.q_normal[a] = __ldg(mt.quads.normal + 3 * q + a);
+      rec.q_t = best_t * vs;
+    }
+    return true;
+  } else {
+    mat = clip(__ldg(tb.leaf_material + lv), 0, tb.n_mat - 1);
+    if (MODE == 3 && tb.binary[lv]) return true;  // a total blocker, no texel fetch
+    alpha = texel_alpha(tb, layer_of(tb, mat), uu, vv);
+    return alpha > ALPHA_EPSILON_F;
+  }
+}
+
 // The accept of a fresh candidate; false sends the lane back to ACTIVE.
-template <int MODE>
-__device__ __forceinline__ bool accept(const State& s, const Ray& r, const AlphaTables& tb,
-                                       int strict, float inv_scale, Record& rec) {
+template <int MODE, bool MODELS>
+__device__ __forceinline__ bool accept(const State& s, const Ray& r, const WorldRay& w,
+                                       const AlphaTables& tb, const ModelTables& mt, int strict,
+                                       float inv_scale, Record& rec) {
   int face;
   float uu, vv, unm[3];
   hit_info(r, s, face, uu, vv, unm);
-  int lv = min(max(s.cand, 0), tb.n_leaf - 1);
+  int lv = clip(s.cand, 0, tb.n_leaf - 1);
   if (MODE == 1 && !tb.rejectable[lv]) return true;  // no texel of it can reject
-  // table indices clip like XLA's gathers (in range on any scene make_scene built)
-  int mat = min(max(__ldg(tb.leaf_material + lv), 0), tb.n_mat - 1);
-  if (MODE == 3) {
-    float alpha = 1.0f;  // a binary-class leaf: a total blocker, no texel fetch
-    if (!tb.binary[lv]) {
-      int layer = min(max(__ldg(tb.texture_index + mat), 0), tb.n_layer - 1);
-      alpha = texel_alpha(tb, layer, uu, vv);
-      if (!(alpha > ALPHA_EPSILON_F)) return false;  // a hole: walk on
-    }
-    float w = rec.w * (1.0f - alpha);
+  int mat;
+  float alpha = 1.0f;
+  if (!surface<MODE, MODELS>(s, w, tb, mt, inv_scale, face, lv, unm, uu, vv, mat, alpha, rec)) {
+    return false;  // walk on
+  }
+  if constexpr (MODE == 1) {
+    return true;
+  } else if constexpr (MODE == 3) {
+    float budget = rec.w * (1.0f - alpha);
     if (strict) {
-      int cm = min(max(rec.cm, 0), tb.n_mat - 1);
-      if (__ldg(tb.ior + cm) != __ldg(tb.ior + mat)) w = 0.0f;
+      int cm = clip(rec.cm, 0, tb.n_mat - 1);
+      if (__ldg(tb.ior + cm) != __ldg(tb.ior + mat)) budget = 0.0f;
     }
-    float t_world = s.t_min * inv_scale;
+    float t_world = s.t_min * inv_scale;  // the voxel entry, also for a quad
 #pragma unroll
     for (int k = 0; k < K_SURFACES; ++k) {  // unrolled: the rows stay in registers
       if (k == rec.count) {
@@ -310,49 +448,51 @@ __device__ __forceinline__ bool accept(const State& s, const Ray& r, const Alpha
       }
     }
     rec.count += 1;
-    rec.w = w;
+    rec.w = budget;
     rec.cm = mat;
-    return rec.count >= K_SURFACES || w <= 0.0f;
-  }
-  int layer = min(max(__ldg(tb.texture_index + mat), 0), tb.n_layer - 1);
-  bool is_surface = texel_alpha(tb, layer, uu, vv) > ALPHA_EPSILON_F;
-  if (MODE == 1) return is_surface;
-  if (!is_surface) return false;
+    return rec.count >= K_SURFACES || budget <= 0.0f;
+  } else {
 #pragma unroll
-  for (int k = 0; k < K_SURFACES; ++k) {  // unrolled: the rows stay in registers
-    if (k == rec.count) {
-      rec.mat[k] = mat;
-      rec.face[k] = face;
-      rec.uu[k] = uu;
-      rec.vv[k] = vv;
+    for (int k = 0; k < K_SURFACES; ++k) {  // unrolled: the rows stay in registers
+      if (k == rec.count) {
+        rec.mat[k] = mat;
+        rec.face[k] = face;
+        rec.uu[k] = uu;
+        rec.vv[k] = vv;
+      }
     }
+    rec.count += 1;
+    return rec.count >= K_SURFACES;
   }
-  rec.count += 1;
-  return rec.count >= K_SURFACES;
 }
 
-template <int MODE>
-__global__ void esvo_traverse_kernel(
-    const int4* __restrict__ nodes, int root, int depth, float octree_scale,
+// One lane's walk: setup, the walk with its accepts, the outputs.  The
+// __global__ kernels below are thin shells around it.
+template <int MODE, bool MODELS>
+__device__ __forceinline__ void walk(
+    int i, const int4* __restrict__ nodes, int root, int depth, float octree_scale,
     float inv_scale, float max_dst, const float* __restrict__ origins,
     const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
-    AlphaTables tb, ShadowIO sh, uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
-    int* __restrict__ face_out, float* __restrict__ uv_out,
-    int* __restrict__ leaf_out, float* __restrict__ vpos_out,
-    float* __restrict__ vsize_out, int* __restrict__ steps_out,
-    int* __restrict__ rec_count, int* __restrict__ rec_mats,
-    int* __restrict__ rec_face, float* __restrict__ rec_uu,
+    const AlphaTables& tb, const ShadowIO& sh, const ModelTables& mt, const QuadOut& qo,
+    uint8_t* __restrict__ hit_out, float* __restrict__ t_out, int* __restrict__ face_out,
+    float* __restrict__ uv_out, int* __restrict__ leaf_out, float* __restrict__ vpos_out,
+    float* __restrict__ vsize_out, int* __restrict__ steps_out, int* __restrict__ rec_count,
+    int* __restrict__ rec_mats, int* __restrict__ rec_face, float* __restrict__ rec_uu,
     float* __restrict__ rec_vv) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   const int scale_base = MAX_SCALE - depth;
 
   // ---- _init: the ray in the [1, 2) cube, mirrored to negative directions
   Ray r;
+  WorldRay w;
   int pos_dir = 0;
   for (int a = 0; a < 3; ++a) {
-    r.ro[a] = origins[3 * i + a] * octree_scale + 1.0f;
+    float o = origins[3 * i + a];
+    r.ro[a] = o * octree_scale + 1.0f;
     float d = dirs[3 * i + a];
+    if constexpr (MODELS) {
+      w.o[a] = o;
+      w.d[a] = d;
+    }
     if (fabsf(d) < EPSILON_F) {
       d = __uint_as_float(__float_as_uint(EPSILON_F) | (__float_as_uint(d) & 0x80000000u));
     }
@@ -403,6 +543,13 @@ __global__ void esvo_traverse_kernel(
     rec.vv[k] = 0.0f;
     rec.ts[k] = __int_as_float(0x7f800000);
   }
+  if constexpr (MODELS && MODE == 1) {
+    rec.q_found = false;
+    rec.q_mat = 0;
+    rec.q_uv[0] = rec.q_uv[1] = 0.0f;
+    rec.q_normal[0] = rec.q_normal[1] = rec.q_normal[2] = 0.0f;
+    rec.q_t = __int_as_float(0x7f800000);
+  }
 
   // ---- the walk: one row fetch per step, up to two decisions on it, then
   // the accept of a fresh candidate
@@ -414,7 +561,8 @@ __global__ void esvo_traverse_kernel(
     if (examine<MODE>(s, r, lo, hi, scale_base, max_dst)) {
       examine<MODE>(s, r, lo, hi, scale_base, max_dst);
     }
-    if (MODE != 0 && s.status == CANDIDATE && !accept<MODE>(s, r, tb, sh.strict, inv_scale, rec)) {
+    if (MODE != 0 && s.status == CANDIDATE &&
+        !accept<MODE, MODELS>(s, r, w, tb, mt, sh.strict, inv_scale, rec)) {
       s.status = ACTIVE;
       s.reject = true;
     }
@@ -434,6 +582,14 @@ __global__ void esvo_traverse_kernel(
   for (int a = 0; a < 3; ++a) vpos_out[3 * i + a] = (unm[a] - 1.0f) * inv_scale;
   vsize_out[i] = s.scale_exp2 * inv_scale;
   steps_out[i] = steps;
+  if constexpr (MODELS && MODE == 1) {
+    qo.found[i] = rec.q_found;
+    qo.mat[i] = rec.q_mat;
+    qo.uv[2 * i] = rec.q_uv[0];
+    qo.uv[2 * i + 1] = rec.q_uv[1];
+    for (int a = 0; a < 3; ++a) qo.normal[3 * i + a] = rec.q_normal[a];
+    qo.t[i] = rec.q_t;
+  }
   if (MODE == 2) {
     rec_count[i] = rec.count;
 #pragma unroll
@@ -458,95 +614,167 @@ __global__ void esvo_traverse_kernel(
   }
 }
 
+// Modes 0-3 (K1, K2, K3r, K3s): no model tables.
+template <int MODE>
+__global__ void esvo_traverse_kernel(
+    const int4* __restrict__ nodes, int root, int depth, float octree_scale,
+    float inv_scale, float max_dst, const float* __restrict__ origins,
+    const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
+    AlphaTables tb, ShadowIO sh, uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
+    int* __restrict__ face_out, float* __restrict__ uv_out,
+    int* __restrict__ leaf_out, float* __restrict__ vpos_out,
+    float* __restrict__ vsize_out, int* __restrict__ steps_out,
+    int* __restrict__ rec_count, int* __restrict__ rec_mats,
+    int* __restrict__ rec_face, float* __restrict__ rec_uu,
+    float* __restrict__ rec_vv) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  ModelTables mt = {};
+  QuadOut qo = {};
+  walk<MODE, false>(i, nodes, root, depth, octree_scale, inv_scale, max_dst, origins, dirs,
+                    active, n, tb, sh, mt, qo, hit_out, t_out, face_out, uv_out, leaf_out,
+                    vpos_out, vsize_out, steps_out, rec_count, rec_mats, rec_face, rec_uu, rec_vv);
+}
+
+// K2q: modes 1-3 with the block-model tables.
+template <int MODE>
+__global__ void esvo_traverse_models_kernel(
+    const int4* __restrict__ nodes, int root, int depth, float octree_scale,
+    float inv_scale, float max_dst, const float* __restrict__ origins,
+    const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
+    AlphaTables tb, ShadowIO sh, ModelTables mt, QuadOut qo, uint8_t* __restrict__ hit_out,
+    float* __restrict__ t_out, int* __restrict__ face_out, float* __restrict__ uv_out,
+    int* __restrict__ leaf_out, float* __restrict__ vpos_out,
+    float* __restrict__ vsize_out, int* __restrict__ steps_out,
+    int* __restrict__ rec_count, int* __restrict__ rec_mats,
+    int* __restrict__ rec_face, float* __restrict__ rec_uu,
+    float* __restrict__ rec_vv) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  walk<MODE, true>(i, nodes, root, depth, octree_scale, inv_scale, max_dst, origins, dirs,
+                   active, n, tb, sh, mt, qo, hit_out, t_out, face_out, uv_out, leaf_out,
+                   vpos_out, vsize_out, steps_out, rec_count, rec_mats, rec_face, rec_uu, rec_vv);
+}
+
+// `mt` null: modes 0-3; else K2q's variant of MODE (1-3), `qo` its mode-1
+// output (null otherwise).
 template <int MODE>
 static int launch(const void* nodes, int root, int depth, float octree_scale,
                   float inv_scale, float max_dst, const void* origins,
                   const void* dirs, const void* active, int n, AlphaTables tb,
-                  ShadowIO sh, void* hit, void* t, void* face, void* uv, void* leaf,
-                  void* vpos, void* vsize, void* steps, void* rec_count,
-                  void* rec_mats, void* rec_face, void* rec_uu, void* rec_vv,
+                  ShadowIO sh, const ModelTables* mt, const QuadOut* qo, void* hit, void* t,
+                  void* face, void* uv, void* leaf, void* vpos, void* vsize, void* steps,
+                  void* rec_count, void* rec_mats, void* rec_face, void* rec_uu, void* rec_vv,
                   void* stream) {
   if (n == 0) return 0;
   if (depth < 1 || depth > MAX_SCALE) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  esvo_traverse_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
-      (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb, sh,
-      (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
-      (float*)vpos, (float*)vsize, (int*)steps, (int*)rec_count,
-      (int*)rec_mats, (int*)rec_face, (float*)rec_uu, (float*)rec_vv);
+  if (mt == nullptr) {
+    esvo_traverse_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
+        (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb, sh,
+        (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
+        (float*)vpos, (float*)vsize, (int*)steps, (int*)rec_count,
+        (int*)rec_mats, (int*)rec_face, (float*)rec_uu, (float*)rec_vv);
+  } else if constexpr (MODE != 0) {
+    QuadOut q = {};
+    if (qo != nullptr) q = *qo;
+    esvo_traverse_models_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
+        (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb, sh, *mt, q,
+        (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
+        (float*)vpos, (float*)vsize, (int*)steps, (int*)rec_count,
+        (int*)rec_mats, (int*)rec_face, (float*)rec_uu, (float*)rec_vv);
+  }
   return (int)cudaGetLastError();
 }
 
+#define HEAD_ARGS                                                                  \
+  const void *nodes, int root, int depth, float octree_scale, float inv_scale,     \
+      float max_dst, const void *origins, const void *dirs, const void *active, int n
+#define TABLE_ARGS                                                                 \
+  const void *leaf_material, int n_leaf, const void *texture_index, int n_mat,     \
+      const void *atlas, int n_layer, int atlas_h, int atlas_w, const void *sizes
+#define OUT_ARGS                                                                   \
+  void *hit, void *t, void *face, void *uv, void *leaf, void *vpos, void *vsize, void *steps
+#define HEAD nodes, root, depth, octree_scale, inv_scale, max_dst, origins, dirs, active, n
+#define OUTS hit, t, face, uv, leaf, vpos, vsize, steps
+
+static AlphaTables alpha_tables(TABLE_ARGS, const void* rejectable, const void* binary,
+                                const void* ior) {
+  AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
+                    (const float*)atlas, (const int*)sizes, (const uint8_t*)rejectable,
+                    (const uint8_t*)binary, (const float*)ior, n_leaf, n_mat,
+                    n_layer, atlas_h, atlas_w};
+  return tb;
+}
+#define TABLES leaf_material, n_leaf, texture_index, n_mat, atlas, n_layer, atlas_h, atlas_w, sizes
+
 // K1: no accept.
-extern "C" int esvo_traverse(const void* nodes, int root, int depth,
-                             float octree_scale, float inv_scale, float max_dst,
-                             const void* origins, const void* dirs,
-                             const void* active, int n, void* hit, void* t,
-                             void* face, void* uv, void* leaf, void* vpos,
-                             void* vsize, void* steps, void* stream) {
+extern "C" int esvo_traverse(HEAD_ARGS, OUT_ARGS, void* stream) {
   AlphaTables tb = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0};
   ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<0>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
-                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
-                   steps, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
+  return launch<0>(HEAD, tb, sh, nullptr, nullptr, OUTS, nullptr, nullptr, nullptr, nullptr,
+                   nullptr, stream);
 }
 
 // K2: the in-loop alpha accept.
-extern "C" int esvo_traverse_alpha(
-    const void* nodes, int root, int depth, float octree_scale, float inv_scale,
-    float max_dst, const void* origins, const void* dirs, const void* active,
-    int n, const void* leaf_material, int n_leaf, const void* texture_index,
-    int n_mat, const void* atlas, int n_layer, int atlas_h, int atlas_w,
-    const void* sizes, const void* rejectable, void* hit, void* t, void* face,
-    void* uv, void* leaf, void* vpos, void* vsize, void* steps, void* stream) {
-  AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
-                    (const float*)atlas, (const int*)sizes,
-                    (const uint8_t*)rejectable, nullptr, nullptr, n_leaf, n_mat,
-                    n_layer, atlas_h, atlas_w};
+extern "C" int esvo_traverse_alpha(HEAD_ARGS, TABLE_ARGS, const void* rejectable, OUT_ARGS,
+                                   void* stream) {
   ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<1>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
-                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
-                   steps, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
+  return launch<1>(HEAD, alpha_tables(TABLES, rejectable, nullptr, nullptr), sh, nullptr,
+                   nullptr, OUTS, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
 }
 
 // K3r: record the first K_SURFACES surfaces, accept the last.
-extern "C" int esvo_traverse_record(
-    const void* nodes, int root, int depth, float octree_scale, float inv_scale,
-    float max_dst, const void* origins, const void* dirs, const void* active,
-    int n, const void* leaf_material, int n_leaf, const void* texture_index,
-    int n_mat, const void* atlas, int n_layer, int atlas_h, int atlas_w,
-    const void* sizes, void* hit, void* t, void* face, void* uv, void* leaf,
-    void* vpos, void* vsize, void* steps, void* rec_count, void* rec_mats,
-    void* rec_face, void* rec_uu, void* rec_vv, void* stream) {
-  AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
-                    (const float*)atlas, (const int*)sizes, nullptr, nullptr,
-                    nullptr, n_leaf, n_mat, n_layer, atlas_h, atlas_w};
+extern "C" int esvo_traverse_record(HEAD_ARGS, TABLE_ARGS, OUT_ARGS, void* rec_count,
+                                    void* rec_mats, void* rec_face, void* rec_uu, void* rec_vv,
+                                    void* stream) {
   ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<2>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
-                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
-                   steps, rec_count, rec_mats, rec_face, rec_uu, rec_vv, stream);
+  return launch<2>(HEAD, alpha_tables(TABLES, nullptr, nullptr, nullptr), sh, nullptr, nullptr,
+                   OUTS, rec_count, rec_mats, rec_face, rec_uu, rec_vv, stream);
 }
 
 // K3s: the shadow walk.  `ts` may be null (the sun walk records no t).
-extern "C" int esvo_traverse_shadow(
-    const void* nodes, int root, int depth, float octree_scale, float inv_scale,
-    float max_dst, const void* origins, const void* dirs, const void* active,
-    int n, const void* leaf_material, int n_leaf, const void* texture_index,
-    int n_mat, const void* atlas, int n_layer, int atlas_h, int atlas_w,
-    const void* sizes, const void* binary, const void* ior, const void* cur_mat,
-    int strict, void* hit, void* t, void* face, void* uv, void* leaf, void* vpos,
-    void* vsize, void* steps, void* rec_count, void* rec_mats, void* rec_uu,
-    void* rec_vv, void* w, void* cm, void* ts, void* stream) {
-  AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
-                    (const float*)atlas, (const int*)sizes, nullptr,
-                    (const uint8_t*)binary, (const float*)ior, n_leaf, n_mat,
-                    n_layer, atlas_h, atlas_w};
+extern "C" int esvo_traverse_shadow(HEAD_ARGS, TABLE_ARGS, const void* binary, const void* ior,
+                                    const void* cur_mat, int strict, OUT_ARGS, void* rec_count,
+                                    void* rec_mats, void* rec_uu, void* rec_vv, void* w, void* cm,
+                                    void* ts, void* stream) {
   ShadowIO sh = {(const int*)cur_mat, strict, (float*)w, (int*)cm, (float*)ts};
-  return launch<3>(nodes, root, depth, octree_scale, inv_scale, max_dst, origins,
-                   dirs, active, n, tb, sh, hit, t, face, uv, leaf, vpos, vsize,
-                   steps, rec_count, rec_mats, nullptr, rec_uu, rec_vv, stream);
+  return launch<3>(HEAD, alpha_tables(TABLES, nullptr, binary, ior), sh, nullptr, nullptr, OUTS,
+                   rec_count, rec_mats, nullptr, rec_uu, rec_vv, stream);
+}
+
+// K2q, mode 1: the alpha accept with block models; `qo` receives the
+// accepted quad surfaces.
+extern "C" int esvo_traverse_alpha_models(HEAD_ARGS, TABLE_ARGS, const void* rejectable,
+                                          const ModelTables* mt, const QuadOut* qo, OUT_ARGS,
+                                          void* stream) {
+  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
+  return launch<1>(HEAD, alpha_tables(TABLES, rejectable, nullptr, nullptr), sh, mt, qo, OUTS,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, stream);
+}
+
+// K2q, mode 2: the recording walk with block models.
+extern "C" int esvo_traverse_record_models(HEAD_ARGS, TABLE_ARGS, const ModelTables* mt,
+                                           OUT_ARGS, void* rec_count, void* rec_mats,
+                                           void* rec_face, void* rec_uu, void* rec_vv,
+                                           void* stream) {
+  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
+  return launch<2>(HEAD, alpha_tables(TABLES, nullptr, nullptr, nullptr), sh, mt, nullptr, OUTS,
+                   rec_count, rec_mats, rec_face, rec_uu, rec_vv, stream);
+}
+
+// K2q, mode 3: the shadow walk with block models.
+extern "C" int esvo_traverse_shadow_models(HEAD_ARGS, TABLE_ARGS, const void* binary,
+                                           const void* ior, const void* cur_mat, int strict,
+                                           const ModelTables* mt, OUT_ARGS, void* rec_count,
+                                           void* rec_mats, void* rec_uu, void* rec_vv, void* w,
+                                           void* cm, void* ts, void* stream) {
+  ShadowIO sh = {(const int*)cur_mat, strict, (float*)w, (int*)cm, (float*)ts};
+  return launch<3>(HEAD, alpha_tables(TABLES, nullptr, binary, ior), sh, mt, nullptr, OUTS,
+                   rec_count, rec_mats, nullptr, rec_uu, rec_vv, stream);
 }
 
 extern "C" const char* esvo_error_string(int code) {

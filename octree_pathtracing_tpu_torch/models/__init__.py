@@ -2,12 +2,14 @@ from .camera import Camera, get_rays, normalize_pixel_coords, pixel_grid_rays
 from .emitters import EmitterTable, build_emitter_table
 from .materials import MaterialTable, air, gather_rows, make_material_table
 from .procedural import (
+    analytic_sphere_scene,
     cornell_scene,
     cutout_chunk_scene,
     cutout_terrain_grid,
     emissive_room_scene,
     minecraft_chunk_scene,
     octree_from_grid,
+    plant_scene,
     scattered_lights_scene,
     sphere_scene,
     terrain_grid,
@@ -26,12 +28,14 @@ __all__ = [
     "air",
     "gather_rows",
     "make_material_table",
+    "analytic_sphere_scene",
     "cornell_scene",
     "cutout_chunk_scene",
     "cutout_terrain_grid",
     "emissive_room_scene",
     "minecraft_chunk_scene",
     "octree_from_grid",
+    "plant_scene",
     "scattered_lights_scene",
     "sphere_scene",
     "terrain_grid",

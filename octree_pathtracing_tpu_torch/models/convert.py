@@ -14,10 +14,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.geometry import QuadSoA
 from ..ops.texture import Atlas
 from ..ops.traversal import pack_nodes
+from .blockmodels import BlockModels
 from .emitters import EmitterTable
 from .materials import MaterialTable
+from .prims import Primitives
 from .scene import Scene
 from .sun import Sun, SunSampling
 
@@ -26,10 +29,22 @@ _MATERIAL_INT_FIELDS = ("flags", "texture_index", "tint_index")
 _EMITTER_ARRAYS = {"pos": np.float32, "size": np.float32, "mat": np.int32,
                    "grid_idx": np.int32, "grid_w": np.float32}
 _EMITTER_STATICS = ("grid_bits", "cell_size", "lam")
+_MODEL_ARRAYS = ("leaf_model", "flags", "face_material", "quad_start", "quad_count")
+_PRIM_ARRAYS = {"sphere_center": np.float32, "sphere_radius": np.float32, "sphere_mat": np.int32}
 
 
 def _t(x, dtype):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x).astype(dtype)))
+
+
+def _quads(q: dict | None) -> QuadSoA | None:
+    if q is None:
+        return None
+    return QuadSoA(**{k: _t(q[k], np.int32 if k == "material_id" else np.float32) for k in QuadSoA._fields})
+
+
+def _np_quads(q) -> dict | None:
+    return None if q is None else {k: np.asarray(getattr(q, k)) for k in QuadSoA._fields}
 
 
 def scene_from_numpy(
@@ -49,6 +64,9 @@ def scene_from_numpy(
     opaque_only: bool = False,
     shadow_binary: bool = False,
     emitters: dict | None = None,
+    models: dict | None = None,
+    prims: dict | None = None,
+    has_quad_models: bool = False,
 ) -> Scene:
     """Scene from numpy leaves.
 
@@ -57,7 +75,11 @@ def scene_from_numpy(
     variable-resolution atlas, or ``atlas_sizes=None``; ``sun``: field name
     -> array for every tensor field of :class:`Sun`, plus ``draw_texture``;
     ``emitters``: None or field name -> value for every field of
-    :class:`EmitterTable` (``grid_idx`` / ``grid_w`` may be None)."""
+    :class:`EmitterTable` (``grid_idx`` / ``grid_w`` may be None);
+    ``models``: None or field name -> array for every field of
+    :class:`BlockModels`, ``quads`` a dict of the :class:`QuadSoA` fields;
+    ``prims``: None or the same for :class:`Primitives` (``quads`` may be
+    None)."""
     table = MaterialTable(
         **{
             k: _t(materials[k], np.int32 if k in _MATERIAL_INT_FIELDS else np.float32)
@@ -80,6 +102,14 @@ def scene_from_numpy(
             cell_size=float(emitters["cell_size"]),
             lam=float(emitters["lam"]),
         )
+    models_t = None
+    if models is not None:
+        models_t = BlockModels(**{k: _t(models[k], np.int32) for k in _MODEL_ARRAYS},
+                               quads=_quads(models["quads"]))
+    prims_t = None
+    if prims is not None:
+        prims_t = Primitives(**{k: _t(prims[k], dt) for k, dt in _PRIM_ARRAYS.items()},
+                             quads=_quads(prims.get("quads")))
     return Scene(
         nodes=nodes,
         root=int(root),
@@ -88,21 +118,22 @@ def scene_from_numpy(
         atlas=atlas_t,
         sun=sun_t,
         leaf_material=_t(leaf_material, np.int32),
+        models=models_t,
+        prims=prims_t,
         emitters=em_table,
         sun_sampling=dataclasses.replace(sun_sampling) if sun_sampling else SunSampling.importance(),
         emitter_sampling=emitter_sampling,
         emitters_enabled=bool(emitters_enabled),
         f_sub_surface=float(f_sub_surface),
         opaque_only=bool(opaque_only),
+        has_quad_models=bool(has_quad_models),
         shadow_binary=bool(shadow_binary),
     )
 
 
 def scene_from_jax_arrays(jscene) -> Scene:
-    """Port scene from a JAX-package ``Scene`` (plain octree, no block
-    models or primitives), its emitter table included."""
-    if jscene.models is not None or jscene.prims is not None:
-        raise NotImplementedError("block models / primitives: ROADMAP queue 1, item 7")
+    """Port scene from a JAX-package ``Scene`` (plain octree), its block
+    models, analytic primitives and emitter table included."""
     if hasattr(jscene.octree, "bricks"):
         raise NotImplementedError("the brick layout is not ported (ROADMAP queue 1, 'Not to port')")
     tree = jscene.octree
@@ -114,6 +145,15 @@ def scene_from_jax_arrays(jscene) -> Scene:
     if em is not None:
         emitters = {k: None if getattr(em, k) is None else np.asarray(getattr(em, k)) for k in _EMITTER_ARRAYS}
         emitters.update({k: getattr(em, k) for k in _EMITTER_STATICS})
+    jm, jp = jscene.models, jscene.prims
+    models = None
+    if jm is not None:
+        models = {k: np.asarray(getattr(jm, k)) for k in _MODEL_ARRAYS}
+        models["quads"] = _np_quads(jm.quads)
+    prims = None
+    if jp is not None:
+        prims = {k: np.asarray(getattr(jp, k)) for k in _PRIM_ARRAYS}
+        prims["quads"] = _np_quads(jp.quads)
     return scene_from_numpy(
         child_mask=np.asarray(tree.child_mask),
         child_data=np.asarray(tree.child_data),
@@ -132,4 +172,7 @@ def scene_from_jax_arrays(jscene) -> Scene:
         opaque_only=jscene.opaque_only,
         shadow_binary=jscene.shadow_binary,
         emitters=emitters,
+        models=models,
+        prims=prims,
+        has_quad_models=jscene.has_quad_models,
     )

@@ -240,27 +240,40 @@ def toward_face_sample(pos, size, p, axis: int, u1, u2):
     return q, ne, torch.stack([u1, u2], -1)
 
 
-def leaf_emissive_material(leaf_values, leaf_material, emittance) -> np.ndarray:
-    """Emissive material id per leaf value (-1 = not emissive): leaf value ->
-    material, kept when its emittance is above 1e-6 (no block models in this
-    port)."""
+def _np(x):
+    return torch.as_tensor(x).detach().cpu().numpy()
+
+
+def leaf_emissive_material(leaf_values, leaf_material, emittance, models=None) -> np.ndarray:
+    """Emissive material id per leaf value (-1 = not emissive), kept when its
+    emittance is above 1e-6.  Without ``models`` the leaf value maps to its
+    material; with block models a leaf takes the largest-emittance material
+    among its model's 6 face materials (a quad-model light counts as its
+    whole cell emitting, as in the JAX package)."""
     emitt = np.asarray(emittance)
     lv = np.asarray(leaf_values, np.int64)
-    lm = np.asarray(leaf_material, np.int64)
-    mats = lm[np.clip(lv, 0, len(lm) - 1)]
-    return np.where(emitt[mats] > 1e-6, mats, -1)
+    if models is None:
+        lm = np.asarray(leaf_material, np.int64)
+        mats = lm[np.clip(lv, 0, len(lm) - 1)]
+        return np.where(emitt[mats] > 1e-6, mats, -1)
+    leaf_model = _np(models.leaf_model).astype(np.int64)
+    face_mat = _np(models.face_material).astype(np.int64)  # (M, 6)
+    fm = face_mat[leaf_model[np.clip(lv, 0, len(leaf_model) - 1)]]  # (L, 6)
+    fe = emitt[fm]
+    best = np.argmax(fe, axis=1)
+    rows = np.arange(len(lv))
+    return np.where(fe[rows, best] > 1e-6, fm[rows, best], -1)
 
 
-def build_emitter_table(octree, leaf_material, materials) -> EmitterTable | None:
+def build_emitter_table(octree, leaf_material, materials, models=None) -> EmitterTable | None:
     """Collect the emissive leaf cells of a numpy ``Octree`` (anything with
     ``child_mask``, ``child_data``, ``root`` and ``depth``) into a CPU
-    :class:`EmitterTable` with its spatial grid; None when there are none."""
+    :class:`EmitterTable` with its spatial grid; None when there are none.
+    ``models``: the scene's ``BlockModels``, or None."""
     pos, size, val = enumerate_leaves(octree.child_mask, octree.child_data, octree.root, octree.depth)
     if val.size == 0:
         return None
-    mats = leaf_emissive_material(
-        val, torch.as_tensor(leaf_material).cpu().numpy(), materials.emittance.detach().cpu().numpy()
-    )
+    mats = leaf_emissive_material(val, _np(leaf_material), _np(materials.emittance), models)
     keep = mats >= 0
     if not keep.any():
         return None
@@ -294,6 +307,6 @@ def with_emitter_sampling(scene, name: str):
     if em is None:
         mask, data = unpack_nodes(scene.nodes.cpu().numpy())
         tree = Octree(mask, data, scene.root, scene.depth)
-        em = build_emitter_table(tree, scene.leaf_material, scene.materials)
+        em = build_emitter_table(tree, scene.leaf_material, scene.materials, scene.models)
         em = None if em is None else em.to(scene.device)
     return dataclasses.replace(scene, emitter_sampling=name, emitters=em)

@@ -1,8 +1,9 @@
-"""Procedural scenes (port of ``models/procedural.py``): the voxel sphere,
-the Cornell box, the Minecraft-style terrain chunk and its cutout variant
-(trees with alpha-holed leaf canopies), and the two emitter-sampling rooms
-(a ceiling light, scattered floor lights), built on the host by the port's
-numpy octree builder (``octree/``)."""
+"""Procedural scenes (port of ``models/procedural.py``): the voxel sphere
+and its analytic-primitive form, the Cornell box, the Minecraft-style
+terrain chunk and its cutout variant (trees with alpha-holed leaf
+canopies), the two emitter-sampling rooms (a ceiling light, scattered floor
+lights) and the cross-plant field of block models, built on the host by the
+port's numpy octree builder (``octree/``)."""
 
 from __future__ import annotations
 
@@ -13,9 +14,11 @@ import numpy as np
 from ..octree import Octree, build_from_dense
 from ..ops.texture import build_atlas
 from .camera import Camera
+from .blockmodels import ModelBuilder, cross_plant_quads
 from .materials import FLAG_OPAQUE, FLAG_SOLID, air, make_material_table
+from .prims import make_primitives
 from .scene import make_scene
-from .sun import make_sun
+from .sun import SunSampling, make_sun
 
 
 def _checker_texture(size=16, c0=(200, 60, 60), c1=(240, 230, 210)):
@@ -74,6 +77,38 @@ def sphere_scene(depth: int = 6, earthmap: np.ndarray | None = None):
     atlas = build_atlas(textures, size=16 if earthmap is None else None)
     scene = make_scene(tree, make_material_table(materials), atlas)
     camera = Camera.look_at(eye=(s * 0.5, s * 0.55, -s * 0.9), center=(s * 0.5, s * 0.35, s * 0.5))
+    return scene, camera
+
+
+def analytic_sphere_scene(depth: int = 5, earthmap: np.ndarray | None = None):
+    """A true (non-voxel) sphere primitive above the textured voxel ground
+    slab, and a free-standing quad facing the camera: the scene's analytic
+    primitives (``models/prims.py``) beside the octree."""
+    s = 1 << depth
+    grid = np.zeros((s, s, s), np.uint32)
+    grid[:, 0 : max(1, s // 16), :] = 1
+    tree = octree_from_grid(grid)
+
+    textures = [
+        _solid_texture((255, 0, 255)),
+        _earthmap_like() if earthmap is None else earthmap,
+        _checker_texture(),
+        _solid_texture((220, 200, 80)),
+    ]
+    materials = [air(), dict(texture_index=1), dict(texture_index=2, specular=0.0), dict(texture_index=3)]
+    prims = make_primitives(
+        spheres=[((s * 0.5, s * 0.45, s * 0.5), s / 4.5, 2)],
+        quads=(
+            # u x v = -z: it faces the camera (a backface is culled)
+            np.array([[s * 0.1, s * 0.1, s * 0.75]], np.float32),  # origin
+            np.array([[0.0, s * 0.3, 0.0]], np.float32),  # u edge (up)
+            np.array([[s * 0.25, 0.0, 0.0]], np.float32),  # v edge (right)
+            np.array([3], np.int32),
+        ),
+    )
+    atlas = build_atlas(textures, size=16 if earthmap is None else None)
+    scene = make_scene(tree, make_material_table(materials), atlas, prims=prims)
+    camera = Camera.look_at(eye=(s * 0.51, s * 0.55, -s * 0.9), center=(s * 0.5, s * 0.35, s * 0.5))
     return scene, camera
 
 
@@ -344,4 +379,39 @@ def scattered_lights_scene(depth: int = 5, n_lights: int = 150, seed: int = 1):
         emitter_sampling="one",
     )
     camera = Camera.look_at(eye=(s * 0.12, s * 0.3, s * 0.12), center=(s * 0.45, s * 0.1, s * 0.45))
+    return scene, camera
+
+
+def plant_scene(depth: int = 3):
+    """Block models under the HIGH_QUALITY sun: a stone floor (a simple
+    model) and a field of cross plants (quad models, every other cell of the
+    floor's inner rows), so that the traversal, the shadow walk and the
+    recording walk all run their quad-model accept."""
+    s = 1 << depth
+    grid = np.zeros((s, s, s), np.uint32)
+    grid[:, 0, :] = 1  # stone floor
+    grid[1 : s - 1 : 2, 1, 1 : s - 1 : 2] = 2  # plants
+
+    tree = octree_from_grid(grid)
+    textures = [
+        _solid_texture((255, 0, 255)),
+        _solid_texture((128, 128, 128)),
+        _solid_texture((40, 200, 40)),
+    ]
+    materials = [air(), dict(texture_index=1), dict(texture_index=2)]
+
+    mb = ModelBuilder()
+    m_air = mb.add_simple(0)
+    m_stone = mb.add_simple(1)
+    m_plant = mb.add_quad_model(cross_plant_quads(material=2))
+    models = mb.build([m_air, m_stone, m_plant])
+
+    scene = make_scene(
+        tree,
+        make_material_table(materials),
+        build_atlas(textures),
+        models=models,
+        sun_sampling=SunSampling.high_quality(),
+    )
+    camera = Camera.look_at(eye=(s * 0.51, s * 0.61, -s * 0.9), center=(s * 0.5, s * 0.25, s * 0.5))
     return scene, camera

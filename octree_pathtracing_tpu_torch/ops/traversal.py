@@ -16,9 +16,15 @@ that pick between them by device:
   walk stops at the ``K_SURFACES``-th surface or when the budget is spent.
 
 Port of ``octree_pathtracing_tpu/ops/traversal.py:traverse`` with those
-accept callbacks, for scenes without block models.  Each wrapper launches
-its CUDA kernel for CUDA tensors (or raises) and runs its twin for CPU
-tensors; there is no fallback from one to the other.
+accept callbacks.  On a scene with block models (``AlphaTables`` with its
+model tables) the three accepting walks run their model variant, kernel
+K2q: the candidate's material comes from its model's face materials, and a
+quad model's candidate counts only where one of its quads is hit at a texel
+of alpha above ``ALPHA_EPSILON`` (:func:`_quad_scan`, in the voxel's frame);
+:func:`traverse_alpha` then also returns that quad's surface
+(``HitResult.quad``), which ``render/hit.resolve_hit`` shades.  Each wrapper
+launches its CUDA kernel for CUDA tensors (or raises) and runs its twin for
+CPU tensors; there is no fallback from one to the other.
 
 The twins are a direct port of the JAX ``_init`` / ``_step`` / ``_examine``
 / ``_hit_info`` and the accept protocol: component-major ``(3, B)`` masked
@@ -38,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .geometry import QuadSoA, QuadTable, quad_hit
 from .texture import Atlas, sample_atlas
 
 MAX_STEPS = 1000
@@ -47,6 +54,8 @@ EPSILON = 1.1920929e-7  # 2^-23
 ACTIVE, CANDIDATE, MISS = 0, 1, 2
 ALPHA_EPSILON = 5e-8  # Ray::EPSILON (ops/shading.EPSILON): alpha at or below is a hole
 K_SURFACES = 4  # surfaces recorded per ray by traverse_record
+MAX_MODEL_QUADS = 8  # quads a quad-model candidate is tested against, at most
+FLAG_SIMPLE = 1  # a block model's flag: a full cube with per-face materials
 
 VALUE_MASK = 0x3FFFFFFF  # low 30 bits: child index / leaf value
 PRESENT_BIT = 30
@@ -54,6 +63,18 @@ LEAF_BIT_PACKED = 31
 
 _SIGN = -(1 << 31)  # 0x80000000 as int32
 _EPS_BITS = int(np.float32(EPSILON).view(np.int32))
+
+
+class QuadSurface(NamedTuple):
+    """The surface of an accepted quad-model candidate: the nearest of its
+    quads with a texel alpha above ``ALPHA_EPSILON`` (K2q's mode 1 writes
+    it).  Where ``found`` is False: material 0, uv and normal 0, t inf."""
+
+    found: torch.Tensor  # (B,) bool: the lane's hit is a quad of a quad model
+    mat: torch.Tensor  # (B,) int32 the quad's material
+    uv: torch.Tensor  # (B, 2) the quad's texture coordinates
+    normal: torch.Tensor  # (B, 3) the quad's normal
+    t: torch.Tensor  # (B,) world t of the quad hit from the ray origin
 
 
 class HitResult(NamedTuple):
@@ -66,18 +87,31 @@ class HitResult(NamedTuple):
     voxel_size: torch.Tensor  # (B,) world-space voxel side
     steps: torch.Tensor  # () int32 — max node fetches over the lanes
     fetches: torch.Tensor  # (B,) int32 — node fetches per lane
+    quad: QuadSurface | None = None  # traverse_alpha on a scene with models
 
 
 class AlphaTables(NamedTuple):
-    """What the alpha accept reads (``render/hit.accept_tables`` builds it)."""
+    """What the accepting walks read (``render/hit.accept_tables`` builds
+    it).  The class tables are indexed by leaf value; on a scene with block
+    models they are sized by ``leaf_model``, and the model fields are set."""
 
     leaf_material: torch.Tensor  # (L,) int32: leaf value -> material
     texture_index: torch.Tensor  # (M,) int32: material -> atlas layer
     atlas: torch.Tensor  # (T, H, W, 4) float32 texels
     sizes: torch.Tensor | None  # (T, 2) int32 per-layer (h, w), or None
-    rejectable: torch.Tensor  # (L,) bool: some texel of the leaf is a hole
-    binary: torch.Tensor  # (L,) bool: every texel alpha is 1 (shadow walk)
+    rejectable: torch.Tensor  # (L,) bool: the accept could reject the leaf
+    binary: torch.Tensor  # (L,) bool: every texel alpha is 1 and a full cube (shadow walk)
     ior: torch.Tensor  # (M,) float32 material IOR (shadow walk, strict)
+    leaf_model: torch.Tensor | None = None  # (L,) int32: leaf value -> model
+    flags: torch.Tensor | None = None  # (Mm,) int32 model flags (FLAG_SIMPLE)
+    face_material: torch.Tensor | None = None  # (Mm, 6) int32
+    quad_start: torch.Tensor | None = None  # (Mm,) int32
+    quad_count: torch.Tensor | None = None  # (Mm,) int32
+    quads: QuadSoA | None = None  # block-local quads of the quad models
+
+    @property
+    def has_models(self) -> bool:
+        return self.leaf_model is not None
 
 
 class SurfaceRecord(NamedTuple):
@@ -308,31 +342,122 @@ def _check_depth(depth: int):
         raise ValueError(f"octree depth {depth} outside 1..{MAX_SCALE}")
 
 
-def _alpha_accept(c, s, tables: AlphaTables, mode: int, fresh, rec):
-    """The accept of the twins, on every lane (only ``fresh`` lanes count):
-    mode 1 passes non-rejectable leaves and texels above ALPHA_EPSILON;
-    mode 2 records each surface into ``rec`` and passes the K-th.  Table
-    indices clip as the kernel's (and XLA's gathers) do.
-    Returns (ok (B,) bool, rec)."""
-    face, uu, vv, _ = _hit_info(c, s)
-    n_leaf = tables.leaf_material.shape[0]
-    lv = torch.clamp(s["cand"], 0, n_leaf - 1).long()
-    mat = torch.clamp(tables.leaf_material[lv], 0, tables.texture_index.shape[0] - 1)
-    layer = torch.clamp(tables.texture_index[mat.long()], 0, tables.atlas.shape[0] - 1)
+def _texel_alpha(tables: AlphaTables, mat, u, v):
+    """Alpha of material ``mat``'s texel at (u, v); table indices clip as
+    the kernel's (and XLA's gathers) do."""
+    n_mat = tables.texture_index.shape[0]
+    layer = torch.clamp(tables.texture_index[torch.clamp(mat, 0, n_mat - 1).long()], 0,
+                        tables.atlas.shape[0] - 1)
     atlas = tables.atlas if tables.sizes is None else Atlas(tables.atlas, tables.sizes)
-    is_surface = sample_atlas(atlas, layer, uu, vv)[:, 3] > ALPHA_EPSILON
+    return sample_atlas(atlas, layer, u, v)[:, 3]
+
+
+def _quad_scan(tables: AlphaTables, origins, dirs, model, voxel_pos, voxel_size):
+    """Twin of K2q's quad scan (``render/hit._quad_scan``): the ray against
+    each of the ``quad_count[model]`` (<= ``MAX_MODEL_QUADS``) quads of the
+    candidate's model, in the voxel's frame ``(origins - voxel_pos) /
+    voxel_size`` (world origins and directions, voxel corner and side);
+    keeps the nearest quad hit whose texel alpha is above
+    ``ALPHA_EPSILON``.  Returns (QuadSurface, its texel alpha)."""
+    quads = tables.quads
+    start, count = tables.quad_start[model], tables.quad_count[model]
+    o_loc = (origins - voxel_pos) / voxel_size[:, None]
+    zero_vox = torch.zeros_like(voxel_pos)
+    best_t = torch.full_like(voxel_size, float("inf"))
+    best_uu = torch.zeros_like(voxel_size)
+    best_vv = torch.zeros_like(voxel_size)
+    best_alpha = torch.zeros_like(voxel_size)
+    best_q = torch.full_like(start, -1, dtype=torch.int64)
+    for k in range(MAX_MODEL_QUADS):
+        q_idx = torch.clamp(start + k, 0, quads.count - 1).long()
+        ok, t, uu, vv = quad_hit(quads, q_idx, o_loc, dirs, zero_vox, best_t)
+        alpha = _texel_alpha(tables, quads.material_id[q_idx], uu, vv)
+        take = (k < count) & ok & (alpha > ALPHA_EPSILON) & (t < best_t)
+        best_t = torch.where(take, t, best_t)
+        best_uu = torch.where(take, uu, best_uu)
+        best_vv = torch.where(take, vv, best_vv)
+        best_alpha = torch.where(take, alpha, best_alpha)
+        best_q = torch.where(take, q_idx, best_q)
+    q = torch.clamp(best_q, min=0)
+    n_mat = tables.texture_index.shape[0]
+    surf = QuadSurface(
+        found=best_q >= 0,
+        mat=torch.clamp(quads.material_id[q], 0, n_mat - 1),
+        uv=torch.stack([best_uu, best_vv], dim=-1),
+        normal=quads.normal[q],
+        t=best_t * voxel_size,
+    )
+    return surf, best_alpha
+
+
+class _Surface(NamedTuple):
+    face: torch.Tensor  # (B,) int32 entry face
+    is_surface: torch.Tensor  # (B,) bool: the candidate passes the alpha / quad test
+    mat: torch.Tensor  # (B,) int32, clipped to the material table
+    uu: torch.Tensor  # (B,) float32
+    vv: torch.Tensor  # (B,) float32
+    alpha: torch.Tensor  # (B,) texel alpha at (mat, uu, vv)
+    quad: QuadSurface | None  # the quad-model surfaces (``found`` only where not simple)
+
+
+def _surface_of_candidate(c, s, tables: AlphaTables, inv_scale) -> _Surface:
+    """Each lane's candidate resolved to its surface (``render/hit.
+    _surface_of_candidate``): the leaf's material at the entry face's uv on
+    a scene without models; with models, the face material of a simple
+    model, or the nearest accepted quad of a quad model."""
+    face, uu, vv, unmirrored_pos = _hit_info(c, s)
+    n_mat = tables.texture_index.shape[0]
+    if not tables.has_models:
+        n_leaf = tables.leaf_material.shape[0]
+        mat = torch.clamp(tables.leaf_material[torch.clamp(s["cand"], 0, n_leaf - 1).long()], 0, n_mat - 1)
+        alpha = _texel_alpha(tables, mat, uu, vv)
+        return _Surface(face, alpha > ALPHA_EPSILON, mat, uu, vv, alpha, None)
+    n_lm = tables.leaf_model.shape[0]
+    model = tables.leaf_model[torch.clamp(s["cand"], 0, n_lm - 1).long()]
+    model = torch.clamp(model, 0, tables.flags.shape[0] - 1).long()
+    simple = (tables.flags[model] & FLAG_SIMPLE) != 0
+    face_mat = tables.face_material[model, torch.clamp(face, 0, 5).long()]
+    face_mat = torch.clamp(face_mat, 0, n_mat - 1)
+    face_alpha = _texel_alpha(tables, face_mat, uu, vv)
+    voxel_pos = ((unmirrored_pos - 1.0) * inv_scale).T
+    quad, quad_alpha = _quad_scan(tables, c["o_world"], c["d_world"], model, voxel_pos,
+                                  s["scale_exp2"] * inv_scale)
+    quad = quad._replace(found=quad.found & ~simple)
+    return _Surface(
+        face=face,
+        is_surface=torch.where(simple, face_alpha > ALPHA_EPSILON, quad.found),
+        mat=torch.where(simple, face_mat, quad.mat),
+        uu=torch.where(simple, uu, quad.uv[:, 0]),
+        vv=torch.where(simple, vv, quad.uv[:, 1]),
+        alpha=torch.where(simple, face_alpha, quad_alpha),
+        quad=quad,
+    )
+
+
+def _alpha_accept(c, s, tables: AlphaTables, mode: int, fresh, rec, inv_scale):
+    """The accept of the twins, on every lane (only ``fresh`` lanes count):
+    mode 1 passes non-rejectable leaves and surfaces, and keeps the quad
+    surface a quad-model lane accepts in ``rec`` (a QuadSurface, or None
+    without models); mode 2 records each surface into ``rec`` (a
+    SurfaceRecord) and passes the K-th.  Returns (ok (B,) bool, rec)."""
+    surf = _surface_of_candidate(c, s, tables, inv_scale)
     if mode == 1:
-        return is_surface | ~tables.rejectable[lv], rec
-    is_surface = fresh & is_surface
-    rows = torch.arange(K_SURFACES, dtype=torch.int32, device=lv.device)[:, None]
+        lv = torch.clamp(s["cand"], 0, tables.rejectable.shape[0] - 1).long()
+        if rec is not None:
+            keep = fresh & surf.quad.found
+            rec = QuadSurface(*(torch.where(keep if new.dim() == 1 else keep[:, None], new, old)
+                                for new, old in zip(surf.quad, rec)))
+        return surf.is_surface | ~tables.rejectable[lv], rec
+    is_surface = fresh & surf.is_surface
+    rows = torch.arange(K_SURFACES, dtype=torch.int32, device=is_surface.device)[:, None]
     sel = is_surface[None, :] & (rows == rec.count[None, :])
     count = rec.count + is_surface.to(torch.int32)
     rec = SurfaceRecord(
         count=count,
-        mats=torch.where(sel, mat[None, :], rec.mats),
-        face=torch.where(sel, face[None, :], rec.face),
-        uu=torch.where(sel, uu[None, :], rec.uu),
-        vv=torch.where(sel, vv[None, :], rec.vv),
+        mats=torch.where(sel, surf.mat[None, :], rec.mats),
+        face=torch.where(sel, surf.face[None, :], rec.face),
+        uu=torch.where(sel, surf.uu[None, :], rec.uu),
+        vv=torch.where(sel, surf.vv[None, :], rec.vv),
     )
     return is_surface & (count >= K_SURFACES), rec
 
@@ -340,18 +465,16 @@ def _alpha_accept(c, s, tables: AlphaTables, mode: int, fresh, rec):
 def _shadow_accept(c, s, tables: AlphaTables, fresh, st: ShadowState, strict: bool, inv_scale):
     """The shadow walk's accept (``make_shadow_accept_fn``), on every lane
     (only ``fresh`` lanes count).  A binary-class leaf is a surface of alpha
-    exactly 1 with the entry face's uv; any other leaf is a surface when its
-    texel alpha is above ALPHA_EPSILON.  Returns (stop (B,) bool, state)."""
-    _, uu, vv, _ = _hit_info(c, s)
-    n_leaf, n_mat = tables.leaf_material.shape[0], tables.texture_index.shape[0]
-    lv = torch.clamp(s["cand"], 0, n_leaf - 1).long()
-    mat = torch.clamp(tables.leaf_material[lv], 0, n_mat - 1)
-    layer = torch.clamp(tables.texture_index[mat.long()], 0, tables.atlas.shape[0] - 1)
-    atlas = tables.atlas if tables.sizes is None else Atlas(tables.atlas, tables.sizes)
-    texel = sample_atlas(atlas, layer, uu, vv)[:, 3]
+    exactly 1 with the entry face's uv; any other leaf is a surface when it
+    passes the alpha / quad test, with its texel's alpha.  The recorded t is
+    the voxel entry's.  Returns (stop (B,) bool, state)."""
+    surf = _surface_of_candidate(c, s, tables, inv_scale)
+    n_mat = tables.texture_index.shape[0]
+    lv = torch.clamp(s["cand"], 0, tables.binary.shape[0] - 1).long()
     is_bin = tables.binary[lv]
-    alpha = torch.where(is_bin, 1.0, texel)
-    is_surface = fresh & (is_bin | (texel > ALPHA_EPSILON))
+    mat = surf.mat
+    alpha = torch.where(is_bin, 1.0, surf.alpha)
+    is_surface = fresh & (is_bin | surf.is_surface)
     new_w = st.w * (1.0 - alpha)
     if strict:
         ior_change = tables.ior[torch.clamp(st.cm, 0, n_mat - 1).long()] != tables.ior[mat.long()]
@@ -368,8 +491,8 @@ def _shadow_accept(c, s, tables: AlphaTables, fresh, st: ShadowState, strict: bo
         w=w,
         cm=torch.where(is_surface, mat, st.cm),
         mats=torch.where(sel, mat[None, :], st.mats),
-        uu=torch.where(sel, uu[None, :], st.uu),
-        vv=torch.where(sel, vv[None, :], st.vv),
+        uu=torch.where(sel, surf.uu[None, :], st.uu),
+        vv=torch.where(sel, surf.vv[None, :], st.vv),
         ts=ts,
     )
     return is_surface & ((count >= K_SURFACES) | (w <= 0.0)), st
@@ -378,11 +501,13 @@ def _shadow_accept(c, s, tables: AlphaTables, fresh, st: ShadowState, strict: bo
 def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs, max_dst,
                     active, tables, shadow=None):
     """The twins' walk: mode 0 (K1), 1 (K2), 2 (K3r) or 3 (K3s, with
-    ``shadow = (cur_mat, strict, record_t)``).
-    Returns (HitResult, SurfaceRecord / ShadowState or None)."""
+    ``shadow = (cur_mat, strict, record_t)``); modes 1-3 on tables with
+    models are K2q's.  Returns (HitResult, SurfaceRecord / ShadowState or
+    None); mode 1 on tables with models sets ``HitResult.quad``."""
     _check_depth(depth)
     scale_base = MAX_SCALE - int(depth)
     c, s = _init(root, octree_scale, origins, dirs, int(depth) + 1)
+    c["o_world"], c["d_world"] = origins.to(torch.float32), dirs.to(torch.float32)
     if active is not None:
         s["status"] = torch.where(active, s["status"], MISS).to(torch.int32)
     max_dst_c = float(np.float32(max_dst * octree_scale))
@@ -390,7 +515,12 @@ def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs
     steps = torch.zeros_like(s["status"])
     rec = None
     zi = torch.zeros((K_SURFACES, steps.shape[0]), dtype=torch.int32, device=steps.device)
-    if mode == 2:
+    if mode == 1 and tables.has_models:  # the accepted quad surfaces
+        zf = torch.zeros_like(steps, dtype=torch.float32)
+        rec = QuadSurface(found=torch.zeros_like(steps, dtype=torch.bool), mat=steps.clone(),
+                          uv=torch.stack([zf, zf], -1), normal=torch.stack([zf, zf, zf], -1),
+                          t=torch.full_like(zf, float("inf")))
+    elif mode == 2:
         rec = SurfaceRecord(steps.clone(), zi, zi.clone(), zi.float(), zi.float())
     elif mode == 3:
         cur_mat, strict, record_t = shadow
@@ -416,7 +546,7 @@ def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs
                 if mode == 3:
                     ok, rec = _shadow_accept(c, s, tables, fresh, rec, shadow[1], inv_scale)
                 else:
-                    ok, rec = _alpha_accept(c, s, tables, mode, fresh, rec)
+                    ok, rec = _alpha_accept(c, s, tables, mode, fresh, rec, inv_scale)
                 rej = fresh & ~ok
                 s["status"] = torch.where(rej, ACTIVE, s["status"]).to(torch.int32)
                 s["reject"] = s["reject"] | rej
@@ -435,6 +565,8 @@ def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs
         steps=steps.max() if steps.numel() else torch.zeros((), dtype=torch.int32),
         fetches=steps,
     )
+    if mode == 1:
+        return res._replace(quad=rec), None
     return res, rec
 
 
@@ -471,9 +603,25 @@ def traverse_shadow_reference(nodes_packed, root, depth, octree_scale, origins, 
                            active, tables, (cur_mat, bool(strict), bool(record_t)))
 
 
+class _ModelTables(ctypes.Structure):
+    """``struct ModelTables`` of ``csrc/traversal.cu``: K2q's tables."""
+
+    _fields_ = [("leaf_model", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+                ("face_material", ctypes.c_void_p), ("quad_start", ctypes.c_void_p),
+                ("quad_count", ctypes.c_void_p), ("n_leaf_model", ctypes.c_int),
+                ("n_model", ctypes.c_int), ("quads", QuadTable)]
+
+
+class _QuadOut(ctypes.Structure):
+    """``struct QuadOut`` of ``csrc/traversal.cu``: a QuadSurface's pointers."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in QuadSurface._fields]
+
+
 @functools.cache
 def _library():
-    """The traversal kernels' shared library (K1, K2, K3r, K3s), built at first use."""
+    """The traversal kernels' shared library (K1, K2, K3r, K3s and K2q's
+    three model variants), built at first use."""
     from ..utils.cuda_build import load_library
 
     # IEEE rounding of every operation, no FMA contraction: the twin and the
@@ -482,12 +630,19 @@ def _library():
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     head = [vp, ci, ci, cf, cf, cf, vp, vp, vp, ci]  # nodes .. n
     tables = [vp, ci, vp, ci, vp, ci, ci, ci, vp]  # leaf_material .. sizes
+    models = [ctypes.POINTER(_ModelTables)]
     lib.esvo_traverse.argtypes = head + [vp] * 8 + [vp]
     lib.esvo_traverse_alpha.argtypes = head + tables + [vp] + [vp] * 8 + [vp]
     lib.esvo_traverse_record.argtypes = head + tables + [vp] * 8 + [vp] * 5 + [vp]
     lib.esvo_traverse_shadow.argtypes = head + tables + [vp, vp, vp, ci] + [vp] * 8 + [vp] * 7 + [vp]
+    lib.esvo_traverse_alpha_models.argtypes = (head + tables + [vp] + models + [ctypes.POINTER(_QuadOut)]
+                                               + [vp] * 8 + [vp])
+    lib.esvo_traverse_record_models.argtypes = head + tables + models + [vp] * 8 + [vp] * 5 + [vp]
+    lib.esvo_traverse_shadow_models.argtypes = (head + tables + [vp, vp, vp, ci] + models + [vp] * 8
+                                                + [vp] * 7 + [vp])
     for fn in (lib.esvo_traverse, lib.esvo_traverse_alpha, lib.esvo_traverse_record,
-               lib.esvo_traverse_shadow):
+               lib.esvo_traverse_shadow, lib.esvo_traverse_alpha_models,
+               lib.esvo_traverse_record_models, lib.esvo_traverse_shadow_models):
         fn.restype = ci
     lib.esvo_error_string.argtypes = [ci]
     lib.esvo_error_string.restype = ctypes.c_char_p
@@ -514,6 +669,8 @@ def _check_cuda_inputs(nodes, origins, dirs, active, tables, mode, cur_mat):
     if tables is not None:
         lm, ti, atlas, sizes, rej = tables.leaf_material, tables.texture_index, tables.atlas, tables.sizes, tables.rejectable
         n_layer = atlas.shape[0] if atlas.dim() == 4 else 0
+        # the class tables are indexed by leaf value: sized by leaf_model on a scene with models
+        classes = tables.leaf_model if tables.has_models else lm
         checks += [
             (lm.dtype == torch.int32 and lm.dim() == 1 and lm.shape[0] > 0, "leaf_material must be (L,) int32"),
             (ti.dtype == torch.int32 and ti.dim() == 1 and ti.shape[0] > 0, "texture_index must be (M,) int32"),
@@ -521,15 +678,30 @@ def _check_cuda_inputs(nodes, origins, dirs, active, tables, mode, cur_mat):
              "atlas must be (T, H, W, 4) float32"),
             (sizes is None or (sizes.dtype == torch.int32 and sizes.shape == (n_layer, 2)),
              "sizes must be None or (T, 2) int32"),
-            (rej.dtype == torch.bool and rej.shape == lm.shape, "rejectable must be (L,) bool"),
+            (rej.dtype == torch.bool and rej.shape == classes.shape, "rejectable must be (L,) bool"),
             (all(x.is_contiguous() and x.device == dev for x in (lm, ti, atlas, rej))
              and (sizes is None or (sizes.is_contiguous() and sizes.device == dev)),
              "tables must be contiguous and on the rays' device"),
         ]
+        if tables.has_models:
+            mt = (tables.leaf_model, tables.flags, tables.face_material, tables.quad_start,
+                  tables.quad_count) + tuple(tables.quads)
+            n_model = tables.flags.shape[0]
+            checks += [
+                (all(x.dtype == torch.int32 for x in mt[:5]) and tables.quads.material_id.dtype == torch.int32
+                 and all(x.dtype == torch.float32 for x in tables.quads if x is not tables.quads.material_id),
+                 "model tables must be int32, quads float32 with int32 materials"),
+                (tables.leaf_model.dim() == 1 and tables.leaf_model.shape[0] > 0 and n_model > 0
+                 and tables.face_material.shape == (n_model, 6)
+                 and tables.quad_start.shape == (n_model,) and tables.quad_count.shape == (n_model,)
+                 and tables.quads.count > 0, "model tables must be (L,), (Mm,), (Mm, 6) with >= 1 quad"),
+                (all(x.is_contiguous() and x.device == dev for x in mt),
+                 "model tables must be contiguous and on the rays' device"),
+            ]
     if mode == 3:
         bi, ior = tables.binary, tables.ior
         checks += [
-            (bi.dtype == torch.bool and bi.shape == lm.shape and bi.is_contiguous()
+            (bi.dtype == torch.bool and bi.shape == rej.shape and bi.is_contiguous()
              and bi.device == dev, "binary must be a contiguous (L,) bool on the rays' device"),
             (ior.dtype == torch.float32 and ior.shape == ti.shape
              and ior.is_contiguous() and ior.device == dev,
@@ -560,8 +732,18 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
         steps=torch.zeros((), dtype=i32, device=dev),
         fetches=torch.empty((b,), dtype=i32, device=dev),
     )
+    models = tables is not None and tables.has_models
     rec = None
-    if mode == 2:
+    if mode == 1 and models:
+        quad = QuadSurface(
+            found=torch.empty((b,), dtype=torch.bool, device=dev),
+            mat=torch.empty((b,), dtype=i32, device=dev),
+            uv=torch.empty((b, 2), dtype=f32, device=dev),
+            normal=torch.empty((b, 3), dtype=f32, device=dev),
+            t=torch.empty((b,), dtype=f32, device=dev),
+        )
+        out = out._replace(quad=quad)
+    elif mode == 2:
         rec = SurfaceRecord(
             count=torch.empty((b,), dtype=i32, device=dev),
             mats=torch.empty((K_SURFACES, b), dtype=i32, device=dev),
@@ -588,26 +770,40 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
     outs = tuple(x.data_ptr() for x in out[:7]) + (out.fetches.data_ptr(),)
     if tables is not None:
         lm, ti, atlas, sizes = tables.leaf_material, tables.texture_index, tables.atlas, tables.sizes
-        tabs = (lm.data_ptr(), lm.shape[0], ti.data_ptr(), ti.shape[0], atlas.data_ptr(),
+        # n_leaf sizes the class tables (leaf_material's length without models)
+        tabs = (lm.data_ptr(), tables.rejectable.shape[0], ti.data_ptr(), ti.shape[0], atlas.data_ptr(),
                 atlas.shape[0], atlas.shape[1], atlas.shape[2],
                 None if sizes is None else sizes.data_ptr())
+    if models:
+        mtab = ctypes.byref(_ModelTables(
+            tables.leaf_model.data_ptr(), tables.flags.data_ptr(), tables.face_material.data_ptr(),
+            tables.quad_start.data_ptr(), tables.quad_count.data_ptr(), tables.leaf_model.shape[0],
+            tables.flags.shape[0], QuadTable.of(tables.quads)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if mode == 0:
             rc = lib.esvo_traverse(*head, *outs, stream)
+        elif mode == 1 and models:
+            qout = ctypes.byref(_QuadOut(*(x.data_ptr() for x in out.quad)))
+            rc = lib.esvo_traverse_alpha_models(*head, *tabs, tables.rejectable.data_ptr(), mtab, qout,
+                                                *outs, stream)
         elif mode == 1:
             rc = lib.esvo_traverse_alpha(*head, *tabs, tables.rejectable.data_ptr(), *outs, stream)
         elif mode == 2:
-            rc = lib.esvo_traverse_record(*head, *tabs, *outs, *(x.data_ptr() for x in rec), stream)
+            fn = lib.esvo_traverse_record_models if models else lib.esvo_traverse_record
+            rc = fn(*head, *tabs, *((mtab,) if models else ()), *outs, *(x.data_ptr() for x in rec), stream)
         else:
-            rc = lib.esvo_traverse_shadow(
-                *head, *tabs, tables.binary.data_ptr(), tables.ior.data_ptr(), cur_mat.data_ptr(),
-                int(strict), *outs, rec.count.data_ptr(), rec.mats.data_ptr(), rec.uu.data_ptr(),
-                rec.vv.data_ptr(), rec.w.data_ptr(), rec.cm.data_ptr(),
-                None if rec.ts is None else rec.ts.data_ptr(), stream)
+            fn = lib.esvo_traverse_shadow_models if models else lib.esvo_traverse_shadow
+            rc = fn(*head, *tabs, tables.binary.data_ptr(), tables.ior.data_ptr(), cur_mat.data_ptr(),
+                    int(strict), *((mtab,) if models else ()), *outs, rec.count.data_ptr(),
+                    rec.mats.data_ptr(), rec.uu.data_ptr(), rec.vv.data_ptr(), rec.w.data_ptr(),
+                    rec.cm.data_ptr(), None if rec.ts is None else rec.ts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"esvo traversal (mode {mode}) launch failed: {lib.esvo_error_string(rc).decode()}")
-    wrapper.launches += 1
+    if models:  # K2q: the model variant counts apart from the mode's own kernel
+        wrapper.model_launches += 1
+    else:
+        wrapper.launches += 1
     return out._replace(steps=out.fetches.max()), rec
 
 
@@ -642,10 +838,14 @@ def traverse_alpha(nodes_packed, root, depth, octree_scale, origins, dirs, table
                    max_dst=1024.0, active=None):
     """:func:`traverse` with the in-loop alpha accept: a leaf candidate whose
     leaf is ``tables.rejectable`` and whose texel alpha at the hit uv is
-    <= ``ALPHA_EPSILON`` is rejected, and the ray walks on past it.
+    <= ``ALPHA_EPSILON`` is rejected, and the ray walks on past it.  With
+    model tables a candidate's material is its model's face material, and a
+    quad-model candidate is accepted only where a quad of it is hit (see
+    :func:`_quad_scan`); ``HitResult.quad`` then holds that quad's surface.
 
     CUDA tensors launch kernel K2 (mode 1) and count the launch in
-    ``traverse_alpha.launches``; CPU tensors run
+    ``traverse_alpha.launches``, or with model tables K2q's mode-1 variant,
+    counted in ``traverse_alpha.model_launches``; CPU tensors run
     :func:`traverse_alpha_reference`."""
     return _dispatch(traverse_alpha, 1, nodes_packed, root, depth, octree_scale, origins, dirs,
                      max_dst, active, tables)[0]
@@ -656,10 +856,12 @@ def traverse_record(nodes_packed, root, depth, octree_scale, origins, dirs, tabl
     """Walk each ray through its first ``K_SURFACES`` surfaces (candidates
     whose texel alpha is above ``ALPHA_EPSILON``), recording each, and
     accept the last.  Returns (HitResult, SurfaceRecord); ``rejectable`` is
-    not read.
+    not read.  With model tables a surface is resolved as in
+    :func:`traverse_alpha` (a quad's material and uv, the entry face).
 
     CUDA tensors launch kernel K3r (mode 2) and count the launch in
-    ``traverse_record.launches``; CPU tensors run
+    ``traverse_record.launches``, or with model tables K2q's mode-2 variant,
+    counted in ``traverse_record.model_launches``; CPU tensors run
     :func:`traverse_record_reference`."""
     return _dispatch(traverse_record, 2, nodes_packed, root, depth, octree_scale, origins, dirs,
                      max_dst, None, tables)
@@ -674,10 +876,13 @@ def traverse_shadow(nodes_packed, root, depth, octree_scale, origins, dirs, tabl
     fetch.  ``strict`` zeroes the budget when a surface's IOR differs from
     the medium's (``cur_mat`` (B,) int32 before the first surface);
     ``record_t`` records each surface's world t as well.  ``active``: False
-    lanes start as MISS and fetch nothing.  Returns (HitResult, ShadowState).
+    lanes start as MISS and fetch nothing.  With model tables a surface is
+    resolved as in :func:`traverse_alpha`, its t still the voxel entry's.
+    Returns (HitResult, ShadowState).
 
     CUDA tensors launch kernel K3s (mode 3) and count the launch in
-    ``traverse_shadow.launches``; CPU tensors run
+    ``traverse_shadow.launches``, or with model tables K2q's mode-3 variant,
+    counted in ``traverse_shadow.model_launches``; CPU tensors run
     :func:`traverse_shadow_reference`."""
     return _dispatch(traverse_shadow, 3, nodes_packed, root, depth, octree_scale, origins, dirs,
                      max_dst, active, tables, (cur_mat, bool(strict), bool(record_t)))
@@ -687,3 +892,7 @@ traverse.launches = 0
 traverse_alpha.launches = 0
 traverse_record.launches = 0
 traverse_shadow.launches = 0
+# K2q, the model variants of modes 1-3
+traverse_alpha.model_launches = 0
+traverse_record.model_launches = 0
+traverse_shadow.model_launches = 0

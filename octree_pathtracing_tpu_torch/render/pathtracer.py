@@ -15,11 +15,16 @@ it.  The JAX package's TPU scheduling (tiles, straggler drain, sort
 schedule, beam) has no counterpart: it never changed the output.
 
 Traversals: kernel K1 on all-opaque scenes, K2 (the in-loop alpha accept)
-on scenes with alpha-holed textures; shadow walks take one K1 / K2
-traversal on ``shadow_binary`` scenes (every texel alpha exactly 1) and the
-stateful walk K3s otherwise.  Gradients flow into the atlas texels and the
+on scenes with alpha-holed textures, and its block-model variant K2q on
+scenes with models; shadow walks take one K1 / K2 traversal on
+``shadow_binary`` scenes (every texel alpha exactly 1, no quad models) and
+the stateful walk K3s (K2q's mode 3 with models) otherwise.  A scene's
+analytic primitives (kernel K7, ``models/prims.intersect_prims``) compete
+with the octree hit, the nearer winning, and attenuate shadow rays by the
+nearest one's factor.  Gradients flow into the atlas texels and the
 material table through the shading and through the attenuation, which is
-recomputed from the walk's recorded surfaces; the traversals are detached.
+recomputed from the walk's recorded surfaces; the traversals and the
+primitive scan are detached.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from ..models.emitters import ALL_MAX_EMITTERS, sample_emitter_point, toward_face_sample
 from ..models.materials import FLAG_REFRACTIVE, FLAG_SUBSURFACE_SCATTER, gather_rows
+from ..models.prims import intersect_prims
 from ..models.scene import MAX_DIST, EmitterSampling, Scene
 from ..models.sun import add_sun_color, add_sun_color_diffuse, random_sun_direction, sky_color
 from ..ops.shading import (
@@ -51,9 +57,10 @@ from ..ops.shading import (
     refract_dir,
     specular_reflect_dir,
 )
+from ..ops.geometry import fma
 from ..ops.random import philox_uniforms
 from ..ops.texture import sample_atlas
-from ..ops.traversal import K_SURFACES, HitResult, traverse, traverse_alpha, traverse_shadow
+from ..ops.traversal import K_SURFACES, HitResult, QuadSurface, traverse, traverse_alpha, traverse_shadow
 from .hit import accept_tables, resolve_hit
 
 MAX_BOUNCES = 5
@@ -106,13 +113,13 @@ def shadow_attenuation(scene: Scene, origins, dirs, cur_mat, active=None, max_t=
         *_walk_args(scene, o_walk, dirs), accept_tables(scene), cur_mat.to(torch.int32).contiguous(),
         strict, max_t is not None, MAX_DIST, active,
     )
-    return _stateful_att_from_state(scene, cur_mat, st, max_t, strict)
+    return _stateful_att_from_state(scene, o_walk, dirs, cur_mat, st, max_t, strict)
 
 
-def _stateful_att_from_state(scene: Scene, cur_mat, st, max_t, strict: bool):
+def _stateful_att_from_state(scene: Scene, o_walk, dirs, cur_mat, st, max_t, strict: bool):
     """The differentiable attenuation recompute from a walk's recorded
     surfaces (``ops/traversal.ShadowState``) for lanes whose medium was
-    ``cur_mat``."""
+    ``cur_mat``; the walk started at ``o_walk`` along ``dirs``."""
     b = cur_mat.shape[0]
     att_rgb = torch.ones((b, 3), dtype=torch.float32, device=cur_mat.device)
     w = torch.ones((b,), dtype=torch.float32, device=cur_mat.device)
@@ -132,14 +139,15 @@ def _stateful_att_from_state(scene: Scene, cur_mat, st, max_t, strict: bool):
         att_rgb = torch.where(upd[:, None], new_rgb, att_rgb)
         w = torch.where(upd, new_w, w)
         cm = torch.where(upd, mat, cm)
-    return _shadow_prims(att_rgb, w)
+    return _shadow_prims(scene, o_walk, dirs, cur_mat, att_rgb, w, max_t, strict)
 
 
 def _binary_att_from_res(scene: Scene, origins, dirs, res, cur_mat, max_t, strict: bool):
     """The binary walk's attenuation from its first-hit traversal ``res``.
     Its ``t`` is measured from the shifted origin ``origins + dirs * OFFSET``
     and compared with ``max_t`` as it is, as the reference does."""
-    mat, uv, _, t_hit = resolve_hit(scene, origins + dirs * OFFSET, dirs, res)
+    o_walk = origins + dirs * OFFSET
+    mat, uv, _, t_hit = resolve_hit(scene, o_walk, dirs, res)
     blocked = res.hit
     if max_t is not None:
         blocked = blocked & (t_hit < max_t)
@@ -151,13 +159,35 @@ def _binary_att_from_res(scene: Scene, origins, dirs, res, cur_mat, max_t, stric
     if strict:
         ior_change = scene.materials.ior[cur_mat.long()] != mrow["ior"]
         w = torch.where(blocked & ior_change, 0.0, w)
-    return _shadow_prims(att_rgb, w)
+    return _shadow_prims(scene, o_walk, dirs, cur_mat, att_rgb, w, max_t, strict)
 
 
-def _shadow_prims(att_rgb, w):
-    """Fold analytic primitives into a shadow attenuation.  A port scene
-    carries none (``make_scene`` refuses them), so this only packs (B, 4)."""
+def _shadow_prims(scene: Scene, o_walk, dirs, cur_mat, att_rgb, w, max_t, strict: bool):
+    """Fold the analytic primitives into a shadow attenuation and pack it
+    (B, 4): the nearest primitive along the walk (from ``o_walk``, short of
+    ``max_t``) contributes one attenuation factor, with the strict-IOR zero;
+    a translucent primitive behind another is not walked on to."""
+    if scene.prims is not None:
+        p_hit, p_t, p_mat, p_uv, _ = _prim_hit(scene, o_walk, dirs)
+        if max_t is not None:
+            p_hit = p_hit & (p_t < max_t)
+        albedo_p = _albedo_at(scene, p_mat, p_uv)
+        mult_p = 1.0 - albedo_p[:, 3]
+        att_rgb = torch.where(p_hit[:, None], att_rgb * (albedo_p[:, :3] * albedo_p[:, 3:4] + mult_p[:, None]),
+                              att_rgb)
+        new_w = w * mult_p
+        if strict:
+            ior = scene.materials.ior
+            new_w = torch.where(ior[cur_mat.long()] != ior[p_mat.long()], 0.0, new_w)
+        w = torch.where(p_hit, new_w, w)
     return torch.cat([att_rgb, w[:, None]], -1)
+
+
+def _prim_hit(scene: Scene, origins, dirs):
+    """The analytic-primitive hit of each lane (kernel K7), detached like
+    the traversal: (hit, t, mat, uv (B, 2), normal (B, 3)); gradients flow
+    through the albedo gathers downstream."""
+    return intersect_prims(scene.prims, origins.detach().contiguous(), dirs.detach().contiguous(), MAX_DIST)
 
 
 def _init_state(origins, dirs):
@@ -259,8 +289,13 @@ def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool):
     """Shade one resolved traversal: sky on miss, lobe scatter on hit, sun and
     emitter NEE on diffuse bounces."""
     active = st["active"]
-    miss = active & ~res.hit
-    hit = active & res.hit  # res.hit is already False on inactive lanes
+    # analytic primitives compete with the octree hit; the nearer surface wins
+    any_hit = res.hit
+    if scene.prims is not None:
+        p_hit, p_t, p_mat, p_uv, p_n = _prim_hit(scene, st["origin"], st["dir"])
+        any_hit = res.hit | p_hit
+    miss = active & ~any_hit
+    hit = active & any_hit  # res.hit is already False on inactive lanes
     bounce0 = torch.full_like(active, is_first)
 
     sky_rgb = sky_radiance(scene, st["dir"], bounce0, st["specular"])
@@ -270,9 +305,15 @@ def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool):
     can_scatter = hit if may_scatter else torch.zeros_like(hit)
 
     mat, hit_uv, n, t_hit = resolve_hit(scene, st["origin"], st["dir"], res)
+    if scene.prims is not None:
+        use_p = p_hit & (p_t < torch.where(res.hit, t_hit, float("inf")))
+        mat = torch.where(use_p, p_mat, mat)
+        hit_uv = torch.where(use_p[:, None], p_uv, hit_uv)
+        n = torch.where(use_p[:, None], p_n, n)
+        t_hit = torch.where(use_p, p_t, t_hit)
     mrow = gather_rows(scene.materials, mat)
     albedo = sample_atlas(scene.atlas, mrow["texture_index"], hit_uv[:, 0], hit_uv[:, 1])
-    hitpoint = st["origin"] + st["dir"] * t_hit[:, None]
+    hitpoint = fma(st["dir"], t_hit[:, None], st["origin"])  # one rounding, as the reference's
 
     sc = lobe_scatter(scene, u, st["dir"], n, albedo, mrow, st["cur_mat"], is_first)
     radiance = radiance + torch.where(can_scatter[:, None], st["throughput"] * sc["emit_rgb"], 0.0)
@@ -434,12 +475,22 @@ def trace_paths_branched(scene: Scene, origins, dirs, uniforms):
     mean over k of ``trace_paths(..., uniforms[:, k])``."""
     b, k, n_bounces = uniforms.shape[:3]
     res = _trace(scene, origins, dirs)  # the one primary traversal
-    res_k = HitResult(*(x.repeat_interleave(k, dim=0) if x.dim() else x for x in res))
+    res_k = _repeat_lanes(res, k)
     st = _init_state(origins.repeat_interleave(k, dim=0), dirs.repeat_interleave(k, dim=0))
     u = uniforms.reshape(b * k, n_bounces, uniforms.shape[-1])
     st = _shade(scene, st, u[:, 0], res_k, is_first=True, may_scatter=n_bounces > 1)
     st, _ = _live_bounces(scene, st, u, 1)
     return st["radiance"].reshape(b, k, 3).mean(dim=1)
+
+
+def _repeat_lanes(res: HitResult, k: int) -> HitResult:
+    """``res`` with every lane repeated ``k`` times in place."""
+
+    def rep(x):
+        return x.repeat_interleave(k, dim=0) if x.dim() else x
+
+    quad = None if res.quad is None else QuadSurface(*(rep(x) for x in res.quad))
+    return HitResult(*(rep(x) for x in res[:-1]), quad=quad)
 
 
 def draw_uniforms(seed: int, counter: int, n_lanes: int, n_bounces: int = MAX_BOUNCES,

@@ -3,7 +3,8 @@
 ``nvcc`` compiles a ``.cu`` file with a plain C interface for Hopper
 (``sm_90a``) into ``build/kernels/``; ``ctypes`` loads it.  The library's
 name carries a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as built.  Nothing is compiled at
+rebuilt and an unchanged one is loaded as built (the hash covers the
+headers of ``csrc/`` too).  Nothing is compiled at
 import time: each kernel's wrapper builds and loads its library once, at
 its first launch.  :func:`on_current_stream` is the wrappers' launch path.
 """
@@ -11,6 +12,7 @@ its first launch.  :func:`on_current_stream` is the wrappers' launch path.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -40,8 +42,12 @@ def load_library(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
     built), "log" (nvcc and ptxas output)}."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     flags = ARCH_FLAGS + BASE_FLAGS + list(extra_flags)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(flags).encode())
+    # the source and every header of csrc/ it may include
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(KERNEL_DIR, f"lib{name}_{digest}.so")
     info = {"path": out, "seconds": 0.0, "log": ""}
     if not os.path.exists(out):

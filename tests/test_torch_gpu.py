@@ -1,9 +1,10 @@
 """The port's kernels against their plain-torch twins on a CUDA card: the
 traversal in its four modes (K1, K2 alpha accept, K3r recording walk, K3s
-shadow walk), P2 (Philox uniforms) and P1 (row gather, from one table and
-from two), also captured in a CUDA graph, and the path tracer's frame and
-gradients through the kernels against the same through the twins, with and
-without light sampling.
+shadow walk) and K2q (the block-model variant of modes 1-3), K7 (the
+analytic-primitive scan), P2 (Philox uniforms) and P1 (row gather, from one
+table and from two), also captured in a CUDA graph, and the path tracer's
+frame and gradients through the kernels against the same through the twins,
+with and without light sampling, block models and primitives.
 
 Every test here is marked ``gpu`` and skips where there is no card.  The
 file imports no jax (the machine with the card has none), so it runs there
@@ -19,14 +20,17 @@ import pytest
 import torch
 
 from octree_pathtracing_tpu_torch.models import (
+    analytic_sphere_scene,
     cutout_chunk_scene,
     emissive_room_scene,
     face_normals,
     minecraft_chunk_scene,
     octree_from_grid,
     pixel_grid_rays,
+    plant_scene,
 )
 from octree_pathtracing_tpu_torch.models import emitters
+from octree_pathtracing_tpu_torch.models.prims import intersect_prims, intersect_prims_reference
 from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
 from octree_pathtracing_tpu_torch.ops import random as prandom
 from octree_pathtracing_tpu_torch.ops.gather import (
@@ -79,9 +83,14 @@ def _random_case(depth, n, seed, dev):
 
 
 def _assert_equal_results(k, r):
-    """Both round every operation once: equal on every lane."""
+    """Both round every operation alike: equal on every lane, the quad
+    surfaces of K2q's mode 1 too."""
     for f in ("hit", "face_id", "leaf_value", "t", "uv", "voxel_pos", "voxel_size", "steps", "fetches"):
         assert torch.equal(getattr(k, f), getattr(r, f)), f
+    assert (k.quad is None) == (r.quad is None)
+    if k.quad is not None:
+        for f in k.quad._fields:
+            assert torch.equal(getattr(k.quad, f), getattr(r.quad, f)), f"quad.{f}"
 
 
 @pytest.mark.gpu
@@ -338,6 +347,151 @@ def test_light_sampling_frame_and_gradients_through_kernels_match_twins(cuda, mo
                        ("traverse_shadow", traverse_shadow_reference)):
         monkeypatch.setattr(pathtracer, name, twin)
     monkeypatch.setattr(emitters, "row_gather_pair", row_gather_pair_reference)
+    want = run()
+    torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
+    for g, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+    assert torch.isfinite(got[0]).all() and got[0].mean() > 0
+
+
+def _model_counts():
+    return (traverse_alpha.model_launches, traverse_record.model_launches, traverse_shadow.model_launches)
+
+
+@pytest.mark.gpu
+def test_quad_model_kernels_match_twins(cuda):
+    """K2q's modes 1 and 2 on the plant field: hit, leaf, face, t, uv, the
+    record rows and the accepted quads' surfaces equal bit for bit."""
+    scene, cam = plant_scene(depth=5)
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 64, 64)
+    args = (scene.nodes, scene.root, scene.depth, scene.octree_scale, o.contiguous(), d)
+    tables = accept_tables(scene)
+    before, plain = _model_counts(), (traverse_alpha.launches, traverse_record.launches)
+    k = traverse_alpha(*args, tables)
+    r = traverse_alpha_reference(*args, tables)
+    k2, k_rec = traverse_record(*args, tables)
+    r2, r_rec = traverse_record_reference(*args, tables)
+    torch.cuda.synchronize()
+    assert _model_counts() == (before[0] + 1, before[1] + 1, before[2])
+    assert (traverse_alpha.launches, traverse_record.launches) == plain
+    _assert_equal_results(k, r)
+    _assert_equal_results(k2, r2)
+    for f in k_rec._fields:
+        assert torch.equal(getattr(k_rec, f), getattr(r_rec, f)), f
+    assert k.quad.found.any() and (k.hit & ~k.quad.found).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strict,record_t", [(True, False), (False, True)])
+def test_quad_model_shadow_kernel_matches_twin(cuda, strict, record_t):
+    scene, cam = plant_scene(depth=5)
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d, active, cur_mat = _shadow_rays(scene, cam, 64, 64, 7)
+    args = (scene.nodes, scene.root, scene.depth, scene.octree_scale, o, d, accept_tables(scene),
+            cur_mat, strict, record_t, 1024.0, active)
+    before = _model_counts()
+    k, k_st = traverse_shadow(*args)
+    r, r_st = traverse_shadow_reference(*args)
+    torch.cuda.synchronize()
+    assert _model_counts() == (before[0], before[1], before[2] + 1)
+    _assert_equal_results(k, r)
+    for f in k_st._fields:
+        if f == "ts" and not record_t:
+            assert k_st.ts is None and r_st.ts is None
+            continue
+        assert torch.equal(getattr(k_st, f), getattr(r_st, f)), f
+    assert (k_st.count >= 1).any()
+
+
+@pytest.mark.gpu
+def test_variant_without_models_launches_no_model_kernel(cuda):
+    scene, cam = cutout_chunk_scene(depth=5)
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 48, 32)
+    args = (scene.nodes, scene.root, scene.depth, scene.octree_scale, o.contiguous(), d)
+    tables = accept_tables(scene)
+    before, plain = _model_counts(), traverse_alpha.launches
+    k = traverse_alpha(*args, tables)
+    _assert_equal_results(k, traverse_alpha_reference(*args, tables))
+    assert _model_counts() == before and traverse_alpha.launches == plain + 1 and k.quad is None
+
+
+def _prim_rays(cam, w, h, seed, dev):
+    """The camera's primaries, then as many random rays (some from inside
+    the sphere, some toward the quad's back)."""
+    o, d = pixel_grid_rays(cam, w, h)
+    g = torch.Generator().manual_seed(seed)
+    ro = (torch.rand((w * h, 3), generator=g) * 40.0 - 4.0).to(dev)
+    rd = torch.randn((w * h, 3), generator=g).to(dev)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    return torch.cat([o, ro]).contiguous(), torch.cat([d, rd]).contiguous()
+
+
+@pytest.mark.gpu
+def test_prims_kernel_matches_twin(cuda):
+    """K7: hit, material, t and normal equal bit for bit; uv within 1e-6
+    (CUDA's acosf and atan2f may differ from PyTorch's by an ulp)."""
+    scene, cam = analytic_sphere_scene(depth=5)
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = _prim_rays(cam, 64, 64, 5, cuda)
+    for t_max in (1024.0, 20.0):
+        before = intersect_prims.launches
+        k = intersect_prims(scene.prims, o, d, t_max)
+        r = intersect_prims_reference(scene.prims, o, d, t_max)
+        torch.cuda.synchronize()
+        assert intersect_prims.launches == before + 1
+        for name, a, b in zip(("hit", "t", "mat", "normal"), (k[0], k[1], k[2], k[4]), (r[0], r[1], r[2], r[4])):
+            assert torch.equal(a, b), name
+        torch.testing.assert_close(k[3], r[3], rtol=0, atol=1e-6)
+        assert k[0].any() and not k[0].all()
+    assert (k[2] == 3).any()  # the quad is hit too
+
+
+@pytest.mark.gpu
+def test_model_and_prim_kernels_launch_nothing_on_an_empty_batch(cuda):
+    scene, cam = plant_scene(depth=3)
+    scene = scene.to(cuda)
+    o = torch.zeros((0, 3), device=cuda)
+    args = (scene.nodes, scene.root, scene.depth, scene.octree_scale, o, o, accept_tables(scene))
+    before = _model_counts()
+    res = traverse_alpha(*args)
+    assert res.hit.shape == (0,) and res.quad.uv.shape == (0, 2)
+    assert traverse_record(*args)[1].mats.shape == (4, 0)
+    assert _model_counts() == before
+    ana, _ = analytic_sphere_scene(depth=3)
+    p_before = intersect_prims.launches
+    hit, t, mat, uv, n = intersect_prims(ana.prims.to(cuda), o, o, 1024.0)
+    assert hit.shape == (0,) and n.shape == (0, 3) and intersect_prims.launches == p_before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("build,sun", [(plant_scene, "high_quality"), (analytic_sphere_scene, "importance"),
+                                       (analytic_sphere_scene, "high_quality")])
+def test_model_and_prim_frames_through_kernels_match_twins(cuda, monkeypatch, build, sun):
+    scene, cam = build(depth=5)
+    scene = dataclasses.replace(scene, sun_sampling=getattr(SunSampling, sun)())
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 48, 32)
+    u = torch.from_numpy(np.random.default_rng(8).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+
+    def run():
+        p = {"atlas": scene.atlas.clone().requires_grad_(True),
+             "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+        rad = pathtracer.trace_paths(apply_params(scene, p), o, d, u)
+        rad.mean().backward()
+        return rad.detach(), p["atlas"].grad, p["emittance"].grad
+
+    before, p_before = _model_counts(), intersect_prims.launches
+    got = run()
+    if scene.models is not None:
+        assert _model_counts()[0] > before[0] and _model_counts()[2] > before[2]
+    else:
+        assert intersect_prims.launches > p_before
+    for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
+                       ("traverse_shadow", traverse_shadow_reference),
+                       ("intersect_prims", intersect_prims_reference)):
+        monkeypatch.setattr(pathtracer, name, twin)
     want = run()
     torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
     for g, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix

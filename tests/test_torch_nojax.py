@@ -1,6 +1,6 @@
 """The port runs where jax and the JAX package are absent (the machine with
 the card has neither): jax-blocked CLI render (with and without light
-sampling) and train runs, and a source scan for imports of jax or of
+sampling) and train runs (on the terrain's cutout and on block models), and a source scan for imports of jax or of
 ``octree_pathtracing_tpu``.  Without ``--device`` the CLI asks for the card
 and fails where there is none."""
 
@@ -97,6 +97,33 @@ def test_cli_train_with_jax_blocked(tmp_path):
     assert "over 2 steps on cpu" in proc.stdout
     steps = [line for line in proc.stderr.splitlines() if '"train_step"' in line]
     assert len(steps) == 2
+
+
+_TRAIN_PLANT = """
+import sys
+sys.modules["jax"] = None
+sys.modules["octree_pathtracing_tpu"] = None
+from octree_pathtracing_tpu_torch.cli import main
+from octree_pathtracing_tpu_torch.io.checkpoint import load_arrays
+main(["train", "--scene", "plant", "--depth", "3", "--width", "6", "--height", "4", "--views", "2",
+      "--steps", "2", "--device", "cpu", "-o", sys.argv[1]])
+p = load_arrays(sys.argv[1])
+assert p["atlas"].shape == (3, 16, 16, 4) and p["emittance"].shape == (3,)
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+"""
+
+
+def test_cli_train_on_block_models_with_jax_blocked(tmp_path):
+    """Training on the plant field: the quad-model accept in all three walks
+    (the render, the recording walk of the soft loss, the sun shadow walk)."""
+    out = tmp_path / "params.npz"
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_PLANT, str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "over 2 steps on cpu" in proc.stdout
+    assert len([line for line in proc.stderr.splitlines() if '"train_step"' in line]) == 2
 
 
 def test_no_port_source_imports_jax():

@@ -32,7 +32,9 @@ from octree_pathtracing_tpu_torch.models import (
     scattered_lights_scene,
     sphere_scene,
 )
+from octree_pathtracing_tpu_torch.models.blockmodels import ModelBuilder, cross_plant_quads
 from octree_pathtracing_tpu_torch.models.camera import pixel_grid_rays
+from octree_pathtracing_tpu_torch.models.prims import make_primitives
 from octree_pathtracing_tpu_torch.models.convert import scene_from_jax_arrays
 from octree_pathtracing_tpu_torch.models.scene import make_scene
 from octree_pathtracing_tpu_torch.octree import build_from_dense
@@ -171,9 +173,9 @@ def test_renderer_reaches_target_spp():
 
 
 def test_refused_paths_raise():
-    """Block models, primitives and the brick layout stay refused; sun
-    strategies with shadow rays and emitter sampling run (the first
-    through the port's branched estimator too)."""
+    """The brick layout stays refused; block models, primitives, sun
+    strategies with shadow rays and emitter sampling run (through the
+    port's branched estimator too)."""
     scene, cam = minecraft_chunk_scene(depth=3)
     o, d = pixel_grid_rays(cam, 4, 4)
     u = torch.rand((16, 2, 21))
@@ -192,9 +194,20 @@ def test_refused_paths_raise():
     from octree_pathtracing_tpu.octree import build_from_dense as jax_build_from_dense
 
     tree = jax_build_from_dense(np.ones((4, 4, 4), np.uint32))
-    for kw in (dict(models=object()), dict(prims=object()), dict(brick=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_scene(tree, scene.materials, scene.atlas, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_scene(tree, scene.materials, scene.atlas, brick=True)
+    # block models and analytic primitives are accepted and traced
+    mb = ModelBuilder()
+    mb.add_simple(1)
+    mb.add_quad_model(cross_plant_quads(material=2))
+    models = mb.build([0, 1, 0, 1, 0, 1, 0, 1, 0, 1])
+    prims = make_primitives(spheres=[((2.0, 6.0, 2.0), 1.5, 3)])
+    for kw in (dict(models=models), dict(prims=prims), dict(models=models, prims=prims)):
+        built = make_scene(tree, scene.materials, scene.atlas, **kw)
+        assert built.has_quad_models == ("models" in kw)
+        assert built.opaque_only == (scene.opaque_only and "models" not in kw)
+        assert torch.isfinite(trace_paths(built, o, d, u)).all()
+        assert torch.isfinite(trace_paths_branched(built, o, d, u[:, None])).all()
     from octree_pathtracing_tpu.octree.brick import brickify
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

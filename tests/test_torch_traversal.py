@@ -47,7 +47,7 @@ def _port(tree, origins, dirs, active=None, device="cpu"):
         nodes, tree.root, tree.depth, tree.scale(),
         torch.from_numpy(origins).to(device), torch.from_numpy(dirs).to(device), MAX_DIST, act,
     )
-    return res._replace(**{k: v.cpu().numpy() for k, v in res._asdict().items()})
+    return res._replace(**{k: v.cpu().numpy() for k, v in res._asdict().items() if v is not None})
 
 
 def _jax(tree, origins, dirs, active=None):
