@@ -6,13 +6,19 @@ one NVIDIA card: the quickest proof that the port still starts on the GPU.
 
 Phases, each of which raises on failure (exit code 1, no result line):
 
+0. two host processes start at once and run beside phases 1-2: one
+   synthesizes the survival region of phase 8, the other builds the BVH of
+   the depth-9 plant field's quad soup (about a minute of numpy on one
+   core; cached under ``build/`` for the same soup);
 1. the card's name and power limit; build the kernels from the sources in
    this checkout, one nvcc per source, started together: the traversal
    (``csrc/traversal.cu``: K1, K2 alpha accept, K3r recording walk, K3s
    shadow walk, and K2q, their block-model variant), K7
-   (``csrc/prims.cu``, the analytic-primitive scan), P2
-   (``csrc/uniforms.cu``, Philox uniforms) and P1 (``csrc/gather.cu``, row
-   gather);
+   (``csrc/prims.cu``, the analytic-primitive scan), K8 (``csrc/bvh.cu``,
+   the BVH walk over quads), P2 (``csrc/uniforms.cu``, Philox uniforms) and
+   P1 (``csrc/gather.cu``, row gather); and, beside them, the C++ region
+   parser with g++ (host code: where it does not build, the numpy parser
+   reads regions, as in the JAX package, and the line says why);
 2. every kernel against its plain-torch twin on the card, timed beside its
    bound twice, by call (CUDA events around back-to-back calls: what an
    eager caller pays, host path included) and on the device alone (the same
@@ -40,6 +46,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      sun directions (strict, no t) and toward random directions of the hit
      face's hemisphere (t recorded); K7 on the 256x256 primaries of
      ``analytic_sphere_scene(depth=9)``; both by call and on the device.
+   - K8 on the plant field's 65,025 plants as a world-space soup of 260,100
+     quads (``build_bvh``, leaves of 2), against the 256x256 plant
+     primaries, without and with a ``t_init`` (the octree hit's t): hit, t
+     and payload bit for bit, by call and on the device, its bound counted
+     from the twin's walk; then K8's main path, one
+     ``bvh_intersect_quads`` call through the entry point.
    Hit, leaf value, face id, fetch counts and record count / mats / face
    must agree on every lane; t, uv and the record's uu / vv within 1e-4 (all
    of them round every operation alike, so they should agree exactly); K3s's
@@ -90,9 +102,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``--scene chunk --depth 9`` (K1, K3r, P2) and on ``--scene cutout
    --depth 9`` (K2, K3r, P2): finite losses, the parameters written, wall
    seconds per step; and ``cli train --scene plant --depth 9`` at 2 views
-   of 128x128 for 2 steps (K2q in all three modes, P2).
+   of 128x128 for 2 steps (K2q in all three modes, P2);
+8. the world path on a survival region synthesized from a fixed seed at
+   the full size of one region file (32x32 chunks, sections -4..19, so
+   512x384x512 blocks: terrain with ores, water, beaches, oak trees, glass,
+   glowstone and lava), written to ``build/`` by ``make_region_fixture``:
+   the file's size, the parser that read it and its seconds, the region
+   octree's build, ``minecraft_scene_from_region`` and the scene's bytes on
+   the card; (a) ``cli render --world ... --depth 9 --sun high_quality
+   --emitter-sampling one`` at 256x256 and 20 spp; (b) ``cli info
+   --world``; (c) frame parity at 64x64 as phase 4; (d) ``trace_paths`` at
+   phase 5's shape, forward and fwd+bwd, timed as phase 6b; (e) ``cli
+   train --world`` at 2 views of 128x128 for 2 steps.  The kernels each
+   path must launch follow the scene's flags (the palette's textures are
+   never transparent enough to reject a hit, so the bounces run K1; leaves,
+   glass and water make the sun walks K3s).
 
-The launch counts of the main paths (phases 3, 3b, 3c, 6, 6b, 6c and 7) are
+The launch counts of the main paths (phases 3, 3b, 3c, 6, 6b, 6c, 7, 8 and
+K8's walk in phase 2) are
 set to 0 just before each path and read just after; the kernels'
 comparisons with their twins do not count.  The script names only the port; jax and the JAX
 package are blocked before anything is imported.
@@ -107,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -146,6 +174,18 @@ OPS_PER_QUAD = 60  # a quad test: 3 dot products, 2 cross products, the division
 PRIM_RAY_BYTES = 24 + 29
 OPS_PER_SPHERE, OPS_PER_PRIM_QUAD = 45, 60
 PHILOX_OPS_PER_BLOCK = 112  # 10 rounds of 2 mul-hi/lo pairs, 4 xor, 2 key adds; 4 float maps
+# K8, per lane: origin and direction in; hit, t and payload out (33 B, and
+# t_init's 4 B where given); per node row fetched 32 B, per interior node
+# whose box is hit its two children's rows (64 B); per quad tested its row
+BVH_RAY_BYTES = 24 + 9
+BVH_NODE_BYTES = 32
+OPS_PER_BOX = 30  # 6 subtractions, 6 multiplications, 12 min / max, 3 compares
+# the synthesized survival region: 32 x 32 chunks, sections -4..19
+WORLD_SEED, WORLD_CHUNKS = 2024, 32
+WORLD_BLOCKS = ("air", "bedrock", "stone", "coal_ore", "iron_ore", "dirt", "grass_block", "sand", "water",
+                "oak_log", "oak_leaves", "glass", "glowstone", "lava")
+SEA_Y = 127  # the sea surface in region-local y (world y 63)
+WORLD_DEPTH = 9  # a region is 512 blocks wide
 
 KERNELS = {
     "esvo_traverse": ("octree_pathtracing_tpu_torch/csrc/traversal.cu",
@@ -164,6 +204,8 @@ KERNELS = {
                              "octree_pathtracing_tpu/render/hit.py:39"),
     "prims_intersect": ("octree_pathtracing_tpu_torch/csrc/prims.cu",
                         "octree_pathtracing_tpu/models/prims.py:71"),
+    "bvh_intersect": ("octree_pathtracing_tpu_torch/csrc/bvh.cu",
+                      "octree_pathtracing_tpu/ops/bvh.py:99"),
 }
 # the block-model and primitive lines at bench.py's shapes: (name, scene, sun)
 MODEL_CELLS = (("plant", "plant", "high_quality"), ("analytic", "analytic", "importance"),
@@ -173,8 +215,170 @@ MODEL_CELLS = (("plant", "plant", "high_quality"), ("analytic", "analytic", "imp
 LIGHT_CELLS = (("nee", "terrain", "none"), ("cutout", "cutout", "none"), ("config3", "terrain", "one"))
 
 
+# the host processes main() starts (the region synthesis, the BVH build)
+CHILDREN = {}
+
+
 def log(msg: str):
     print(msg, flush=True)
+
+
+def _smooth_noise(rng, w: int, cells: int):
+    """A (w, w) field of unit-variance noise, bilinear over a coarse grid of
+    ``cells`` per 512 blocks."""
+    n = max(2, w * cells // 512)
+    coarse = rng.standard_normal((n + 1, n + 1))
+    f = np.arange(w) * (n / w)
+    i = f.astype(np.int64)
+    t = f - i
+    row = coarse[i] * (1 - t)[:, None] + coarse[i + 1] * t[:, None]
+    return row[:, i] * (1 - t)[None, :] + row[:, i + 1] * t[None, :]
+
+
+def survival_grid(seed: int, n_chunks: int):
+    """A (16 n, 384, 16 n) uint8 grid [x, y, z] of indices into WORLD_BLOCKS:
+    a player's survival region.  A height field (sea level +3, hills of
+    +-30) of bedrock, stone with coal and iron ore, three of dirt and a
+    grass top; water to sea level in the valleys over sand beaches and
+    floors; oak trees (log and leaves) on the grass; glass greenhouses, each
+    round a glowstone; glowstone lamps and lava pools on the surface."""
+    b = {n: i for i, n in enumerate(WORLD_BLOCKS)}
+    rng = np.random.default_rng(seed)
+    w = 16 * n_chunks
+    h = SEA_Y + 3 + 22 * _smooth_noise(rng, w, 4) + 8 * _smooth_noise(rng, w, 16) + 2 * _smooth_noise(rng, w, 64)
+    h = np.clip(np.round(h), 70, 250).astype(np.int64)
+    xx, zz = np.meshgrid(np.arange(w), np.arange(w), indexing="ij")
+    y = np.arange(384, dtype=np.int64)[None, :, None]
+    g = np.where(y <= h[:, None, :], np.uint8(b["stone"]), np.uint8(0))
+    ore = rng.random(g.shape, dtype=np.float32)
+    stone = g == b["stone"]
+    g[stone & (ore < 0.01)] = b["coal_ore"]
+    g[stone & (ore >= 0.01) & (ore < 0.016) & (y < 140)] = b["iron_ore"]
+    del ore, stone
+    g[:, 0, :] = b["bedrock"]
+    g[:, 1:4, :][rng.random((w, 3, w)) < 0.4] = b["bedrock"]
+    sandy = h <= SEA_Y + 1
+    for k in range(4):
+        g[xx, h - k, zz] = np.where(sandy, b["sand"], b["grass_block"] if k == 0 else b["dirt"])
+    g[(y > h[:, None, :]) & (y <= SEA_Y)] = b["water"]
+    for x, z in zip(*rng.integers(3, w - 3, (2, max(1, 300 * n_chunks * n_chunks // 1024)))):
+        base = h[x, z]
+        if g[x, base, z] != b["grass_block"]:
+            continue
+        top = base + int(rng.integers(4, 7))
+        for ly in range(top - 2, top + 2):
+            r = 2 if ly < top else 1
+            crown = g[x - r : x + r + 1, ly, z - r : z + r + 1]
+            crown[crown == 0] = b["oak_leaves"]
+        g[x, base + 1 : top + 1, z] = b["oak_log"]
+    for _ in range(max(1, n_chunks * n_chunks // 64)):
+        x, z = rng.integers(4, w - 8, 2)
+        base = int(h[x : x + 5, z : z + 5].max())
+        g[x : x + 5, base + 1 : base + 5, z : z + 5] = b["glass"]
+        g[x + 1 : x + 4, base + 1 : base + 4, z + 1 : z + 4] = 0
+        g[x + 2, base + 1, z + 2] = b["glowstone"]
+    for _ in range(max(1, n_chunks * n_chunks // 16)):
+        x, z = rng.integers(2, w - 2, 2)
+        g[x, h[x, z] + 1, z] = b["glowstone"]
+    for _ in range(max(1, n_chunks * n_chunks // 128)):
+        x, z = rng.integers(2, w - 5, 2)
+        if h[x, z] > SEA_Y + 1:
+            g[x : x + 3, h[x, z], z : z + 3] = b["lava"]
+    return g
+
+
+def write_survival_region(path: str, seed: int, n_chunks: int) -> dict:
+    """Synthesize the region with ``make_region_fixture`` (every section of
+    every chunk, each with its own palette and a plains biome) and write it
+    to ``path``, unless a file of the same seed and size is there.  Returns
+    {"path", "bytes", "voxels" (non-air blocks), "seconds"}."""
+    from octree_pathtracing_tpu_torch.models import make_region_fixture
+
+    t0 = time.perf_counter()
+    meta = path + ".json"
+    if os.path.exists(path) and os.path.exists(meta):
+        with open(meta) as f:
+            info = json.load(f)
+        if (info.get("seed"), info.get("n_chunks")) == (seed, n_chunks):
+            return dict(info, seconds=time.perf_counter() - t0, cached=True)
+    g = survival_grid(seed, n_chunks)
+    names = np.array([f"minecraft:{n}" for n in WORLD_BLOCKS])
+    chunks = {}
+    for cx in range(n_chunks):
+        for cz in range(n_chunks):
+            column = g[cx * 16 : cx * 16 + 16, :, cz * 16 : cz * 16 + 16]
+            sections = {}
+            for sy in range(24):
+                block = column[:, sy * 16 : sy * 16 + 16, :].transpose(1, 2, 0).ravel()  # YZX
+                ids, idx = np.unique(block, return_inverse=True)
+                sections[sy - 4] = (list(names[ids]), idx.astype(np.uint16), "minecraft:plains")
+            chunks[(cx, cz)] = sections
+    buf = make_region_fixture(chunks)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(buf)
+    info = dict(path=path, bytes=len(buf), voxels=int(np.count_nonzero(g)), seed=seed, n_chunks=n_chunks,
+                counts={n: int(c) for n, c in zip(WORLD_BLOCKS, np.bincount(g.ravel(), minlength=len(WORLD_BLOCKS)))})
+    with open(meta, "w") as f:
+        json.dump(info, f)
+    return dict(info, seconds=time.perf_counter() - t0, cached=False)
+
+
+def plant_soup(scene):
+    """The plants of a ``plant_scene`` as a world-space quad soup: each plant
+    voxel's cross quads offset to its corner.  Returns (origins, us, vs,
+    materials) as numpy arrays."""
+    from octree_pathtracing_tpu_torch.octree import enumerate_leaves, unpack_nodes
+    from octree_pathtracing_tpu_torch.ops.traversal import FLAG_SIMPLE
+
+    mask, data = unpack_nodes(scene.nodes.cpu().numpy())
+    pos, _, val = enumerate_leaves(mask, data, scene.root, scene.depth)
+    m = scene.models
+    model = m.leaf_model.numpy()[val]
+    quad = (m.flags.numpy()[model] & FLAG_SIMPLE) == 0
+    pos, model = pos[quad], model[quad]
+    start, count = m.quad_start.numpy()[model], m.quad_count.numpy()[model]
+    qi = (start[:, None] + np.arange(int(count.max()))[None, :])[np.arange(int(count.max()))[None, :] < count[:, None]]
+    corner = np.repeat(pos.astype(np.float32), count, axis=0)
+    return (m.quads.origin.numpy()[qi] + corner, m.quads.u.numpy()[qi], m.quads.v.numpy()[qi],
+            m.quads.material_id.numpy()[qi])
+
+
+def build_plant_bvh(path: str, depth: int) -> dict:
+    """``build_bvh`` (leaves of 2) over the boxes of ``plant_scene(depth)``'s
+    quad soup, padded by 1e-4, saved to ``path`` (an .npz with the soup);
+    where ``path`` holds the build of the same soup it is loaded instead.
+    Returns {"plants", "quads", "seconds", "cached"}."""
+    import hashlib
+
+    sys.modules["jax"] = None
+    from octree_pathtracing_tpu_torch.models import plant_scene
+    from octree_pathtracing_tpu_torch.ops.bvh import build_bvh
+
+    scene, _ = plant_scene(depth=depth)
+    o, u, v, mat = plant_soup(scene)
+    digest = hashlib.sha256(b"".join(np.ascontiguousarray(x).tobytes() for x in (o, u, v, mat))).hexdigest()
+    if os.path.exists(path):
+        with np.load(path) as z:
+            if str(z["digest"]) == digest:
+                return dict(plants=len(o) // 4, quads=len(o), seconds=float(z["seconds"]), cached=True)
+    corners = np.stack([o, o + u, o + v, o + u + v])
+    t0 = time.perf_counter()
+    bvh = build_bvh(corners.min(0) - 1e-4, corners.max(0) + 1e-4)
+    seconds = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, digest=digest, seconds=seconds, o=o, u=u, v=v, mat=mat,
+             **{f: getattr(bvh, f).numpy() for f in ("node_min", "node_max", "left", "right", "prim_order")})
+    os.replace(tmp, path)
+    return dict(plants=len(o) // 4, quads=len(o), seconds=seconds, cached=False)
+
+
+def _in_child(fn, out_json: str, *args):
+    """Run ``fn(*args)`` in a child process, its result written as JSON."""
+    result = fn(*args)
+    with open(out_json, "w") as f:
+        json.dump(result, f)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -256,6 +460,7 @@ def prim_bound(prims, lanes: int):
 def main() -> int:
     # The port never needs jax or the JAX package; block both so that no
     # module reached from here loads them.
+    t_start = time.perf_counter()
     sys.modules["jax"] = None
     sys.modules["octree_pathtracing_tpu"] = None
     import torch
@@ -277,11 +482,20 @@ def main() -> int:
         pixel_grid_rays,
         plant_scene,
     )
+    from octree_pathtracing_tpu_torch.models import mca, minecraft_scene_from_region, native
     from octree_pathtracing_tpu_torch.models import prims as prims_mod
     from octree_pathtracing_tpu_torch.models.prims import intersect_prims, intersect_prims_reference
     from octree_pathtracing_tpu_torch.models.emitters import sample_emitter_point, with_emitter_sampling
     from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
+    from octree_pathtracing_tpu_torch.ops import bvh as bvh_mod
     from octree_pathtracing_tpu_torch.ops import gather
+    from octree_pathtracing_tpu_torch.ops.bvh import (
+        BVH,
+        bvh_intersect_quads,
+        bvh_intersect_reference,
+        quad_prim_fn,
+        tree_depth,
+    )
     from octree_pathtracing_tpu_torch.ops import random as prandom
     from octree_pathtracing_tpu_torch.ops import traversal
     from octree_pathtracing_tpu_torch.ops.gather import (
@@ -291,6 +505,7 @@ def main() -> int:
         row_gather_reference,
     )
     from octree_pathtracing_tpu_torch.ops.random import philox_uniforms, philox_uniforms_reference
+    from octree_pathtracing_tpu_torch.ops.geometry import make_quads
     from octree_pathtracing_tpu_torch.ops.shading import OFFSET
     from octree_pathtracing_tpu_torch.ops.traversal import (
         pack_nodes,
@@ -319,10 +534,12 @@ def main() -> int:
         "esvo_traverse_models (mode 2)": (traverse_record, "model_launches"),
         "esvo_traverse_models (mode 3)": (traverse_shadow, "model_launches"),
         "prims_intersect": (intersect_prims, "launches"),
+        "bvh_intersect": (bvh_intersect_quads, "launches"),
     }
     # the twins' own entry points, counted so that a main path can show it ran none
-    twin_calls = {"traversal twin": 0, "K7 twin": 0}
+    twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0}
     real_walk, real_prims_twin = traversal._walk_reference, prims_mod.intersect_prims_reference
+    real_bvh_twin = bvh_mod.bvh_intersect_reference
 
     def counting_walk(*a, **kw):
         twin_calls["traversal twin"] += 1
@@ -332,8 +549,13 @@ def main() -> int:
         twin_calls["K7 twin"] += 1
         return real_prims_twin(*a, **kw)
 
+    def counting_bvh_twin(*a, **kw):
+        twin_calls["K8 twin"] += 1
+        return real_bvh_twin(*a, **kw)
+
     traversal._walk_reference = counting_walk
     prims_mod.intersect_prims_reference = counting_prims_twin
+    bvh_mod.bvh_intersect_reference = counting_bvh_twin
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -378,6 +600,27 @@ def main() -> int:
     out_dir = os.path.join(BUILD_DIR, "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
 
+    # host work started first, each in a process of its own: the survival
+    # region's synthesis and the plant soup's BVH build (a minute on one core)
+    import multiprocessing
+
+    world_path = os.path.join(out_dir, "world", "r.0.0.mca")
+    bvh_path = os.path.join(out_dir, f"plant_bvh_d{DEPTH}.npz")
+    spawn = multiprocessing.get_context("spawn")
+    for name, fn, fn_args in (("world", write_survival_region, (world_path, WORLD_SEED, WORLD_CHUNKS)),
+                              ("bvh", build_plant_bvh, (bvh_path, DEPTH))):
+        child = spawn.Process(target=_in_child, args=(fn, os.path.join(out_dir, f"{name}.json"), *fn_args))
+        child.start()
+        CHILDREN[name] = child
+
+    def child_result(name: str) -> dict:
+        child = CHILDREN[name]
+        child.join()
+        if child.exitcode != 0:
+            raise RuntimeError(f"the {name} process failed (exit code {child.exitcode})")
+        with open(os.path.join(out_dir, f"{name}.json")) as f:
+            return json.load(f)
+
     # ---- 1. build the kernels from the checkout's sources, in parallel
     t0 = time.perf_counter()
     builds, errors = {}, []
@@ -388,16 +631,28 @@ def main() -> int:
         except Exception as e:  # re-raised below, after both builds end
             errors.append(e)
 
+    native_build = {}
+
+    def build_native():  # host code: the region parser, g++ and zlib
+        t = time.perf_counter()
+        try:
+            native.get_lib()
+            native_build["result"] = f"built in {time.perf_counter() - t:.2f} s"
+        except Exception as e:  # the numpy parser stands in, as in the JAX package
+            native_build["result"] = f"not built ({type(e).__name__}: {e}); the numpy parser reads regions"
+
     threads = [threading.Thread(target=build, args=a)
                for a in (("traversal", traversal._library), ("uniforms", prandom._library),
-                         ("gather", gather._library), ("prims", prims_mod._library))]
+                         ("gather", gather._library), ("prims", prims_mod._library), ("bvh", bvh_mod._library))]
+    threads.append(threading.Thread(target=build_native))
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     if errors:
         raise errors[0]
-    log(f"phase 1 build: the four libraries loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1 build: the five libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
+        f"parser {native_build['result']}")
     for name, lib in builds.items():
         info = lib.build_info
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {os.path.relpath(info['path'])}")
@@ -756,7 +1011,44 @@ def main() -> int:
     log(f"  K7 call {k7t['call_ms']!r} ms, device {k7t['device_ms']!r} ms ({k7t['device_by']}); twin "
         f"{results['prims_intersect']['plain_ms']!r} ms; bound {k7_bound[0]!r} ms ({k7_bound[1]}) on the "
         f"{WIDTH}x{HEIGHT} analytic primaries [{card}]")
-    del k_res, r_res, k_res2, r_res2, k_rec2, r_rec2, k_r3, r_r3, k_st, r_st, k7, r7
+    # K8 on the depth-9 plant field's quad soup, against the plant primaries
+    bvh_info = child_result("bvh")
+    with np.load(bvh_path) as z:
+        bvh = BVH.from_arrays(z["node_min"], z["node_max"], z["left"], z["right"], z["prim_order"]).to(dev)
+        quads = make_quads(z["o"], z["u"], z["v"], z["mat"]).to(dev)
+    log(f"  K8: plant_scene(depth={DEPTH}) holds {bvh_info['plants']} plants, {bvh_info['quads']} quads; "
+        f"build_bvh {bvh_info['seconds']:.2f} s on the host{' (cached)' if bvh_info['cached'] else ''}: "
+        f"{bvh.n_nodes} nodes, tree depth {tree_depth(bvh)} (the stack holds 64)")
+    bo, bd = pprim[4], pprim[5]
+    t_octree = torch.where(k_res.hit, k_res.t, float("inf")).contiguous()  # quads nearer than the octree's hit
+    err_k8, work8 = 0.0, {}
+    for label, t_init in (("no t_init", None), ("t_init = the octree's hit t", t_octree)):
+        k8 = bvh_intersect_quads(bvh, quads, bo, bd, t_init)
+        r8 = bvh_intersect_reference(bvh, bo, bd, quad_prim_fn(quads), t_init, stats=work8 if t_init is None else None)
+        torch.cuda.synchronize()
+        unequal = {name: int((a != b).sum()) for name, a, b in zip(("hit", "t", "payload"), k8, r8)}
+        log(f"  K8, {WIDTH}x{HEIGHT} plant primaries, {label}: hits {int(k8[0].sum())}; not bit-equal {unequal}")
+        if any(unequal.values()):
+            raise AssertionError(f"K8 disagrees with its twin on the plant primaries ({label})")
+    k8t = both(lambda: bvh_intersect_quads(bvh, quads, bo, bd))
+    k8_bytes = (WIDTH * HEIGHT * BVH_RAY_BYTES + work8["nodes"] * BVH_NODE_BYTES
+                + work8["interior"] * 2 * BVH_NODE_BYTES + work8["prims"] * QUAD_ROW_BYTES)
+    k8_bound = bound(k8_bytes, (work8["nodes"] + 2 * work8["interior"]) * OPS_PER_BOX + work8["prims"] * OPS_PER_QUAD)
+    results["bvh_intersect"] = dict(
+        max_abs_err=0.0, ms=k8t["call_ms"], device_ms=k8t["device_ms"],
+        plain_ms=call_ms(lambda: bvh_intersect_reference(bvh, bo, bd, quad_prim_fn(quads)), 1),
+        bound_ms=k8_bound[0], bound_by=k8_bound[1], library_ms=None)
+    log(f"  K8 call {k8t['call_ms']!r} ms, device {k8t['device_ms']!r} ms ({k8t['device_by']}); twin "
+        f"{results['bvh_intersect']['plain_ms']!r} ms; bound {k8_bound[0]!r} ms ({k8_bound[1]}: {work8['nodes']} node "
+        f"rows, {work8['interior']} interior visits reading 2 child rows, {work8['prims']} quad rows) on the "
+        f"{WIDTH}x{HEIGHT} plant primaries; no PyTorch call computes this [{card}]")
+    # K8's main path: the entry point a caller uses, once
+    reset_counts()
+    hit8 = bvh_intersect_quads(bvh, quads, bo, bd)[0]
+    torch.cuda.synchronize()
+    read_counts("the BVH walk (bvh_intersect_quads over the plant soup)", ("bvh_intersect",))
+    log(f"  {int(hit8.sum())} of {WIDTH * HEIGHT} primaries hit a plant's quad")
+    del k_res, r_res, k_res2, r_res2, k_rec2, r_rec2, k_r3, r_r3, k_st, r_st, k7, r7, k8, r8, bvh, quads
 
     # ---- 3. the forward main path: the progressive renderer
     log("phase 3 forward main path (Renderer):")
@@ -1017,6 +1309,125 @@ def main() -> int:
         log(f"  losses {res.losses}; wall s per step {res.step_seconds}; whole command {wall:.2f} s; "
             f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
 
+    # ---- 8. the world path: a synthesized survival region at its full size
+    def tensor_bytes(x) -> int:
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if dataclasses.is_dataclass(x):
+            return sum(tensor_bytes(getattr(x, f.name)) for f in dataclasses.fields(x))
+        if isinstance(x, tuple):
+            return sum(tensor_bytes(v) for v in x)
+        return 0
+
+    info = child_result("world")
+    log(f"phase 8 world: {os.path.relpath(world_path)}, {info['bytes']} bytes, {WORLD_CHUNKS}x{WORLD_CHUNKS} chunks "
+        f"of sections -4..19 ({WORLD_CHUNKS * 16}x384x{WORLD_CHUNKS * 16} blocks), {info['voxels']} not air; "
+        f"synthesized in {info['seconds']:.2f} s{' (cached)' if info['cached'] else ''} from seed {WORLD_SEED}; "
+        f"blocks {info['counts']}")
+    with open(world_path, "rb") as f:
+        buf = f.read()
+    t0 = time.perf_counter()
+    sections, parser, why = mca.parse_sections(buf)
+    parse_s = time.perf_counter() - t0
+    log(f"  parser: {parser} ({why or 'built and ran'}), {len(sections)} sections in {parse_s:.2f} s")
+    t0 = time.perf_counter()
+    tree, bmap = mca.build_region_octree(buf)
+    region_s = time.perf_counter() - t0
+    log(f"  build_region_octree {region_s:.2f} s (parse, remap and a depth-{tree.depth} octree build): "
+        f"{tree.n_nodes} nodes, {len(bmap)} blockstates")
+    del sections, tree, buf
+    t0 = time.perf_counter()
+    world_cpu, world_cam_cpu = minecraft_scene_from_region(world_path, depth=WORLD_DEPTH)
+    scene_s = time.perf_counter() - t0
+    world, world_cam = high_quality(world_cpu.to(dev), "one"), world_cam_cpu.to(dev)
+    bounce_kernel = "esvo_traverse" if world.opaque_only else "esvo_traverse_alpha"
+    sun_kernel = "esvo_traverse" if world.shadow_binary else "esvo_traverse_shadow"
+    log(f"  minecraft_scene_from_region {scene_s:.2f} s: {world.n_nodes} nodes, {world.materials.count} materials, "
+        f"{world.emitters.count} emitters; opaque_only={world.opaque_only} shadow_binary={world.shadow_binary}, "
+        f"so the bounces run {bounce_kernel} and the sun walks {sun_kernel}; "
+        f"{tensor_bytes(world) / 2**20:.1f} MiB of scene on the card [{card}]")
+
+    argv = ["render", "--world", world_path, "--depth", str(WORLD_DEPTH), "--width", str(WIDTH), "--height", str(HEIGHT),
+            "--spp", "20", "--sun", "high_quality", "--emitter-sampling", "one", "--device", "cuda",
+            "-o", os.path.join(out_dir, f"world_d{WORLD_DEPTH}_{WIDTH}.ppm")]
+    log(f"  8a cli {' '.join(argv)}")
+    parsed = cli.build_parser().parse_args(argv)
+    reset_counts()
+    t0 = time.perf_counter()
+    r = parsed.fn(parsed)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    read_counts("cli render --world --sun high_quality --emitter-sampling one",
+                (bounce_kernel, sun_kernel, "row_gather", "philox_uniforms"))
+    frame = r.framebuffer
+    if r.spp != 20 or not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
+        raise AssertionError("the world frame is not finite with a positive mean at 20 spp")
+    log(f"  spp {r.spp}; frame mean {float(frame.mean())!r}, finite; {render_s:.2f} s with the scene build [{card}]")
+    del r, frame
+
+    argv = ["info", "--world", world_path, "--depth", str(WORLD_DEPTH)]
+    log(f"  8b cli {' '.join(argv)}")
+    parsed = cli.build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        parsed.fn(parsed)
+    log("    " + text.getvalue().strip().replace("\n", "\n    "))
+    if f"nodes={world.n_nodes}" not in text.getvalue():
+        raise AssertionError("cli info --world reports another octree")
+
+    w = h = 64
+    po, pd = pixel_grid_rays(world_cam, w, h)
+    got = trace_paths(world, po, pd, u)
+    with twins():
+        want = trace_paths(world, po, pd, u)
+    bad = int((~torch.isclose(got, want, rtol=2e-3, atol=2e-3).all(dim=-1)).sum())
+    log(f"  8c frame parity, world HIGH_QUALITY + ONE {w}x{h}x{N_BOUNCES}: bad lanes {bad}/{w * h}, "
+        f"max abs diff {float((got - want).abs().max())!r}")
+    if bad > 0.001 * w * h or not bool(torch.isfinite(got).all()):
+        raise AssertionError("the world's kernel frame disagrees with its twin frame")
+
+    lo, ld = pixel_grid_rays(world_cam, WIDTH, HEIGHT)
+    _, live = trace_paths_census(world, lo, ld, fu)
+    rays_live = int(live.sum())
+    for step, fn in (("forward", lambda: trace_paths(world, lo, ld, fu)),
+                     ("fwd+bwd", lambda: fwdbwd(world, lo, ld, fu))):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if i:  # the first run is the warm-up
+                times.append((time.perf_counter() - t0) * 1e3)
+        read_counts(f"the world line, {step}", (bounce_kernel, sun_kernel, "row_gather"))
+        finite = torch.isfinite(out).all() if step == "forward" else all(torch.isfinite(x).all() for x in out)
+        if not bool(finite):
+            raise AssertionError(f"the world line's {step} is not finite")
+        ms = statistics.median(times)
+        log(f"  8d world {step}_ms {ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) HIGH_QUALITY "
+            f"emitters=one depth {WORLD_DEPTH} {WIDTH}x{HEIGHT} bounces {N_BOUNCES}; rays_per_s_nominal "
+            f"{rays_nominal / (ms / 1e3)!r} rays_per_s_live {rays_live / (ms / 1e3)!r} (live per bounce "
+            f"{live.tolist()}); max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card}]")
+    del world, world_cpu, out
+
+    out = os.path.join(out_dir, "params_world.npz")
+    argv = ["train", "--world", world_path, "--depth", str(WORLD_DEPTH), "--views", "2", "--width", "128",
+            "--height", "128", "--steps", "2", "--device", "cuda", "-o", out]
+    log(f"  8e cli {' '.join(argv)}")
+    parsed = cli.build_parser().parse_args(argv)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = parsed.fn(parsed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("cli train --world", (bounce_kernel, "esvo_traverse_record", "philox_uniforms"))
+    if not all(np.isfinite(res.losses)) or len(res.losses) != 2 or not np.isfinite(load_arrays(out)["atlas"]).all():
+        raise AssertionError(f"world training failed: losses {res.losses}")
+    log(f"  losses {res.losses}; wall s per step {res.step_seconds}; whole command {wall:.2f} s with the scene "
+        f"build; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
+
     # K2q's row counts its three modes' launches
     main_path_launches["esvo_traverse_models"] = sum(main_path_launches[m] for m in model_modes)
     log(f"  K2q launches on the main paths by mode: {[main_path_launches[m] for m in model_modes]}")
@@ -1026,6 +1437,7 @@ def main() -> int:
                    launches=main_path_launches[name], library_ms=None)
         row.update(results[name])
         kernels.append(row)
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1034,4 +1446,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:  # stop the host processes main started, whatever happened
+        for proc in CHILDREN.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    sys.exit(rc)

@@ -10,6 +10,13 @@ Usage:
   python -m octree_pathtracing_tpu_torch.cli render --scene plant --depth 9 \
       --width 256 --height 256 --spp 20 -o build/plant.ppm
   python -m octree_pathtracing_tpu_torch.cli info --scene chunk --depth 9
+  python -m octree_pathtracing_tpu_torch.cli render --world path/to/r.0.0.mca \
+      --depth 9 --width 256 --height 256 --spp 20 -o build/world.ppm
+
+``--world`` takes a region file or a world directory (every
+``region/*.mca``, stitched); ``--pack`` a resource-pack directory, whose
+block models and textures then replace the built-in color palette (loading
+its PNG textures needs PIL).
 
 Frames go to image files (PPM where PIL is missing), trained parameters to
 an ``.npz``; one JSON metrics line per render pass or training step goes to
@@ -46,7 +53,9 @@ def _build_scene(args):
     )
 
     if args.world:
-        raise NotImplementedError("--world (region ingestion): ROADMAP queue 1, item 8")
+        from .models.blockpalette import minecraft_scene_from_region
+
+        return minecraft_scene_from_region(args.world, depth=args.depth or 9, pack_dir=args.pack or None)
     depth = args.depth if args.depth else 6
     if args.scene == "chunk":
         return minecraft_chunk_scene(depth=depth, cache_dir=SCENE_CACHE)
@@ -84,7 +93,7 @@ def cmd_render(args):
     from .utils.metrics import METRICS
 
     dev = _device(args.device)
-    with METRICS.phase("scene_build", scene=args.scene, depth=args.depth):
+    with METRICS.phase("scene_build", scene=args.world or args.scene, depth=args.depth):
         scene, camera = _build_scene(args)
     scene = dataclasses.replace(scene, sun_sampling=sun_sampling_from_name(args.sun))
     scene = with_emitter_sampling(scene, args.emitter_sampling)
@@ -146,7 +155,7 @@ def cmd_train(args):
 
     dev = _device(args.device)
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    with METRICS.phase("scene_build", scene=args.scene, depth=args.depth):
+    with METRICS.phase("scene_build", scene=args.world or args.scene, depth=args.depth):
         scene, _ = _build_scene(args)
     scene = scene.to(dev)
     cams = [c.to(dev) for c in orbit_cameras(scene.depth, args.views)]
@@ -182,8 +191,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     def common(sp):
         sp.add_argument("--scene", default="cornell", choices=SCENES)
-        sp.add_argument("--world", default="", help="Minecraft region file (not ported yet)")
-        sp.add_argument("--depth", type=int, default=0, help="octree depth (default 6)")
+        sp.add_argument("--world", default="", help="Minecraft region file or world directory")
+        sp.add_argument("--pack", default="", help="resource pack directory (block models + textures) for --world")
+        sp.add_argument("--depth", type=int, default=0, help="octree depth (default 6; 9 for --world)")
         sp.add_argument("--width", type=int, default=512)
         sp.add_argument("--height", type=int, default=512)
         sp.add_argument("--seed", type=int, default=0)

@@ -1,6 +1,7 @@
-"""Image output — linear float frames to gamma-compressed files (port of
-``io/image.py``).  PNG goes through PIL where it is installed; a ``.ppm``
-path, or any path where PIL is missing, is written as binary PPM."""
+"""Image I/O (port of ``io/image.py``): linear float frames to
+gamma-compressed files, and resource-pack textures in.  PNG goes through
+PIL where it is installed; a ``.ppm`` path, or any path where PIL is
+missing, is written as binary PPM.  Loading an image needs PIL."""
 
 from __future__ import annotations
 
@@ -31,3 +32,10 @@ def save_image(path: str, img) -> str:
         return path
     Image.fromarray(u8, "RGB").save(path)
     return path
+
+
+def load_image(path: str) -> np.ndarray:
+    """Load an image file as (H, W, 4) RGBA8 (PIL required)."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGBA"))

@@ -1,5 +1,6 @@
-"""Vectorized SVO builder: dense grid -> compacted node pool (copy of
-``build_octree_from_codes`` and ``build_from_dense`` from
+"""Vectorized SVO builders: sparse voxels or a dense grid -> compacted node
+pool (copy of ``build_octree``, ``build_octree_from_codes``,
+``build_from_dense`` and ``expand_by`` from
 ``octree_pathtracing_tpu/octree/build.py``).
 
 One bottom-up level reduction over Morton-sorted voxels: each level groups
@@ -13,10 +14,28 @@ from __future__ import annotations
 
 import numpy as np
 
-from .morton import morton_order_dense
+from .morton import encode_morton, morton_order_dense
 from .node_pool import Octree
 
 _EMPTY, _LEAF, _OCTANT = 0, 1, 2
+
+
+def build_octree(coords: np.ndarray, values: np.ndarray, depth: int) -> Octree:
+    """Build a compacted SVO from sparse voxels: ``coords`` (M, 3) integer
+    voxel coordinates in ``[0, 2**depth)``, ``values`` (M,) uint32 leaf
+    values (0, air, is dropped).  Duplicate coordinates keep the last value
+    written."""
+    coords = np.asarray(coords, dtype=np.int64)
+    values = np.asarray(values, dtype=np.uint32)
+    keep = values != 0
+    coords, values = coords[keep], values[keep]
+    codes = encode_morton(coords[:, 0], coords[:, 1], coords[:, 2])
+    order = np.argsort(codes, kind="stable")
+    codes, values = codes[order], values[order]
+    # deduplicate, keeping the last occurrence of each code
+    last = np.ones(codes.shape[0], dtype=bool)
+    last[:-1] = codes[:-1] != codes[1:]
+    return build_octree_from_codes(codes[last], values[last], depth)
 
 
 def build_octree_from_codes(codes: np.ndarray, values: np.ndarray, depth: int) -> Octree:
@@ -107,3 +126,20 @@ def build_from_dense(grid: np.ndarray) -> Octree:
     codes = np.flatnonzero(mvals).astype(np.uint64)
     # Morton-order flattening emits codes already sorted and unique
     return build_octree_from_codes(codes, mvals[codes], depth)
+
+
+def expand_by(tree: Octree, extra_depth: int) -> Octree:
+    """Wrap the root in ``extra_depth`` new roots, the old tree at child slot
+    0: each wrap doubles the world's side, the content staying in the low
+    corner octant."""
+    mask = np.asarray(tree.child_mask, np.uint32)
+    data = np.asarray(tree.child_data, np.uint32)
+    root = tree.root
+    for _ in range(extra_depth):
+        new_mask = np.concatenate([mask, np.array([0x01], np.uint32)])  # slot 0, interior
+        new_row = np.zeros((1, 8), np.uint32)
+        new_row[0, 0] = root
+        data = np.concatenate([data, new_row])
+        root = mask.shape[0]
+        mask = new_mask
+    return Octree(mask, data, root, tree.depth + extra_depth)

@@ -1,9 +1,37 @@
-"""Morton (Z-order) flattening of a dense voxel grid (copy of the part of
-``octree_pathtracing_tpu/octree/morton.py`` that the builder needs)."""
+"""Morton (Z-order) codes and the Morton flattening of a dense voxel grid
+(copy of the part of ``octree_pathtracing_tpu/octree/morton.py`` that the
+builders need)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+_M64 = [
+    np.uint64(0x1FFFFF),
+    np.uint64(0x1F00000000FFFF),
+    np.uint64(0x1F0000FF0000FF),
+    np.uint64(0x100F00F00F00F00F),
+    np.uint64(0x10C30C30C30C30C3),
+    np.uint64(0x1249249249249249),
+]
+
+
+def part_by_2(v: np.ndarray) -> np.ndarray:
+    """Spread the low 21 bits of each element so they occupy every 3rd bit."""
+    x = np.asarray(v, dtype=np.uint64) & _M64[0]
+    x = (x | (x << np.uint64(32))) & _M64[1]
+    x = (x | (x << np.uint64(16))) & _M64[2]
+    x = (x | (x << np.uint64(8))) & _M64[3]
+    x = (x | (x << np.uint64(4))) & _M64[4]
+    x = (x | (x << np.uint64(2))) & _M64[5]
+    return x
+
+
+def encode_morton(x, y, z) -> np.ndarray:
+    """Interleave three <= 21-bit coordinates into a Morton code: z takes the
+    high bit of each triple, then y, then x (the child slot within an octant
+    is ``x | y << 1 | z << 2``)."""
+    return (part_by_2(z) << np.uint64(2)) | (part_by_2(y) << np.uint64(1)) | part_by_2(x)
 
 
 def morton_order_dense(grid: np.ndarray) -> np.ndarray:

@@ -104,7 +104,9 @@ class QuadTable(ctypes.Structure):
 
 
 def _f32(x):
-    return torch.from_numpy(np.array(x, np.float32))
+    # C order whatever the input's strides (a broadcast default range too):
+    # the kernels read the tables as dense rows
+    return torch.from_numpy(np.array(x, np.float32, order="C"))
 
 
 def make_quads(origins, us, vs, material_ids, tex_u_ranges=None, tex_v_ranges=None) -> QuadSoA:

@@ -1,10 +1,12 @@
 """The port's kernels against their plain-torch twins on a CUDA card: the
 traversal in its four modes (K1, K2 alpha accept, K3r recording walk, K3s
 shadow walk) and K2q (the block-model variant of modes 1-3), K7 (the
-analytic-primitive scan), P2 (Philox uniforms) and P1 (row gather, from one
-table and from two), also captured in a CUDA graph, and the path tracer's
-frame and gradients through the kernels against the same through the twins,
-with and without light sampling, block models and primitives.
+analytic-primitive scan), K8 (the BVH walk over quads), P2 (Philox
+uniforms) and P1 (row gather, from one table and from two), also captured
+in a CUDA graph, and the path tracer's frame and gradients through the
+kernels against the same through the twins, with and without light
+sampling, block models and primitives, and on a world read from a region
+file.
 
 Every test here is marked ``gpu`` and skips where there is no card.  The
 file imports no jax (the machine with the card has none), so it runs there
@@ -29,10 +31,12 @@ from octree_pathtracing_tpu_torch.models import (
     pixel_grid_rays,
     plant_scene,
 )
-from octree_pathtracing_tpu_torch.models import emitters
+from octree_pathtracing_tpu_torch.models import emitters, make_region_fixture, minecraft_scene_from_region
 from octree_pathtracing_tpu_torch.models.prims import intersect_prims, intersect_prims_reference
 from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
 from octree_pathtracing_tpu_torch.ops import random as prandom
+from octree_pathtracing_tpu_torch.ops.bvh import build_bvh, bvh_intersect_quads, bvh_intersect_reference, quad_prim_fn
+from octree_pathtracing_tpu_torch.ops.geometry import make_quads
 from octree_pathtracing_tpu_torch.ops.gather import (
     row_gather,
     row_gather_pair,
@@ -496,4 +500,83 @@ def test_model_and_prim_frames_through_kernels_match_twins(cuda, monkeypatch, bu
     torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
     for g, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+    assert torch.isfinite(got[0]).all() and got[0].mean() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_init", [None, 12.0])
+def test_bvh_kernel_matches_twin(cuda, t_init):
+    """K8 on 3,000 random quads and a grid of axis-aligned ones, rays in
+    random and axis-parallel directions (both signs of zero) and rays along
+    quad edges: hit, t and payload bit for bit."""
+    rng = np.random.default_rng(21)
+    q = 3000
+    o = rng.uniform(0, 40, (q, 3)).astype(np.float32)
+    u = rng.normal(size=(q, 3)).astype(np.float32)
+    v = rng.normal(size=(q, 3)).astype(np.float32)
+    u[:500], v[:500] = [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]
+    o[:500] = np.round(o[:500])
+    corners = np.stack([o, o + u, o + v, o + u + v])
+    bvh = build_bvh(corners.min(0) - 1e-4, corners.max(0) + 1e-4).to(cuda)
+    quads = make_quads(o, u, v, np.arange(q)).to(cuda)
+    n = 8192
+    ro = rng.uniform(-5, 45, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    rd[:1024] = 0.0
+    rd[np.arange(1024), np.arange(1024) % 3] = np.where(np.arange(1024) % 2, 1.0, -1.0)
+    rd[1024:2048, 1] = -0.0
+    ro[2048:2560] = o[:512] + [0.0, 0.5, 30.0]  # down the quads' x = 0 edge
+    rd[2048:2560] = [0.0, 0.0, -1.0]
+    ro, rd = torch.from_numpy(ro).to(cuda), torch.from_numpy(rd).to(cuda)
+    t0 = None if t_init is None else torch.full((n,), t_init, device=cuda)
+    before = bvh_intersect_quads.launches
+    k = bvh_intersect_quads(bvh, quads, ro, rd, t0)
+    assert bvh_intersect_quads.launches == before + 1
+    r = bvh_intersect_reference(bvh, ro, rd, quad_prim_fn(quads), t0)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("hit", "t", "payload"), k, r):
+        assert torch.equal(a, b), name
+    assert 100 < int(k[0].sum()) < n
+    empty = ro[:0]
+    assert bvh_intersect_quads(bvh, quads, empty, empty)[0].shape == (0,)
+    assert bvh_intersect_quads.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_world_frame_through_kernels_matches_twins(cuda, tmp_path, monkeypatch):
+    """A region file's terrain (leaves, water, glass, glowstone) under the
+    HIGH_QUALITY sun with one-emitter NEE: frame and gradients through the
+    kernels against the twins."""
+    blocks = ["minecraft:air", "minecraft:stone", "minecraft:grass_block", "minecraft:oak_leaves",
+              "minecraft:glowstone", "minecraft:water", "minecraft:glass"]
+    g = np.zeros((16, 16, 16), np.uint16)  # [y, z, x]
+    g[0], g[1:3], g[3] = 1, 1, 2
+    g[4:7, 5:9, 5:9], g[4, 10, 3], g[3, 2:5, 10:14], g[4:6, 12:15, 2:5] = 3, 4, 5, 6
+    path = tmp_path / "r.0.0.mca"
+    path.write_bytes(make_region_fixture({(0, 0): {-4: (blocks, g.ravel())}}))
+    scene, cam = minecraft_scene_from_region(str(path), depth=4)
+    scene = emitters.with_emitter_sampling(dataclasses.replace(scene, sun_sampling=SunSampling.high_quality()), "one")
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 48, 32)
+    u = torch.from_numpy(np.random.default_rng(9).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+
+    def run():
+        p = {"atlas": scene.atlas.clone().requires_grad_(True),
+             "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+        rad = pathtracer.trace_paths(apply_params(scene, p), o, d, u)
+        rad.mean().backward()
+        return rad.detach(), p["atlas"].grad, p["emittance"].grad
+
+    before = (traverse.launches, traverse_shadow.launches, row_gather.launches)
+    got = run()
+    assert traverse.launches > before[0] and traverse_shadow.launches > before[1] and row_gather.launches > before[2]
+    for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
+                       ("traverse_shadow", traverse_shadow_reference)):
+        monkeypatch.setattr(pathtracer, name, twin)
+    monkeypatch.setattr(emitters, "row_gather_pair", row_gather_pair_reference)
+    want = run()
+    torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
+    for gr, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
+        torch.testing.assert_close(gr, w, rtol=1e-5, atol=1e-7)
     assert torch.isfinite(got[0]).all() and got[0].mean() > 0

@@ -1,7 +1,8 @@
 """The port runs where jax and the JAX package are absent (the machine with
 the card has neither): jax-blocked CLI render (with and without light
-sampling) and train runs (on the terrain's cutout and on block models), and a source scan for imports of jax or of
-``octree_pathtracing_tpu``.  Without ``--device`` the CLI asks for the card
+sampling) and train runs (on the terrain's cutout and on block models), a
+render of a region file (``--world``), and a source scan for imports of jax
+or of ``octree_pathtracing_tpu``.  Without ``--device`` the CLI asks for the card
 and fails where there is none."""
 
 import os
@@ -124,6 +125,44 @@ def test_cli_train_on_block_models_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "over 2 steps on cpu" in proc.stdout
     assert len([line for line in proc.stderr.splitlines() if '"train_step"' in line]) == 2
+
+
+_WORLD = """
+import sys
+import numpy as np
+sys.modules["jax"] = None
+sys.modules["octree_pathtracing_tpu"] = None
+from octree_pathtracing_tpu_torch.cli import main
+from octree_pathtracing_tpu_torch.models import make_region_fixture
+from octree_pathtracing_tpu_torch.models import mca
+blocks = ["minecraft:air", "minecraft:stone", "minecraft:grass_block", "minecraft:oak_leaves",
+          "minecraft:glowstone", "minecraft:water"]
+g = np.zeros((16, 16, 16), np.uint16)  # [y, z, x]
+g[0], g[1], g[2, 5:9, 5:9], g[1, 10, 3], g[1, 2:5, 10:14] = 1, 2, 3, 4, 5
+with open(sys.argv[1], "wb") as f:
+    f.write(make_region_fixture({(0, 0): {-4: (blocks, g.ravel())}}))
+main(["render", "--world", sys.argv[1], "--depth", "4", "--width", "8", "--height", "6", "--spp", "2",
+      "--sun", "high_quality", "--emitter-sampling", "one", "--device", "cpu", "-o", sys.argv[2]])
+main(["info", "--world", sys.argv[1], "--depth", "4"])
+print("parser", mca.parse_sections(open(sys.argv[1], "rb").read())[1])
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+"""
+
+
+def test_cli_world_render_with_jax_blocked(tmp_path):
+    """``cli render --world`` and ``cli info --world`` on a region written in
+    code, under the HIGH_QUALITY sun with one-emitter NEE."""
+    out = tmp_path / "world.ppm"
+    proc = subprocess.run(
+        [sys.executable, "-c", _WORLD, str(tmp_path / "r.0.0.mca"), str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "at 2 spp on cpu" in proc.stdout and "octree: depth=4" in proc.stdout
+    assert "parser native" in proc.stdout or "parser numpy" in proc.stdout
+    data = out.read_bytes()
+    header = b"P6\n8 6\n255\n"
+    assert data.startswith(header) and len(data) == len(header) + 8 * 6 * 3 and max(data[len(header):]) > 0
 
 
 def test_no_port_source_imports_jax():
