@@ -18,14 +18,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the BVH walk over quads), P2 (``csrc/uniforms.cu``, Philox uniforms) and
    P1 (``csrc/gather.cu``, row gather); and, beside them, the C++ region
    parser with g++ (host code: where it does not build, the numpy parser
-   reads regions, as in the JAX package, and the line says why);
+   reads regions, as in the JAX package, and the line says why); ptxas's
+   report of every kernel (registers, stack frame, spills) and the
+   traversal's shared-memory stack;
 2. every kernel against its plain-torch twin on the card, timed beside its
    bound twice, by call (CUDA events around back-to-back calls: what an
    eager caller pays, host path included) and on the device alone (the same
    calls captured in a CUDA graph and replayed); P1 and P2 beside the same
    two times of ``torch.index_select`` and ``torch.rand``:
-   - K1 on a random depth-4 octree (4096 rays with an active mask) and on
-     the 256x256 primaries of the depth-9 terrain;
+   - K1 on a random depth-4 octree (4096 rays with an active mask), on
+     the 256x256 primaries of the depth-9 terrain and on the live rays of
+     bounces 2-5 of one headline frame (phase 5's uniforms);
    - P2 on the (65536, 5, 21) uniform block and on ragged sizes (one not a
      multiple of the grid's stride), bit for bit;
    - K2 on the 256x256 primaries of the depth-9 cutout scene and on its
@@ -52,11 +55,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and payload bit for bit, by call and on the device, its bound counted
      from the twin's walk; then K8's main path, one
      ``bvh_intersect_quads`` call through the entry point.
-   Hit, leaf value, face id, fetch counts and record count / mats / face
-   must agree on every lane; t, uv and the record's uu / vv within 1e-4 (all
-   of them round every operation alike, so they should agree exactly); K3s's
-   record (count, w, medium, mats, uu, vv, ts) must be equal bit for bit;
-   K2q's results, records and quad surfaces bit for bit; K7's hit,
+   Every traversal row carries the max, p50 and p99 of its per-ray fetch
+   counts (whether its longest walk sets the call).  Every traversal result
+   must equal its twin's on every lane and field bit for bit: hit, t, face,
+   uv, leaf, voxel, fetch counts, records (K3s's count, w, medium, mats,
+   uv, ts) and K2q's quad surfaces; K7's hit,
    material, t and normal bit for bit and its uv within 1e-6 (CUDA's acosf
    and atan2f may differ from PyTorch's by an ulp);
 3. the forward main path: ``Renderer(256x256, 5 bounces, branch_count=10,
@@ -521,7 +524,7 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.parallel import apply_params
     from octree_pathtracing_tpu_torch.render import Renderer, pathtracer, renderer, trace_paths, trace_paths_census
     from octree_pathtracing_tpu_torch.render.hit import accept_tables, resolve_hit
-    from octree_pathtracing_tpu_torch.utils.timing import both, call_ms, card_line, device_ms
+    from octree_pathtracing_tpu_torch.utils.timing import both, bounce_rays, call_ms, card_line, device_ms, fetch_stats
 
     # each kernel's launch count, as its wrapper keeps it (K2q's three modes
     # count apart from K2, K3r and K3s in ``model_launches``)
@@ -661,6 +664,8 @@ def main() -> int:
                 log(f"    ptxas: {line.strip()}")
     p2_grid = prandom._library().philox_resident_blocks()
     log(f"  P2's grid: {p2_grid} blocks of 256 threads (SMs x resident blocks)")
+    log(f"  the traversal's stack: {(DEPTH + 1) * 8} bytes of dynamic shared memory per thread at depth {DEPTH} "
+        f"(depth + 1 rows of parent and t_max), beside the registers and stack frame ptxas reports")
 
     results = {name: {} for name in KERNELS}
 
@@ -679,7 +684,7 @@ def main() -> int:
     d = torch.from_numpy(d.astype(np.float32)).to(dev)
     active = torch.from_numpy(rng.random(4096) < 0.8).to(dev)
     args = (nodes, tree.root, tree.depth, tree.scale(), o, d, 1024.0, active)
-    err_k1 = compare_hits(traverse(*args), traverse_reference(*args), "K1, random depth-4 octree, 4096 rays")
+    err_k1 = compare_hits(traverse(*args), traverse_reference(*args), "K1, random depth-4 octree, 4096 rays", exact=True)
 
     t0 = time.perf_counter()
     scene_cpu, cam_cpu = minecraft_chunk_scene(depth=DEPTH)
@@ -706,15 +711,34 @@ def main() -> int:
     # K1 on the terrain primaries (the forward and fwd+bwd paths' shape)
     prim = primaries(scene, cam, WIDTH, HEIGHT)
     k_res = traverse(*prim)
-    err_k1 = max(err_k1, compare_hits(k_res, traverse_reference(*prim), f"K1, depth-{DEPTH} terrain, {WIDTH}x{HEIGHT} primaries"))
+    err_k1 = max(err_k1, compare_hits(k_res, traverse_reference(*prim), f"K1, depth-{DEPTH} terrain, {WIDTH}x{HEIGHT} primaries",
+                                      exact=True))
     bound_ms, bound_by, fetches = traversal_bound(k_res)
     results["esvo_traverse"] = dict(
         max_abs_err=err_k1, ms=call_ms(lambda: traverse(*prim), 50),
         device_ms=device_ms(lambda: traverse(*prim))[0],
-        plain_ms=call_ms(lambda: traverse_reference(*prim), 3), bound_ms=bound_ms, bound_by=bound_by)
+        plain_ms=call_ms(lambda: traverse_reference(*prim), 3), bound_ms=bound_ms, bound_by=bound_by,
+        **fetch_stats(k_res.fetches))
     log(f"  K1 {results['esvo_traverse']['ms']!r} ms (device {results['esvo_traverse']['device_ms']!r} ms), twin {results['esvo_traverse']['plain_ms']!r} ms, "
-        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows fetched, max {int(k_res.steps)} per ray) "
+        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows fetched; per ray {fetch_stats(k_res.fetches)}) "
         f"on the {WIDTH}x{HEIGHT} depth-{DEPTH} primaries [{card}]")
+    # K1 on the live rays of bounces 2-5 of one headline frame (phase 5's uniforms)
+    bounces = {}
+    frame_u = pathtracer.draw_uniforms(1, 0, WIDTH * HEIGHT, N_BOUNCES, dev)
+    for k, (bo, bd) in enumerate(bounce_rays(pathtracer, scene, prim[4], prim[5], frame_u)[1:], start=2):
+        brays = prim[:4] + (bo, bd)
+        b_res = traverse(*brays)
+        err_k1 = max(err_k1, compare_hits(b_res, traverse_reference(*brays), f"K1, headline bounce {k}, {bo.shape[0]} live rays",
+                                          exact=True))
+        bt = both(lambda r=brays: traverse(*r))
+        b_bound = traversal_bound(b_res)
+        bounces[f"bounce {k}"] = dict(lanes=int(bo.shape[0]), ms=bt["call_ms"], device_ms=bt["device_ms"],
+                                      bound_ms=b_bound[0], **fetch_stats(b_res.fetches))
+        log(f"  K1 call {bt['call_ms']!r} ms, device {bt['device_ms']!r} ms ({bt['device_by']}), bound {b_bound[0]!r} ms "
+            f"({b_bound[2]} node rows; per ray {fetch_stats(b_res.fetches)}) on the {bo.shape[0]} live rays of "
+            f"headline bounce {k} [{card}]")
+    results["esvo_traverse"]["headline_bounces"] = bounces
+    del frame_u
 
     # P2 on the bench's uniform block and on ragged sizes, bit for bit: one
     # not a multiple of the grid's stride (2 blocks of 4 outputs per thread)
@@ -746,23 +770,31 @@ def main() -> int:
     # K2 on the cutout scene: the 256^2 primaries, then the training views
     cut_tables = accept_tables(cut)
     cprim = primaries(cut, cut_cam, WIDTH, HEIGHT)
-    err_k2 = compare_hits(traverse_alpha(*cprim, cut_tables), traverse_alpha_reference(*cprim, cut_tables),
-                          f"K2, depth-{DEPTH} cutout, {WIDTH}x{HEIGHT} primaries")
-    k2_256 = (call_ms(lambda: traverse_alpha(*cprim, cut_tables), 50),
-              call_ms(lambda: traverse_alpha_reference(*cprim, cut_tables), 3))
-    log(f"  K2 {k2_256[0]!r} ms, twin {k2_256[1]!r} ms on the {WIDTH}x{HEIGHT} cutout primaries [{card}]")
+    c_res = traverse_alpha(*cprim, cut_tables)
+    err_k2 = compare_hits(c_res, traverse_alpha_reference(*cprim, cut_tables),
+                          f"K2, depth-{DEPTH} cutout, {WIDTH}x{HEIGHT} primaries", exact=True)
+    k2_256 = both(lambda: traverse_alpha(*cprim, cut_tables))
+    k2_256_twin = call_ms(lambda: traverse_alpha_reference(*cprim, cut_tables), 3)
+    log(f"  K2 call {k2_256['call_ms']!r} ms, device {k2_256['device_ms']!r} ms ({k2_256['device_by']}), twin "
+        f"{k2_256_twin!r} ms, bound {traversal_bound(c_res)[0]!r} ms; per ray {fetch_stats(c_res.fetches)} on the "
+        f"{WIDTH}x{HEIGHT} cutout primaries [{card}]")
     ctrain = training_rays(cut)
     k_res = traverse_alpha(*ctrain, cut_tables)
     err_k2 = max(err_k2, compare_hits(k_res, traverse_alpha_reference(*ctrain, cut_tables),
-                                      f"K2, depth-{DEPTH} cutout, {TRAIN_VIEWS} training views at {TRAIN_RES}^2"))
+                                      f"K2, depth-{DEPTH} cutout, {TRAIN_VIEWS} training views at {TRAIN_RES}^2",
+                                      exact=True))
     bound_ms, bound_by, fetches = traversal_bound(k_res)
     results["esvo_traverse_alpha"] = dict(
         max_abs_err=err_k2, ms=call_ms(lambda: traverse_alpha(*ctrain, cut_tables), 10),
         device_ms=device_ms(lambda: traverse_alpha(*ctrain, cut_tables), calls=10)[0],
         plain_ms=call_ms(lambda: traverse_alpha_reference(*ctrain, cut_tables), 1),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **fetch_stats(k_res.fetches),
+        primaries_256=dict(ms=k2_256["call_ms"], device_ms=k2_256["device_ms"], plain_ms=k2_256_twin,
+                           bound_ms=traversal_bound(c_res)[0], **fetch_stats(c_res.fetches)))
     log(f"  K2 {results['esvo_traverse_alpha']['ms']!r} ms (device {results['esvo_traverse_alpha']['device_ms']!r} ms), twin {results['esvo_traverse_alpha']['plain_ms']!r} ms, "
-        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the cutout training views [{card}]")
+        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows; per ray {fetch_stats(k_res.fetches)}) on the cutout "
+        f"training views [{card}]")
+    del c_res
 
     # K3r on both scenes: the 256^2 primaries, then the training views
     terrain_tables = accept_tables(scene)
@@ -770,7 +802,8 @@ def main() -> int:
     for label, rays, tables in (("terrain", prim, terrain_tables), ("cutout", cprim, cut_tables)):
         k_res, k_rec = traverse_record(*rays, tables)
         r_res, r_rec = traverse_record_reference(*rays, tables)
-        err_k3 = max(err_k3, compare_hits(k_res, r_res, f"K3r, depth-{DEPTH} {label}, {WIDTH}x{HEIGHT} primaries", k_rec, r_rec))
+        err_k3 = max(err_k3, compare_hits(k_res, r_res, f"K3r, depth-{DEPTH} {label}, {WIDTH}x{HEIGHT} primaries", k_rec, r_rec,
+                                          exact=True))
         log(f"  K3r {call_ms(lambda: traverse_record(*rays, tables), 50)!r} ms, twin "
             f"{call_ms(lambda: traverse_record_reference(*rays, tables), 3)!r} ms on the {WIDTH}x{HEIGHT} "
             f"{label} primaries; surfaces per ray {torch.bincount(k_rec.count).tolist()} [{card}]")
@@ -778,7 +811,8 @@ def main() -> int:
     for label, rays, tables in (("terrain", training_rays(scene), terrain_tables), ("cutout", ctrain, cut_tables)):
         k_res, k_rec = traverse_record(*rays, tables)
         r_res, r_rec = traverse_record_reference(*rays, tables)
-        err_k3 = max(err_k3, compare_hits(k_res, r_res, f"K3r, depth-{DEPTH} {label}, {TRAIN_VIEWS} training views at {TRAIN_RES}^2", k_rec, r_rec))
+        err_k3 = max(err_k3, compare_hits(k_res, r_res, f"K3r, depth-{DEPTH} {label}, {TRAIN_VIEWS} training views at {TRAIN_RES}^2",
+                                          k_rec, r_rec, exact=True))
         k3[label] = (rays, tables, k_res)
     rays, tables, k_res = k3["terrain"]
     bound_ms, bound_by, fetches = traversal_bound(k_res, RECORD_BYTES)
@@ -786,9 +820,10 @@ def main() -> int:
         max_abs_err=err_k3, ms=call_ms(lambda: traverse_record(*rays, tables), 10),
         device_ms=device_ms(lambda: traverse_record(*rays, tables), calls=10)[0],
         plain_ms=call_ms(lambda: traverse_record_reference(*rays, tables), 1),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **fetch_stats(k_res.fetches))
     log(f"  K3r {results['esvo_traverse_record']['ms']!r} ms (device {results['esvo_traverse_record']['device_ms']!r} ms), twin {results['esvo_traverse_record']['plain_ms']!r} ms, "
-        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows) on the terrain training views [{card}]")
+        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows; per ray {fetch_stats(k_res.fetches)}) on the terrain "
+        f"training views [{card}]")
     del k3, ctrain, rays, tables
 
     # K3s on shadow rays from the cutout primaries' hit points: toward the sun
@@ -819,7 +854,7 @@ def main() -> int:
         k_res, k_st = traverse_shadow(*sargs)
         r_res, r_st = traverse_shadow_reference(*sargs)
         err_k3s = max(err_k3s, compare_hits(k_res, r_res, f"K3s {label} walk, depth-{DEPTH} cutout, "
-                                            f"{int(sa.sum())} of {WIDTH}x{HEIGHT} lanes active"))
+                                            f"{int(sa.sum())} of {WIDTH}x{HEIGHT} lanes active", exact=True))
         unequal = {f: int((getattr(k_st, f) != getattr(r_st, f)).sum())
                    for f in k_st._fields if getattr(k_st, f) is not None}
         if record_t:  # the emitter walk's attenuation, truncated short of the light
@@ -844,13 +879,14 @@ def main() -> int:
     results["esvo_traverse_shadow"] = dict(
         max_abs_err=err_k3s, ms=call_ms(lambda: traverse_shadow(*sun_args), 50),
         device_ms=device_ms(lambda: traverse_shadow(*sun_args))[0],
-        plain_ms=call_ms(lambda: traverse_shadow_reference(*sun_args), 3), bound_ms=bound_ms, bound_by=bound_by)
+        plain_ms=call_ms(lambda: traverse_shadow_reference(*sun_args), 3), bound_ms=bound_ms, bound_by=bound_by,
+        **fetch_stats(sun_res.fetches))
     same_rays = sun_args[:6] + (1024.0,)
     k1_same = call_ms(lambda: traverse(*same_rays, sun_args[-1]), 50)
     k2_same = call_ms(lambda: traverse_alpha(*same_rays[:6], cut_tables, 1024.0, sun_args[-1]), 50)
     log(f"  K3s {results['esvo_traverse_shadow']['ms']!r} ms (device {results['esvo_traverse_shadow']['device_ms']!r} ms), twin {results['esvo_traverse_shadow']['plain_ms']!r} ms, "
-        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows); on the same rays K1 {k1_same!r} ms, "
-        f"K2 {k2_same!r} ms; the {WIDTH}x{HEIGHT} cutout sun walk [{card}]")
+        f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows; per active ray {fetch_stats(sun_res.fetches)}); "
+        f"on the same rays K1 {k1_same!r} ms, K2 {k2_same!r} ms; the {WIDTH}x{HEIGHT} cutout sun walk [{card}]")
 
     # P1 at the probe's shape, then at the emitter grid's on the cutout's
     # supercells of its primaries' hit points (as _spatial_pick computes them)
@@ -951,17 +987,18 @@ def main() -> int:
         variant=f"mode 1 (the alpha accept with block models) on the {WIDTH}x{HEIGHT} depth-{DEPTH} plant primaries",
         ms=k2q["call_ms"], device_ms=k2q["device_ms"],
         plain_ms=call_ms(lambda: traverse_alpha_reference(*pprim, plant_tables), 2),
-        bound_ms=k2q_bound[0], bound_by=k2q_bound[1], library_ms=None)
+        bound_ms=k2q_bound[0], bound_by=k2q_bound[1], library_ms=None, **fetch_stats(k_res.fetches))
     log(f"  K2q mode 1 call {k2q['call_ms']!r} ms, device {k2q['device_ms']!r} ms ({k2q['device_by']}); twin "
         f"{results['esvo_traverse_models']['plain_ms']!r} ms; bound {k2q_bound[0]!r} ms ({k2q_bound[1]}: {fetches} "
-        f"node rows, {work['quad_rows']} quad rows) on the {WIDTH}x{HEIGHT} plant primaries [{card}]")
+        f"node rows, {work['quad_rows']} quad rows; per ray {fetch_stats(k_res.fetches)}) on the {WIDTH}x{HEIGHT} "
+        f"plant primaries [{card}]")
     k_res2, k_rec2 = traverse_record(*pprim, plant_tables)
     r_res2, r_rec2 = traverse_record_reference(*pprim, plant_tables)
     err_k2q = max(err_k2q, compare_hits(k_res2, r_res2, f"K2q mode 2, depth-{DEPTH} plant field, {WIDTH}x{HEIGHT} "
                                         "primaries", k_rec2, r_rec2, exact=True))
     m2 = both(lambda: traverse_record(*pprim, plant_tables))
     log(f"  K2q mode 2 call {m2['call_ms']!r} ms, device {m2['device_ms']!r} ms; surfaces per ray "
-        f"{torch.bincount(k_rec2.count).tolist()} [{card}]")
+        f"{torch.bincount(k_rec2.count).tolist()}; fetches per ray {fetch_stats(k_res2.fetches)} [{card}]")
     # mode 3: from the primaries' hits, toward the sun (strict, no t) and
     # toward random directions of the hit's hemisphere (t recorded)
     hn = resolve_hit(plant, pprim[4], pprim[5], k_res)[2]
@@ -984,7 +1021,7 @@ def main() -> int:
                                             exact=True))
         m3 = both(lambda: traverse_shadow(*sargs))
         log(f"  K2q mode 3 {label} walk call {m3['call_ms']!r} ms, device {m3['device_ms']!r} ms; surfaces per "
-            f"ray {torch.bincount(k_st.count).tolist()} [{card}]")
+            f"ray {torch.bincount(k_st.count).tolist()}; fetches per active ray {fetch_stats(k_r3.fetches)} [{card}]")
     results["esvo_traverse_models"]["max_abs_err"] = err_k2q
 
     # K7 on the analytic scene's primaries

@@ -9,8 +9,10 @@
 // copies bits, so the copy is exact), both (4096, K) with K = min(8,
 // emitters).
 //
-// Indices are int32 or int64, read as they come, and clipped to [0, N - 1]
-// here, as XLA clips the indices of a gather.
+// Indices are int32 or int64, read as they come.  An index in [-N, -1]
+// wraps to index + N, as jnp indexing (and the Pallas kernel in interpret
+// mode) does; then every index is clipped to [0, N - 1], as XLA clips the
+// indices of a gather.
 //
 // What bounds it: at the shapes it runs at, launch latency.  By bytes it
 // would be bound by the memory: per output row a 4- or 8-byte index and one
@@ -31,6 +33,7 @@
 #include <stdint.h>
 
 __device__ __forceinline__ long long clip_row(long long r, long long n_rows) {
+  if (r < 0) r += n_rows;  // [-N, -1] wraps
   return r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
 }
 

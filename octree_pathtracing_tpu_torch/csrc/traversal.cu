@@ -1,5 +1,5 @@
-// ESVO first-hit traversal of the packed sparse-voxel octree, one thread per
-// ray, in four compile-time modes of one kernel body (`template <int MODE>`):
+// ESVO first-hit traversal of the packed sparse-voxel octree, in four
+// compile-time modes of one kernel body (`template <int MODE>`):
 //
 //   MODE 0 — kernel K1, no accept: the first leaf candidate is the hit.
 //   MODE 1 — kernel K2, the in-loop alpha accept.
@@ -61,8 +61,25 @@
 // up to MAX_MODEL_QUADS quad rows of 84 bytes (21 words) and one texel per
 // quad hit; the scene's few models and quads stay in L1/L2.
 //
-// This first version is simple and right; making it fast (stack in
-// registers or shared memory, ray sorting, persistent threads) is later work.
+// The design for the H100 (the numbers that chose it: PERF.md):
+// - The stack lives in dynamic shared memory, depth + 1 rows of (parent,
+//   t_max) per thread, laid out [row][thread] so that the lanes of a warp
+//   hit 32 different banks whatever rows they touch (kThreads is a multiple
+//   of 32).  It keeps every row the JAX walk's stack keeps, so PUSH and POP
+//   fetch the same rows as the reference and `fetches` stays its count.  In
+//   local memory (the first version) the 24-row stack was a 312-byte frame
+//   per thread that the L1 could not hold at full occupancy: moving it
+//   halved K2 and K3r on their 2 M-ray batches.
+// - No register array is indexed at run time (hit_info picks its axes with
+//   selects), so nothing else lives in local memory either.
+// - One thread per ray over a grid that covers the batch, in blocks of 64
+//   (up to 2.5% ahead of 128, or level with it, on every measured call;
+//   256 behind), one launch per call.  Refilling lanes from a counter over
+//   a card-sized grid, and holding the node row while the parent is
+//   unchanged, were measured and dropped: refill scattered neighbouring
+//   rays over a warp and cost 39-46% on the 2 M-ray batches, the held row
+//   up to 6% on all but one call (a compare and its registers on every
+//   step, for loads the L1 serves).
 //
 // Parity with the JAX reference and the plain-torch twin:
 // - FMA contraction: `pos * t_coef - t_bias` and `half * t_coef + t_corner`
@@ -77,8 +94,9 @@
 //   the pop scale is clipped to [scale_base, MAX_SCALE - 1].
 // - Tie-breaks: the first axis wins in the face-axis choice, and ADVANCE
 //   steps every axis with t_corner <= tc_max.
-// - The stack read at the pop scale is a direct local-array index (the
-//   select chain of the JAX version was a TPU workaround).
+// - The stack read at the pop scale is a direct index into the lane's
+//   column (the select chain of the JAX version was a TPU workaround); a
+//   ray's rows start at 0, as the reference's stack does.
 // - The epsilon clamp of tiny direction components keeps the sign of rd.
 // - An inactive lane starts as MISS and fetches nothing; its outputs are
 //   still derived from its initial state, exactly like the reference's.
@@ -103,7 +121,6 @@
 
 #define MAX_STEPS 1000
 #define MAX_SCALE 23
-#define STACK_ROWS (MAX_SCALE + 1)
 #define ACTIVE 0
 #define CANDIDATE 1
 #define MISS 2
@@ -113,6 +130,8 @@
 #define K_SURFACES 4
 #define MAX_MODEL_QUADS 8
 #define FLAG_SIMPLE 1
+
+constexpr int kThreads = 64;  // threads per block (PERF.md: 64, 128 and 256 measured)
 
 struct Ray {
   float ro[3], rd[3], t_coef[3], t_bias[3];
@@ -131,9 +150,11 @@ struct State {
   float scale_exp2, t_min, t_max, h;
   int status, cand;
   bool reject;
-  int stack_idx[STACK_ROWS];
-  float stack_t[STACK_ROWS];
 };
+
+// A lane's column of its block's stack in dynamic shared memory: row k at
+// col[k * kThreads], (parent, t_max bits).
+using StackCol = int2*;
 
 // The alpha-test tables of modes 1 and 2 (unused by mode 0).
 struct AlphaTables {
@@ -199,8 +220,8 @@ __device__ __forceinline__ int child_word(int4 lo, int4 hi, int slot) {
 // One PUSH / ADVANCE / POP / hit decision against a fetched row.  Returns
 // true when the lane did a same-parent ADVANCE (the row can be reused).
 template <int MODE>
-__device__ __forceinline__ bool examine(State& s, const Ray& r, int4 lo, int4 hi,
-                                        int scale_base, float max_dst) {
+__device__ __forceinline__ bool examine(State& s, StackCol col, int rows, const Ray& r, int4 lo,
+                                        int4 hi, int scale_base, float max_dst) {
   bool rejected = false;
   if (MODE != 0) {  // the flag forces this examination's ADVANCE, then clears
     rejected = s.reject;
@@ -229,9 +250,8 @@ __device__ __forceinline__ bool examine(State& s, const Ray& r, int4 lo, int4 hi
   float tv_max = fminf(s.t_max, tc_max);
   if (valid && !leafb && s.t_min <= tv_max && !rejected) {  // PUSH into the child
     int rel = s.scale - scale_base;  // in [0, depth) on a well-formed tree
-    if (tc_max < s.h && rel >= 0 && rel < STACK_ROWS) {
-      s.stack_idx[rel] = s.parent;
-      s.stack_t[rel] = s.t_max;
+    if (tc_max < s.h && rel >= 0 && rel < rows) {
+      col[rel * kThreads] = make_int2(s.parent, __float_as_int(s.t_max));
     }
     int idx = 0;
     for (int a = 0; a < 3; ++a) {
@@ -283,13 +303,20 @@ __device__ __forceinline__ bool examine(State& s, const Ray& r, int4 lo, int4 hi
     s.pos[a] = __uint_as_float(sh << p_scale_c);
     idx |= (int)(sh & 1u) << a;
   }
+  int2 row = col[p_rel * kThreads];
   s.index = idx;
-  s.parent = s.stack_idx[p_rel];
-  s.t_max = s.stack_t[p_rel];
+  s.parent = row.x;
+  s.t_max = __int_as_float(row.y);
   s.scale = p_scale_c;
   s.scale_exp2 = __uint_as_float((uint32_t)(p_scale_c - MAX_SCALE + 127) << 23);
   s.h = 0.0f;
   return false;
+}
+
+// v[k] for k in [0, 3) as a select: a run-time index into a register
+// array would put the array in local memory.
+__device__ __forceinline__ float pick3(const float v[3], int k) {
+  return k == 0 ? v[0] : (k == 1 ? v[1] : v[2]);
 }
 
 // _hit_info: entry face, uv and the unmirrored voxel corner of a state.
@@ -303,12 +330,12 @@ __device__ __forceinline__ void hit_info(const Ray& r, const State& s, int& face
   }
   float tc_min = fmaxf(fmaxf(tch[0], tch[1]), tch[2]);
   int axis = (tch[0] == tc_min) ? 0 : ((tch[1] == tc_min) ? 1 : 2);
-  float rd_ax = r.rd[axis];
+  float rd_ax = pick3(r.rd, axis);
   face = axis * 2 + (int)(__float_as_uint(rd_ax) >> 31);
   int a1 = axis == 0 ? 2 : 0;
   int a2 = axis == 1 ? 2 : 1;
-  uu = (r.ro[a1] + r.rd[a1] * tc_min - unm[a1]) / s.scale_exp2;
-  vv = (r.ro[a2] + r.rd[a2] * tc_min - unm[a2]) / s.scale_exp2;
+  uu = (pick3(r.ro, a1) + pick3(r.rd, a1) * tc_min - pick3(unm, a1)) / s.scale_exp2;
+  vv = (pick3(r.ro, a2) + pick3(r.rd, a2) * tc_min - pick3(unm, a2)) / s.scale_exp2;
   bool neg = rd_ax < 0.0f;
   if (neg && axis != 1) uu = 1.0f - uu;
   if (neg && axis == 1) vv = 1.0f - vv;
@@ -466,29 +493,51 @@ __device__ __forceinline__ bool accept(const State& s, const Ray& r, const World
   }
 }
 
-// One lane's walk: setup, the walk with its accepts, the outputs.  The
-// __global__ kernels below are thin shells around it.
-template <int MODE, bool MODELS>
-__device__ __forceinline__ void walk(
-    int i, const int4* __restrict__ nodes, int root, int depth, float octree_scale,
-    float inv_scale, float max_dst, const float* __restrict__ origins,
-    const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
-    const AlphaTables& tb, const ShadowIO& sh, const ModelTables& mt, const QuadOut& qo,
-    uint8_t* __restrict__ hit_out, float* __restrict__ t_out, int* __restrict__ face_out,
-    float* __restrict__ uv_out, int* __restrict__ leaf_out, float* __restrict__ vpos_out,
-    float* __restrict__ vsize_out, int* __restrict__ steps_out, int* __restrict__ rec_count,
-    int* __restrict__ rec_mats, int* __restrict__ rec_face, float* __restrict__ rec_uu,
-    float* __restrict__ rec_vv) {
-  const int scale_base = MAX_SCALE - depth;
+// A call's rays and outputs: the kernels' arguments besides the tables.
+struct Batch {
+  const int4* nodes;
+  int root, depth;
+  float octree_scale, inv_scale, max_dst;
+  const float* origins;   // (B, 3)
+  const float* dirs;      // (B, 3)
+  const uint8_t* active;  // (B,), or null: every lane active
+  int n;
+  uint8_t* hit;
+  float* t;
+  int* face;
+  float* uv;
+  int* leaf;
+  float* vpos;
+  float* vsize;
+  int* steps;
+  int* rec_count;  // modes 2 and 3: the record, (B,) and (K, B)
+  int* rec_mats;
+  int* rec_face;
+  float* rec_uu;
+  float* rec_vv;
+};
 
-  // ---- _init: the ray in the [1, 2) cube, mirrored to negative directions
+// One lane's walk: _init of its ray (the ray in the [1, 2) cube, mirrored to
+// negative directions, at the root; the stack rows and the record zeroed),
+// the walk with its accepts, the outputs.  The __global__ kernels below are
+// thin shells around it.
+template <int MODE, bool MODELS>
+__device__ __forceinline__ void walk(const Batch& b, const AlphaTables& tb, const ShadowIO& sh,
+                                     const ModelTables& mt, const QuadOut& qo) {
+  extern __shared__ int2 stack_rows[];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= b.n) return;
+  const StackCol col = stack_rows + threadIdx.x;
+  const int scale_base = MAX_SCALE - b.depth;
+  const int rows = b.depth + 1;
+
   Ray r;
   WorldRay w;
   int pos_dir = 0;
   for (int a = 0; a < 3; ++a) {
-    float o = origins[3 * i + a];
-    r.ro[a] = o * octree_scale + 1.0f;
-    float d = dirs[3 * i + a];
+    float o = b.origins[3 * i + a];
+    r.ro[a] = o * b.octree_scale + 1.0f;
+    float d = b.dirs[3 * i + a];
     if constexpr (MODELS) {
       w.o[a] = o;
       w.d[a] = d;
@@ -520,17 +569,14 @@ __device__ __forceinline__ void walk(
     s.index |= (int)upper << a;
     s.pos[a] = upper ? 1.5f : 1.0f;
   }
-  s.parent = root;
+  s.parent = b.root;
   s.scale = MAX_SCALE - 1;
   s.scale_exp2 = 0.5f;
   s.h = s.t_max;
-  s.status = (active == nullptr || active[i]) ? ACTIVE : MISS;
+  s.status = (b.active == nullptr || b.active[i]) ? ACTIVE : MISS;
   s.cand = 0;
   s.reject = false;
-  for (int k = 0; k <= depth; ++k) {
-    s.stack_idx[k] = 0;
-    s.stack_t[k] = 0.0f;
-  }
+  for (int k = 0; k < rows; ++k) col[k * kThreads] = make_int2(0, 0);
   Record rec;
   rec.count = 0;
   rec.w = 1.0f;
@@ -555,14 +601,14 @@ __device__ __forceinline__ void walk(
   // the accept of a fresh candidate
   int steps = 0;
   while (s.status == ACTIVE && steps < MAX_STEPS) {
-    const int4* row = nodes + 2 * (size_t)s.parent;
+    const int4* row = b.nodes + 2 * (size_t)s.parent;
     int4 lo = __ldg(row);
     int4 hi = __ldg(row + 1);
-    if (examine<MODE>(s, r, lo, hi, scale_base, max_dst)) {
-      examine<MODE>(s, r, lo, hi, scale_base, max_dst);
+    if (examine<MODE>(s, col, rows, r, lo, hi, scale_base, b.max_dst)) {
+      examine<MODE>(s, col, rows, r, lo, hi, scale_base, b.max_dst);
     }
     if (MODE != 0 && s.status == CANDIDATE &&
-        !accept<MODE, MODELS>(s, r, w, tb, mt, sh.strict, inv_scale, rec)) {
+        !accept<MODE, MODELS>(s, r, w, tb, mt, sh.strict, b.inv_scale, rec)) {
       s.status = ACTIVE;
       s.reject = true;
     }
@@ -573,15 +619,16 @@ __device__ __forceinline__ void walk(
   float uu, vv, unm[3];
   hit_info(r, s, face, uu, vv, unm);
   bool hit = s.status == CANDIDATE;
-  hit_out[i] = hit;
-  t_out[i] = hit ? s.t_min * inv_scale : __int_as_float(0x7f800000);
-  face_out[i] = hit ? face : -1;
-  uv_out[2 * i] = uu;
-  uv_out[2 * i + 1] = vv;
-  leaf_out[i] = hit ? s.cand : 0;
-  for (int a = 0; a < 3; ++a) vpos_out[3 * i + a] = (unm[a] - 1.0f) * inv_scale;
-  vsize_out[i] = s.scale_exp2 * inv_scale;
-  steps_out[i] = steps;
+  const int n = b.n;
+  b.hit[i] = hit;
+  b.t[i] = hit ? s.t_min * b.inv_scale : __int_as_float(0x7f800000);
+  b.face[i] = hit ? face : -1;
+  b.uv[2 * i] = uu;
+  b.uv[2 * i + 1] = vv;
+  b.leaf[i] = hit ? s.cand : 0;
+  for (int a = 0; a < 3; ++a) b.vpos[3 * i + a] = (unm[a] - 1.0f) * b.inv_scale;
+  b.vsize[i] = s.scale_exp2 * b.inv_scale;
+  b.steps[i] = steps;
   if constexpr (MODELS && MODE == 1) {
     qo.found[i] = rec.q_found;
     qo.mat[i] = rec.q_mat;
@@ -591,24 +638,24 @@ __device__ __forceinline__ void walk(
     qo.t[i] = rec.q_t;
   }
   if (MODE == 2) {
-    rec_count[i] = rec.count;
+    b.rec_count[i] = rec.count;
 #pragma unroll
     for (int k = 0; k < K_SURFACES; ++k) {
-      rec_mats[k * n + i] = rec.mat[k];
-      rec_face[k * n + i] = rec.face[k];
-      rec_uu[k * n + i] = rec.uu[k];
-      rec_vv[k * n + i] = rec.vv[k];
+      b.rec_mats[k * n + i] = rec.mat[k];
+      b.rec_face[k * n + i] = rec.face[k];
+      b.rec_uu[k * n + i] = rec.uu[k];
+      b.rec_vv[k * n + i] = rec.vv[k];
     }
   }
   if (MODE == 3) {
-    rec_count[i] = rec.count;
+    b.rec_count[i] = rec.count;
     sh.w[i] = rec.w;
     sh.cm[i] = rec.cm;
 #pragma unroll
     for (int k = 0; k < K_SURFACES; ++k) {
-      rec_mats[k * n + i] = rec.mat[k];
-      rec_uu[k * n + i] = rec.uu[k];
-      rec_vv[k * n + i] = rec.vv[k];
+      b.rec_mats[k * n + i] = rec.mat[k];
+      b.rec_uu[k * n + i] = rec.uu[k];
+      b.rec_vv[k * n + i] = rec.vv[k];
       if (sh.ts != nullptr) sh.ts[k * n + i] = rec.ts[k];
     }
   }
@@ -616,76 +663,39 @@ __device__ __forceinline__ void walk(
 
 // Modes 0-3 (K1, K2, K3r, K3s): no model tables.
 template <int MODE>
-__global__ void esvo_traverse_kernel(
-    const int4* __restrict__ nodes, int root, int depth, float octree_scale,
-    float inv_scale, float max_dst, const float* __restrict__ origins,
-    const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
-    AlphaTables tb, ShadowIO sh, uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
-    int* __restrict__ face_out, float* __restrict__ uv_out,
-    int* __restrict__ leaf_out, float* __restrict__ vpos_out,
-    float* __restrict__ vsize_out, int* __restrict__ steps_out,
-    int* __restrict__ rec_count, int* __restrict__ rec_mats,
-    int* __restrict__ rec_face, float* __restrict__ rec_uu,
-    float* __restrict__ rec_vv) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__global__ void __launch_bounds__(kThreads) esvo_traverse_kernel(Batch b, AlphaTables tb, ShadowIO sh) {
   ModelTables mt = {};
   QuadOut qo = {};
-  walk<MODE, false>(i, nodes, root, depth, octree_scale, inv_scale, max_dst, origins, dirs,
-                    active, n, tb, sh, mt, qo, hit_out, t_out, face_out, uv_out, leaf_out,
-                    vpos_out, vsize_out, steps_out, rec_count, rec_mats, rec_face, rec_uu, rec_vv);
+  walk<MODE, false>(b, tb, sh, mt, qo);
 }
 
 // K2q: modes 1-3 with the block-model tables.
 template <int MODE>
-__global__ void esvo_traverse_models_kernel(
-    const int4* __restrict__ nodes, int root, int depth, float octree_scale,
-    float inv_scale, float max_dst, const float* __restrict__ origins,
-    const float* __restrict__ dirs, const uint8_t* __restrict__ active, int n,
-    AlphaTables tb, ShadowIO sh, ModelTables mt, QuadOut qo, uint8_t* __restrict__ hit_out,
-    float* __restrict__ t_out, int* __restrict__ face_out, float* __restrict__ uv_out,
-    int* __restrict__ leaf_out, float* __restrict__ vpos_out,
-    float* __restrict__ vsize_out, int* __restrict__ steps_out,
-    int* __restrict__ rec_count, int* __restrict__ rec_mats,
-    int* __restrict__ rec_face, float* __restrict__ rec_uu,
-    float* __restrict__ rec_vv) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  walk<MODE, true>(i, nodes, root, depth, octree_scale, inv_scale, max_dst, origins, dirs,
-                   active, n, tb, sh, mt, qo, hit_out, t_out, face_out, uv_out, leaf_out,
-                   vpos_out, vsize_out, steps_out, rec_count, rec_mats, rec_face, rec_uu, rec_vv);
+__global__ void __launch_bounds__(kThreads)
+    esvo_traverse_models_kernel(Batch b, AlphaTables tb, ShadowIO sh, ModelTables mt, QuadOut qo) {
+  walk<MODE, true>(b, tb, sh, mt, qo);
 }
 
 // `mt` null: modes 0-3; else K2q's variant of MODE (1-3), `qo` its mode-1
-// output (null otherwise).
+// output (null otherwise).  One launch, one thread per ray; the stack's
+// rows take (depth + 1) * 8 bytes of shared memory per thread (12.3 KB a
+// block at depth 23, under the 48 KB a launch may ask for unasked).
 template <int MODE>
-static int launch(const void* nodes, int root, int depth, float octree_scale,
-                  float inv_scale, float max_dst, const void* origins,
-                  const void* dirs, const void* active, int n, AlphaTables tb,
-                  ShadowIO sh, const ModelTables* mt, const QuadOut* qo, void* hit, void* t,
-                  void* face, void* uv, void* leaf, void* vpos, void* vsize, void* steps,
-                  void* rec_count, void* rec_mats, void* rec_face, void* rec_uu, void* rec_vv,
-                  void* stream) {
-  if (n == 0) return 0;
-  if (depth < 1 || depth > MAX_SCALE) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
+static int launch(const Batch& b, const AlphaTables& tb, const ShadowIO& sh, const ModelTables* mt,
+                  const QuadOut* qo, void* stream) {
+  if (b.n == 0) return 0;
+  if (b.depth < 1 || b.depth > MAX_SCALE) return (int)cudaErrorInvalidValue;
+  const int blocks = (b.n + kThreads - 1) / kThreads;
+  const size_t smem = (size_t)(b.depth + 1) * kThreads * sizeof(int2);
+  cudaStream_t st = (cudaStream_t)stream;
   if (mt == nullptr) {
-    esvo_traverse_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
-        (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb, sh,
-        (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
-        (float*)vpos, (float*)vsize, (int*)steps, (int*)rec_count,
-        (int*)rec_mats, (int*)rec_face, (float*)rec_uu, (float*)rec_vv);
+    esvo_traverse_kernel<MODE><<<blocks, kThreads, smem, st>>>(b, tb, sh);
   } else if constexpr (MODE != 0) {
     QuadOut q = {};
     if (qo != nullptr) q = *qo;
-    esvo_traverse_models_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
-        (const float*)origins, (const float*)dirs, (const uint8_t*)active, n, tb, sh, *mt, q,
-        (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf,
-        (float*)vpos, (float*)vsize, (int*)steps, (int*)rec_count,
-        (int*)rec_mats, (int*)rec_face, (float*)rec_uu, (float*)rec_vv);
+    esvo_traverse_models_kernel<MODE><<<blocks, kThreads, smem, st>>>(b, tb, sh, *mt, q);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -701,6 +711,16 @@ static int launch(const void* nodes, int root, int depth, float octree_scale,
 #define HEAD nodes, root, depth, octree_scale, inv_scale, max_dst, origins, dirs, active, n
 #define OUTS hit, t, face, uv, leaf, vpos, vsize, steps
 
+static Batch batch(HEAD_ARGS, OUT_ARGS, void* rec_count, void* rec_mats, void* rec_face,
+                   void* rec_uu, void* rec_vv) {
+  Batch b = {(const int4*)nodes, root, depth, octree_scale, inv_scale, max_dst,
+             (const float*)origins, (const float*)dirs, (const uint8_t*)active, n,
+             (uint8_t*)hit, (float*)t, (int*)face, (float*)uv, (int*)leaf, (float*)vpos,
+             (float*)vsize, (int*)steps, (int*)rec_count, (int*)rec_mats, (int*)rec_face,
+             (float*)rec_uu, (float*)rec_vv};
+  return b;
+}
+
 static AlphaTables alpha_tables(TABLE_ARGS, const void* rejectable, const void* binary,
                                 const void* ior) {
   AlphaTables tb = {(const int*)leaf_material, (const int*)texture_index,
@@ -711,29 +731,30 @@ static AlphaTables alpha_tables(TABLE_ARGS, const void* rejectable, const void* 
 }
 #define TABLES leaf_material, n_leaf, texture_index, n_mat, atlas, n_layer, atlas_h, atlas_w, sizes
 
+static const ShadowIO kNoShadow = {nullptr, 0, nullptr, nullptr, nullptr};
+
 // K1: no accept.
 extern "C" int esvo_traverse(HEAD_ARGS, OUT_ARGS, void* stream) {
   AlphaTables tb = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0};
-  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<0>(HEAD, tb, sh, nullptr, nullptr, OUTS, nullptr, nullptr, nullptr, nullptr,
-                   nullptr, stream);
+  return launch<0>(batch(HEAD, OUTS, nullptr, nullptr, nullptr, nullptr, nullptr), tb, kNoShadow,
+                   nullptr, nullptr, stream);
 }
 
 // K2: the in-loop alpha accept.
 extern "C" int esvo_traverse_alpha(HEAD_ARGS, TABLE_ARGS, const void* rejectable, OUT_ARGS,
                                    void* stream) {
-  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<1>(HEAD, alpha_tables(TABLES, rejectable, nullptr, nullptr), sh, nullptr,
-                   nullptr, OUTS, nullptr, nullptr, nullptr, nullptr, nullptr, stream);
+  return launch<1>(batch(HEAD, OUTS, nullptr, nullptr, nullptr, nullptr, nullptr),
+                   alpha_tables(TABLES, rejectable, nullptr, nullptr), kNoShadow, nullptr, nullptr,
+                   stream);
 }
 
 // K3r: record the first K_SURFACES surfaces, accept the last.
 extern "C" int esvo_traverse_record(HEAD_ARGS, TABLE_ARGS, OUT_ARGS, void* rec_count,
                                     void* rec_mats, void* rec_face, void* rec_uu, void* rec_vv,
                                     void* stream) {
-  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<2>(HEAD, alpha_tables(TABLES, nullptr, nullptr, nullptr), sh, nullptr, nullptr,
-                   OUTS, rec_count, rec_mats, rec_face, rec_uu, rec_vv, stream);
+  return launch<2>(batch(HEAD, OUTS, rec_count, rec_mats, rec_face, rec_uu, rec_vv),
+                   alpha_tables(TABLES, nullptr, nullptr, nullptr), kNoShadow, nullptr, nullptr,
+                   stream);
 }
 
 // K3s: the shadow walk.  `ts` may be null (the sun walk records no t).
@@ -742,8 +763,8 @@ extern "C" int esvo_traverse_shadow(HEAD_ARGS, TABLE_ARGS, const void* binary, c
                                     void* rec_mats, void* rec_uu, void* rec_vv, void* w, void* cm,
                                     void* ts, void* stream) {
   ShadowIO sh = {(const int*)cur_mat, strict, (float*)w, (int*)cm, (float*)ts};
-  return launch<3>(HEAD, alpha_tables(TABLES, nullptr, binary, ior), sh, nullptr, nullptr, OUTS,
-                   rec_count, rec_mats, nullptr, rec_uu, rec_vv, stream);
+  return launch<3>(batch(HEAD, OUTS, rec_count, rec_mats, nullptr, rec_uu, rec_vv),
+                   alpha_tables(TABLES, nullptr, binary, ior), sh, nullptr, nullptr, stream);
 }
 
 // K2q, mode 1: the alpha accept with block models; `qo` receives the
@@ -751,9 +772,8 @@ extern "C" int esvo_traverse_shadow(HEAD_ARGS, TABLE_ARGS, const void* binary, c
 extern "C" int esvo_traverse_alpha_models(HEAD_ARGS, TABLE_ARGS, const void* rejectable,
                                           const ModelTables* mt, const QuadOut* qo, OUT_ARGS,
                                           void* stream) {
-  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<1>(HEAD, alpha_tables(TABLES, rejectable, nullptr, nullptr), sh, mt, qo, OUTS,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, stream);
+  return launch<1>(batch(HEAD, OUTS, nullptr, nullptr, nullptr, nullptr, nullptr),
+                   alpha_tables(TABLES, rejectable, nullptr, nullptr), kNoShadow, mt, qo, stream);
 }
 
 // K2q, mode 2: the recording walk with block models.
@@ -761,9 +781,8 @@ extern "C" int esvo_traverse_record_models(HEAD_ARGS, TABLE_ARGS, const ModelTab
                                            OUT_ARGS, void* rec_count, void* rec_mats,
                                            void* rec_face, void* rec_uu, void* rec_vv,
                                            void* stream) {
-  ShadowIO sh = {nullptr, 0, nullptr, nullptr, nullptr};
-  return launch<2>(HEAD, alpha_tables(TABLES, nullptr, nullptr, nullptr), sh, mt, nullptr, OUTS,
-                   rec_count, rec_mats, rec_face, rec_uu, rec_vv, stream);
+  return launch<2>(batch(HEAD, OUTS, rec_count, rec_mats, rec_face, rec_uu, rec_vv),
+                   alpha_tables(TABLES, nullptr, nullptr, nullptr), kNoShadow, mt, nullptr, stream);
 }
 
 // K2q, mode 3: the shadow walk with block models.
@@ -773,8 +792,8 @@ extern "C" int esvo_traverse_shadow_models(HEAD_ARGS, TABLE_ARGS, const void* bi
                                            void* rec_mats, void* rec_uu, void* rec_vv, void* w,
                                            void* cm, void* ts, void* stream) {
   ShadowIO sh = {(const int*)cur_mat, strict, (float*)w, (int*)cm, (float*)ts};
-  return launch<3>(HEAD, alpha_tables(TABLES, nullptr, binary, ior), sh, mt, nullptr, OUTS,
-                   rec_count, rec_mats, nullptr, rec_uu, rec_vv, stream);
+  return launch<3>(batch(HEAD, OUTS, rec_count, rec_mats, nullptr, rec_uu, rec_vv),
+                   alpha_tables(TABLES, nullptr, binary, ior), sh, mt, nullptr, stream);
 }
 
 extern "C" const char* esvo_error_string(int code) {

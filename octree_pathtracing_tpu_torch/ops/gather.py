@@ -8,8 +8,10 @@ gathers from one table; :func:`row_gather_pair` gathers the same rows of
 two tables of one shape in one launch, as the emitter pick
 (``models/emitters._spatial_pick``) does with each lane's supercell row of
 ``grid_idx`` (int32) and ``grid_w`` (float32); the rows are ``min(8, E)``
-wide for a table of E emitters.  Indices are clipped to ``[0, N - 1]`` as
-XLA clips a gather's.  The kernel copies 32-bit words whatever their type,
+wide for a table of E emitters.  An index in ``[-N, -1]`` wraps to
+``index + N`` as jnp indexing does; then indices are clipped to
+``[0, N - 1]`` as XLA clips a gather's.  The kernel copies 32-bit words
+whatever their type,
 so kernel and twins agree bit for bit.  Nothing here carries a gradient.
 """
 
@@ -43,11 +45,13 @@ def _check(tables, idx):
 
 
 def _clipped(idx, n_rows):
-    return idx.long().clamp(0, n_rows - 1)
+    """``idx`` as rows: [-N, -1] wrapped by N, then clipped to the table."""
+    i = idx.long()
+    return torch.where(i < 0, i + n_rows, i).clamp(0, n_rows - 1)
 
 
 def row_gather_reference(table, idx):
-    """Plain-torch twin of kernel P1 (any device): ``table[clip(idx)]``."""
+    """Plain-torch twin of kernel P1 (any device): ``table[clip(wrap(idx))]``."""
     _check((table,), idx)
     return table.index_select(0, _clipped(idx, table.shape[0]))
 
@@ -112,7 +116,8 @@ def _gather_cuda(a, b, idx):
 
 
 def row_gather(table, idx):
-    """``(B, W)`` rows ``table[idx]`` (indices clipped to the table).
+    """``(B, W)`` rows ``table[idx]`` (negative indices wrapped once, then
+    clipped to the table).
 
     CUDA tensors launch kernel P1 (``csrc/gather.cu``) and count the launch
     in ``row_gather.launches``; CPU tensors run :func:`row_gather_reference`.

@@ -44,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.cuda_build import on_current_stream
 from .geometry import QuadSoA, QuadTable, quad_hit
 from .texture import Atlas, sample_atlas
 
@@ -85,9 +86,17 @@ class HitResult(NamedTuple):
     leaf_value: torch.Tensor  # (B,) int32 (values fit 30 bits), 0 on miss
     voxel_pos: torch.Tensor  # (B, 3) world-space voxel min corner
     voxel_size: torch.Tensor  # (B,) world-space voxel side
-    steps: torch.Tensor  # () int32 — max node fetches over the lanes
     fetches: torch.Tensor  # (B,) int32 — node fetches per lane
     quad: QuadSurface | None = None  # traverse_alpha on a scene with models
+
+    @property
+    def steps(self) -> torch.Tensor:
+        """() int32: the most node fetches of any lane, 0 for an empty batch
+        (the JAX walk's lockstep loop count).  Reduced where it is read: no
+        render path reads it, so a traversal call launches nothing for it."""
+        if self.fetches.shape[0] == 0:
+            return torch.zeros((), dtype=torch.int32)
+        return self.fetches.max()
 
 
 class AlphaTables(NamedTuple):
@@ -562,7 +571,6 @@ def _walk_reference(mode, nodes_packed, root, depth, octree_scale, origins, dirs
         leaf_value=torch.where(hit, s["cand"], 0).to(torch.int32),
         voxel_pos=((unmirrored_pos - 1.0) * inv_scale).T.contiguous(),
         voxel_size=s["scale_exp2"] * inv_scale,
-        steps=steps.max() if steps.numel() else torch.zeros((), dtype=torch.int32),
         fetches=steps,
     )
     if mode == 1:
@@ -631,15 +639,16 @@ def _library():
     head = [vp, ci, ci, cf, cf, cf, vp, vp, vp, ci]  # nodes .. n
     tables = [vp, ci, vp, ci, vp, ci, ci, ci, vp]  # leaf_material .. sizes
     models = [ctypes.POINTER(_ModelTables)]
-    lib.esvo_traverse.argtypes = head + [vp] * 8 + [vp]
-    lib.esvo_traverse_alpha.argtypes = head + tables + [vp] + [vp] * 8 + [vp]
-    lib.esvo_traverse_record.argtypes = head + tables + [vp] * 8 + [vp] * 5 + [vp]
-    lib.esvo_traverse_shadow.argtypes = head + tables + [vp, vp, vp, ci] + [vp] * 8 + [vp] * 7 + [vp]
+    tail = [vp]  # the stream
+    lib.esvo_traverse.argtypes = head + [vp] * 8 + tail
+    lib.esvo_traverse_alpha.argtypes = head + tables + [vp] + [vp] * 8 + tail
+    lib.esvo_traverse_record.argtypes = head + tables + [vp] * 8 + [vp] * 5 + tail
+    lib.esvo_traverse_shadow.argtypes = head + tables + [vp, vp, vp, ci] + [vp] * 8 + [vp] * 7 + tail
     lib.esvo_traverse_alpha_models.argtypes = (head + tables + [vp] + models + [ctypes.POINTER(_QuadOut)]
-                                               + [vp] * 8 + [vp])
-    lib.esvo_traverse_record_models.argtypes = head + tables + models + [vp] * 8 + [vp] * 5 + [vp]
+                                               + [vp] * 8 + tail)
+    lib.esvo_traverse_record_models.argtypes = head + tables + models + [vp] * 8 + [vp] * 5 + tail
     lib.esvo_traverse_shadow_models.argtypes = (head + tables + [vp, vp, vp, ci] + models + [vp] * 8
-                                                + [vp] * 7 + [vp])
+                                                + [vp] * 7 + tail)
     for fn in (lib.esvo_traverse, lib.esvo_traverse_alpha, lib.esvo_traverse_record,
                lib.esvo_traverse_shadow, lib.esvo_traverse_alpha_models,
                lib.esvo_traverse_record_models, lib.esvo_traverse_shadow_models):
@@ -716,6 +725,8 @@ def _check_cuda_inputs(nodes, origins, dirs, active, tables, mode, cur_mat):
 
 def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dirs, max_dst, active, tables,
                    shadow=None):
+    """Kernel ``mode`` on the card: one launch, nothing else queued (the
+    outputs come from the caching allocator)."""
     cur_mat, strict, record_t = shadow if mode == 3 else (None, False, False)
     _check_cuda_inputs(nodes, origins, dirs, active, tables, mode, cur_mat)
     b = origins.shape[0]
@@ -729,7 +740,6 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
         leaf_value=torch.empty((b,), dtype=i32, device=dev),
         voxel_pos=torch.empty((b, 3), dtype=f32, device=dev),
         voxel_size=torch.empty((b,), dtype=f32, device=dev),
-        steps=torch.zeros((), dtype=i32, device=dev),
         fetches=torch.empty((b,), dtype=i32, device=dev),
     )
     models = tables is not None and tables.has_models
@@ -764,10 +774,11 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
     if b == 0:  # an empty batch launches nothing
         return out, rec
     lib = _library()
+    card = dev.index
     head = (nodes.data_ptr(), int(root), int(depth), float(octree_scale),
             float(1.0 / octree_scale), float(np.float32(max_dst * octree_scale)),
             origins.data_ptr(), dirs.data_ptr(), None if active is None else active.data_ptr(), b)
-    outs = tuple(x.data_ptr() for x in out[:7]) + (out.fetches.data_ptr(),)
+    outs = tuple(x.data_ptr() for x in out[:8])
     if tables is not None:
         lm, ti, atlas, sizes = tables.leaf_material, tables.texture_index, tables.atlas, tables.sizes
         # n_leaf sizes the class tables (leaf_material's length without models)
@@ -779,32 +790,31 @@ def _traverse_cuda(wrapper, mode, nodes, root, depth, octree_scale, origins, dir
             tables.leaf_model.data_ptr(), tables.flags.data_ptr(), tables.face_material.data_ptr(),
             tables.quad_start.data_ptr(), tables.quad_count.data_ptr(), tables.leaf_model.shape[0],
             tables.flags.shape[0], QuadTable.of(tables.quads)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if mode == 0:
-            rc = lib.esvo_traverse(*head, *outs, stream)
-        elif mode == 1 and models:
-            qout = ctypes.byref(_QuadOut(*(x.data_ptr() for x in out.quad)))
-            rc = lib.esvo_traverse_alpha_models(*head, *tabs, tables.rejectable.data_ptr(), mtab, qout,
-                                                *outs, stream)
-        elif mode == 1:
-            rc = lib.esvo_traverse_alpha(*head, *tabs, tables.rejectable.data_ptr(), *outs, stream)
-        elif mode == 2:
-            fn = lib.esvo_traverse_record_models if models else lib.esvo_traverse_record
-            rc = fn(*head, *tabs, *((mtab,) if models else ()), *outs, *(x.data_ptr() for x in rec), stream)
-        else:
-            fn = lib.esvo_traverse_shadow_models if models else lib.esvo_traverse_shadow
-            rc = fn(*head, *tabs, tables.binary.data_ptr(), tables.ior.data_ptr(), cur_mat.data_ptr(),
-                    int(strict), *((mtab,) if models else ()), *outs, rec.count.data_ptr(),
-                    rec.mats.data_ptr(), rec.uu.data_ptr(), rec.vv.data_ptr(), rec.w.data_ptr(),
-                    rec.cm.data_ptr(), None if rec.ts is None else rec.ts.data_ptr(), stream)
+    if mode == 0:
+        rc = on_current_stream(lib.esvo_traverse, card, *head, *outs)
+    elif mode == 1 and models:
+        qout = ctypes.byref(_QuadOut(*(x.data_ptr() for x in out.quad)))
+        rc = on_current_stream(lib.esvo_traverse_alpha_models, card, *head, *tabs, tables.rejectable.data_ptr(),
+                               mtab, qout, *outs)
+    elif mode == 1:
+        rc = on_current_stream(lib.esvo_traverse_alpha, card, *head, *tabs, tables.rejectable.data_ptr(), *outs)
+    elif mode == 2:
+        fn = lib.esvo_traverse_record_models if models else lib.esvo_traverse_record
+        rc = on_current_stream(fn, card, *head, *tabs, *((mtab,) if models else ()), *outs,
+                               *(x.data_ptr() for x in rec))
+    else:
+        fn = lib.esvo_traverse_shadow_models if models else lib.esvo_traverse_shadow
+        rc = on_current_stream(fn, card, *head, *tabs, tables.binary.data_ptr(), tables.ior.data_ptr(),
+                               cur_mat.data_ptr(), int(strict), *((mtab,) if models else ()), *outs,
+                               rec.count.data_ptr(), rec.mats.data_ptr(), rec.uu.data_ptr(), rec.vv.data_ptr(),
+                               rec.w.data_ptr(), rec.cm.data_ptr(), None if rec.ts is None else rec.ts.data_ptr())
     if rc != 0:
         raise RuntimeError(f"esvo traversal (mode {mode}) launch failed: {lib.esvo_error_string(rc).decode()}")
     if models:  # K2q: the model variant counts apart from the mode's own kernel
         wrapper.model_launches += 1
     else:
         wrapper.launches += 1
-    return out._replace(steps=out.fetches.max()), rec
+    return out, rec
 
 
 def _dispatch(wrapper, mode, *args):

@@ -13,7 +13,8 @@ spends on it.
 
 Run as a script, it times kernels P1 (row gather) and P2 (Philox uniforms)
 of one or more checkouts of the port beside the PyTorch calls that compute
-the same functions (``torch.index_select``, ``torch.rand``)::
+the same functions (``torch.index_select``, ``torch.rand``), and the
+traversal kernels at the shapes the main paths give them::
 
     python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] ROOT [ROOT ...]
 
@@ -24,9 +25,17 @@ parent" compares two commits on one card.  Shapes: P1 at the probe's
 (131072, 8) int32 table with 4096 indices, and at the emitter grid's
 (4096, 8) int32 and float32 tables with 65536 random indices; the emitter
 pick's two gathers (one pair launch, or two single launches where the
-checkout has no pair); P2 on the (65536, 5, 21) uniform block.  Every
-kernel result is checked bit for bit against its plain-torch twin first.
-Needs a CUDA card.
+checkout has no pair); P2 on the (65536, 5, 21) uniform block.  The
+traversal on the depth-9 scenes: K1 on the terrain's 256x256 primaries and
+on the live rays of bounces 2-5 of one headline frame (``trace_paths``,
+IMPORTANCE sun, the uniforms of seed 1); K2 on the cutout's 256x256
+primaries and its 8 training views at 512x512; K3r on the terrain's
+training views; K3s on the cutout's sun walk; K2q in its three modes on the
+plant field (primaries; sun and hemisphere walks).  Each traversal row
+carries the max, p50 and p99 of its per-ray fetches.  Every kernel result
+is checked bit for bit against its plain-torch twin first.  The depth-9
+octrees are cached under ``build/scenes`` of this file's checkout.  Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 CALLS = 200  # back-to-back calls per call_ms
@@ -119,8 +129,120 @@ def both(fn) -> dict:
     return {"call_ms": call_ms(fn), "device_ms": dms, "device_by": how}
 
 
+def fetch_stats(fetches) -> dict:
+    """{"fetch_max", "fetch_p50", "fetch_p99"} of a call's per-ray fetch
+    counts over the rays that walked (an inactive lane fetches nothing, an
+    active one at least once): whether a call is bound by its longest walk."""
+    f = fetches[fetches > 0].float()
+    q = torch.quantile(f, torch.tensor([0.5, 0.99], device=f.device)).tolist() if f.numel() else [0.0, 0.0]
+    return {"fetch_max": int(f.max()) if f.numel() else 0, "fetch_p50": q[0], "fetch_p99": q[1]}
+
+
+def bounce_rays(pathtracer, scene, origins, dirs, uniforms) -> list:
+    """The (origins, dirs) of every traversal ``trace_paths`` makes on an
+    all-opaque scene without shadow walks, in order: the primaries, then the
+    live rays of each later bounce."""
+    calls = []
+    real = pathtracer.traverse
+
+    def recording(nodes, root, depth, scale, o, d, *rest):
+        calls.append((o, d))
+        return real(nodes, root, depth, scale, o, d, *rest)
+
+    pathtracer.traverse = recording
+    try:
+        pathtracer.trace_paths(scene, origins, dirs, uniforms)
+    finally:
+        pathtracer.traverse = real
+    return calls
+
+
+def _traversal_cases(dev, cache_dir) -> dict:
+    """name -> ((call, its twin), arguments): the traversal rows."""
+    from octree_pathtracing_tpu_torch import cli
+    from octree_pathtracing_tpu_torch.models import (
+        cutout_chunk_scene,
+        face_normals,
+        minecraft_chunk_scene,
+        pixel_grid_rays,
+        plant_scene,
+    )
+    from octree_pathtracing_tpu_torch.models.sun import random_sun_direction
+    from octree_pathtracing_tpu_torch.ops import traversal as tv
+    from octree_pathtracing_tpu_torch.ops.shading import OFFSET
+    from octree_pathtracing_tpu_torch.render import pathtracer
+    from octree_pathtracing_tpu_torch.render.hit import accept_tables, resolve_hit
+
+    depth, side, views, view_side = 9, 256, 8, 512
+    terrain, cam = minecraft_chunk_scene(depth=depth, cache_dir=cache_dir)
+    cut, cut_cam = cutout_chunk_scene(depth=depth, cache_dir=cache_dir)
+    plant, plant_cam = plant_scene(depth=depth)
+    terrain, cam, cut, cut_cam = terrain.to(dev), cam.to(dev), cut.to(dev), cut_cam.to(dev)
+    plant, plant_cam = plant.to(dev), plant_cam.to(dev)
+
+    def head(sc, o, d):
+        return (sc.nodes, sc.root, sc.depth, sc.octree_scale, o.contiguous(), d.contiguous())
+
+    def training(sc):
+        rays = [pixel_grid_rays(c.to(dev), view_side, view_side) for c in cli.orbit_cameras(sc.depth, views)]
+        return head(sc, torch.cat([r[0] for r in rays]), torch.cat([r[1] for r in rays]))
+
+    cases = {}
+    prim = head(terrain, *pixel_grid_rays(cam, side, side))
+    cases[f"K1 terrain {side}^2 primaries"] = ((tv.traverse, tv.traverse_reference), prim)
+    u = pathtracer.draw_uniforms(1, 0, side * side, 5, dev)
+    for k, (o, d) in enumerate(bounce_rays(pathtracer, terrain, prim[4], prim[5], u)[1:], start=2):
+        cases[f"K1 headline bounce {k}"] = ((tv.traverse, tv.traverse_reference), head(terrain, o, d))
+    cut_tables, terrain_tables, plant_tables = accept_tables(cut), accept_tables(terrain), accept_tables(plant)
+    cprim = head(cut, *pixel_grid_rays(cut_cam, side, side))
+    alpha = (tv.traverse_alpha, tv.traverse_alpha_reference)
+    cases[f"K2 cutout {side}^2 primaries"] = (alpha, cprim + (cut_tables,))
+    cases[f"K2 cutout {views} x {view_side}^2 views"] = (alpha, training(cut) + (cut_tables,))
+    record = (lambda *a: tv.traverse_record(*a)[0], lambda *a: tv.traverse_record_reference(*a)[0])
+    cases[f"K3r terrain {views} x {view_side}^2 views"] = (record, training(terrain) + (terrain_tables,))
+    # K3s: the cutout's sun walk from its primaries' hits (strict, no t)
+    first = tv.traverse_alpha(*cprim, cut_tables)
+    hn = face_normals(dev)[first.face_id.clamp(0, 5).long()]
+    hp = torch.where(first.hit[:, None], cprim[4] + cprim[5] * first.t[:, None], cprim[4])
+    su = torch.from_numpy(np.random.default_rng(11).random((side * side, 5), dtype=np.float32)).to(dev)
+    sun = random_sun_direction(cut.sun, su[:, 0], su[:, 1]).contiguous()
+    front = (sun * hn).sum(-1) > 0.0
+    air = torch.zeros((side * side,), dtype=torch.int32, device=dev)
+    so = (torch.where(front[:, None], hp, hp - OFFSET * hn) + sun * OFFSET).contiguous()
+    shadow = (lambda *a: tv.traverse_shadow(*a)[0], lambda *a: tv.traverse_shadow_reference(*a)[0])
+    cases["K3s cutout sun walk"] = (shadow, head(cut, so, sun) + (cut_tables, air, True, False, 1024.0,
+                                                                  first.hit & front))
+    # K2q on the plant field: modes 1 and 2 on the primaries, mode 3 on
+    # walks from their hits toward the sun and the hit's hemisphere
+    pprim = head(plant, *pixel_grid_rays(plant_cam, side, side))
+    cases[f"K2q mode 1 plant {side}^2 primaries"] = (alpha, pprim + (plant_tables,))
+    cases[f"K2q mode 2 plant {side}^2 primaries"] = (record, pprim + (plant_tables,))
+    pres = tv.traverse_alpha(*pprim, plant_tables)
+    hn = resolve_hit(plant, pprim[4], pprim[5], pres)[2]
+    hp = torch.where(pres.hit[:, None], pprim[4] + pprim[5] * pres.t[:, None], pprim[4])
+    su = torch.from_numpy(np.random.default_rng(12).random((side * side, 5), dtype=np.float32)).to(dev)
+    sun = random_sun_direction(plant.sun, su[:, 0], su[:, 1]).contiguous()
+    rnd = torch.from_numpy(np.random.default_rng(13).standard_normal((side * side, 3)).astype(np.float32)).to(dev)
+    rnd = rnd / rnd.norm(dim=-1, keepdim=True)
+    rnd = torch.where(((rnd * hn).sum(-1) < 0)[:, None], -rnd, rnd).contiguous()
+    for label, sd, strict, record_t in (("sun", sun, True, False), ("hemisphere", rnd, False, True)):
+        front = (sd * hn).sum(-1) > 0.0
+        so = (torch.where(front[:, None], hp, hp - OFFSET * hn) + sd * OFFSET).contiguous()
+        cases[f"K2q mode 3 plant {label} walk"] = (shadow, head(plant, so, sd) + (
+            plant_tables, air, strict, record_t, 1024.0, pres.hit & front))
+    return cases
+
+
+def _equal(k, r) -> bool:
+    """Every field of two HitResults bit for bit (NaN where both are NaN)."""
+    fields = ("hit", "t", "face_id", "uv", "leaf_value", "voxel_pos", "voxel_size", "fetches")
+    return all(bool(((a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else (a == b)).all())
+               for a, b in ((getattr(k, f), getattr(r, f)) for f in fields))
+
+
 def _time_checkout() -> dict:
-    """P1 and P2 of the package on ``sys.path`` (see the module's text)."""
+    """P1, P2 and the traversal of the package on ``sys.path`` (see the
+    module's text)."""
     import octree_pathtracing_tpu_torch as port
     from octree_pathtracing_tpu_torch.ops import gather
     from octree_pathtracing_tpu_torch.ops.random import philox_uniforms, philox_uniforms_reference
@@ -168,6 +290,16 @@ def _time_checkout() -> dict:
     }
     for name, fn in cases.items():
         out[name] = both(fn)
+
+    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "build", "scenes")
+    for name, ((kernel, twin), args) in _traversal_cases(dev, os.path.normpath(cache_dir)).items():
+        k = kernel(*args)
+        if not _equal(k, twin(*args)):
+            raise AssertionError(f"{name}: the kernel disagrees with its twin")
+        big = args[4].shape[0] > 1 << 20  # the training views: fewer calls
+        dms, how = device_ms(lambda: kernel(*args), calls=10 if big else GRAPH_CALLS)
+        out[name] = {"call_ms": call_ms(lambda: kernel(*args), 20 if big else CALLS), "device_ms": dms,
+                     "device_by": how, "lanes": int(args[4].shape[0]), **fetch_stats(k.fetches)}
     return out
 
 
@@ -200,6 +332,10 @@ def main(argv=None) -> int:
         cells = " | ".join(f"{r['root']}: call {r[name]['call_ms']!r} device {r[name]['device_ms']!r}"
                            + ("" if r[name]["device_by"] == "graph" else f" ({r[name]['device_by']})")
                            for r in runs)
+        extra = runs[0][name]
+        if "fetch_max" in extra:  # the same rays and fetches in every checkout
+            cells += (f" || lanes {extra['lanes']}, fetches max {extra['fetch_max']} p50 {extra['fetch_p50']!r} "
+                      f"p99 {extra['fetch_p99']!r}")
         print(f"{name}: {cells}", flush=True)
     if out_file:
         os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)

@@ -158,11 +158,13 @@ def test_emitter_all_refuses_large_tables():
 def test_row_gather_twin_equals_numpy(width, dtype):
     rng = np.random.default_rng(width)
     table = rng.integers(-2**31, 2**31 - 1, (300, width), dtype=np.int64).astype(np.int32)
-    idx = rng.integers(-4, 304, 1000).astype(np.int32)  # some clip, as XLA's gathers clip
+    # negatives wrap once, as jnp indexing does; the rest clip, as XLA's gathers clip
+    idx = rng.integers(-304, 304, 1000).astype(np.int32)
     t = torch.from_numpy(table).view(dtype)
     for fn in (row_gather, row_gather_reference):
         got = fn(t, torch.from_numpy(idx))
         assert got.dtype == dtype and got.shape == (1000, width)
-        np.testing.assert_array_equal(got.view(torch.int32).numpy(), table[np.clip(idx, 0, 299)])
+        np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                      table[np.clip(np.where(idx < 0, idx + 300, idx), 0, 299)])
     with pytest.raises(ValueError, match="table"):
         row_gather(t.double(), torch.from_numpy(idx))

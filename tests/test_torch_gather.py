@@ -53,12 +53,12 @@ def test_twins_equal_pallas_k_smem_loop(width):
     rng = np.random.default_rng(40 + width)
     n_rows = 1024
     grid_idx, grid_w = _words(rng, n_rows, width), _words(rng, n_rows, width)
-    idx = rng.integers(0, n_rows, 64).astype(np.int32)
-    # past the end both clamp to the last row; below zero the interpret mode
-    # wraps while XLA's gather (and P1) clips, and the pick never goes there
-    idx[:2] = [n_rows, n_rows + 9]
+    idx = rng.integers(-n_rows, n_rows, 64).astype(np.int32)
+    # past the end both clamp to the last row; [-N, -1] wraps to idx + N, as
+    # in jnp indexing, and below -N the wrapped index clamps to row 0
+    idx[:6] = [n_rows, n_rows + 9, -1, -n_rows, -n_rows - 1, -3 * n_rows]
     want_i, want_w = _pallas_gather(grid_idx, idx), _pallas_gather(grid_w, idx)
-    np.testing.assert_array_equal(want_i, grid_idx[np.clip(idx, 0, n_rows - 1)])
+    np.testing.assert_array_equal(want_i, grid_idx[np.clip(np.where(idx < 0, idx + n_rows, idx), 0, n_rows - 1)])
     a = torch.from_numpy(grid_idx)
     b = torch.from_numpy(grid_w).view(torch.float32)  # as grid_w: float32 rows, copied as bits
     for i in (torch.from_numpy(idx), torch.from_numpy(idx).long()):
@@ -77,8 +77,8 @@ def test_pair_twin_equals_two_single_gathers(dtypes, width, index_dtype):
     n_rows = 300
     a = torch.from_numpy(_words(rng, n_rows, width)).view(dtypes[0])
     b = torch.from_numpy(_words(rng, n_rows, width)).view(dtypes[1])
-    idx = torch.from_numpy(rng.integers(-4, n_rows + 4, 1000)).to(index_dtype)
-    idx[:2] = torch.tensor([-1, n_rows])  # both ends clip
+    idx = torch.from_numpy(rng.integers(-n_rows - 4, n_rows + 4, 1000)).to(index_dtype)
+    idx[:3] = torch.tensor([-1, n_rows, -n_rows - 1])  # -1 wraps, both ends clip
     before = row_gather.launches
     for fn in (row_gather_pair, row_gather_pair_reference):
         got_a, got_b = fn(a, b, idx)
@@ -86,7 +86,7 @@ def test_pair_twin_equals_two_single_gathers(dtypes, width, index_dtype):
             assert got.dtype == table.dtype and got.shape == (1000, width)
             assert torch.equal(got.view(torch.int32), row_gather_reference(table, idx).view(torch.int32))
             assert torch.equal(got.view(torch.int32), row_gather(table, idx).view(torch.int32))
-        assert torch.equal(got_a.view(torch.int32)[:2], a.view(torch.int32)[[0, n_rows - 1]])
+        assert torch.equal(got_a.view(torch.int32)[:3], a.view(torch.int32)[[n_rows - 1, n_rows - 1, 0]])
     assert row_gather.launches == before  # the CPU runs the twins
 
 

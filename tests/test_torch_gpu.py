@@ -16,6 +16,7 @@ without the repo's conftest:
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -296,6 +297,230 @@ def test_row_gather_pair_matches_twin_bit_for_bit(cuda, width, index_dtype):
         assert k.dtype == t.dtype and torch.equal(k.view(torch.int32), r.view(torch.int32))
     assert [x.shape for x in row_gather_pair(a, b, idx[:0])] == [(0, width)] * 2
     assert row_gather.launches == before + 1
+
+
+def _rays(n, s, seed, dev):
+    """``n`` rays from a box around an ``s``-wide scene toward points in it."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-s, 2 * s, (n, 3))
+    d = rng.uniform(0, s, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.from_numpy(o.astype(np.float32)).to(dev), torch.from_numpy(d.astype(np.float32)).to(dev)
+
+
+# the walks of one traversal body: K1, K2, K3r, K3s and K2q's three modes
+WALKS = ("K1", "K2", "K3r", "K3s", "K2q mode 1", "K2q mode 2", "K2q mode 3")
+_SCENES = {}
+
+
+def _walk_scene(name, dev):
+    """The depth-5 cutout (modes 0-3) or plant field (K2q), built once."""
+    key = "plant" if name.startswith("K2q") else "cutout"
+    if key not in _SCENES:
+        sc = (plant_scene if key == "plant" else cutout_chunk_scene)(depth=5)[0]
+        _SCENES[key] = sc
+    sc = _SCENES[key].to(dev)
+    return sc, accept_tables(sc)
+
+
+def _walk(name, sc, tables, o, d, active=None):
+    """(kernel call, twin call) of walk ``name``; each call returns
+    (HitResult, record or None).  K3r takes no active mask."""
+    head = (sc.nodes, sc.root, sc.depth, sc.octree_scale, o, d)
+    cur = torch.zeros((o.shape[0],), dtype=torch.int32, device=o.device)
+    mode = int(name[-1]) if name.startswith("K2q") else {"K1": 0, "K2": 1, "K3r": 2, "K3s": 3}[name]
+    if mode == 0:
+        return (lambda: (traverse(*head, MAX_DIST, active), None),
+                lambda: (traverse_reference(*head, MAX_DIST, active), None))
+    if mode == 1:
+        return (lambda: (traverse_alpha(*head, tables, MAX_DIST, active), None),
+                lambda: (traverse_alpha_reference(*head, tables, MAX_DIST, active), None))
+    if mode == 2:
+        return (lambda: traverse_record(*head, tables, MAX_DIST),
+                lambda: traverse_record_reference(*head, tables, MAX_DIST))
+    shadow = (tables, cur, True, True, MAX_DIST, active)
+    return (lambda: traverse_shadow(*head, *shadow), lambda: traverse_shadow_reference(*head, *shadow))
+
+
+def _same(a, b):
+    """Bit for bit, NaN where both are NaN."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.is_floating_point():
+        return bool(((a == b) | (a.isnan() & b.isnan())).all()) and a.shape == b.shape
+    return torch.equal(a, b)
+
+
+def _assert_walks_equal(k, r):
+    (kr, krec), (rr, rrec) = k, r
+    _assert_equal_results(kr, rr)
+    assert (krec is None) == (rrec is None)
+    if krec is not None:
+        for f in krec._fields:
+            assert _same(getattr(krec, f), getattr(rrec, f)), f"record.{f}"
+
+
+def _card_lanes(dev):
+    """The card's resident thread slots (SMs x threads per SM: 270,336 on
+    an H100): a batch above it cannot be in flight at once."""
+    props = torch.cuda.get_device_properties(dev)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def _batch(size, dev):
+    lanes = _card_lanes(dev)
+    return {"1": 1, "31": 31, "4072": 4072, "lanes+1": lanes + 1, "3lanes+17": 3 * lanes + 17}[size]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["1", "31", "4072", "lanes+1", "3lanes+17"])
+@pytest.mark.parametrize("name", WALKS)
+def test_walk_matches_twin_at_every_batch_size(cuda, name, size):
+    """Every walk against its twin on every field, ``fetches`` and the
+    record included, from one ray to batches beyond the card's thread
+    slots (the last block partly filled)."""
+    sc, tables = _walk_scene(name, cuda)
+    n = _batch(size, cuda)
+    o, d = _rays(n, 1 << sc.depth, n, cuda)
+    kernel, twin = _walk(name, sc, tables, o, d)
+    k = kernel()
+    _assert_walks_equal(k, twin())
+    assert int(k[0].fetches.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [w for w in WALKS if w not in ("K3r", "K2q mode 2")])
+def test_walk_matches_twin_with_a_sparse_active_mask(cuda, name):
+    """1% of the lanes active: the rest start as MISS, fetch nothing and
+    still write their outputs."""
+    sc, tables = _walk_scene(name, cuda)
+    n = _batch("3lanes+17", cuda)
+    o, d = _rays(n, 1 << sc.depth, 5, cuda)
+    active = torch.from_numpy(np.random.default_rng(6).random(n) < 0.01).to(cuda)
+    kernel, twin = _walk(name, sc, tables, o, d, active)
+    k = kernel()
+    _assert_walks_equal(k, twin())
+    assert int((k[0].fetches[~active] != 0).sum()) == 0 and int(k[0].fetches[active].min()) > 0
+
+
+def _chain_octree(depth):
+    """A chain of ``depth`` nodes down the lower corner: node k's child 0 is
+    node k + 1, the last one's a leaf of value 7 (the deepest tree the
+    stack takes, at depth 23)."""
+    mask = np.zeros(depth, np.int64)
+    data = np.zeros((depth, 8), np.int64)
+    mask[:] = 1
+    mask[-1] |= 1 << 8
+    data[:-1, 0] = np.arange(1, depth)
+    data[-1, 0] = 7
+    return pack_nodes(torch.from_numpy(mask), torch.from_numpy(data))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 7, 23])
+def test_walks_match_twins_at_the_depths_the_stack_takes(cuda, depth):
+    """Modes 0-3 at depth 1, on the depth-7 terrain (the deepest scene these
+    tests build) and on a depth-23 chain (the stack's 24 rows)."""
+    if depth == 7:
+        sc, cam = minecraft_chunk_scene(depth=7)
+        sc, cam = sc.to(cuda), cam.to(cuda)
+        tables = accept_tables(sc)
+        o, d = pixel_grid_rays(cam, 96, 64)
+        o, d = o.contiguous(), d.contiguous()
+    else:
+        tables = _walk_scene("K2", cuda)[1]
+        if depth == 1:  # one node, eight leaves
+            nodes = pack_nodes(torch.tensor([0xFFFF]), torch.full((1, 8), 2))
+            o, d = _rays(5000, 2, 1, cuda)
+        else:  # rays from near the lower corner toward the chain's one-block leaf
+            nodes = _chain_octree(depth)
+            o = torch.from_numpy(np.random.default_rng(2).uniform(-4, 8, (5000, 3)).astype(np.float32)).to(cuda)
+            d = torch.nn.functional.normalize(0.5 - o, dim=-1).contiguous()
+        sc = types.SimpleNamespace(nodes=nodes.to(cuda), root=0, depth=depth, octree_scale=2.0 ** -depth)
+    for name in WALKS[:4]:
+        kernel, twin = _walk(name, sc, tables, o, d)
+        k = kernel()
+        _assert_walks_equal(k, twin())
+        assert bool(k[0].hit.any()) or bool(k[1].count.any()), name  # K3r accepts only a 4th surface
+
+
+def _outputs(res):
+    """The tensors of a walk's result: HitResult fields, quad and record."""
+    hit, rec = res
+    out = [x for x in hit[:-1]] + ([] if hit.quad is None else list(hit.quad))
+    return out + ([] if rec is None else [x for x in rec if x is not None])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WALKS)
+def test_walk_replays_from_a_cuda_graph(cuda, name):
+    """One call beyond the card's thread slots, captured once and replayed
+    three times, equals the eager call each time; the outputs are spoiled
+    before every replay, so a replay that left a ray unwalked would show."""
+    sc, tables = _walk_scene(name, cuda)
+    n = _batch("3lanes+17", cuda)
+    o, d = _rays(n, 1 << sc.depth, 7, cuda)
+    kernel = _walk(name, sc, tables, o, d)[0]
+    eager = _outputs(kernel())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture asks
+        kernel()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _outputs(kernel())
+    for _ in range(3):
+        for x in captured:
+            x.view(torch.uint8).fill_(0xA5)
+        graph.replay()
+        torch.cuda.synchronize()
+        for k, e in zip(captured, eager):
+            assert _same(k, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["31", "3lanes+17"])
+@pytest.mark.parametrize("name", WALKS)
+def test_one_traversal_call_is_one_launch(cuda, name, size):
+    """The device work of one call, as torch.profiler records it: one
+    traversal kernel and nothing else (no fill, no reduction, no memset)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sc, tables = _walk_scene(name, cuda)
+    n = _batch(size, cuda)
+    o, d = _rays(n, 1 << sc.depth, 8, cuda)
+    kernel = _walk(name, sc, tables, o, d)[0]
+    kernel()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no device activity at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernel()
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    assert len(device) == 1 and "esvo_traverse" in device[0], device
+
+
+@pytest.mark.gpu
+def test_row_gather_wraps_negative_indices(cuda):
+    """P1 and its twins take an index in [-N, -1] as index + N (jnp's
+    indexing), then clip; both single and pair, int32 and int64 indices."""
+    g = torch.Generator().manual_seed(12)
+    n_rows = 4096
+    a = torch.randint(-2**31, 2**31 - 1, (n_rows, 8), generator=g, dtype=torch.int32).to(cuda)
+    b = torch.rand((n_rows, 8), generator=g).to(cuda)
+    idx = torch.randint(-2 * n_rows, 2 * n_rows, (65536,), generator=g, dtype=torch.int64)
+    idx[:5] = torch.tensor([-1, -n_rows, -n_rows - 1, n_rows, -2 * n_rows])
+    rows = torch.where(idx < 0, idx + n_rows, idx).clamp(0, n_rows - 1).to(cuda)
+    for ix in (idx.to(cuda), idx.int().to(cuda)):
+        got = row_gather(a, ix)
+        got_a, got_b = row_gather_pair(a, b, ix)
+        torch.cuda.synchronize()
+        assert torch.equal(got, a[rows]) and torch.equal(got, row_gather_reference(a, ix))
+        assert torch.equal(got_a, a[rows]) and torch.equal(got_b.view(torch.int32), b[rows].view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
 """Traversal parity: the port's ESVO traversal (on the CPU, its plain-torch
 twin) against the JAX ``ops.traversal.traverse`` and the scalar numpy
-oracle, lane for lane.  Kernel K1 against the twin: test_torch_gpu.py.
+oracle, lane for lane; and the kernel's call path with its library replaced
+by a recorder.  Kernel K1 against the twin: test_torch_gpu.py.
 
 Gate (the repo's, test_traversal_jax.py): hit, leaf value and face id
 exact; t within rtol 1e-5 / atol 1e-6 in cube units; uv within 1e-4.
@@ -16,7 +17,8 @@ from octree_pathtracing_tpu.models import minecraft_chunk_scene as jax_chunk_sce
 from octree_pathtracing_tpu.models.camera import pixel_grid_rays as jax_pixel_grid_rays
 from octree_pathtracing_tpu.octree import build_from_dense, traverse_oracle
 from octree_pathtracing_tpu.ops import traverse as jax_traverse
-from octree_pathtracing_tpu_torch.ops.traversal import pack_nodes, traverse, traverse_reference
+from octree_pathtracing_tpu_torch.ops import traversal
+from octree_pathtracing_tpu_torch.ops.traversal import HitResult, pack_nodes, traverse, traverse_reference
 
 MAX_DIST = 1024.0
 
@@ -133,6 +135,61 @@ def test_cpu_inputs_run_the_twin_and_launch_nothing():
     np.testing.assert_array_equal(got.face_id, ref.face_id.numpy())
     empty = _port(tree, origins[:0], dirs[:0])
     assert empty.hit.shape == (0,) and empty.voxel_pos.shape == (0, 3) and int(empty.steps) == 0
+
+
+@pytest.mark.parametrize("depth", [3, "chunk5"])
+def test_steps_is_the_most_fetches_read_on_demand(depth):
+    """``HitResult.steps`` is no field the call fills: it reduces ``fetches``
+    where it is read, equals JAX's lockstep ``steps``, and is 0 on an empty
+    batch (the twin, on the CPU)."""
+    if depth == "chunk5":
+        tree, origins, dirs = _chunk_case()
+    else:
+        rng = np.random.default_rng(41)
+        tree = random_tree(rng, depth)
+        origins, dirs = random_rays(rng, 8, 128)
+    assert "steps" not in HitResult._fields
+    nodes = pack_nodes(torch.from_numpy(np.asarray(tree.child_mask).astype(np.int64)),
+                       torch.from_numpy(np.asarray(tree.child_data).astype(np.int64)))
+    args = (nodes, tree.root, tree.depth, tree.scale())
+    res = traverse(*args, torch.from_numpy(origins), torch.from_numpy(dirs), MAX_DIST)
+    want = _jax(tree, origins, dirs)
+    assert res.steps.dtype == torch.int32 and res.steps.dim() == 0
+    assert int(res.steps) == int(res.fetches.max()) == int(want.steps)
+    empty = traverse(*args, torch.from_numpy(origins[:0]), torch.from_numpy(dirs[:0]), MAX_DIST)
+    assert int(empty.steps) == 0 and empty.fetches.shape == (0,)
+
+
+@pytest.mark.parametrize("n", [0, 1, 317])
+def test_cuda_call_path_is_one_entry_point_call(monkeypatch, n):
+    """The kernel's call path with the library replaced by a recorder: one
+    entry-point call per traversal on the current stream (nothing reduced,
+    nothing filled), the launch counted once; an empty batch calls
+    nothing."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def esvo_traverse(*a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(traversal, "_library", lambda: Lib)
+    monkeypatch.setattr(traversal, "on_current_stream", lambda fn, card, *a: fn(*a, "stream"))
+    rng = np.random.default_rng(n)
+    tree = random_tree(rng, 3)
+    origins, dirs = random_rays(rng, 8, n)
+    nodes = pack_nodes(torch.from_numpy(tree.child_mask.astype(np.int64)),
+                       torch.from_numpy(tree.child_data.astype(np.int64)))
+    before = traverse.launches
+    res, rec = traversal._traverse_cuda(traverse, 0, nodes, tree.root, tree.depth, tree.scale(),
+                                        torch.from_numpy(origins), torch.from_numpy(dirs), MAX_DIST, None, None)
+    assert rec is None and res.hit.shape == (n,) and res.fetches.shape == (n,)
+    assert len(calls) == (1 if n else 0) and traverse.launches == before + (1 if n else 0)
+    if n:
+        a = calls[0]
+        assert a[-1] == "stream" and a[9] == n  # the ray count, after the head's nine values
+        assert a[10:] == tuple(x.data_ptr() for x in res[:8]) + ("stream",)  # the outputs, fetches last
 
 
 def test_pack_nodes_layout():
