@@ -15,8 +15,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (``csrc/traversal.cu``: K1, K2 alpha accept, K3r recording walk, K3s
    shadow walk, and K2q, their block-model variant), K7
    (``csrc/prims.cu``, the analytic-primitive scan), K8 (``csrc/bvh.cu``,
-   the BVH walk over quads), P2 (``csrc/uniforms.cu``, Philox uniforms) and
-   P1 (``csrc/gather.cu``, row gather); and, beside them, the C++ region
+   the BVH walk over quads), P2 (``csrc/uniforms.cu``, Philox uniforms),
+   P1 (``csrc/gather.cu``, row gather) and K4 (``csrc/shade.cu``, hit
+   resolve and shade, forward and backward); and, beside them, the C++ region
    parser with g++ (host code: where it does not build, the numpy parser
    reads regions, as in the JAX package, and the line says why); ptxas's
    report of every kernel (registers, stack frame, spills) and the
@@ -55,6 +56,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and payload bit for bit, by call and on the device, its bound counted
      from the twin's walk; then K8's main path, one
      ``bvh_intersect_quads`` call through the entry point.
+   - K4's forward and backward on the lanes of each bounce of one headline
+     frame (the 65,536 primaries, then bounces 2-5's live sub-batches):
+     every output and the residual within rtol 1e-5 / atol 1e-6 of the
+     twin on all but 0.1% of the lanes (the lanes not bit-equal counted
+     field by field), the backward (on the kernel's forward outputs) within
+     rtol 1e-5 / atol 1e-7 of the backward twin; by call and on the device.
    Every traversal row carries the max, p50 and p99 of its per-ray fetch
    counts (whether its longest walk sets the call).  Every traversal result
    must equal its twin's on every lane and field bit for bit: hit, t, face,
@@ -82,10 +89,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    HIGH_QUALITY); per-lane rtol and atol 2e-3, at most 0.1% of the lanes
    outside;
 5. timing of the forward frame (256x256, 5 bounces, median of 5 after a
-   warm-up), with nominal and live rays per second;
+   warm-up), with nominal and live rays per second, and its launches
+   (torch.profiler's device activities) through K4's kernels and through
+   its eager twin;
 6. bench.py's fwd+bwd step (``jax.grad`` of the mean radiance into atlas and
    emittance, bench.py:61-71) on the depth-9 terrain at 256x256 and
-   5 bounces: median of 5 after a warm-up, rays/s, peak memory; and the
+   5 bounces: median of 5 after a warm-up, rays/s, peak memory, its
+   launches as phase 5's; and the
    gradient through the kernels against the gradient through the twins at
    64x64, per element within rtol 1e-5 / atol 1e-7 (the backward of the
    atlas gather accumulates in an order the card does not fix);
@@ -124,7 +134,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 The launch counts of the main paths (phases 3, 3b, 3c, 6, 6b, 6c, 7, 8 and
 K8's walk in phase 2) are
 set to 0 just before each path and read just after; the kernels'
-comparisons with their twins do not count.  The script names only the port; jax and the JAX
+comparisons with their twins do not count.  Every path must have launched
+K4's forward, and its backward where a gradient is taken, and no path may
+run a twin (the twins' entry points are counted, K4's too).  The script names only the port; jax and the JAX
 package are blocked before anything is imported.
 
 The last line of standard output is
@@ -183,6 +195,27 @@ PHILOX_OPS_PER_BLOCK = 112  # 10 rounds of 2 mul-hi/lo pairs, 4 xor, 2 key adds;
 BVH_RAY_BYTES = 24 + 9
 BVH_NODE_BYTES = 32
 OPS_PER_BOX = 30  # 6 subtractions, 6 multiplications, 12 min / max, 3 compares
+# K4, per lane: the state (origin, dir, throughput, radiance, active,
+# specular, medium) and the hit (hit, t, face, uv, leaf) in, the quad
+# surface and the primitive hit where the scene has them; the state, the
+# hand-off (albedo, hit point, normal, material, diffuse mask) and, with a
+# gradient, the 24-byte residual out; the uniform words each lane reads
+# (shade_bound); per distinct texel read 16 B, per distinct material row
+# 28 B (7 columns)
+SHADE_STATE_BYTES = 12 * 4 + 1 + 1 + 4
+SHADE_IN_BYTES = SHADE_STATE_BYTES + 1 + 4 + 4 + 8 + 4
+SHADE_OUT_BYTES = SHADE_STATE_BYTES + 16 + 12 + 12 + 4 + 1
+SHADE_RESID_BYTES = 24
+SHADE_QUAD_BYTES = SHADE_PRIM_BYTES = 1 + 4 + 8 + 12 + 4
+SHADE_MAT_ROW_BYTES = 7 * 4
+# K4's arithmetic per lane by what the lane does: resolve, texel and lobe
+# choice; the sky and sun disk on a miss; a diffuse sample, and the sun
+# importance warp (cap, remap, segment, redraws) where it is on; a specular
+# or refracted direction
+OPS_SHADE_LANE, OPS_SHADE_SKY, OPS_SHADE_DIFFUSE, OPS_SHADE_IMPORTANCE, OPS_SHADE_SPECULAR = 40, 40, 60, 200, 80
+# the backward: ~40 operations per lane; its bytes, by the pointers a call
+# passes and the lanes that need them, in shade_backward_bound
+OPS_SHADE_BWD = 40
 # the synthesized survival region: 32 x 32 chunks, sections -4..19
 WORLD_SEED, WORLD_CHUNKS = 2024, 32
 WORLD_BLOCKS = ("air", "bedrock", "stone", "coal_ore", "iron_ore", "dirt", "grass_block", "sand", "water",
@@ -209,6 +242,10 @@ KERNELS = {
                         "octree_pathtracing_tpu/models/prims.py:71"),
     "bvh_intersect": ("octree_pathtracing_tpu_torch/csrc/bvh.cu",
                       "octree_pathtracing_tpu/ops/bvh.py:99"),
+    "shade": ("octree_pathtracing_tpu_torch/csrc/shade.cu",
+              "octree_pathtracing_tpu/render/pathtracer.py:1294"),
+    "shade_backward": ("octree_pathtracing_tpu_torch/csrc/shade.cu",
+                       "octree_pathtracing_tpu/render/pathtracer.py:804"),
 }
 # the block-model and primitive lines at bench.py's shapes: (name, scene, sun)
 MODEL_CELLS = (("plant", "plant", "high_quality"), ("analytic", "analytic", "importance"),
@@ -451,6 +488,82 @@ def compare_hits(k, r, label: str, k_rec=None, r_rec=None, exact: bool = False) 
     return err
 
 
+def shade_bound(call, out, resid, grad: bool):
+    """K4's forward bound on one call: its lanes' inputs and outputs, the
+    uniform words each lane reads, the distinct texels and material rows it
+    read (from the kernel's residual), against its arithmetic by what each
+    lane did (the residual's lane code).  A lane that does not scatter (a
+    miss, the last bounce) reads no uniform; one that does reads those of
+    its lobe choice (metal, specular, diffuse, in turn), the Fresnel draw
+    where it refracts, and the direction pair of a diffuse or a rough
+    specular lobe.  The importance warp's draw and redraws are not counted
+    (they depend on the sun's cap): the bound stays a lower one."""
+    import torch
+
+    from octree_pathtracing_tpu_torch.ops.shading import EPSILON, U_METAL, U_SPECULAR
+
+    scene, st, u = call[0], call[1], call[2]
+    lanes = int(st["throughput"].shape[0])
+    per_lane = SHADE_IN_BYTES + SHADE_OUT_BYTES + (SHADE_RESID_BYTES if grad else 0)
+    per_lane += (SHADE_QUAD_BYTES if scene.has_quad_models else 0) + (SHADE_PRIM_BYTES if call[4] is not None else 0)
+    texels, mats, code = resid.ints.unbind(-1)
+    m, ml = scene.materials, mats.long()
+    scat = out.state["active"]
+    lobe = code >> 2
+    metal, spec = m.metalness[ml], m.specular[ml]
+    do_metal = (metal > EPSILON) & (u[:, U_METAL] < metal)
+    asks_spec = ~do_metal & (spec > EPSILON)
+    do_spec = asks_spec & (u[:, U_SPECULAR] < spec)
+    asks_diff = ~do_metal & ~do_spec
+    do_diff = lobe == 2
+    do_refr = asks_diff & ~do_diff & ((m.ior[ml] - m.ior[st["cur_mat"].long()]).abs() >= EPSILON)
+    rough_dir = (do_metal | (lobe == 0)) & (m.roughness[ml] > EPSILON)
+    words = ((metal > EPSILON).int() + asks_spec.int() + asks_diff.int() + do_refr.int()
+             + 2 * (do_diff | rough_dir).int())
+    u_words = int(torch.where(scat, words, 0).sum())
+    n_bytes = (lanes * per_lane + 4 * u_words + int(texels.unique().numel()) * 16
+               + int(mats.unique().numel()) * SHADE_MAT_ROW_BYTES)
+    miss, lobe = int((code & 1).sum()), code >> 2
+    diffuse = int((lobe == 2).sum())
+    specular = lanes - miss - diffuse
+    importance = OPS_SHADE_IMPORTANCE if scene.sun_sampling.importance_sampling else 0
+    n_ops = (lanes * OPS_SHADE_LANE + miss * OPS_SHADE_SKY + diffuse * (OPS_SHADE_DIFFUSE + importance)
+             + specular * OPS_SHADE_SPECULAR)
+    return bound(n_bytes, n_ops) + (u_words,)
+
+
+def shade_backward_bound(args):
+    """K4's backward bound on one call's arguments (those of
+    ``ops/shade._backward_cuda``), by the pointers the call passes and the
+    lanes that need them: every lane's residual words; the albedo and the
+    incoming throughput where a throughput cotangent comes, else on the
+    emitting lanes; each cotangent given; the diffuse weight of a diffuse
+    lane and the sky colour of a miss; the throughput gradient out where
+    it is wanted; the emittance of the emitting lanes' materials; and the
+    atlas and emittance gradients, dense outputs, written once."""
+    albedo, throughput, resid, emittance, atlas_shape, g_tp, g_rad, g_alb, need = args
+    lanes = int(resid.ints.shape[0])
+    _, mats, code = resid.ints.unbind(-1)
+    miss, emit_on, lobe = (code & 1) != 0, (code & 2) != 0, code >> 2
+    n_emit, n_miss, n_diff = int(emit_on.sum()), int(miss.sum()), int((lobe == 2).sum())
+    n_bytes = lanes * 12  # texel, material, lane code
+    n_bytes += (lanes if g_tp is not None else n_emit if g_rad is not None else 0) * (16 + 12)
+    if g_tp is not None:
+        n_bytes += lanes * 12 + n_diff * 4
+    if g_rad is not None:  # read where it reaches the throughput's gradient or the emission
+        n_bytes += (int((miss | emit_on).sum()) if need[0] else n_emit) * 12 + (n_miss * 12 if need[0] else 0)
+        n_bytes += int(mats[emit_on].unique().numel()) * 4
+    if g_alb is not None:
+        n_bytes += lanes * 16
+    if need[0]:
+        n_bytes += lanes * 12
+    if need[2]:
+        n_bytes += atlas_shape[0] * atlas_shape[1] * atlas_shape[2] * 16
+    if need[3]:
+        n_bytes += emittance.numel() * 4
+    return bound(n_bytes, lanes * OPS_SHADE_BWD)
+
+
 def prim_bound(prims, lanes: int):
     """K7's bound: each ray in and out once, the tables once, against the
     arithmetic of every sphere and quad test."""
@@ -491,6 +604,7 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.models.emitters import sample_emitter_point, with_emitter_sampling
     from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
     from octree_pathtracing_tpu_torch.ops import bvh as bvh_mod
+    from octree_pathtracing_tpu_torch.ops import shade as shade_mod
     from octree_pathtracing_tpu_torch.ops import gather
     from octree_pathtracing_tpu_torch.ops.bvh import (
         BVH,
@@ -524,7 +638,18 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.parallel import apply_params
     from octree_pathtracing_tpu_torch.render import Renderer, pathtracer, renderer, trace_paths, trace_paths_census
     from octree_pathtracing_tpu_torch.render.hit import accept_tables, resolve_hit
-    from octree_pathtracing_tpu_torch.utils.timing import both, bounce_rays, call_ms, card_line, device_ms, fetch_stats
+    from octree_pathtracing_tpu_torch.utils.timing import (
+        both,
+        bounce_rays,
+        call_ms,
+        card_line,
+        device_ms,
+        fetch_stats,
+        check_shade,
+        profile_launches,
+        shade_calls,
+        shade_gradients,
+    )
 
     # each kernel's launch count, as its wrapper keeps it (K2q's three modes
     # count apart from K2, K3r and K3s in ``model_launches``)
@@ -538,11 +663,13 @@ def main() -> int:
         "esvo_traverse_models (mode 3)": (traverse_shadow, "model_launches"),
         "prims_intersect": (intersect_prims, "launches"),
         "bvh_intersect": (bvh_intersect_quads, "launches"),
+        "shade": (shade_mod.shade, "launches"), "shade_backward": (shade_mod.shade, "backward_launches"),
     }
     # the twins' own entry points, counted so that a main path can show it ran none
-    twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0}
+    twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0, "K4 backward twin": 0}
     real_walk, real_prims_twin = traversal._walk_reference, prims_mod.intersect_prims_reference
     real_bvh_twin = bvh_mod.bvh_intersect_reference
+    real_shade_twin, real_shade_bwd_twin = shade_mod.shade_reference, shade_mod.shade_backward_reference
 
     def counting_walk(*a, **kw):
         twin_calls["traversal twin"] += 1
@@ -556,9 +683,19 @@ def main() -> int:
         twin_calls["K8 twin"] += 1
         return real_bvh_twin(*a, **kw)
 
+    def counting_shade_twin(*a, **kw):
+        twin_calls["K4 twin"] += 1
+        return real_shade_twin(*a, **kw)
+
+    def counting_shade_bwd_twin(*a, **kw):
+        twin_calls["K4 backward twin"] += 1
+        return real_shade_bwd_twin(*a, **kw)
+
     traversal._walk_reference = counting_walk
     prims_mod.intersect_prims_reference = counting_prims_twin
     bvh_mod.bvh_intersect_reference = counting_bvh_twin
+    shade_mod.shade_reference = counting_shade_twin
+    shade_mod.shade_backward_reference = counting_shade_bwd_twin
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -567,9 +704,17 @@ def main() -> int:
             twin_calls[name] = 0
 
     @contextlib.contextmanager
+    def k4_twins():
+        """K4's kernels replaced by its twins, on the card: the eager shading
+        that the main paths ran before K4 had kernels."""
+        with mock.patch.object(shade_mod, "_forward_cuda", lambda call, want_grad: shade_mod.shade_reference(*call)), \
+                mock.patch.object(shade_mod, "_backward_cuda", lambda *a: shade_mod.shade_backward_reference(*a)):
+            yield
+
+    @contextlib.contextmanager
     def twins():
         """Every kernel's wrapper replaced by its twin where the paths call it."""
-        with mock.patch.object(pathtracer, "traverse", traverse_reference), \
+        with k4_twins(), mock.patch.object(pathtracer, "traverse", traverse_reference), \
                 mock.patch.object(pathtracer, "traverse_alpha", traverse_alpha_reference), \
                 mock.patch.object(pathtracer, "traverse_shadow", traverse_shadow_reference), \
                 mock.patch.object(pathtracer, "intersect_prims", intersect_prims_reference), \
@@ -646,7 +791,8 @@ def main() -> int:
 
     threads = [threading.Thread(target=build, args=a)
                for a in (("traversal", traversal._library), ("uniforms", prandom._library),
-                         ("gather", gather._library), ("prims", prims_mod._library), ("bvh", bvh_mod._library))]
+                         ("gather", gather._library), ("prims", prims_mod._library), ("bvh", bvh_mod._library),
+                         ("shade", shade_mod._library))]
     threads.append(threading.Thread(target=build_native))
     for th in threads:
         th.start()
@@ -654,7 +800,7 @@ def main() -> int:
         th.join()
     if errors:
         raise errors[0]
-    log(f"phase 1 build: the five libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
+    log(f"phase 1 build: the six libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
         f"parser {native_build['result']}")
     for name, lib in builds.items():
         info = lib.build_info
@@ -738,6 +884,50 @@ def main() -> int:
             f"({b_bound[2]} node rows; per ray {fetch_stats(b_res.fetches)}) on the {bo.shape[0]} live rays of "
             f"headline bounce {k} [{card}]")
     results["esvo_traverse"]["headline_bounces"] = bounces
+
+    # K4 forward and backward on the headline's lanes: bounce 1's 65,536,
+    # then bounces 2-5's live sub-batches (phase 5's uniforms); the backward
+    # with the cotangents that a real fwd+bwd of the same frame hands each
+    # bounce (bench.py's mean-radiance loss, the atlas and the emittance
+    # taking gradient)
+    k4_rows = {"shade": {}, "shade_backward": {}}
+    k4_grads = shade_gradients(pathtracer, scene, prim[4], prim[5], frame_u)
+    k4_calls = shade_calls(pathtracer, scene, prim[4], prim[5], frame_u)
+    if len(k4_grads) != len(k4_calls):
+        raise AssertionError(f"K4: {len(k4_calls)} forward calls but {len(k4_grads)} backward calls in one frame")
+    for k, (rec, grad_args) in enumerate(zip(k4_calls, k4_grads), start=1):
+        sc_k, st_k, u_k, res_k, is_first, may_scatter = rec
+        call = (sc_k, st_k, u_k, res_k, None, is_first, may_scatter)
+        lanes = int(st_k["throughput"].shape[0])
+        cot, need = grad_args[5:8], grad_args[8]
+        chk = check_shade(call, cot, need, f"headline bounce {k}")
+        k_out, k_res, bwd_args = chk["out"], chk["resid"], chk["backward_args"]
+        if not torch.equal(grad_args[2].ints, k_res.ints):  # the cotangents belong to these lanes
+            raise AssertionError(f"K4: the fwd+bwd's bounce {k} shaded other lanes than the forward's")
+        log(f"  K4 headline bounce {k}: {lanes} lanes; lanes not bit-equal per field {chk['differ']}; outside "
+            f"rtol 1e-5 / atol 1e-6: {chk['outside']}; forward max abs err {chk['forward_err']!r}; backward "
+            f"cotangents {[g is not None for g in cot]} (throughput, radiance, albedo), gradients wanted "
+            f"{list(need)}, max abs err {chk['backward_err']!r}")
+        f_t = both(lambda: shade_mod.shade(*call))
+        f_bound = shade_bound(call, k_out, k_res, grad=False)
+        b_t = both(lambda: shade_mod._backward_cuda(*bwd_args))
+        b_bound = shade_backward_bound(bwd_args)
+        rows = {"shade": dict(lanes=lanes, max_abs_err=chk["forward_err"], ms=f_t["call_ms"],
+                              device_ms=f_t["device_ms"], plain_ms=call_ms(lambda: real_shade_twin(*call), 5),
+                              bound_ms=f_bound[0], bound_by=f_bound[1], uniform_words=f_bound[2]),
+                "shade_backward": dict(lanes=lanes, max_abs_err=chk["backward_err"], ms=b_t["call_ms"],
+                                       device_ms=b_t["device_ms"],
+                                       plain_ms=call_ms(lambda: real_shade_bwd_twin(*bwd_args), 5),
+                                       bound_ms=b_bound[0], bound_by=b_bound[1],
+                                       cotangents=[g is not None for g in cot])}
+        for name, row in rows.items():
+            k4_rows[name][f"bounce {k}"] = row
+            log(f"  {name} call {row['ms']!r} ms, device {row['device_ms']!r} ms "
+                f"({(f_t if name == 'shade' else b_t)['device_by']}), twin {row['plain_ms']!r} ms, bound "
+                f"{row['bound_ms']!r} ms ({row['bound_by']}) on the {lanes} lanes of headline bounce {k} [{card}]")
+    for name, rows in k4_rows.items():  # the row of bounce 1 (the 256^2 primaries), the others beside it
+        results[name] = dict(rows["bounce 1"], max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                             headline_bounces={b: r for b, r in rows.items() if b != "bounce 1"})
     del frame_u
 
     # P2 on the bench's uniform block and on ragged sizes, bit for bit: one
@@ -1109,7 +1299,7 @@ def main() -> int:
         while r.step():
             torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    read_counts("the Renderer", ("esvo_traverse", "philox_uniforms"))
+    read_counts("the Renderer", ("esvo_traverse", "philox_uniforms", "shade"))
     frame = r.framebuffer
     log(f"  passes {passes}; spp {r.spp}; {render_s:.2f} s")
     if r.spp != 20 or {p[0] for p in passes} != {"render_pass", "render_pass_branched"}:
@@ -1139,7 +1329,7 @@ def main() -> int:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     read_counts("cli render --sun high_quality --emitter-sampling one",
-                ("esvo_traverse_alpha", "esvo_traverse_shadow", "row_gather", "philox_uniforms"))
+                ("esvo_traverse_alpha", "esvo_traverse_shadow", "row_gather", "philox_uniforms", "shade"))
     log(f"  spatial emitter picks {sum(picks)}, P1 launches {row_gather.launches} (one per pick)")
     if row_gather.launches != sum(picks):
         raise AssertionError(f"P1 launched {row_gather.launches} times for {sum(picks)} spatial picks")
@@ -1161,7 +1351,7 @@ def main() -> int:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     read_counts("cli render --scene plant --sun high_quality",
-                ("esvo_traverse_models (mode 1)", "esvo_traverse_models (mode 3)", "philox_uniforms"))
+                ("esvo_traverse_models (mode 1)", "esvo_traverse_models (mode 3)", "philox_uniforms", "shade"))
     frame = r.framebuffer
     if r.spp != 20 or not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
         raise AssertionError("the plant frame is not finite with a positive mean at 20 spp")
@@ -1207,6 +1397,22 @@ def main() -> int:
     log(f"  rays_live {rays_live} live_per_bounce {live.tolist()} "
         f"rays_per_s_live {rays_live / (frame_ms / 1e3)!r} [{card}]")
 
+    def frame_launches(fn):
+        """The device activities of one call of ``fn``, through K4's kernels
+        and through its eager twin (the shading the main path ran before)."""
+        def synced():
+            fn()
+            torch.cuda.synchronize()
+
+        kernel = profile_launches(synced)
+        with k4_twins():
+            twin = profile_launches(synced)
+        return kernel, twin
+
+    k_launch, t_launch = frame_launches(lambda: trace_paths(scene, fo, fd, fu))
+    log(f"  launches per headline forward frame (torch.profiler): {k_launch} through K4's kernels, {t_launch} "
+        f"through K4's eager twin (the parent's shading) [{card}]")
+
     # ---- 6. bench.py's fwd+bwd step
     log(f"phase 6 fwd+bwd (bench.py:61-71) [{card}]")
 
@@ -1227,7 +1433,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if i:  # the first run is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
-    read_counts("the fwd+bwd step", ("esvo_traverse",))
+    read_counts("the fwd+bwd step", ("esvo_traverse", "shade", "shade_backward"))
     fwdbwd_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated(dev)
     if not (bool(torch.isfinite(g_atlas).all()) and bool(torch.isfinite(g_emit).all())
@@ -1238,10 +1444,13 @@ def main() -> int:
     log(f"  rays_per_s_fwdbwd_nominal {rays_nominal / (fwdbwd_ms / 1e3)!r} "
         f"rays_per_s_fwdbwd_live {rays_live / (fwdbwd_ms / 1e3)!r} [{card}]")
     log(f"  max_memory_allocated {peak} bytes ({peak / 2**20:.1f} MiB) [{card}]")
+    k_launch, t_launch = frame_launches(lambda: fwdbwd(scene, fo, fd, fu))
+    log(f"  launches per headline fwd+bwd step (torch.profiler): {k_launch} through K4's kernels, {t_launch} "
+        f"through K4's eager twins (the parent's shading) [{card}]")
 
     po, pd = pixel_grid_rays(cam, w, h)
     got = fwdbwd(scene, po, pd, u)
-    with mock.patch.object(pathtracer, "traverse", traverse_reference):
+    with k4_twins(), mock.patch.object(pathtracer, "traverse", traverse_reference):
         want = fwdbwd(scene, po, pd, u)
     for name, g, wg in zip(("loss", "atlas", "emittance"), got, want):
         torch.testing.assert_close(g, wg, rtol=1e-5, atol=1e-7, msg=lambda m, name=name: f"{name}: {m}")
@@ -1273,7 +1482,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if i:  # the first run is the warm-up
                     times.append((time.perf_counter() - t0) * 1e3)
-            read_counts(f"the {name} line, {step}", required)
+            read_counts(f"the {name} line, {step}",
+                        required + ("shade",) + (("shade_backward",) if step == "fwd+bwd" else ()))
             if step == "fwd+bwd" and not all(bool(torch.isfinite(x).all()) for x in out):
                 raise AssertionError(f"the {name} line's loss or gradients are not finite")
             ms = statistics.median(times)
@@ -1307,7 +1517,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if i:  # the first run is the warm-up
                     times.append((time.perf_counter() - t0) * 1e3)
-            read_counts(f"the {name} line, {step}", required)
+            read_counts(f"the {name} line, {step}",
+                        required + ("shade",) + (("shade_backward",) if step == "fwd+bwd" else ()))
             finite = torch.isfinite(out).all() if step == "forward" else all(torch.isfinite(x).all() for x in out)
             if not bool(finite):
                 raise AssertionError(f"the {name} line's {step} is not finite")
@@ -1337,7 +1548,7 @@ def main() -> int:
         res = parsed.fn(parsed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        read_counts(f"cli train --scene {scene_name}", required)
+        read_counts(f"cli train --scene {scene_name}", required + ("shade", "shade_backward"))
         saved = load_arrays(out)
         if not all(np.isfinite(res.losses)) or len(res.losses) != steps:
             raise AssertionError(f"training losses not finite: {res.losses}")
@@ -1395,7 +1606,7 @@ def main() -> int:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     read_counts("cli render --world --sun high_quality --emitter-sampling one",
-                (bounce_kernel, sun_kernel, "row_gather", "philox_uniforms"))
+                (bounce_kernel, sun_kernel, "row_gather", "philox_uniforms", "shade"))
     frame = r.framebuffer
     if r.spp != 20 or not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
         raise AssertionError("the world frame is not finite with a positive mean at 20 spp")
@@ -1437,7 +1648,8 @@ def main() -> int:
             torch.cuda.synchronize()
             if i:  # the first run is the warm-up
                 times.append((time.perf_counter() - t0) * 1e3)
-        read_counts(f"the world line, {step}", (bounce_kernel, sun_kernel, "row_gather"))
+        read_counts(f"the world line, {step}", (bounce_kernel, sun_kernel, "row_gather", "shade")
+                    + (("shade_backward",) if step == "fwd+bwd" else ()))
         finite = torch.isfinite(out).all() if step == "forward" else all(torch.isfinite(x).all() for x in out)
         if not bool(finite):
             raise AssertionError(f"the world line's {step} is not finite")
@@ -1459,7 +1671,7 @@ def main() -> int:
     res = parsed.fn(parsed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    read_counts("cli train --world", (bounce_kernel, "esvo_traverse_record", "philox_uniforms"))
+    read_counts("cli train --world", (bounce_kernel, "esvo_traverse_record", "philox_uniforms", "shade", "shade_backward"))
     if not all(np.isfinite(res.losses)) or len(res.losses) != 2 or not np.isfinite(load_arrays(out)["atlas"]).all():
         raise AssertionError(f"world training failed: losses {res.losses}")
     log(f"  losses {res.losses}; wall s per step {res.step_seconds}; whole command {wall:.2f} s with the scene "

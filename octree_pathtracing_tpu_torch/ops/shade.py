@@ -1,0 +1,646 @@
+"""Kernel K4, hit resolve and shade: one bounce's base shading of a lane
+batch, forward and backward (port of ``render/pathtracer.py`` ``_shade``
+without its next-event estimates, ``lobe_scatter`` and ``sky_radiance``,
+``render/hit.resolve_hit`` and the shading pieces they call).
+
+Per lane: the hit's material, uv, normal and t (the leaf's material, a
+block model's face material, a quad model's quad, or the nearer analytic
+primitive), the material row and the nearest texel, the sky and sun on a
+miss, one lobe's scatter (metal, specular, diffuse with the sun-importance
+warp, refraction with Fresnel and total internal reflection, or
+transmission), emission, and the masked update of the seven state fields.
+Besides the new state it hands the next-event code the lane's albedo, hit
+point, normal, material and whether the lane scattered diffusely.
+
+Only the throughput, the radiance and the albedo carry gradient; the
+gradient reaches the atlas texel each lane read and the hit material's
+emittance.  :func:`shade` launches the forward kernel of
+``csrc/shade.cu`` on CUDA tensors, and its backward kernel when the
+gradient is taken; on CPU tensors it runs the plain-torch twins
+:func:`shade_reference` and :func:`shade_backward_reference`.  There is no
+fallback from one to the other.
+
+The forward leaves a residual for the backward (24 bytes per lane): the
+linear index of the texel read, the hit material and a lane code (miss,
+emission on, the lobe that multiplied the throughput), and three floats
+(the sky colour on a miss, the diffuse weight on a diffuse bounce); the
+backward also reads the albedo and the incoming throughput.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..models.materials import FLAG_REFRACTIVE, gather_rows
+from ..models.scene import EmitterSampling, Scene, face_normals
+from ..models.sun import add_sun_color, add_sun_color_diffuse, sky_color
+from ..utils.cuda_build import on_current_stream
+from .geometry import fma
+from .shading import (
+    EPSILON,
+    N_UNIFORMS,
+    OFFSET,
+    U_DIFFUSE,
+    U_FRESNEL,
+    U_METAL,
+    U_SPECULAR,
+    diffuse_dir_and_weight,
+    fresnel_schlick,
+    refract_dir,
+    specular_reflect_dir,
+)
+from .texture import Atlas, sample_atlas, texel_index
+
+# the lane code of the residual: bit 0 a miss, bit 1 emission added, bits
+# 2-3 the lobe whose multiplier the throughput took
+CODE_MISS, CODE_EMIT = 1, 2
+LOBE_SHIFT = 2
+LOBE_NONE, LOBE_METAL, LOBE_DIFFUSE, LOBE_ENTERS = 0, 1, 2, 3
+STATE_KEYS = ("origin", "dir", "throughput", "radiance", "active", "specular", "cur_mat")
+# the material columns and the sun's fields that the forward kernel reads
+MATERIAL_FIELDS = ("ior", "specular", "emittance", "roughness", "metalness", "flags", "texture_index")
+SUN_FIELDS = ("azimuth", "altitude", "radius", "color", "luminosity", "importance_sample_chance",
+              "importance_sample_radius", "sw", "su", "sv", "apparent_texture_brightness")
+
+
+class Shaded(NamedTuple):
+    """One bounce's shading: the new state (``STATE_KEYS``) and the
+    hand-off to the next-event code."""
+
+    state: dict  # the seven state fields after the bounce
+    albedo: torch.Tensor  # (B, 4) the texel of the hit material at the hit uv
+    hitpoint: torch.Tensor  # (B, 3) origin + t dir, rounded once
+    normal: torch.Tensor  # (B, 3) the hit's normal
+    mat: torch.Tensor  # (B,) int32 the hit's material
+    diffuse_on: torch.Tensor  # (B,) bool: the lane scatters diffusely this bounce
+
+
+class ShadeResidual(NamedTuple):
+    """What the backward reads besides the albedo and the incoming
+    throughput: ``ints`` (B, 3) int32 (texel index, material, lane code) and
+    ``floats`` (B, 3) (the sky colour on a miss; the diffuse weight, 0, 0
+    on a diffuse bounce; zeros otherwise)."""
+
+    ints: torch.Tensor
+    floats: torch.Tensor
+
+
+def _leaf_mat(scene: Scene, leaf_value):
+    n = scene.leaf_material.shape[0]
+    return scene.leaf_material[torch.clamp(leaf_value.long(), 0, n - 1)]
+
+
+def _leaf_model(scene: Scene, leaf_value):
+    lm = scene.models.leaf_model
+    return lm[torch.clamp(leaf_value.long(), 0, lm.shape[0] - 1)].long()
+
+
+def resolve_hit(scene: Scene, origins, dirs, res):
+    """Final hit attributes: (mat (B,), uv (B, 2), normal (B, 3), t (B,)).
+    A quad-model hit takes the quad's material, uv, normal and t from
+    ``res.quad``; any other hit the entry face's."""
+    normals = face_normals(res.face_id.device)
+    base_normal = normals[torch.clamp(res.face_id.long(), 0, 5)]
+    if scene.models is None:
+        return _leaf_mat(scene, res.leaf_value), res.uv, base_normal, res.t
+    model = _leaf_model(scene, res.leaf_value)
+    mat = scene.models.face_material[model, torch.clamp(res.face_id.long(), 0, 5)]
+    if not scene.has_quad_models:
+        return mat, res.uv, base_normal, res.t
+    q = res.quad
+    if q is None:
+        raise ValueError("resolve_hit: a scene with quad models needs the accepting traversal's quad surfaces")
+    use_q = q.found
+    return (
+        torch.where(use_q, q.mat, mat),
+        torch.where(use_q[:, None], q.uv, res.uv),
+        torch.where(use_q[:, None], q.normal, base_normal),
+        torch.where(use_q, q.t, res.t),
+    )
+
+
+def sky_radiance(scene: Scene, dirs, bounce0_mask, specular_mask):
+    """Sky + sun colour for miss rays, (B, 3)."""
+    sky = sky_color((dirs.shape[0],), dirs.device)
+    sky_specular = add_sun_color(scene.sun, dirs, sky)[:, :3]
+    if scene.sun_sampling.diffuse_sun:
+        sky_diffuse = add_sun_color_diffuse(scene.sun, dirs, sky)[:, :3]
+    else:
+        sky_diffuse = sky[:, :3]
+    return torch.where((bounce0_mask | specular_mask)[:, None], sky_specular, sky_diffuse)
+
+
+def emission_counts(scene: Scene, is_first: bool) -> bool:
+    """Whether emission found by BSDF sampling counts on this bounce: with
+    emitter sampling on, the lights' direct light comes from NEE after the
+    primary bounce."""
+    return scene.emitters_enabled and (scene.emitter_sampling == EmitterSampling.NONE or is_first)
+
+
+def lobe_scatter(scene: Scene, u, d_in, n, albedo, mrow, cur_mat, is_first: bool):
+    """Single-lobe scatter decision + outgoing ray for a resolved hit, whose
+    material row ``mrow`` comes from ``gather_rows``.  ``is_first``: the
+    primary bounce, the only one on which emission found by BSDF sampling
+    counts while emitter sampling is on.
+
+    Returns a dict: new_dir (B, 3), tp_mult (B, 3) throughput multiplier,
+    enters (B,) lane enters the hit material, clears_specular (B,),
+    emit_rgb (B, 3) emitted radiance (pre-throughput, lobe-masked), do_diff,
+    do_metal, diff_w (B,) the diffuse lobe's weight."""
+    m = scene.materials
+    alpha = albedo[:, 3]
+    metal = mrow["metalness"]
+    spec = mrow["specular"]
+    emit = mrow["emittance"]
+    ior1 = mrow["ior"]
+    ior2 = m.ior[cur_mat.long()]
+
+    do_metal = (metal > EPSILON) & (u[:, U_METAL] < metal)
+    do_spec = ~do_metal & (spec > EPSILON) & (u[:, U_SPECULAR] < spec)
+    do_diff = ~do_metal & ~do_spec & (u[:, U_DIFFUSE] < alpha)
+    do_refr = ~do_metal & ~do_spec & ~do_diff & (torch.abs(ior1 - ior2) >= EPSILON)
+    do_trans = ~do_metal & ~do_spec & ~do_diff & ~do_refr
+
+    emit_when = do_diff if emission_counts(scene, is_first) else torch.zeros_like(do_diff)
+    emit_cond = emit_when & (emit > EPSILON)
+    emit_rgb = torch.where(
+        emit_cond[:, None], albedo[:, :3] * albedo[:, :3] * emit[:, None], 0.0
+    )
+
+    diff_dir, diff_w = diffuse_dir_and_weight(
+        n, scene.sun, u, scene.sun_sampling.importance_sampling
+    )
+    spec_dir = specular_reflect_dir(d_in, n, mrow["roughness"], u)
+
+    refractive = (mrow["flags"] & FLAG_REFRACTIVE) != 0
+    ratio = ior1 / ior2
+    cos_theta = -torch.sum(d_in * n, dim=-1)
+    radicand = 1.0 - ratio * ratio * (1.0 - cos_theta * cos_theta)
+    tir = refractive & (radicand < EPSILON)
+    refl_p = fresnel_schlick(ior1, ior2, cos_theta)
+    refr_reflect = do_refr & (tir | (u[:, U_FRESNEL] < refl_p))
+    refr_refract = do_refr & ~refr_reflect & refractive
+    refr_pass = do_refr & ~refr_reflect & ~refractive
+    refracted = refract_dir(d_in, n, ratio, cos_theta, radicand)
+
+    new_dir = torch.where((do_metal | do_spec | refr_reflect)[:, None], spec_dir, d_in)
+    new_dir = torch.where(do_diff[:, None], diff_dir, new_dir)
+    new_dir = torch.where(refr_refract[:, None], refracted, new_dir)
+
+    rgb = albedo[:, :3]
+    enters = refr_refract | refr_pass | do_trans
+    tp_mult = torch.ones_like(rgb)
+    tp_mult = torch.where(do_metal[:, None], rgb, tp_mult)
+    tp_mult = torch.where(do_diff[:, None], rgb * diff_w[:, None], tp_mult)
+    tp_mult = torch.where(enters[:, None], rgb * alpha[:, None], tp_mult)
+
+    return dict(
+        new_dir=new_dir,
+        tp_mult=tp_mult,
+        enters=enters,
+        clears_specular=do_diff,
+        emit_rgb=emit_rgb,
+        do_diff=do_diff,
+        do_metal=do_metal,
+        diff_w=diff_w,
+        emit_cond=emit_cond,
+    )
+
+
+def shade_reference(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool):
+    """Plain-torch twin of the forward kernel (any device): the base shading
+    of one bounce.  ``st`` holds ``STATE_KEYS``; ``u`` is (B, N_UNIFORMS);
+    ``res`` the traversal's ``HitResult`` (with ``quad`` on a scene with
+    quad models); ``prim`` K7's (hit, t, mat, uv, normal) or None.
+
+    Returns (:class:`Shaded`, :class:`ShadeResidual`)."""
+    active = st["active"]
+    any_hit = res.hit if prim is None else res.hit | prim[0]
+    miss = active & ~any_hit
+    hit = active & any_hit  # res.hit is already False on inactive lanes
+    bounce0 = torch.full_like(active, is_first)
+
+    sky_rgb = sky_radiance(scene, st["dir"], bounce0, st["specular"])
+    radiance = st["radiance"] + torch.where(miss[:, None], st["throughput"] * sky_rgb, 0.0)
+
+    # depth cap: the last bounce shades but does not scatter
+    can_scatter = hit if may_scatter else torch.zeros_like(hit)
+
+    mat, hit_uv, n, t_hit = resolve_hit(scene, st["origin"], st["dir"], res)
+    if prim is not None:  # analytic primitives compete with the octree hit; the nearer wins
+        p_hit, p_t, p_mat, p_uv, p_n = prim
+        use_p = p_hit & (p_t < torch.where(res.hit, t_hit, float("inf")))
+        mat = torch.where(use_p, p_mat, mat)
+        hit_uv = torch.where(use_p[:, None], p_uv, hit_uv)
+        n = torch.where(use_p[:, None], p_n, n)
+        t_hit = torch.where(use_p, p_t, t_hit)
+    mrow = gather_rows(scene.materials, mat)
+    albedo = sample_atlas(scene.atlas, mrow["texture_index"], hit_uv[:, 0], hit_uv[:, 1])
+    hitpoint = fma(st["dir"], t_hit[:, None], st["origin"])  # one rounding, as the reference's
+
+    sc = lobe_scatter(scene, u, st["dir"], n, albedo, mrow, st["cur_mat"], is_first)
+    radiance = radiance + torch.where(can_scatter[:, None], st["throughput"] * sc["emit_rgb"], 0.0)
+
+    new_origin = hitpoint + sc["new_dir"] * OFFSET
+    upd = can_scatter
+    state = dict(
+        origin=torch.where(upd[:, None], new_origin, st["origin"]),
+        dir=torch.where(upd[:, None], sc["new_dir"], st["dir"]),
+        throughput=torch.where(upd[:, None], st["throughput"] * sc["tp_mult"], st["throughput"]),
+        radiance=radiance,
+        active=can_scatter,
+        specular=torch.where(upd & sc["clears_specular"], False, st["specular"]),
+        cur_mat=torch.where(upd & sc["enters"], mat, st["cur_mat"]),
+    )
+    out = Shaded(state, albedo, hitpoint, n, mat.to(torch.int32), sc["do_diff"] & can_scatter)
+
+    lobe = torch.where(sc["do_metal"], LOBE_METAL,
+                       torch.where(sc["do_diff"], LOBE_DIFFUSE, torch.where(sc["enters"], LOBE_ENTERS, LOBE_NONE)))
+    code = (miss.int() * CODE_MISS + (can_scatter & sc["emit_cond"]).int() * CODE_EMIT
+            + torch.where(upd, lobe, LOBE_NONE).int() * (1 << LOBE_SHIFT))
+    texel = texel_index(scene.atlas, mrow["texture_index"], hit_uv[:, 0], hit_uv[:, 1])
+    zero = torch.zeros_like(sc["diff_w"])
+    diff_w = torch.where(upd & sc["do_diff"], sc["diff_w"], zero)
+    floats = torch.where(miss[:, None], sky_rgb, torch.stack([diff_w, zero, zero], -1))
+    resid = ShadeResidual(torch.stack([texel.int(), mat.int(), code], -1), floats)
+    return out, resid
+
+
+def shade_backward_reference(albedo, throughput, resid: ShadeResidual, emittance, atlas_shape,
+                             g_throughput, g_radiance, g_albedo, need=(True, True, True, True)):
+    """Plain-torch twin of the backward kernel (any device): the gradients
+    of one bounce's base shading, from the cotangents of the new throughput,
+    the new radiance and the hand-off albedo (each None for zero), written
+    out as formulas.  ``albedo`` and ``throughput`` are the forward's albedo
+    and incoming throughput, ``resid`` its residual.  ``need``: which of
+    (throughput, radiance, atlas, emittance) to return (None otherwise).
+
+    Returns (d throughput (B, 3), d radiance (B, 3), d atlas ``atlas_shape``,
+    d emittance (M,)): the atlas gradient scatter-added into the texel each
+    lane read, the emittance gradient into the lane's material."""
+    texel, mat, code = resid.ints.long().unbind(-1)
+    miss = (code & CODE_MISS) != 0
+    emit_on = (code & CODE_EMIT) != 0
+    lobe = code >> LOBE_SHIFT
+    rgb, alpha = albedo[:, :3], albedo[:, 3:4]
+    e = emittance[mat][:, None]
+    diff_w = resid.floats[:, :1]
+    d_tp = torch.zeros_like(throughput)
+    d_alb = torch.zeros_like(albedo) if g_albedo is None else g_albedo.clone()
+    d_emit = torch.zeros_like(e[:, 0])
+    if g_radiance is not None:
+        d_tp = d_tp + torch.where(miss[:, None], g_radiance * resid.floats, 0.0)
+        d_tp = d_tp + g_radiance * torch.where(emit_on[:, None], rgb * rgb * e, 0.0)
+        g_emit = torch.where(emit_on[:, None], g_radiance * throughput, 0.0)  # d (rgb^2 e)
+        d_alb[:, :3] += 2.0 * (g_emit * e) * rgb
+        d_emit = torch.sum(g_emit * (rgb * rgb), -1)
+    if g_throughput is not None:
+        mult = torch.where((lobe == LOBE_METAL)[:, None], rgb, 1.0)
+        mult = torch.where((lobe == LOBE_DIFFUSE)[:, None], rgb * diff_w, mult)
+        mult = torch.where((lobe == LOBE_ENTERS)[:, None], rgb * alpha, mult)
+        d_tp = d_tp + g_throughput * mult
+        g_mult = g_throughput * throughput  # d tp_mult
+        d_alb[:, :3] += torch.where((lobe == LOBE_METAL)[:, None], g_mult, 0.0)
+        d_alb[:, :3] += torch.where((lobe == LOBE_DIFFUSE)[:, None], g_mult * diff_w, 0.0)
+        d_alb[:, :3] += torch.where((lobe == LOBE_ENTERS)[:, None], g_mult * alpha, 0.0)
+        d_alb[:, 3] += torch.where(lobe == LOBE_ENTERS, torch.sum(g_mult * rgb, -1), 0.0)
+    d_atlas = d_emittance = None
+    if need[2]:
+        n_texels = atlas_shape[0] * atlas_shape[1] * atlas_shape[2]
+        d_atlas = torch.zeros((n_texels, 4), dtype=albedo.dtype, device=albedo.device)
+        d_atlas.index_put_((texel,), d_alb, accumulate=True)
+        d_atlas = d_atlas.view(atlas_shape)
+    if need[3]:
+        d_emittance = torch.zeros_like(emittance).index_put_((mat,), d_emit, accumulate=True)
+    return (d_tp if need[0] else None, g_radiance if need[1] else None, d_atlas, d_emittance)
+
+
+class _Call(NamedTuple):
+    """One shading call's arguments other than the four that carry
+    gradient."""
+
+    scene: Scene
+    st: dict
+    u: torch.Tensor
+    res: object  # HitResult
+    prim: tuple | None
+    is_first: bool
+    may_scatter: bool
+
+
+class ShadeFunction(torch.autograd.Function):
+    """K4 as an autograd function of (throughput, radiance, atlas texels,
+    emittance), the rest of the call in ``call``.  Returns the new state's
+    seven fields (``STATE_KEYS``' order) and the hand-off (albedo, hit
+    point, normal, material, diffuse mask); only the throughput, the
+    radiance and the albedo are differentiable.  CUDA tensors run the
+    kernels of ``csrc/shade.cu``, CPU tensors the twins."""
+
+    @staticmethod
+    def forward(ctx, throughput, radiance, atlas, emittance, call: _Call):
+        want_grad = any(ctx.needs_input_grad[:4])
+        if throughput.is_cuda:
+            out, resid = _forward_cuda(call, want_grad)
+        else:
+            out, resid = shade_reference(*call)
+        outputs = tuple(out.state[k] for k in STATE_KEYS) + tuple(out[1:])
+        ctx.mark_non_differentiable(*(x for i, x in enumerate(outputs) if i not in (2, 3, 7)))
+        ctx.set_materialize_grads(False)
+        if want_grad:
+            ctx.save_for_backward(out.albedo, throughput, resid.ints, resid.floats, emittance)
+            ctx.atlas_shape = tuple(atlas.shape)
+        return outputs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        albedo, throughput, ints, floats, emittance = ctx.saved_tensors
+        g_tp, g_rad, g_alb = grads[2], grads[3], grads[7]
+        need = ctx.needs_input_grad[:4]
+        resid = ShadeResidual(ints, floats)
+        if albedo.is_cuda:
+            d = _backward_cuda(albedo, throughput, resid, emittance, ctx.atlas_shape, g_tp, g_rad, g_alb, need)
+        else:
+            d = shade_backward_reference(albedo, throughput, resid, emittance, ctx.atlas_shape,
+                                         g_tp, g_rad, g_alb, need)
+        return (*d, None)
+
+
+def _atlas_data(atlas):
+    return atlas.data if isinstance(atlas, Atlas) else atlas
+
+
+def _check_no_other_grad(scene: Scene, st: dict, u, res, prim):
+    """Raise where a tensor other than the throughput, the radiance, the
+    atlas texels and the emittance requires grad: K4 has no gradient for
+    it, and nothing may be dropped silently.  (``requires_grad`` can be
+    set in place, so this runs on every call.)"""
+    m, sun = scene.materials, scene.sun
+    named = [("materials", f, getattr(m, f)) for f in ("ior", "specular", "roughness", "metalness")]
+    named += [("sun", f, getattr(sun, f)) for f in SUN_FIELDS]
+    named += [("state", k, st[k]) for k in ("origin", "dir")] + [("", "uniforms", u)]
+    named += [("hit", f, getattr(res, f)) for f in ("t", "uv")]
+    if res.quad is not None:
+        named += [("quad", f, getattr(res.quad, f)) for f in ("uv", "normal", "t")]
+    if prim is not None:
+        named += [("primitive", f, x) for f, x in zip(("t", "uv", "normal"), (prim[1], prim[3], prim[4]))]
+    bad = [f"{group}.{f}" if group else f for group, f, x in named if x.requires_grad]
+    if bad:
+        raise ValueError(f"shade: K4 differentiates only the throughput, radiance, atlas and emittance; "
+                         f"{bad} require grad")
+
+
+def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool) -> Shaded:
+    """One bounce's base shading (see the module's text) through
+    :class:`ShadeFunction`.  CUDA tensors launch the forward kernel, counted
+    in ``shade.launches``, and the backward kernel when the gradient is
+    taken, counted in ``shade.backward_launches``; CPU tensors run
+    :func:`shade_reference` and :func:`shade_backward_reference`.  Any other
+    device raises, and so does a tensor other than the throughput, the
+    radiance, the atlas texels and the emittance that requires grad."""
+    dev = st["throughput"].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"shade: unsupported device {dev}")
+    _check_no_other_grad(scene, st, u, res, prim)
+    call = _Call(scene, st, u, res, prim, bool(is_first), bool(may_scatter))
+    out = ShadeFunction.apply(st["throughput"], st["radiance"], _atlas_data(scene.atlas),
+                              scene.materials.emittance, call)
+    return Shaded(dict(zip(STATE_KEYS, out[:7])), *out[7:])
+
+
+shade.launches = 0
+shade.backward_launches = 0
+
+
+# ---- the CUDA kernels
+
+class _SunParams(ctypes.Structure):
+    """``struct SunParams`` of ``csrc/shade.cu``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("azimuth", "altitude", "radius", "color", "luminosity",
+                                                "chance", "sample_radius", "sw", "su", "sv", "apparent")]
+
+
+class _Tables(ctypes.Structure):
+    """``struct ShadeTables`` of ``csrc/shade.cu``."""
+
+    _fields_ = [("leaf_material", ctypes.c_void_p), ("n_leaf", ctypes.c_int),
+                ("leaf_model", ctypes.c_void_p), ("n_leaf_model", ctypes.c_int),
+                ("face_material", ctypes.c_void_p),
+                ("ior", ctypes.c_void_p), ("specular", ctypes.c_void_p), ("emittance", ctypes.c_void_p),
+                ("roughness", ctypes.c_void_p), ("metalness", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+                ("texture_index", ctypes.c_void_p),
+                ("atlas", ctypes.c_void_p), ("sizes", ctypes.c_void_p),
+                ("atlas_h", ctypes.c_int), ("atlas_w", ctypes.c_int),
+                ("sun", _SunParams)]
+
+
+class _Lanes(ctypes.Structure):
+    """``struct ShadeLanes`` of ``csrc/shade.cu``: the inputs per lane."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("origin", "dir", "throughput", "radiance")]
+                + [(f"{f}_stride", ctypes.c_longlong) for f in ("origin", "dir", "throughput", "radiance")]
+                + [(f, ctypes.c_void_p) for f in ("active", "specular", "cur_mat", "u")]
+                + [("u_stride", ctypes.c_longlong)]
+                + [(f, ctypes.c_void_p) for f in ("hit", "t", "face_id", "uv", "leaf_value",
+                                                  "q_found", "q_mat", "q_uv", "q_normal", "q_t",
+                                                  "p_hit", "p_t", "p_mat", "p_uv", "p_normal")])
+
+
+class _Outputs(ctypes.Structure):
+    """``struct ShadeOutputs`` of ``csrc/shade.cu``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in STATE_KEYS + ("albedo", "hitpoint", "normal", "mat",
+                                                             "diffuse_on", "resid_i", "resid_f")]
+
+
+class _Flags(ctypes.Structure):
+    """``struct ShadeFlags`` of ``csrc/shade.cu``."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("is_first", "may_scatter", "importance", "diffuse_sun",
+                                            "draw_texture", "emission")]
+
+
+@functools.cache
+def _library():
+    """K4's shared library (the forward and backward kernels), built at
+    first use."""
+    from ..utils.cuda_build import load_library
+
+    # no FMA contraction: the twin's eager torch rounds every multiply and add
+    lib = load_library("shade", ("-fmad=false",))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.shade_forward.argtypes = [ci, ctypes.POINTER(_Tables), ctypes.POINTER(_Lanes),
+                                  ctypes.POINTER(_Outputs), ctypes.POINTER(_Flags), vp]
+    lib.shade_forward.restype = ci
+    lib.shade_backward.argtypes = [ci] + [vp] * 12  # b, 3 cotangents, 5 saved, 3 gradients, the stream
+    lib.shade_backward.restype = ci
+    lib.shade_error_string.argtypes = [ci]
+    lib.shade_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ptr(x):
+    return 0 if x is None else x.data_ptr()
+
+
+def _rows(x, b: int, k: int, dtype, name: str):
+    """``x`` as (B, k) rows of ``dtype`` whose last axis is dense: the kernel
+    reads row ``i`` at ``i * stride``."""
+    if x.dtype != dtype or x.shape != (b, k):
+        raise ValueError(f"shade: {name} must be ({b}, {k}) {dtype}")
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _dense(x, shape, dtype, name: str):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(f"shade: {name} must be a contiguous {tuple(shape)} {dtype}")
+    return x
+
+
+# the newest scenes' tables, checked and packed: [(their tensors, their
+# device, the _Tables struct)], the newest last
+_TABLE_CACHE: list = []
+_TABLE_CACHE_SIZE = 4
+
+
+def _table_tensors(scene: Scene) -> tuple:
+    """Every table of ``scene`` that the forward kernel reads (None where
+    the scene has none)."""
+    mod, atlas = scene.models, scene.atlas
+    return (_atlas_data(atlas), atlas.sizes if isinstance(atlas, Atlas) else None, scene.leaf_material,
+            None if mod is None else mod.leaf_model, None if mod is None else mod.face_material,
+            *(getattr(scene.materials, f) for f in MATERIAL_FIELDS), *(getattr(scene.sun, f) for f in SUN_FIELDS))
+
+
+def _scene_tables(scene: Scene):
+    """(device, :class:`_Tables`) of ``scene``'s tables, checked and packed
+    once for all its bounces.  The cache is keyed by the identity of the
+    table tensors and holds them, so no key outlives its tensors."""
+    key = _table_tensors(scene)
+    for tensors, dev, tables in _TABLE_CACHE:
+        if all(a is b for a, b in zip(tensors, key)):
+            return dev, tables
+    data, sizes, leaf_material, leaf_model, face_material = key[:5]
+    cols = key[5:5 + len(MATERIAL_FIELDS)]
+    f32, i32 = torch.float32, torch.int32
+    if data.dtype != f32 or data.dim() != 4 or data.shape[3] != 4 or not data.is_contiguous():
+        raise ValueError("shade: the atlas must be a contiguous (T, H, W, 4) float32")
+    if data.numel() // 4 >= 2**31:
+        raise ValueError("shade: too many texels for one launch")
+    if sizes is not None:
+        _dense(sizes, (data.shape[0], 2), i32, "the atlas sizes")
+    n_mat = cols[0].shape[0]
+    for f, x in zip(MATERIAL_FIELDS, cols):
+        _dense(x, (n_mat,), i32 if f in ("flags", "texture_index") else f32, f"materials.{f}")
+    _dense(leaf_material, (leaf_material.shape[0],), i32, "leaf_material")
+    if leaf_model is not None:
+        _dense(leaf_model, (leaf_model.shape[0],), i32, "models.leaf_model")
+        _dense(face_material, (face_material.shape[0], 6), i32, "models.face_material")
+    for f in SUN_FIELDS:
+        x = getattr(scene.sun, f)
+        if x.dtype != f32 or not x.is_contiguous():
+            raise ValueError(f"shade: sun.{f} must be a contiguous float32")
+    dev = data.device
+    if any(x is not None and x.device != dev for x in key):
+        raise ValueError("shade: every input must be on the lanes' card")
+    tables = _Tables(
+        leaf_material.data_ptr(), leaf_material.shape[0],
+        _ptr(leaf_model), 0 if leaf_model is None else leaf_model.shape[0], _ptr(face_material),
+        *(x.data_ptr() for x in cols), data.data_ptr(), _ptr(sizes), data.shape[1], data.shape[2],
+        _SunParams(*(x.data_ptr() for x in key[5 + len(MATERIAL_FIELDS):])),
+    )
+    _TABLE_CACHE.append((key, dev, tables))
+    del _TABLE_CACHE[:-_TABLE_CACHE_SIZE]
+    return dev, tables
+
+
+def _forward_cuda(call: _Call, want_grad: bool):
+    scene, st, u, res, prim = call.scene, call.st, call.u, call.res, call.prim
+    b = st["throughput"].shape[0]
+    dev = st["throughput"].device
+    f32, i32, bool_ = torch.float32, torch.int32, torch.bool
+    if b >= 2**31:
+        raise ValueError("shade: too many lanes for one launch")
+    table_dev, tables = _scene_tables(scene)
+
+    origin = _rows(st["origin"], b, 3, f32, "origin")
+    dirs = _rows(st["dir"], b, 3, f32, "dir")
+    tp = _rows(st["throughput"], b, 3, f32, "throughput")
+    rad = _rows(st["radiance"], b, 3, f32, "radiance")
+    uu = _rows(u, b, N_UNIFORMS, f32, "the uniforms")
+    lanes_in = [_dense(st["active"], (b,), bool_, "active"), _dense(st["specular"], (b,), bool_, "specular"),
+                _dense(st["cur_mat"], (b,), i32, "cur_mat"),
+                _dense(res.hit, (b,), bool_, "hit"), _dense(res.t, (b,), f32, "hit t"),
+                _dense(res.face_id, (b,), i32, "face_id"), _dense(res.uv, (b, 2), f32, "hit uv"),
+                _dense(res.leaf_value, (b,), i32, "leaf_value")]
+    if scene.has_quad_models:
+        q = res.quad
+        if q is None:
+            raise ValueError("shade: a scene with quad models needs the accepting traversal's quad surfaces")
+        quad = [_dense(q.found, (b,), bool_, "quad found"), _dense(q.mat, (b,), i32, "quad mat"),
+                _dense(q.uv, (b, 2), f32, "quad uv"), _dense(q.normal, (b, 3), f32, "quad normal"),
+                _dense(q.t, (b,), f32, "quad t")]
+    else:
+        quad = [None] * 5
+    if prim is not None:
+        p = [_dense(prim[0], (b,), bool_, "primitive hit"), _dense(prim[1], (b,), f32, "primitive t"),
+             _dense(prim[2], (b,), i32, "primitive mat"), _dense(prim[3], (b, 2), f32, "primitive uv"),
+             _dense(prim[4], (b, 3), f32, "primitive normal")]
+    else:
+        p = [None] * 5
+    if table_dev != dev or any(x is not None and x.device != dev for x in [origin, dirs, tp, rad, uu] + lanes_in + quad + p):
+        raise ValueError("shade: every input must be on the lanes' card")
+
+    empty = functools.partial(torch.empty, device=dev)
+    state = dict(origin=empty((b, 3), dtype=f32), dir=empty((b, 3), dtype=f32),
+                 throughput=empty((b, 3), dtype=f32), radiance=empty((b, 3), dtype=f32),
+                 active=empty((b,), dtype=bool_), specular=empty((b,), dtype=bool_), cur_mat=empty((b,), dtype=i32))
+    out = Shaded(state, empty((b, 4), dtype=f32), empty((b, 3), dtype=f32), empty((b, 3), dtype=f32),
+                 empty((b,), dtype=i32), empty((b,), dtype=bool_))
+    resid = ShadeResidual(empty((b, 3), dtype=i32), empty((b, 3), dtype=f32)) if want_grad else None
+    if b == 0:  # an empty batch launches nothing
+        return out, resid
+
+    lanes = _Lanes(origin.data_ptr(), dirs.data_ptr(), tp.data_ptr(), rad.data_ptr(),
+                   origin.stride(0), dirs.stride(0), tp.stride(0), rad.stride(0),
+                   *(x.data_ptr() for x in lanes_in[:3]), uu.data_ptr(), uu.stride(0),
+                   *(x.data_ptr() for x in lanes_in[3:]), *(_ptr(x) for x in quad + p))
+    outs = _Outputs(*(state[k].data_ptr() for k in STATE_KEYS), *(x.data_ptr() for x in out[1:]),
+                    _ptr(None if resid is None else resid.ints), _ptr(None if resid is None else resid.floats))
+    strat = scene.sun_sampling
+    flags = _Flags(int(call.is_first), int(call.may_scatter), int(strat.importance_sampling),
+                   int(strat.diffuse_sun), int(scene.sun.draw_texture), int(emission_counts(scene, call.is_first)))
+    lib = _library()
+    rc = on_current_stream(lib.shade_forward, tp.get_device(),
+                           b, ctypes.byref(tables), ctypes.byref(lanes), ctypes.byref(outs), ctypes.byref(flags))
+    if rc != 0:
+        raise RuntimeError(f"shade_forward launch failed: {lib.shade_error_string(rc).decode()}")
+    shade.launches += 1
+    return out, resid
+
+
+def _backward_cuda(albedo, throughput, resid: ShadeResidual, emittance, atlas_shape,
+                   g_throughput, g_radiance, g_albedo, need):
+    b = albedo.shape[0]
+    dev = albedo.device
+    grads = []
+    for g, k, name in ((g_throughput, 3, "throughput"), (g_radiance, 3, "radiance"), (g_albedo, 4, "albedo")):
+        grads.append(None if g is None else _dense(g.contiguous(), (b, k), torch.float32, f"the {name} cotangent"))
+    d_tp = torch.empty((b, 3), dtype=torch.float32, device=dev) if need[0] else None
+    d_atlas = torch.zeros(atlas_shape, dtype=torch.float32, device=dev) if need[2] else None
+    d_emit = torch.zeros_like(emittance) if need[3] else None
+    if b > 0 and (need[0] or need[2] or need[3]):
+        lib = _library()
+        tp = throughput.contiguous()
+        rc = on_current_stream(lib.shade_backward, albedo.get_device(),
+                               b, *(_ptr(g) for g in grads), albedo.data_ptr(), tp.data_ptr(),
+                               resid.ints.data_ptr(), resid.floats.data_ptr(), emittance.data_ptr(),
+                               _ptr(d_tp), _ptr(d_atlas), _ptr(d_emit))
+        if rc != 0:
+            raise RuntimeError(f"shade_backward launch failed: {lib.shade_error_string(rc).decode()}")
+        shade.backward_launches += 1
+    return d_tp, (g_radiance if need[1] else None), d_atlas, d_emit

@@ -94,10 +94,10 @@ def build_atlas(images: list[np.ndarray], size: int | None = 16):
     return torch.from_numpy(atlas)
 
 
-def sample_atlas(atlas, layer, u, v):
-    """Nearest-neighbour fetch with clamp + v-flip; returns (B, 4) linear
-    RGBA.  ``atlas`` is a uniform ``(T, H, W, 4)`` tensor or an
-    :class:`Atlas`.  Differentiable in the texels; ``u, v`` get no gradient."""
+def _texel_ij(atlas, layer, u, v):
+    """(texels, layer, j, i): the atlas's (T, H, W, 4) texels and the row
+    and column of each lane's nearest texel, with the reference's clamp and
+    v-flip."""
     layer = layer.long()
     if isinstance(atlas, Atlas):
         data = atlas.data
@@ -112,4 +112,19 @@ def sample_atlas(atlas, layer, u, v):
     j = torch.clamp((vv * t_h).to(torch.int32), min=0)
     i = torch.where(i > t_w - 1, t_w - 1, i)
     j = torch.where(j > t_h - 1, t_h - 1, j)
-    return data[layer, j.long(), i.long()]
+    return data, layer, j.long(), i.long()
+
+
+def sample_atlas(atlas, layer, u, v):
+    """Nearest-neighbour fetch with clamp + v-flip; returns (B, 4) linear
+    RGBA.  ``atlas`` is a uniform ``(T, H, W, 4)`` tensor or an
+    :class:`Atlas`.  Differentiable in the texels; ``u, v`` get no gradient."""
+    data, layer, j, i = _texel_ij(atlas, layer, u, v)
+    return data[layer, j, i]
+
+
+def texel_index(atlas, layer, u, v):
+    """(B,) int64: the texel :func:`sample_atlas` reads, as a row of the
+    atlas's texels viewed as ``(T * H * W, 4)``."""
+    data, layer, j, i = _texel_ij(atlas, layer, u, v)
+    return (layer * data.shape[1] + j) * data.shape[2] + i

@@ -1,5 +1,7 @@
 """Hit resolution: traversal results -> (material, uv, normal, t), and the
-tables of the in-loop accept (port of ``render/hit.py``).
+tables of the in-loop accept (port of ``render/hit.py``).  ``resolve_hit``
+itself is part of kernel K4's twin and lives in ``ops/shade.py``; it
+resolves
 
 - no model table: leaf value -> material through ``scene.leaf_material``,
   the entry face's uv and normal (every leaf a full cube);
@@ -19,44 +21,11 @@ from __future__ import annotations
 import torch
 
 from ..models.blockmodels import FLAG_SIMPLE
-from ..models.scene import Scene, face_normals
+from ..models.scene import Scene
+from ..ops.shade import resolve_hit  # noqa: F401 (this module's name since the port began)
 from ..ops.shading import EPSILON
 from ..ops.texture import Atlas
 from ..ops.traversal import AlphaTables
-
-
-def _leaf_mat(scene: Scene, leaf_value):
-    n = scene.leaf_material.shape[0]
-    return scene.leaf_material[torch.clamp(leaf_value.long(), 0, n - 1)]
-
-
-def _leaf_model(scene: Scene, leaf_value):
-    lm = scene.models.leaf_model
-    return lm[torch.clamp(leaf_value.long(), 0, lm.shape[0] - 1)].long()
-
-
-def resolve_hit(scene: Scene, origins, dirs, res):
-    """Final hit attributes: (mat (B,), uv (B, 2), normal (B, 3), t (B,)).
-    A quad-model hit takes the quad's material, uv, normal and t from
-    ``res.quad``; any other hit the entry face's."""
-    normals = face_normals(res.face_id.device)
-    base_normal = normals[torch.clamp(res.face_id.long(), 0, 5)]
-    if scene.models is None:
-        return _leaf_mat(scene, res.leaf_value), res.uv, base_normal, res.t
-    model = _leaf_model(scene, res.leaf_value)
-    mat = scene.models.face_material[model, torch.clamp(res.face_id.long(), 0, 5)]
-    if not scene.has_quad_models:
-        return mat, res.uv, base_normal, res.t
-    q = res.quad
-    if q is None:
-        raise ValueError("resolve_hit: a scene with quad models needs the accepting traversal's quad surfaces")
-    use_q = q.found
-    return (
-        torch.where(use_q, q.mat, mat),
-        torch.where(use_q[:, None], q.uv, res.uv),
-        torch.where(use_q[:, None], q.normal, base_normal),
-        torch.where(use_q, q.t, res.t),
-    )
 
 
 def _leaf_alpha_classes(scene: Scene):

@@ -1,8 +1,9 @@
 """Wavefront path tracer (port of ``render/pathtracer.py``).
 
 Per hit one lobe is chosen (metal / specular / diffuse / refraction /
-transmission), with sky and sun on a miss and emission on diffuse hits;
-diffuse bounces add next-event estimates toward the sun (FAST and
+transmission), with sky and sun on a miss and emission on diffuse hits:
+this base shading is kernel K4 (``ops/shade.shade``, forward and backward
+on the card).  Diffuse bounces add next-event estimates toward the sun (FAST and
 HIGH_QUALITY) and toward emissive blocks (``EmitterSampling`` ONE,
 ONE_BLOCK, ALL), each through a shadow walk.  The recursion is an iterative
 bounce loop over a structure-of-arrays lane batch.  The bounce axis of the
@@ -34,34 +35,16 @@ import math
 import torch
 
 from ..models.emitters import ALL_MAX_EMITTERS, sample_emitter_point, toward_face_sample
-from ..models.materials import FLAG_REFRACTIVE, FLAG_SUBSURFACE_SCATTER, gather_rows
+from ..models.materials import FLAG_SUBSURFACE_SCATTER, gather_rows
 from ..models.prims import intersect_prims
 from ..models.scene import MAX_DIST, EmitterSampling, Scene
-from ..models.sun import add_sun_color, add_sun_color_diffuse, random_sun_direction, sky_color
-from ..ops.shading import (
-    EPSILON,
-    N_UNIFORMS,
-    OFFSET,
-    U_DIFFUSE,
-    U_EM1,
-    U_EM2,
-    U_EM_PICK,
-    U_FRESNEL,
-    U_METAL,
-    U_SPECULAR,
-    U_SUBSURFACE,
-    U_SUN1,
-    U_SUN2,
-    diffuse_dir_and_weight,
-    fresnel_schlick,
-    refract_dir,
-    specular_reflect_dir,
-)
-from ..ops.geometry import fma
+from ..models.sun import random_sun_direction
 from ..ops.random import philox_uniforms
+from ..ops.shade import resolve_hit, shade, sky_radiance  # noqa: F401 (sky_radiance: this module's name since the port began)
+from ..ops.shading import EPSILON, N_UNIFORMS, OFFSET, U_EM1, U_EM2, U_EM_PICK, U_SUBSURFACE, U_SUN1, U_SUN2
 from ..ops.texture import sample_atlas
 from ..ops.traversal import K_SURFACES, HitResult, QuadSurface, traverse, traverse_alpha, traverse_shadow
-from .hit import accept_tables, resolve_hit
+from .hit import accept_tables
 
 MAX_BOUNCES = 5
 
@@ -204,127 +187,24 @@ def _init_state(origins, dirs):
     )
 
 
-def sky_radiance(scene: Scene, dirs, bounce0_mask, specular_mask):
-    """Sky + sun colour for miss rays, (B, 3)."""
-    sky = sky_color((dirs.shape[0],), dirs.device)
-    sky_specular = add_sun_color(scene.sun, dirs, sky)[:, :3]
-    if scene.sun_sampling.diffuse_sun:
-        sky_diffuse = add_sun_color_diffuse(scene.sun, dirs, sky)[:, :3]
-    else:
-        sky_diffuse = sky[:, :3]
-    return torch.where((bounce0_mask | specular_mask)[:, None], sky_specular, sky_diffuse)
-
-
-def lobe_scatter(scene: Scene, u, d_in, n, albedo, mrow, cur_mat, is_first: bool):
-    """Single-lobe scatter decision + outgoing ray for a resolved hit, whose
-    material row ``mrow`` comes from ``gather_rows``.  ``is_first``: the
-    primary bounce, the only one on which emission found by BSDF sampling
-    counts while emitter sampling is on.
-
-    Returns a dict: new_dir (B, 3), tp_mult (B, 3) throughput multiplier,
-    enters (B,) lane enters the hit material, clears_specular (B,),
-    emit_rgb (B, 3) emitted radiance (pre-throughput, lobe-masked), do_diff."""
-    m = scene.materials
-    alpha = albedo[:, 3]
-    metal = mrow["metalness"]
-    spec = mrow["specular"]
-    emit = mrow["emittance"]
-    ior1 = mrow["ior"]
-    ior2 = m.ior[cur_mat.long()]
-
-    do_metal = (metal > EPSILON) & (u[:, U_METAL] < metal)
-    do_spec = ~do_metal & (spec > EPSILON) & (u[:, U_SPECULAR] < spec)
-    do_diff = ~do_metal & ~do_spec & (u[:, U_DIFFUSE] < alpha)
-    do_refr = ~do_metal & ~do_spec & ~do_diff & (torch.abs(ior1 - ior2) >= EPSILON)
-    do_trans = ~do_metal & ~do_spec & ~do_diff & ~do_refr
-
-    # emission on diffuse hits; with emitter sampling on, the lights' direct
-    # light comes from NEE after the primary bounce
-    emit_when = do_diff
-    if not scene.emitters_enabled or (scene.emitter_sampling != EmitterSampling.NONE and not is_first):
-        emit_when = torch.zeros_like(do_diff)
-    emit_cond = emit_when & (emit > EPSILON)
-    emit_rgb = torch.where(
-        emit_cond[:, None], albedo[:, :3] * albedo[:, :3] * emit[:, None], 0.0
-    )
-
-    diff_dir, diff_w = diffuse_dir_and_weight(
-        n, scene.sun, u, scene.sun_sampling.importance_sampling
-    )
-    spec_dir = specular_reflect_dir(d_in, n, mrow["roughness"], u)
-
-    refractive = (mrow["flags"] & FLAG_REFRACTIVE) != 0
-    ratio = ior1 / ior2
-    cos_theta = -torch.sum(d_in * n, dim=-1)
-    radicand = 1.0 - ratio * ratio * (1.0 - cos_theta * cos_theta)
-    tir = refractive & (radicand < EPSILON)
-    refl_p = fresnel_schlick(ior1, ior2, cos_theta)
-    refr_reflect = do_refr & (tir | (u[:, U_FRESNEL] < refl_p))
-    refr_refract = do_refr & ~refr_reflect & refractive
-    refr_pass = do_refr & ~refr_reflect & ~refractive
-    refracted = refract_dir(d_in, n, ratio, cos_theta, radicand)
-
-    new_dir = torch.where((do_metal | do_spec | refr_reflect)[:, None], spec_dir, d_in)
-    new_dir = torch.where(do_diff[:, None], diff_dir, new_dir)
-    new_dir = torch.where(refr_refract[:, None], refracted, new_dir)
-
-    rgb = albedo[:, :3]
-    enters = refr_refract | refr_pass | do_trans
-    tp_mult = torch.ones_like(rgb)
-    tp_mult = torch.where(do_metal[:, None], rgb, tp_mult)
-    tp_mult = torch.where(do_diff[:, None], rgb * diff_w[:, None], tp_mult)
-    tp_mult = torch.where(enters[:, None], rgb * alpha[:, None], tp_mult)
-
-    return dict(
-        new_dir=new_dir,
-        tp_mult=tp_mult,
-        enters=enters,
-        clears_specular=do_diff,
-        emit_rgb=emit_rgb,
-        do_diff=do_diff,
-    )
-
-
 def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool):
-    """Shade one resolved traversal: sky on miss, lobe scatter on hit, sun and
-    emitter NEE on diffuse bounces."""
-    active = st["active"]
+    """Shade one resolved traversal: the base shading (sky on miss, lobe
+    scatter and emission on hit) through kernel K4 (``ops/shade.shade``),
+    then the sun and emitter NEE on diffuse bounces from its hand-off."""
     # analytic primitives compete with the octree hit; the nearer surface wins
-    any_hit = res.hit
-    if scene.prims is not None:
-        p_hit, p_t, p_mat, p_uv, p_n = _prim_hit(scene, st["origin"], st["dir"])
-        any_hit = res.hit | p_hit
-    miss = active & ~any_hit
-    hit = active & any_hit  # res.hit is already False on inactive lanes
-    bounce0 = torch.full_like(active, is_first)
-
-    sky_rgb = sky_radiance(scene, st["dir"], bounce0, st["specular"])
-    radiance = st["radiance"] + torch.where(miss[:, None], st["throughput"] * sky_rgb, 0.0)
-
-    # depth cap: the last bounce shades but does not scatter
-    can_scatter = hit if may_scatter else torch.zeros_like(hit)
-
-    mat, hit_uv, n, t_hit = resolve_hit(scene, st["origin"], st["dir"], res)
-    if scene.prims is not None:
-        use_p = p_hit & (p_t < torch.where(res.hit, t_hit, float("inf")))
-        mat = torch.where(use_p, p_mat, mat)
-        hit_uv = torch.where(use_p[:, None], p_uv, hit_uv)
-        n = torch.where(use_p[:, None], p_n, n)
-        t_hit = torch.where(use_p, p_t, t_hit)
-    mrow = gather_rows(scene.materials, mat)
-    albedo = sample_atlas(scene.atlas, mrow["texture_index"], hit_uv[:, 0], hit_uv[:, 1])
-    hitpoint = fma(st["dir"], t_hit[:, None], st["origin"])  # one rounding, as the reference's
-
-    sc = lobe_scatter(scene, u, st["dir"], n, albedo, mrow, st["cur_mat"], is_first)
-    radiance = radiance + torch.where(can_scatter[:, None], st["throughput"] * sc["emit_rgb"], 0.0)
+    prim = _prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
+    out = shade(scene, st, u, res, prim, is_first, may_scatter)
+    radiance = out.state["radiance"]
+    n, hitpoint, albedo = out.normal, out.hitpoint, out.albedo
 
     strat = scene.sun_sampling
     if strat.sun_sampling:  # sun NEE on diffuse bounces
         sun_dir = random_sun_direction(scene.sun, u[:, U_SUN1], u[:, U_SUN2])
         cos_sun = torch.sum(sun_dir * n, dim=-1)
         front = cos_sun > 0.0
-        sss = ((mrow["flags"] & FLAG_SUBSURFACE_SCATTER) != 0) & (u[:, U_SUBSURFACE] < scene.f_sub_surface)
-        shadow_on = sc["do_diff"] & can_scatter & (front | sss)
+        flags = scene.materials.flags[out.mat.long()]
+        sss = ((flags & FLAG_SUBSURFACE_SCATTER) != 0) & (u[:, U_SUBSURFACE] < scene.f_sub_surface)
+        shadow_on = out.diffuse_on & (front | sss)
         shadow_origin = torch.where(front[:, None], hitpoint, hitpoint - OFFSET * n)
         att = shadow_attenuation(scene, shadow_origin, sun_dir, st["cur_mat"], active=shadow_on)
         lum = scene.sun.luminosity_pdf if strat.sun_luminosity else 1.0
@@ -333,20 +213,10 @@ def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool):
         radiance = radiance + torch.where(shadow_on[:, None], st["throughput"] * nee, 0.0)
 
     if scene.emitter_sampling != EmitterSampling.NONE and scene.emitters is not None and scene.emitters_enabled:
-        em_contrib = _emitter_nee(scene, st, u, sc["do_diff"] & can_scatter, hitpoint, n, albedo)
+        em_contrib = _emitter_nee(scene, st, u, out.diffuse_on, hitpoint, n, albedo)
         radiance = radiance + st["throughput"] * em_contrib
 
-    new_origin = hitpoint + sc["new_dir"] * OFFSET
-    upd = can_scatter
-    return dict(
-        origin=torch.where(upd[:, None], new_origin, st["origin"]),
-        dir=torch.where(upd[:, None], sc["new_dir"], st["dir"]),
-        throughput=torch.where(upd[:, None], st["throughput"] * sc["tp_mult"], st["throughput"]),
-        radiance=radiance,
-        active=can_scatter,
-        specular=torch.where(upd & sc["clears_specular"], False, st["specular"]),
-        cur_mat=torch.where(upd & sc["enters"], mat, st["cur_mat"]),
-    )
+    return dict(out.state, radiance=radiance)
 
 
 def _emitter_nee(scene: Scene, st, u, base_on, hitpoint, n, albedo):

@@ -32,7 +32,12 @@ IMPORTANCE sun, the uniforms of seed 1); K2 on the cutout's 256x256
 primaries and its 8 training views at 512x512; K3r on the terrain's
 training views; K3s on the cutout's sun walk; K2q in its three modes on the
 plant field (primaries; sun and hemisphere walks).  Each traversal row
-carries the max, p50 and p99 of its per-ray fetches.  Every kernel result
+carries the max, p50 and p99 of its per-ray fetches.  K4's rows time
+``_shade`` on each bounce of one headline frame, forward (call and device
+ms) and with its backward (call ms), whatever shading the checkout has (its
+kernels, or the eager shading before them); the headline frame itself is
+timed forward and with bench.py's backward (host ms, median of 5) with the
+device activities torch.profiler counts in it.  Every kernel result
 is checked bit for bit against its plain-torch twin first.  The depth-9
 octrees are cached under ``build/scenes`` of this file's checkout.  Needs
 a CUDA card.
@@ -155,6 +160,199 @@ def bounce_rays(pathtracer, scene, origins, dirs, uniforms) -> list:
     finally:
         pathtracer.traverse = real
     return calls
+
+
+def shade_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
+    """The arguments ``(scene, st, u, res, is_first, may_scatter)`` of every
+    ``_shade`` call one ``trace_paths`` frame makes, in order: the primary
+    bounce's lanes, then each later bounce's live sub-batch."""
+    calls = []
+    real = pathtracer._shade
+
+    def recording(*a):
+        calls.append(a)
+        return real(*a)
+
+    pathtracer._shade = recording
+    try:
+        with torch.no_grad():
+            pathtracer.trace_paths(scene, origins, dirs, uniforms)
+    finally:
+        pathtracer._shade = real
+    return calls
+
+
+def shade_gradients(pathtracer, scene, origins, dirs, uniforms) -> list:
+    """The arguments of every K4 backward that one fwd+bwd of a
+    ``trace_paths`` frame makes, as bench.py's step takes it (the mean
+    radiance, with the atlas and the emittance taking gradient), in the
+    forward's bounce order: ``(albedo, throughput, residual, emittance,
+    atlas shape, g_throughput, g_radiance, g_albedo, need)``.  Needs the
+    card: the CPU's backward runs the twin."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.parallel import apply_params
+
+    calls = []
+    real = k4._backward_cuda
+
+    def recording(*a):
+        calls.append(a)
+        return real(*a)
+
+    p = {"atlas": scene.atlas.detach().clone().requires_grad_(True),
+         "emittance": scene.materials.emittance.detach().clone().requires_grad_(True)}
+    k4._backward_cuda = recording
+    try:
+        pathtracer.trace_paths(apply_params(scene, p), origins, dirs, uniforms).mean().backward()
+    finally:
+        k4._backward_cuda = real
+    return calls[::-1]
+
+
+def _bits_differ(a, b):
+    """(B,) bool: lanes where two outputs differ in any element (NaN equal
+    to NaN)."""
+    same = (a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b
+    return ~same.reshape(a.shape[0], -1).all(-1)
+
+
+def check_shade(call, cot, need=(True, True, True, True), label: str = "") -> dict:
+    """K4's acceptance gate on one ``shade`` call's arguments ``call``: the
+    forward kernel against its twin on every output and the residual (at
+    most 0.1% of the lanes outside rtol 1e-5 / atol 1e-6), then the
+    backward kernel against the backward twin on the kernel's own forward
+    outputs, the cotangents ``cot`` (g_throughput, g_radiance, g_albedo,
+    each None for zero) and the gradients ``need``, within rtol 1e-5 /
+    atol 1e-7 (float atomics add in the schedule's order).  Raises
+    AssertionError naming ``label`` where either falls outside.  Returns
+    {"lanes", "differ" (the lanes not bit-equal, field by field),
+    "outside", "forward_err", "backward_err", "out", "resid",
+    "backward_args" (the backward's arguments)}."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    k_out, k_res = k4._forward_cuda(k4._Call(*call), True)
+    r_out, r_res = k4.shade_reference(*call)
+    pairs = [(f, k_out.state[f], r_out.state[f]) for f in k4.STATE_KEYS]
+    pairs += [(f, getattr(k_out, f), getattr(r_out, f)) for f in ("albedo", "hitpoint", "normal", "mat", "diffuse_on")]
+    pairs += [("residual ints", k_res.ints, r_res.ints), ("residual floats", k_res.floats, r_res.floats)]
+    lanes = int(call[1]["throughput"].shape[0])
+    differ, outside, f_err = {}, torch.zeros(lanes, dtype=torch.bool, device=k_out.albedo.device), 0.0
+    for f, k, r in pairs:
+        k = k.to(r.dtype)
+        differ[f] = int(_bits_differ(k, r).sum())
+        if r.is_floating_point():
+            ok = torch.isclose(k, r, rtol=1e-5, atol=1e-6) | (k.isnan() & r.isnan()) | ((k == r) & k.isinf())
+            fin = torch.isfinite(k) & torch.isfinite(r)
+            if bool(fin.any()):
+                f_err = max(f_err, float((k - r)[fin].abs().max()))
+            outside |= ~ok.reshape(lanes, -1).all(-1)
+        else:
+            outside |= _bits_differ(k, r)
+    n_out = int(outside.sum())
+    if n_out > 0.001 * lanes:
+        raise AssertionError(f"K4's forward disagrees with its twin on {label}: {n_out} of {lanes} lanes outside "
+                             f"rtol 1e-5 / atol 1e-6; lanes not bit-equal per field {differ}")
+    scene, st = call[0], call[1]
+    data = scene.atlas.data if hasattr(scene.atlas, "sizes") else scene.atlas
+    args = (k_out.albedo, st["throughput"], k_res, scene.materials.emittance, tuple(data.shape), *cot, tuple(need))
+    got = k4._backward_cuda(*args)
+    want = k4.shade_backward_reference(*args)
+    b_err = 0.0
+    for name, x, y in zip(("throughput", "radiance", "atlas", "emittance"), got, want):
+        if (x is None) != (y is None):
+            raise AssertionError(f"K4 backward {label} {name}: the kernel and its twin return different gradients")
+        if x is not None:
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-7,
+                                       msg=lambda m, name=name: f"K4 backward {label} {name}: {m}")
+            b_err = max(b_err, float((x - y).abs().max()) if x.numel() else 0.0)
+    return {"lanes": lanes, "differ": differ, "outside": n_out, "forward_err": f_err, "backward_err": b_err,
+            "out": k_out, "resid": k_res, "backward_args": args}
+
+
+def profile_launches(fn, tries: int = 3) -> dict:
+    """{"kernels", "memsets", "memcpys"}: the device activities torch.profiler
+    records over one call of ``fn`` (which synchronizes the card).  A
+    session that records no device activity at all is taken again, up to
+    ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    memsets = sum(n.startswith("Memset") for n in names)
+    memcpys = sum(n.startswith("Memcpy") for n in names)
+    return {"kernels": len(names) - memsets - memcpys, "memsets": memsets, "memcpys": memcpys}
+
+
+def host_ms(fn, runs: int = 5) -> list:
+    """Host-clock ms of ``runs`` calls of ``fn`` after one warm-up, each
+    ending in ``torch.cuda.synchronize()``."""
+    import time
+
+    times = []
+    for i in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _shade_cases(dev, cache_dir) -> dict:
+    """K4's rows, whatever shading the checkout has: ``_shade`` on each
+    bounce of one headline frame (forward, and forward with its backward),
+    and the frame itself (forward and bench.py's fwd+bwd: host ms and the
+    launches torch.profiler counts)."""
+    import statistics
+
+    from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene, pixel_grid_rays
+    from octree_pathtracing_tpu_torch.parallel import apply_params
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    scene, cam = minecraft_chunk_scene(depth=9, cache_dir=cache_dir)
+    scene, cam = scene.to(dev), cam.to(dev)
+    o, d = pixel_grid_rays(cam, 256, 256)
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
+
+    def params():
+        return {"atlas": scene.atlas.detach().clone().requires_grad_(True),
+                "emittance": scene.materials.emittance.detach().clone().requires_grad_(True)}
+
+    out = {}
+    for k, (_, st, uu, res, is_first, may_scatter) in enumerate(shade_calls(pathtracer, scene, o, d, u), start=1):
+        def fwd(st=st, uu=uu, res=res, is_first=is_first, may_scatter=may_scatter):
+            return pathtracer._shade(scene, st, uu, res, is_first, may_scatter)
+
+        def fwd_bwd(st=st, uu=uu, res=res, is_first=is_first, may_scatter=may_scatter):
+            sp = apply_params(scene, params())
+            s = dict(st, throughput=st["throughput"].clone().requires_grad_(True))
+            r = pathtracer._shade(sp, s, uu, res, is_first, may_scatter)
+            (r["throughput"].sum() + r["radiance"].sum()).backward()
+
+        row = both(fwd)
+        row.update(lanes=int(st["throughput"].shape[0]), fwd_bwd_call_ms=call_ms(fwd_bwd, 20))
+        out[f"K4 _shade headline bounce {k}"] = row
+
+    def frame_fwd_bwd():
+        pathtracer.trace_paths(apply_params(scene, params()), o, d, u).mean().backward()
+
+    for name, fn in (("frame forward", lambda: pathtracer.trace_paths(scene, o, d, u)),
+                     ("frame fwd+bwd", frame_fwd_bwd)):
+        times = host_ms(fn)
+
+        def synced(fn=fn):
+            fn()
+            torch.cuda.synchronize()
+
+        out[f"headline {name}"] = {"host_ms": statistics.median(times), "host_ms_runs": times,
+                                   **profile_launches(synced)}
+    return out
 
 
 def _traversal_cases(dev, cache_dir) -> dict:
@@ -291,8 +489,10 @@ def _time_checkout() -> dict:
     for name, fn in cases.items():
         out[name] = both(fn)
 
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "build", "scenes")
-    for name, ((kernel, twin), args) in _traversal_cases(dev, os.path.normpath(cache_dir)).items():
+    cache_dir = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "build",
+                                              "scenes"))
+    out.update(_shade_cases(dev, cache_dir))
+    for name, ((kernel, twin), args) in _traversal_cases(dev, cache_dir).items():
         k = kernel(*args)
         if not _equal(k, twin(*args)):
             raise AssertionError(f"{name}: the kernel disagrees with its twin")
@@ -329,10 +529,19 @@ def main(argv=None) -> int:
         runs.append(dict(root=root, **json.loads(lines[-1][len("RESULT "):])))
         print(f"{root}: {runs[-1]['package']} [{runs[-1]['card']}]", flush=True)
     for name in (k for k, v in runs[0].items() if isinstance(v, dict)):
+        if "host_ms" in runs[0][name]:  # a frame: host ms and its device launches
+            print(f"{name}: " + " | ".join(
+                f"{r['root']}: host ms {r[name]['host_ms']!r} {[round(t, 3) for t in r[name]['host_ms_runs']]}, "
+                f"kernels {r[name]['kernels']} memsets {r[name]['memsets']} memcpys {r[name]['memcpys']}"
+                for r in runs), flush=True)
+            continue
         cells = " | ".join(f"{r['root']}: call {r[name]['call_ms']!r} device {r[name]['device_ms']!r}"
                            + ("" if r[name]["device_by"] == "graph" else f" ({r[name]['device_by']})")
+                           + (f" fwd+bwd call {r[name]['fwd_bwd_call_ms']!r}" if "fwd_bwd_call_ms" in r[name] else "")
                            for r in runs)
         extra = runs[0][name]
+        if "lanes" in extra and "fetch_max" not in extra:
+            cells += f" || lanes {extra['lanes']}"
         if "fetch_max" in extra:  # the same rays and fetches in every checkout
             cells += (f" || lanes {extra['lanes']}, fetches max {extra['fetch_max']} p50 {extra['fetch_p50']!r} "
                       f"p99 {extra['fetch_p99']!r}")

@@ -2,7 +2,9 @@
 traversal in its four modes (K1, K2 alpha accept, K3r recording walk, K3s
 shadow walk) and K2q (the block-model variant of modes 1-3), K7 (the
 analytic-primitive scan), K8 (the BVH walk over quads), P2 (Philox
-uniforms) and P1 (row gather, from one table and from two), also captured
+uniforms), P1 (row gather, from one table and from two) and K4 (hit
+resolve and shade, forward and backward, on every scene kind at 1 to
+65,536 lanes and on bounce 2's live sub-batch), also captured
 in a CUDA graph, and the path tracer's frame and gradients through the
 kernels against the same through the twins, with and without light
 sampling, block models and primitives, and on a world read from a region
@@ -16,6 +18,7 @@ without the repo's conftest:
 """
 
 import dataclasses
+import tempfile
 import types
 
 import numpy as np
@@ -805,3 +808,183 @@ def test_world_frame_through_kernels_matches_twins(cuda, tmp_path, monkeypatch):
     for gr, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
         torch.testing.assert_close(gr, w, rtol=1e-5, atol=1e-7)
     assert torch.isfinite(got[0]).all() and got[0].mean() > 0
+
+
+# ---- K4, hit resolve and shade (csrc/shade.cu) against its twins
+
+def _glossy(scene):
+    """``scene`` with metal, rough and mirror-like specular materials."""
+    m = scene.materials
+    k = torch.arange(m.count)
+    return dataclasses.replace(scene, materials=dataclasses.replace(
+        m, metalness=torch.where(k % 3 == 1, 0.5, 0.0), specular=torch.where(k % 3 == 2, 0.6, 0.0),
+        roughness=torch.where(k % 2 == 0, 0.3, 0.0)))
+
+
+def _mixed_atlas(scene):
+    """``scene`` with its atlas rebuilt as an ``Atlas`` of per-layer sizes
+    (8^2, 16^2 and 32^2 layers, nearest-resampled from its own), as a
+    resource pack gives it; from numpy images, without PIL."""
+    from octree_pathtracing_tpu_torch.ops.texture import build_atlas
+
+    imgs = []
+    for t, layer in enumerate(scene.atlas.numpy()):
+        size = (8, 16, 32)[t % 3]
+        idx = np.arange(size) * layer.shape[0] // size
+        texels = np.clip(layer[idx][:, idx], 0.0, 1.0)
+        texels[..., :3] **= 1 / 2.2  # the colour back to sRGB; alpha stays linear
+        rgba = (texels * 255).round().astype(np.uint8)
+        imgs.append(rgba)
+    return dataclasses.replace(scene, atlas=build_atlas(imgs, size=None))
+
+
+def _k4_scene(name):
+    if name == "terrain_off":
+        sc, cam = minecraft_chunk_scene(depth=5)
+        return dataclasses.replace(sc, sun_sampling=SunSampling.off()), cam
+    if name == "terrain_glossy":
+        sc, cam = minecraft_chunk_scene(depth=5)
+        return _glossy(sc), cam
+    if name == "room":
+        return emissive_room_scene(depth=4)
+    if name == "mixed_atlas_cutout":
+        sc, cam = cutout_chunk_scene(depth=5)
+        return _mixed_atlas(sc), cam
+    if name == "world_hq":
+        blocks = ["minecraft:air", "minecraft:stone", "minecraft:oak_leaves", "minecraft:water", "minecraft:glass"]
+        g = np.zeros((16, 16, 16), np.uint16)  # [y, z, x]
+        g[0:2], g[2:5, 6:10, 6:10], g[6:9, 3:8, 8:13], g[2, 1:5, 1:5], g[2:5, 11:14, 2:5] = 1, 1, 2, 3, 4
+        with tempfile.TemporaryDirectory() as tmp:  # the scene holds nothing of the file once built
+            path = f"{tmp}/r.0.0.mca"
+            with open(path, "wb") as f:
+                f.write(make_region_fixture({(0, 0): {-4: (blocks, g.ravel())}}))
+            sc, cam = minecraft_scene_from_region(path, depth=4)
+        return dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()), cam
+    build = {"terrain": minecraft_chunk_scene, "cutout": cutout_chunk_scene, "plant": plant_scene,
+             "analytic": analytic_sphere_scene}[name.removesuffix("_d9")]
+    return build(depth=9 if name.endswith("_d9") else 5)
+
+
+K4_SCENES = ("terrain", "terrain_off", "terrain_glossy", "cutout", "plant", "analytic", "room",
+             "mixed_atlas_cutout", "world_hq")
+
+
+def _k4_calls(name, n, dev):
+    """The arguments of every ``shade`` call of one 5-bounce frame over
+    ``n`` lanes of ``name``'s 256x256 primaries (a seeded shuffle): the
+    first is the primary bounce, the second bounce 2's live sub-batch."""
+    key = ("k4", name)
+    if key not in _SCENES:
+        _SCENES[key] = _k4_scene(name)
+    sc, cam = (x.to(dev) for x in _SCENES[key])
+    o, d = pixel_grid_rays(cam, 256, 256)
+    g = torch.Generator().manual_seed(n)
+    pick = torch.randperm(o.shape[0], generator=g)[:n].to(dev)
+    u = torch.from_numpy(np.random.default_rng(n).random((n, 5, 21), dtype=np.float32)).to(dev)
+    calls = []
+    real = pathtracer.shade
+
+    def recording(*a):
+        calls.append(a)
+        return real(*a)
+
+    pathtracer.shade = recording
+    try:
+        pathtracer.trace_paths(sc, o[pick].contiguous(), d[pick].contiguous(), u)
+    finally:
+        pathtracer.shade = real
+    return calls
+
+
+def _assert_k4_matches_twin(call, label):
+    """K4's forward and backward against their twins on ``call`` under
+    ``utils.timing.check_shade``'s gate (the one chip_smoke.py holds them
+    to), the backward on seeded cotangents of all three outputs, so that
+    every branch of it runs; the lanes that are not bit-equal printed."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.utils.timing import check_shade
+
+    before = (k4.shade.launches, k4.shade.backward_launches)
+    b = call[1]["throughput"].shape[0]
+    g = torch.Generator().manual_seed(b)
+    cot = [(torch.rand((b, n), generator=g) + 0.5).to(call[1]["throughput"].device) for n in (3, 3, 4)]
+    r = check_shade(call, cot, label=label)
+    print(f"K4 {label}: {b} lanes; lanes not bit-equal per field {r['differ']}; outside the gate {r['outside']}")
+    if b:
+        assert (k4.shade.launches, k4.shade.backward_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["1", "31", "4072", "65536", "bounce 2"])
+@pytest.mark.parametrize("name", K4_SCENES)
+def test_shade_kernels_match_twins(cuda, name, size):
+    n = 65536 if size == "bounce 2" else int(size)
+    calls = _k4_calls(name, n, cuda)
+    call = calls[1] if size == "bounce 2" else calls[0]
+    if size == "bounce 2":  # the live lanes gathered by K5 (all of them in the closed room)
+        assert not call[5] and call[1]["throughput"].shape[0] <= n
+    _assert_k4_matches_twin(call, f"{name}, {size}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["terrain_d9", "cutout_d9"])
+def test_shade_kernels_match_twins_on_the_depth9_bounces(cuda, name):
+    """The headline's shape: every bounce of one 65,536-lane frame."""
+    for k, call in enumerate(_k4_calls(name, 65536, cuda), start=1):
+        _assert_k4_matches_twin(call, f"{name}, bounce {k}")
+
+
+@pytest.mark.gpu
+def test_one_shade_launch_per_bounce_forward_and_backward(cuda):
+    """torch.profiler over one fwd+bwd frame: one forward kernel per
+    ``_shade`` call and one backward kernel per bounce, nothing else named
+    after K4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    scene, cam = minecraft_chunk_scene(depth=5)
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 64, 64)
+    u = torch.from_numpy(np.random.default_rng(4).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    bounces = int((pathtracer.trace_paths_census(scene, o, d, u)[1] > 0).sum())
+
+    def step():
+        p = {"atlas": scene.atlas.clone().requires_grad_(True),
+             "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+        pathtracer.trace_paths(apply_params(scene, p), o, d, u).mean().backward()
+        torch.cuda.synchronize()
+
+    step()
+    for _ in range(3):  # a profiler session now and then records no device activity at all
+        before = (k4.shade.launches, k4.shade.backward_launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    fwd = sum("shade_forward_kernel" in x for x in device)
+    bwd = sum("shade_backward_kernel" in x for x in device)
+    assert bounces == 5 and fwd == bwd == bounces, (fwd, bwd, bounces)
+    assert (k4.shade.launches - before[0], k4.shade.backward_launches - before[1]) == (bounces, bounces)
+
+
+@pytest.mark.gpu
+def test_shade_refuses_what_the_kernel_does_not_take_and_raises_on_a_refused_launch(cuda, monkeypatch):
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.utils.cuda_build import load_library
+
+    scene, st, u, res, prim, is_first, may_scatter = _k4_calls("terrain", 31, cuda)[0]
+    with pytest.raises(ValueError, match="throughput"):
+        k4.shade(scene, dict(st, throughput=st["throughput"].double()), u, res, prim, is_first, may_scatter)
+    cpu_mats = dataclasses.replace(scene.materials, roughness=scene.materials.roughness.cpu())
+    with pytest.raises(ValueError, match="card"):
+        k4.shade(dataclasses.replace(scene, materials=cpu_mats), st, u, res, prim, is_first, may_scatter)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        load_library("shade", ("--no-such-option",))
+    refused = types.SimpleNamespace(shade_forward=lambda *a: 1, shade_error_string=lambda rc: b"invalid argument")
+    monkeypatch.setattr(k4, "_library", lambda: refused)
+    before = k4.shade.launches
+    with pytest.raises(RuntimeError, match="shade_forward launch failed: invalid argument"):
+        k4.shade(scene, st, u, res, prim, is_first, may_scatter)
+    assert k4.shade.launches == before
