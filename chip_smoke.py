@@ -16,8 +16,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    shadow walk, and K2q, their block-model variant), K7
    (``csrc/prims.cu``, the analytic-primitive scan), K8 (``csrc/bvh.cu``,
    the BVH walk over quads), P2 (``csrc/uniforms.cu``, Philox uniforms),
-   P1 (``csrc/gather.cu``, row gather) and K4 (``csrc/shade.cu``, hit
-   resolve and shade, forward and backward); and, beside them, the C++ region
+   P1 (``csrc/gather.cu``, row gather), K4 (``csrc/shade.cu``, hit
+   resolve and shade, forward and backward) and K4's next-event half with
+   K6 (``csrc/nee.cu``: ``nee_setup``, ``nee_resolve``, ``nee_backward``);
+   and, beside them, the C++ region
    parser with g++ (host code: where it does not build, the numpy parser
    reads regions, as in the JAX package, and the line says why); ptxas's
    report of every kernel (registers, stack frame, spills) and the
@@ -43,8 +45,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    - P1 at the probe's shape (a (131072, 8) int32 table, 4096 int32 and
      int64 indices) and at the emitter grid's (the cutout's (4096, 8)
      ``grid_idx`` and ``grid_w`` at the 65536 supercells of its primaries'
-     hit points), one table at a time and both in one launch (the emitter
-     pick's ``row_gather_pair``), bit for bit, beside ``torch.index_select``.
+     hit points), one table at a time and both in one launch
+     (``row_gather_pair``, the emitter pick's gathers until K6 moved into
+     ``nee_setup``: P1 is on no main path since), bit for bit, beside
+     ``torch.index_select``.
    - K2q in each of its modes on ``plant_scene(depth=9)``: modes 1 and 2 on
      the 256x256 primaries, mode 3 on shadow rays from their hits toward
      sun directions (strict, no t) and toward random directions of the hit
@@ -62,6 +66,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      twin on all but 0.1% of the lanes (the lanes not bit-equal counted
      field by field), the backward (on the kernel's forward outputs) within
      rtol 1e-5 / atol 1e-7 of the backward twin; by call and on the device.
+   - K4's next-event half on the bounce-1 lanes of the NEE, cutout and
+     config-3 lines (the world's in phase 8), ``utils/timing.check_nee``:
+     ``nee_setup`` against its plain version on every ray field,
+     ``nee_resolve`` on the radiance and the residual, each bit-equal on all
+     but 0.1% of the rows and within rtol 1e-5 / atol 1e-6 there;
+     ``nee_backward`` on the cotangent the frame's backward hands the
+     bounce, within rtol 1e-5 / atol 1e-7; by call and on the device,
+     beside the plain versions and the bound (``nee_bounds``).
    Every traversal row carries the max, p50 and p99 of its per-ray fetch
    counts (whether its longest walk sets the call).  Every traversal result
    must equal its twin's on every lane and field bit for bit: hit, t, face,
@@ -76,8 +88,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3b. the light-sampling entry point: ``cli render --scene cutout --depth 9
    --width 256 --height 256 --spp 20 --sun high_quality --emitter-sampling
    one --device cuda``; the frame must be finite with a positive mean, and
-   K2, K3s, P1 and P2 must have been launched, P1 once per spatial emitter
-   pick (both gathers in one launch);
+   K2, K3s, P2, K4 and its next-event kernels must have been launched,
+   ``nee_setup`` and ``nee_resolve`` once per ``_shade`` call, P1 never;
 3c. the block-model entry point: ``cli render --scene plant --depth 9
    --width 256 --height 256 --spp 20 --sun high_quality --device cuda``;
    the frame must be finite with a positive mean, and K2q (modes 1 and 3)
@@ -86,8 +98,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    fixed uniform block, through the kernels and through the twins, with the
    IMPORTANCE sun and with HIGH_QUALITY + ``EmitterSampling.ONE``, and of
    the plant field (HIGH_QUALITY) and the analytic scene (IMPORTANCE and
-   HIGH_QUALITY); per-lane rtol and atol 2e-3, at most 0.1% of the lanes
-   outside;
+   HIGH_QUALITY); the twin side runs K4's and the next-event half's plain
+   versions with the traversal's and K7's twins; per-lane rtol and atol
+   2e-3, no lane outside;
 5. timing of the forward frame (256x256, 5 bounces, median of 5 after a
    warm-up), with nominal and live rays per second, and its launches
    (torch.profiler's device activities) through K4's kernels and through
@@ -103,13 +116,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
    cutout line (cutout, HIGH_QUALITY: K3s) and BASELINE's config 3 (terrain
    with its glowstone emitters, HIGH_QUALITY + ``EmitterSampling.ONE``),
    each forward and fwd+bwd at phase 5's shape, with rays/s and peak
-   memory; the gradients must be finite; the emitter count of each scene;
+   memory and the launches per frame (torch.profiler) through the kernels
+   and through the next-event half's plain version; the gradients must be
+   finite, and at 64x64 equal to the gradients through the plain versions
+   (rtol 1e-5, atol 1e-7); the emitter count of each scene;
 6c. the block-model and primitive lines at phase 5's shape: the depth-9
    plant field under its HIGH_QUALITY sun (K2q's mode 1 for the bounces, its
    mode 3 for the sun walks) and the depth-9 analytic scene under
    IMPORTANCE and HIGH_QUALITY (K1, K7 per bounce and per shadow ray),
-   forward and fwd+bwd, timed as phases 5 and 6; K2q and K7 must have been
-   launched and no twin run;
+   forward and fwd+bwd, timed as phases 5 and 6, with their launches as
+   phase 6b's; K2q and K7 must have been launched, the next-event kernels
+   on the HIGH_QUALITY lines, and no twin run;
 7. the training entry point: ``cli train`` (``inverse_render``, soft weight
    0.25) with the JAX CLI's defaults of 8 views at 512x512 for 3 steps, on
    ``--scene chunk --depth 9`` (K1, K3r, P2) and on ``--scene cutout
@@ -125,7 +142,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the card; (a) ``cli render --world ... --depth 9 --sun high_quality
    --emitter-sampling one`` at 256x256 and 20 spp; (b) ``cli info
    --world``; (c) frame parity at 64x64 as phase 4; (d) ``trace_paths`` at
-   phase 5's shape, forward and fwd+bwd, timed as phase 6b; (e) ``cli
+   phase 5's shape, forward and fwd+bwd, timed as phase 6b, and the
+   next-event kernels' phase-2 rows on its bounce-1 lanes; (e) ``cli
    train --world`` at 2 views of 128x128 for 2 steps.  The kernels each
    path must launch follow the scene's flags (the palette's textures are
    never transparent enough to reject a hit, so the bounces run K1; leaves,
@@ -136,8 +154,11 @@ K8's walk in phase 2) are
 set to 0 just before each path and read just after; the kernels'
 comparisons with their twins do not count.  Every path must have launched
 K4's forward, and its backward where a gradient is taken, and no path may
-run a twin (the twins' entry points are counted, K4's too).  The script names only the port; jax and the JAX
-package are blocked before anything is imported.
+run a twin (the twins' entry points are counted, K4's and the next-event
+half's too); every light-sampling path must have launched ``nee_setup``
+and ``nee_resolve``, and ``nee_backward`` where a gradient is taken.  The
+script names only the port; jax and the JAX package are blocked before
+anything is imported.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -216,6 +237,31 @@ OPS_SHADE_LANE, OPS_SHADE_SKY, OPS_SHADE_DIFFUSE, OPS_SHADE_IMPORTANCE, OPS_SHAD
 # the backward: ~40 operations per lane; its bytes, by the pointers a call
 # passes and the lanes that need them, in shade_backward_bound
 OPS_SHADE_BWD = 40
+# nee_setup, per lane: the hand-off (hit point, normal, diffuse mask) and
+# the medium in, the material on the sun face, the uniform words read; per
+# face the ray out (origin, direction, max_t, scale, active, medium, the
+# emitter's texel and material); the supercell rows the picks read and the
+# emitter table, once each (nee_bounds)
+NEE_SETUP_LANE_BYTES = 12 + 12 + 1 + 4
+NEE_RAY_BYTES = 12 + 12 + 4 + 4 + 1 + 4 + 4 + 4
+EMITTER_ROW_BYTES = 20
+# nee_resolve, per lane: albedo, throughput, radiance and medium in, the
+# radiance out; per face its active flag, per cast face max_t and scale (an
+# emitter face's texel and material too), the walk's record and K7's hit;
+# per distinct texel 16 B, per distinct emitter material 4 B; with a
+# gradient 32 B of residual per face
+NEE_RESOLVE_LANE_BYTES = 16 + 12 + 12 + 4 + 12
+NEE_RESID_BYTES = 32
+# nee_backward, per lane: the cotangent, the throughput and the albedo in,
+# their gradients out; per face the residual's code, per cast face the rest
+# of it and the scale; the texels it names; the dense gradients written once
+NEE_BWD_LANE_BYTES = 12 + 12 + 16 + 12 + 16
+# arithmetic: the sun face (cone sample, sinf / cosf, the tests), an
+# emitter face (to_q, dist, wi, cosines, geom, texel), the spatial pick
+# (cell, CDF walk, membership pdf, the face weights), per cast face in the
+# resolve and per slot it folds; the backward per cast face and slot
+OPS_NEE_SUN, OPS_NEE_FACE, OPS_NEE_PICK = 60, 50, 60
+OPS_NEE_RESOLVE_FACE, OPS_NEE_SLOT, OPS_NEE_BWD_FACE, OPS_NEE_BWD_SLOT = 30, 15, 60, 25
 # the synthesized survival region: 32 x 32 chunks, sections -4..19
 WORLD_SEED, WORLD_CHUNKS = 2024, 32
 WORLD_BLOCKS = ("air", "bedrock", "stone", "coal_ore", "iron_ore", "dirt", "grass_block", "sand", "water",
@@ -246,13 +292,23 @@ KERNELS = {
               "octree_pathtracing_tpu/render/pathtracer.py:1294"),
     "shade_backward": ("octree_pathtracing_tpu_torch/csrc/shade.cu",
                        "octree_pathtracing_tpu/render/pathtracer.py:804"),
+    # K4's next-event half, K6's pick (models/emitters.py:161, :201, :270) inside nee_setup
+    "nee_setup": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
+                  "octree_pathtracing_tpu/render/pathtracer.py:1361"),
+    "nee_resolve": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
+                    "octree_pathtracing_tpu/render/pathtracer.py:1390"),
+    "nee_backward": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
+                     "octree_pathtracing_tpu/render/pathtracer.py:804"),
 }
+NEE_KERNELS = ("nee_setup", "nee_resolve", "nee_backward")
 # the block-model and primitive lines at bench.py's shapes: (name, scene, sun)
 MODEL_CELLS = (("plant", "plant", "high_quality"), ("analytic", "analytic", "importance"),
                ("analytic_hq", "analytic", "high_quality"))
 # bench.py's lines and BASELINE's config 3 at bench.py's shapes:
 # (name, scene, emitter sampling); every one runs the HIGH_QUALITY sun
 LIGHT_CELLS = (("nee", "terrain", "none"), ("cutout", "cutout", "none"), ("config3", "terrain", "one"))
+# the next-event kernels' phase-2 rows: (line, scene, emitter sampling), under the HIGH_QUALITY sun
+NEE_ROW_LINES = (("nee", "terrain", "none"), ("cutout", "cutout", "none"), ("config3", "terrain", "one"))
 
 
 # the host processes main() starts (the region synthesis, the BVH build)
@@ -573,6 +629,71 @@ def prim_bound(prims, lanes: int):
                  lanes * (prims.n_spheres * OPS_PER_SPHERE + n_quads * OPS_PER_PRIM_QUAD))
 
 
+def nee_bounds(chk) -> dict:
+    """The next-event kernels' bounds on one ``utils/timing.check_nee``
+    result: {kernel: (bound_ms, bound_by)}.  Each counts its lanes' and
+    faces' inputs and outputs (NEE_* above), the walk record entries and
+    primitive hits its cast faces read, the distinct texels, supercell rows
+    and emitter materials they name, and the dense gradients once, against
+    its arithmetic by face and slot."""
+    import torch
+
+    from octree_pathtracing_tpu_torch.ops import nee as k
+
+    c = chk["args"]["setup"][0]
+    scene, plan = c.scene, c.plan
+    b = int(c.cur_mat.shape[0])
+    fb = plan.faces * b
+    rays, (walk, prim) = chk["rays"], chk["walk"]
+    ints = chk["args"]["backward"][2].ints.reshape(fb, k.RESID_INTS)
+    cast = rays.active
+    n_cast = int(cast.sum())
+    sun_rows = torch.zeros(fb, dtype=torch.bool, device=cast.device)
+    if plan.sun:
+        sun_rows[:b] = True
+    n_cast_em = int((cast & ~sun_rows).sum())
+    # nee_setup
+    u_words, grid_bytes = 0, 0
+    if plan.sun:
+        sss = (scene.materials.flags[c.mat.long()] & 2) != 0
+        u_words += 2 * b + int(sss.sum())
+    em = scene.emitters
+    if plan.emitters is not None:
+        u_words += 3 * b
+        grid_bytes = em.count * EMITTER_ROW_BYTES
+        if plan.emitters == "one" and em.grid_idx is not None:
+            g = 1 << em.grid_bits
+            p = torch.where(c.diffuse_on[:, None], c.hitpoint, 0.0) + (0.01 * em.cell_size) * c.normal
+            cell = torch.clamp((p / em.cell_size).to(torch.int32), 0, g - 1)
+            rows = ((cell[:, 0] * g + cell[:, 1]) * g + cell[:, 2]).unique().numel()
+            grid_bytes += int(rows) * em.grid_idx.shape[1] * 8
+    setup = bound(b * NEE_SETUP_LANE_BYTES + (4 * b if plan.sun else 0) + 4 * u_words + fb * NEE_RAY_BYTES
+                  + grid_bytes,
+                  b * ((OPS_NEE_SUN if plan.sun else 0) + (OPS_NEE_PICK if plan.emitters == "one" else 0))
+                  + (fb - (b if plan.sun else 0)) * OPS_NEE_FACE)
+    # nee_resolve: the records its cast faces read
+    slots = ints[:, 1:1 + k.N_SLOTS]
+    used = slots >= 0
+    if hasattr(walk, "mats"):
+        reads = torch.clamp(walk.count[cast], max=k.K_SURFACES)
+        rec = 4 * n_cast + 12 * int(used[:, :k.K_SURFACES].sum()) + (4 * int(reads.sum()) if walk.ts is not None else 0)
+    else:
+        rec = n_cast + 20 * int(walk.hit[cast].sum())
+    if prim is not None:
+        rec += n_cast + 16 * int(prim[0][cast].sum())
+    em_cast = cast & ~sun_rows
+    texels = torch.cat([slots[used], ints[em_cast, -2]]).unique().numel()
+    e_mats = ints[em_cast, -1].unique().numel()
+    n_slots = int(used.sum())
+    resolve = bound(b * NEE_RESOLVE_LANE_BYTES + fb + 8 * n_cast + 8 * n_cast_em + rec + 16 * int(texels)
+                    + 4 * int(e_mats), n_cast * OPS_NEE_RESOLVE_FACE + n_slots * OPS_NEE_SLOT)
+    data = scene.atlas.data if hasattr(scene.atlas, "sizes") else scene.atlas
+    backward = bound(b * NEE_BWD_LANE_BYTES + 4 * fb + NEE_RESID_BYTES * n_cast + 16 * int(texels)
+                     + 4 * int(e_mats) + data.numel() * 4 + scene.materials.emittance.numel() * 4,
+                     n_cast * OPS_NEE_BWD_FACE + n_slots * OPS_NEE_BWD_SLOT)
+    return {"nee_setup": setup, "nee_resolve": resolve, "nee_backward": backward}
+
+
 def main() -> int:
     # The port never needs jax or the JAX package; block both so that no
     # module reached from here loads them.
@@ -591,7 +712,6 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.models import (
         analytic_sphere_scene,
         cutout_chunk_scene,
-        emitters,
         face_normals,
         minecraft_chunk_scene,
         octree_from_grid,
@@ -605,6 +725,7 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
     from octree_pathtracing_tpu_torch.ops import bvh as bvh_mod
     from octree_pathtracing_tpu_torch.ops import shade as shade_mod
+    from octree_pathtracing_tpu_torch.ops import nee as nee_mod
     from octree_pathtracing_tpu_torch.ops import gather
     from octree_pathtracing_tpu_torch.ops.bvh import (
         BVH,
@@ -645,7 +766,9 @@ def main() -> int:
         card_line,
         device_ms,
         fetch_stats,
+        check_nee,
         check_shade,
+        nee_calls,
         profile_launches,
         shade_calls,
         shade_gradients,
@@ -664,9 +787,12 @@ def main() -> int:
         "prims_intersect": (intersect_prims, "launches"),
         "bvh_intersect": (bvh_intersect_quads, "launches"),
         "shade": (shade_mod.shade, "launches"), "shade_backward": (shade_mod.shade, "backward_launches"),
+        "nee_setup": (nee_mod.nee, "setup_launches"), "nee_resolve": (nee_mod.nee, "resolve_launches"),
+        "nee_backward": (nee_mod.nee, "backward_launches"),
     }
     # the twins' own entry points, counted so that a main path can show it ran none
-    twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0, "K4 backward twin": 0}
+    twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0, "K4 backward twin": 0,
+                  "nee_setup twin": 0, "nee_resolve twin": 0, "nee_backward twin": 0}
     real_walk, real_prims_twin = traversal._walk_reference, prims_mod.intersect_prims_reference
     real_bvh_twin = bvh_mod.bvh_intersect_reference
     real_shade_twin, real_shade_bwd_twin = shade_mod.shade_reference, shade_mod.shade_backward_reference
@@ -691,6 +817,16 @@ def main() -> int:
         twin_calls["K4 backward twin"] += 1
         return real_shade_bwd_twin(*a, **kw)
 
+    def counting(name, fn):
+        def counted(*a, **kw):
+            twin_calls[name] += 1
+            return fn(*a, **kw)
+
+        return counted
+
+    real_nee = {name: getattr(nee_mod, f"{name}_reference") for name in NEE_KERNELS}
+    for name, fn in real_nee.items():
+        setattr(nee_mod, f"{name}_reference", counting(f"{name} twin", fn))
     traversal._walk_reference = counting_walk
     prims_mod.intersect_prims_reference = counting_prims_twin
     bvh_mod.bvh_intersect_reference = counting_bvh_twin
@@ -712,13 +848,23 @@ def main() -> int:
             yield
 
     @contextlib.contextmanager
+    def nee_plain():
+        """K4's next-event half through its plain versions, differentiated by
+        autograd (the eager path the light lines ran before its kernels)."""
+        with mock.patch.object(pathtracer, "nee", lambda *a: nee_mod.nee_reference(*a)[0]):
+            yield
+
+    @contextlib.contextmanager
     def twins():
         """Every kernel's wrapper replaced by its twin where the paths call it."""
-        with k4_twins(), mock.patch.object(pathtracer, "traverse", traverse_reference), \
+        with k4_twins(), nee_plain(), mock.patch.object(pathtracer, "traverse", traverse_reference), \
                 mock.patch.object(pathtracer, "traverse_alpha", traverse_alpha_reference), \
                 mock.patch.object(pathtracer, "traverse_shadow", traverse_shadow_reference), \
                 mock.patch.object(pathtracer, "intersect_prims", intersect_prims_reference), \
-                mock.patch.object(emitters, "row_gather_pair", row_gather_pair_reference):
+                mock.patch.object(nee_mod, "traverse", traverse_reference), \
+                mock.patch.object(nee_mod, "traverse_alpha", traverse_alpha_reference), \
+                mock.patch.object(nee_mod, "traverse_shadow", traverse_shadow_reference), \
+                mock.patch.object(nee_mod, "intersect_prims", intersect_prims_reference):
             yield
 
     def high_quality(sc, emitter_sampling="none"):
@@ -792,7 +938,7 @@ def main() -> int:
     threads = [threading.Thread(target=build, args=a)
                for a in (("traversal", traversal._library), ("uniforms", prandom._library),
                          ("gather", gather._library), ("prims", prims_mod._library), ("bvh", bvh_mod._library),
-                         ("shade", shade_mod._library))]
+                         ("shade", shade_mod._library), ("nee", nee_mod._library))]
     threads.append(threading.Thread(target=build_native))
     for th in threads:
         th.start()
@@ -800,7 +946,7 @@ def main() -> int:
         th.join()
     if errors:
         raise errors[0]
-    log(f"phase 1 build: the six libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
+    log(f"phase 1 build: the seven libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
         f"parser {native_build['result']}")
     for name, lib in builds.items():
         info = lib.build_info
@@ -928,6 +1074,56 @@ def main() -> int:
     for name, rows in k4_rows.items():  # the row of bounce 1 (the 256^2 primaries), the others beside it
         results[name] = dict(rows["bounce 1"], max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                              headline_bounces={b: r for b, r in rows.items() if b != "bounce 1"})
+
+    # K4's next-event half on the bounce-1 lanes of the light lines, with the
+    # radiance cotangent a real fwd+bwd of the frame hands them (bench.py's
+    # mean-radiance loss, the atlas and the emittance taking gradient)
+    nee_rows = {name: {} for name in NEE_KERNELS}
+
+    def nee_phase2(line, sc, camera, uniforms):
+        lo, ld = pixel_grid_rays(camera, WIDTH, HEIGHT)
+        call = nee_calls(pathtracer, sc, lo, ld, uniforms)[0]
+        chk = check_nee(call[:4], call[4], f"the {line} line's bounce 1")
+        bounds = nee_bounds(chk)
+        args = chk["args"]
+        c = args["setup"][0]
+        lanes, cast = int(c.cur_mat.shape[0]), int(chk["rays"].active.sum())
+        fns = {"nee_setup": (lambda: nee_mod._setup_cuda(c),
+                             lambda: real_nee["nee_setup"](c.scene, c.plan, *c[2:])),
+               "nee_resolve": (lambda: nee_mod._resolve_cuda(*args["resolve"]),
+                               lambda: real_nee["nee_resolve"](c.scene, c.plan, *args["resolve"][1:4],
+                                                               args["resolve"][6], args["resolve"][4],
+                                                               args["resolve"][5], c.cur_mat, False)),
+               "nee_backward": (lambda: nee_mod._backward_cuda(*args["backward"]),
+                                lambda: real_nee["nee_backward"](*args["backward"]))}
+        errs = {"nee_setup": chk["setup"]["max_abs_err"], "nee_resolve": chk["resolve"]["max_abs_err"],
+                "nee_backward": chk["backward_err"]}
+        gates = {"nee_setup": chk["setup"], "nee_resolve": chk["resolve"], "nee_backward": None}
+        log(f"  next-event kernels, the {line} line's bounce 1: {lanes} lanes x {c.plan.faces} faces, {cast} cast; "
+            f"rows not bit-equal: setup {chk['setup']['differ']}, resolve {chk['resolve']['differ']}, residual "
+            f"{chk['resolve']['residual']['differ']}; backward max abs err {chk['backward_err']!r}")
+        for name, (kernel, plain) in fns.items():
+            t = both(kernel)
+            row = dict(lanes=lanes, faces=c.plan.faces, cast=cast, max_abs_err=errs[name], ms=t["call_ms"],
+                       device_ms=t["device_ms"], plain_ms=call_ms(plain, 5), bound_ms=bounds[name][0],
+                       bound_by=bounds[name][1], library_ms=None)
+            if gates[name] is not None:
+                row["not_bit_equal"] = gates[name]["not_bit_equal"]
+            nee_rows[name][line] = row
+            log(f"  {name} call {row['ms']!r} ms, device {row['device_ms']!r} ms ({t['device_by']}), plain "
+                f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms ({row['bound_by']}) on the {line} line's "
+                f"bounce-1 lanes [{card}]")
+
+    def nee_results():
+        """The next-event kernels' rows: the NEE line's, the other lines beside it."""
+        for name, rows in nee_rows.items():
+            results[name] = dict(rows["nee"], max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                                 lines={line: r for line, r in rows.items() if line != "nee"})
+
+    for line, which, sampling in NEE_ROW_LINES:
+        sc, camera = (scene, cam) if which == "terrain" else (cut, cut_cam)
+        nee_phase2(line, high_quality(sc, sampling), camera, frame_u)
+    nee_results()
     del frame_u
 
     # P2 on the bench's uniform block and on ragged sizes, bit for bit: one
@@ -1116,8 +1312,9 @@ def main() -> int:
     lib = both(lambda: (torch.index_select(pair_tables[0], 0, cells_long),
                         torch.index_select(pair_tables[1], 0, cells_long)))
     b_ms, b_by = gather_bound(cut_em.grid_idx, cells, tables=2)
-    results["row_gather"] = dict(  # the main path's call: the pair over the 256^2 lanes
+    results["row_gather"] = dict(  # the emitter pick's call until PR 10: the pair over the 256^2 lanes
         variant="row_gather_pair (grid_idx + grid_w, one launch)", max_abs_err=0.0,
+        main_path="none: K6's pick reads its supercell rows inside nee_setup",
         ms=k["call_ms"], device_ms=k["device_ms"],
         plain_ms=call_ms(lambda: row_gather_pair_reference(*pair_tables, cells)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1315,24 +1512,28 @@ def main() -> int:
             "-o", os.path.join(out_dir, f"cutout_d{DEPTH}_{WIDTH}_nee.ppm")]
     log(f"phase 3b light sampling: cli {' '.join(argv)}")
     parsed = cli.build_parser().parse_args(argv)
-    picks = []
-    real_pick = emitters._spatial_pick
+    shades = []
+    real_shade = pathtracer._shade
 
-    def count_pick(em, *a, **kw):
-        picks.append(em.grid_idx is not None)  # a spatial pick gathers its rows through P1
-        return real_pick(em, *a, **kw)
+    def count_shade(*a, **kw):
+        shades.append(1)
+        return real_shade(*a, **kw)
 
     reset_counts()
     t0 = time.perf_counter()
-    with mock.patch.object(emitters, "_spatial_pick", count_pick):
+    with mock.patch.object(pathtracer, "_shade", count_shade):
         r = parsed.fn(parsed)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     read_counts("cli render --sun high_quality --emitter-sampling one",
-                ("esvo_traverse_alpha", "esvo_traverse_shadow", "row_gather", "philox_uniforms", "shade"))
-    log(f"  spatial emitter picks {sum(picks)}, P1 launches {row_gather.launches} (one per pick)")
-    if row_gather.launches != sum(picks):
-        raise AssertionError(f"P1 launched {row_gather.launches} times for {sum(picks)} spatial picks")
+                ("esvo_traverse_alpha", "esvo_traverse_shadow", "philox_uniforms", "shade", "nee_setup",
+                 "nee_resolve"))
+    log(f"  _shade calls {len(shades)}; nee_setup {nee_mod.nee.setup_launches}, nee_resolve "
+        f"{nee_mod.nee.resolve_launches}, K3s {traverse_shadow.launches} (one walk per call for the sun and "
+        f"emitter faces together), P1 {row_gather.launches} (K6's pick reads its rows inside nee_setup)")
+    if not (nee_mod.nee.setup_launches == nee_mod.nee.resolve_launches == len(shades)) or row_gather.launches:
+        raise AssertionError("the light-sampling render did not run one nee_setup and one nee_resolve per _shade "
+                             "call, or launched P1")
     frame = r.framebuffer
     if r.spp != 20 or not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
         raise AssertionError("the light-sampling frame is not finite with a positive mean at 20 spp")
@@ -1372,7 +1573,7 @@ def main() -> int:
         bad = int((~torch.isclose(got, want, rtol=2e-3, atol=2e-3).all(dim=-1)).sum())
         log(f"phase 4 frame parity, {label} {w}x{h}x{N_BOUNCES}: bad lanes {bad}/{w * h}, "
             f"max abs diff {float((got - want).abs().max())!r}")
-        if bad > 0.001 * w * h or not bool(torch.isfinite(got).all()):
+        if bad or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"kernel frame disagrees with the twin frame ({label})")
 
     # ---- 5. timing of the forward frame
@@ -1458,20 +1659,33 @@ def main() -> int:
         f"atlas max abs diff {float((got[1] - want[1]).abs().max())!r}, "
         f"emittance max abs diff {float((got[2] - want[2]).abs().max())!r}")
 
-    # ---- 6b. bench.py's NEE and cutout lines and BASELINE's config 3
-    log(f"phase 6b light sampling at bench.py's shapes [{card}]: emitters E = "
-        f"{high_quality(scene, 'one').emitters.count} (depth-{DEPTH} terrain), "
-        f"{high_quality(cut, 'one').emitters.count} (depth-{DEPTH} cutout)")
-    for name, which, sampling in LIGHT_CELLS:
-        sc = high_quality(scene if which == "terrain" else cut, sampling)
-        camera = cam if which == "terrain" else cut_cam
-        lo, ld = pixel_grid_rays(camera, WIDTH, HEIGHT)
-        required = (("esvo_traverse",) if which == "terrain" else ("esvo_traverse_alpha", "esvo_traverse_shadow"))
-        required += ("row_gather",) if sampling == "one" else ()
+    def light_launches(fn):
+        """The device activities of one call of ``fn`` through the
+        next-event kernels and through their plain version (the eager
+        next-event path the light lines ran before them)."""
+        def synced():
+            fn()
+            torch.cuda.synchronize()
+
+        kernel = profile_launches(synced)
+        with nee_plain():
+            plain = profile_launches(synced)
+        return kernel, plain
+
+    def time_line(label, sc, lo, ld, required, what):
+        """One line at phase 5's shape, forward and fwd+bwd: median of 5 after
+        a warm-up, rays/s, peak memory, the launches each path must show
+        (``required``, K4's, and the next-event kernels where the scene
+        samples light, whose launches per frame are then also counted through
+        the kernels and through their plain version)."""
+        light = nee_mod.nee_plan(sc) is not None
         _, live = trace_paths_census(sc, lo, ld, fu)
         rays_live = int(live.sum())
         for step, fn in (("forward", lambda: trace_paths(sc, lo, ld, fu)),
                          ("fwd+bwd", lambda: fwdbwd(sc, lo, ld, fu))):
+            need = required + ("shade",) + (("nee_setup", "nee_resolve") if light else ())
+            if step == "fwd+bwd":
+                need += ("shade_backward",) + (("nee_backward",) if light else ())
             reset_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             times = []
@@ -1482,16 +1696,41 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if i:  # the first run is the warm-up
                     times.append((time.perf_counter() - t0) * 1e3)
-            read_counts(f"the {name} line, {step}",
-                        required + ("shade",) + (("shade_backward",) if step == "fwd+bwd" else ()))
-            if step == "fwd+bwd" and not all(bool(torch.isfinite(x).all()) for x in out):
-                raise AssertionError(f"the {name} line's loss or gradients are not finite")
+            read_counts(f"the {label} line, {step}", need)
+            finite = torch.isfinite(out).all() if step == "forward" else all(torch.isfinite(x).all() for x in out)
+            if not bool(finite):
+                raise AssertionError(f"the {label} line's {step} is not finite")
             ms = statistics.median(times)
-            log(f"  {name} {step}_ms {ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) "
-                f"{which} HIGH_QUALITY emitters={sampling} depth {DEPTH} {WIDTH}x{HEIGHT} bounces {N_BOUNCES}; "
+            log(f"  {label} {step}_ms {ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) "
+                f"{what} {WIDTH}x{HEIGHT} bounces {N_BOUNCES}; "
                 f"rays_per_s_nominal {rays_nominal / (ms / 1e3)!r} rays_per_s_live {rays_live / (ms / 1e3)!r} "
                 f"(live per bounce {live.tolist()}); max_memory_allocated "
                 f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card}]")
+            if light:
+                k_launch, p_launch = light_launches(fn)
+                log(f"  launches per {label} {step} frame (torch.profiler): {k_launch} through the next-event "
+                    f"kernels, {p_launch} through their plain version [{card}]")
+
+    # ---- 6b. bench.py's NEE and cutout lines and BASELINE's config 3
+    log(f"phase 6b light sampling at bench.py's shapes [{card}]: emitters E = "
+        f"{high_quality(scene, 'one').emitters.count} (depth-{DEPTH} terrain), "
+        f"{high_quality(cut, 'one').emitters.count} (depth-{DEPTH} cutout)")
+    for name, which, sampling in LIGHT_CELLS:
+        sc = high_quality(scene if which == "terrain" else cut, sampling)
+        camera = cam if which == "terrain" else cut_cam
+        lo, ld = pixel_grid_rays(camera, WIDTH, HEIGHT)
+        required = (("esvo_traverse",) if which == "terrain" else ("esvo_traverse_alpha", "esvo_traverse_shadow"))
+        time_line(name, sc, lo, ld, required, f"{which} HIGH_QUALITY emitters={sampling} depth {DEPTH}")
+        # the gradient through the kernels against the gradient through the plain versions
+        po, pd = pixel_grid_rays(camera, w, h)
+        got = fwdbwd(sc, po, pd, u)
+        with twins():
+            want = fwdbwd(sc, po, pd, u)
+        for g_name, g, wg in zip(("loss", "atlas", "emittance"), got, want):
+            torch.testing.assert_close(g, wg, rtol=1e-5, atol=1e-7, msg=lambda m, g_name=g_name: f"{name} {g_name}: {m}")
+        log(f"  {name}: gradient through the kernels = through the plain versions at {w}x{h} (rtol 1e-5, atol "
+            f"1e-7): atlas max abs diff {float((got[1] - want[1]).abs().max())!r}, emittance max abs diff "
+            f"{float((got[2] - want[2]).abs().max())!r}")
 
     # ---- 6c. the block-model and primitive lines
     log(f"phase 6c block models and primitives at bench.py's shapes [{card}]")
@@ -1503,31 +1742,7 @@ def main() -> int:
             required = ("esvo_traverse_models (mode 1)", "esvo_traverse_models (mode 3)")
         else:
             required = ("esvo_traverse", "prims_intersect")
-        _, live = trace_paths_census(sc, lo, ld, fu)
-        rays_live = int(live.sum())
-        for step, fn in (("forward", lambda: trace_paths(sc, lo, ld, fu)),
-                         ("fwd+bwd", lambda: fwdbwd(sc, lo, ld, fu))):
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats(dev)
-            times = []
-            for i in range(6):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn()
-                torch.cuda.synchronize()
-                if i:  # the first run is the warm-up
-                    times.append((time.perf_counter() - t0) * 1e3)
-            read_counts(f"the {name} line, {step}",
-                        required + ("shade",) + (("shade_backward",) if step == "fwd+bwd" else ()))
-            finite = torch.isfinite(out).all() if step == "forward" else all(torch.isfinite(x).all() for x in out)
-            if not bool(finite):
-                raise AssertionError(f"the {name} line's {step} is not finite")
-            ms = statistics.median(times)
-            log(f"  {name} {step}_ms {ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) "
-                f"{which} {sun.upper()} depth {DEPTH} {WIDTH}x{HEIGHT} bounces {N_BOUNCES}; "
-                f"rays_per_s_nominal {rays_nominal / (ms / 1e3)!r} rays_per_s_live {rays_live / (ms / 1e3)!r} "
-                f"(live per bounce {live.tolist()}); max_memory_allocated "
-                f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card}]")
+        time_line(name, sc, lo, ld, required, f"{which} {sun.upper()} depth {DEPTH}")
 
     # ---- 7. the training entry point
     model_modes = tuple(f"esvo_traverse_models (mode {m})" for m in (1, 2, 3))
@@ -1606,7 +1821,7 @@ def main() -> int:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     read_counts("cli render --world --sun high_quality --emitter-sampling one",
-                (bounce_kernel, sun_kernel, "row_gather", "philox_uniforms", "shade"))
+                (bounce_kernel, sun_kernel, "philox_uniforms", "shade", "nee_setup", "nee_resolve"))
     frame = r.framebuffer
     if r.spp != 20 or not bool(torch.isfinite(frame).all()) or float(frame.mean()) <= 0.0:
         raise AssertionError("the world frame is not finite with a positive mean at 20 spp")
@@ -1630,35 +1845,14 @@ def main() -> int:
     bad = int((~torch.isclose(got, want, rtol=2e-3, atol=2e-3).all(dim=-1)).sum())
     log(f"  8c frame parity, world HIGH_QUALITY + ONE {w}x{h}x{N_BOUNCES}: bad lanes {bad}/{w * h}, "
         f"max abs diff {float((got - want).abs().max())!r}")
-    if bad > 0.001 * w * h or not bool(torch.isfinite(got).all()):
+    if bad or not bool(torch.isfinite(got).all()):
         raise AssertionError("the world's kernel frame disagrees with its twin frame")
 
     lo, ld = pixel_grid_rays(world_cam, WIDTH, HEIGHT)
-    _, live = trace_paths_census(world, lo, ld, fu)
-    rays_live = int(live.sum())
-    for step, fn in (("forward", lambda: trace_paths(world, lo, ld, fu)),
-                     ("fwd+bwd", lambda: fwdbwd(world, lo, ld, fu))):
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
-        times = []
-        for i in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            if i:  # the first run is the warm-up
-                times.append((time.perf_counter() - t0) * 1e3)
-        read_counts(f"the world line, {step}", (bounce_kernel, sun_kernel, "row_gather", "shade")
-                    + (("shade_backward",) if step == "fwd+bwd" else ()))
-        finite = torch.isfinite(out).all() if step == "forward" else all(torch.isfinite(x).all() for x in out)
-        if not bool(finite):
-            raise AssertionError(f"the world line's {step} is not finite")
-        ms = statistics.median(times)
-        log(f"  8d world {step}_ms {ms!r} (median of {len(times)}: {[round(t, 3) for t in times]}) HIGH_QUALITY "
-            f"emitters=one depth {WORLD_DEPTH} {WIDTH}x{HEIGHT} bounces {N_BOUNCES}; rays_per_s_nominal "
-            f"{rays_nominal / (ms / 1e3)!r} rays_per_s_live {rays_live / (ms / 1e3)!r} (live per bounce "
-            f"{live.tolist()}); max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{card}]")
-    del world, world_cpu, out
+    time_line("world", world, lo, ld, (bounce_kernel, sun_kernel), f"HIGH_QUALITY emitters=one depth {WORLD_DEPTH}")
+    nee_phase2("world", world, world_cam, fu)
+    nee_results()
+    del world, world_cpu
 
     out = os.path.join(out_dir, "params_world.npz")
     argv = ["train", "--world", world_path, "--depth", str(WORLD_DEPTH), "--views", "2", "--width", "128",

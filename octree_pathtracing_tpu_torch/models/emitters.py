@@ -18,8 +18,9 @@ the shadow walk truncated at the emitter (``render/pathtracer._shade``).
 With emitter sampling on, emission found by BSDF sampling counts only on
 the primary bounce, so the two estimators never count a light twice.
 
-The pick's two supercell-row gathers go through kernel P1 in one launch
-(``ops/gather.row_gather_pair``).  The table is built on the host with numpy.
+These are the plain versions of kernel K6, which runs inside
+``nee_setup`` (``csrc/nee.cu``, ``ops/nee.py``); the render path calls them
+only on the CPU.  The table is built on the host with numpy.
 The cumulative sums are written as left-to-right folds, the order XLA's CPU
 ``cumsum`` adds in: they are CDF knife edges.
 """
@@ -34,7 +35,6 @@ import torch
 
 from ..octree.leaves import enumerate_leaves, unpack_nodes
 from ..octree.node_pool import Octree
-from ..ops.gather import row_gather_pair
 
 # Spatial-selection grid: the world is covered by a 2^GRID_BITS-per-side
 # supercell grid; each cell keeps its GRID_K highest-weight emitters (weight
@@ -153,7 +153,8 @@ def _spatial_pick(em: EmitterTable, p, u_pick):
     lam = em.lam
     cell = torch.clamp((p / em.cell_size).to(torch.int32), 0, g - 1)  # (B, 3)
     c = (cell[:, 0] * g + cell[:, 1]) * g + cell[:, 2]
-    gi, gw = row_gather_pair(em.grid_idx, em.grid_w, c)  # (B, K) each: one launch of P1
+    cl = c.long()
+    gi, gw = em.grid_idx[cl], em.grid_w[cl]  # (B, K) each
 
     uni = u_pick < lam
     u_u = torch.clamp(u_pick / lam, 0.0, 1.0 - 1e-7)

@@ -487,17 +487,18 @@ def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
-def _rows(x, b: int, k: int, dtype, name: str):
+def _rows(x, b: int, k: int, dtype, name: str, who: str = "shade"):
     """``x`` as (B, k) rows of ``dtype`` whose last axis is dense: the kernel
-    reads row ``i`` at ``i * stride``."""
+    reads row ``i`` at ``i * stride``.  ``who`` names the wrapper in the
+    error."""
     if x.dtype != dtype or x.shape != (b, k):
-        raise ValueError(f"shade: {name} must be ({b}, {k}) {dtype}")
+        raise ValueError(f"{who}: {name} must be ({b}, {k}) {dtype}")
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
-def _dense(x, shape, dtype, name: str):
+def _dense(x, shape, dtype, name: str, who: str = "shade"):
     if x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
-        raise ValueError(f"shade: {name} must be a contiguous {tuple(shape)} {dtype}")
+        raise ValueError(f"{who}: {name} must be a contiguous {tuple(shape)} {dtype}")
     return x
 
 

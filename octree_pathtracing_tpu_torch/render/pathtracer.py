@@ -5,7 +5,11 @@ transmission), with sky and sun on a miss and emission on diffuse hits:
 this base shading is kernel K4 (``ops/shade.shade``, forward and backward
 on the card).  Diffuse bounces add next-event estimates toward the sun (FAST and
 HIGH_QUALITY) and toward emissive blocks (``EmitterSampling`` ONE,
-ONE_BLOCK, ALL), each through a shadow walk.  The recursion is an iterative
+ONE_BLOCK, ALL): K4's next-event half with K6's emitter pick
+(``ops/nee.nee``: ``nee_setup``, one shadow walk for every face of the
+bounce, ``nee_resolve``; ``nee_backward`` on the card).  The old entry
+points of the attenuation (``shadow_attenuation`` and the recompute
+helpers) stay here for callers of a single walk.  The recursion is an iterative
 bounce loop over a structure-of-arrays lane batch.  The bounce axis of the
 uniform block ``(B, n_bounces, 21)`` sets the depth cap.
 
@@ -30,20 +34,18 @@ primitive scan are detached.
 
 from __future__ import annotations
 
-import math
+import dataclasses
 
 import torch
 
-from ..models.emitters import ALL_MAX_EMITTERS, sample_emitter_point, toward_face_sample
-from ..models.materials import FLAG_SUBSURFACE_SCATTER, gather_rows
 from ..models.prims import intersect_prims
-from ..models.scene import MAX_DIST, EmitterSampling, Scene
-from ..models.sun import random_sun_direction
+from ..models.scene import MAX_DIST, Scene
+from ..ops import nee as nee_mod
+from ..ops.nee import nee
 from ..ops.random import philox_uniforms
-from ..ops.shade import resolve_hit, shade, sky_radiance  # noqa: F401 (sky_radiance: this module's name since the port began)
-from ..ops.shading import EPSILON, N_UNIFORMS, OFFSET, U_EM1, U_EM2, U_EM_PICK, U_SUBSURFACE, U_SUN1, U_SUN2
-from ..ops.texture import sample_atlas
-from ..ops.traversal import K_SURFACES, HitResult, QuadSurface, traverse, traverse_alpha, traverse_shadow
+from ..ops.shade import shade, sky_radiance  # noqa: F401 (sky_radiance: this module's name since the port began)
+from ..ops.shading import N_UNIFORMS, OFFSET
+from ..ops.traversal import HitResult, QuadSurface, traverse, traverse_alpha, traverse_shadow
 from .hit import accept_tables
 
 MAX_BOUNCES = 5
@@ -52,8 +54,7 @@ MAX_BOUNCES = 5
 def _albedo_at(scene: Scene, mat_id, uv):
     """(B, 4) texel of material ``mat_id`` at ``uv``; differentiable in the
     atlas."""
-    layer = scene.materials.texture_index[mat_id.long()]
-    return sample_atlas(scene.atlas, layer, uv[:, 0], uv[:, 1])
+    return nee_mod._albedo_at(scene, mat_id, uv[:, 0], uv[:, 1])[0]
 
 
 def _walk_args(scene: Scene, origins, dirs):
@@ -86,7 +87,7 @@ def shadow_attenuation(scene: Scene, origins, dirs, cur_mat, active=None, max_t=
     ``shadow_binary`` scenes (every texel alpha exactly 1): the first surface
     always spends the whole budget, so one first-hit traversal (K1 / K2)
     with the same single-surface recompute gives the same values and
-    gradients."""
+    gradients.  The render path casts these walks through ``ops/nee``."""
     strict = scene.sun_sampling.strict_direct_light
     o_walk = origins + dirs * OFFSET
     if scene.shadow_binary:
@@ -103,25 +104,7 @@ def _stateful_att_from_state(scene: Scene, o_walk, dirs, cur_mat, st, max_t, str
     """The differentiable attenuation recompute from a walk's recorded
     surfaces (``ops/traversal.ShadowState``) for lanes whose medium was
     ``cur_mat``; the walk started at ``o_walk`` along ``dirs``."""
-    b = cur_mat.shape[0]
-    att_rgb = torch.ones((b, 3), dtype=torch.float32, device=cur_mat.device)
-    w = torch.ones((b,), dtype=torch.float32, device=cur_mat.device)
-    cm = cur_mat
-    ior = scene.materials.ior
-    for k in range(K_SURFACES):
-        mat = st.mats[k]
-        albedo = _albedo_at(scene, mat, torch.stack([st.uu[k], st.vv[k]], -1))
-        mult = 1.0 - albedo[:, 3]
-        new_rgb = att_rgb * (albedo[:, :3] * albedo[:, 3:4] + mult[:, None])
-        new_w = w * mult
-        if strict:
-            new_w = torch.where(ior[cm.long()] != ior[mat.long()], 0.0, new_w)
-        upd = (k < st.count) & (w > 0.0)
-        if max_t is not None:
-            upd = upd & (st.ts[k] < max_t)
-        att_rgb = torch.where(upd[:, None], new_rgb, att_rgb)
-        w = torch.where(upd, new_w, w)
-        cm = torch.where(upd, mat, cm)
+    att_rgb, w = nee_mod.stateful_chain(scene, st, cur_mat, max_t, strict)[:2]
     return _shadow_prims(scene, o_walk, dirs, cur_mat, att_rgb, w, max_t, strict)
 
 
@@ -129,20 +112,8 @@ def _binary_att_from_res(scene: Scene, origins, dirs, res, cur_mat, max_t, stric
     """The binary walk's attenuation from its first-hit traversal ``res``.
     Its ``t`` is measured from the shifted origin ``origins + dirs * OFFSET``
     and compared with ``max_t`` as it is, as the reference does."""
-    o_walk = origins + dirs * OFFSET
-    mat, uv, _, t_hit = resolve_hit(scene, o_walk, dirs, res)
-    blocked = res.hit
-    if max_t is not None:
-        blocked = blocked & (t_hit < max_t)
-    mrow = gather_rows(scene.materials, mat)
-    albedo = sample_atlas(scene.atlas, mrow["texture_index"], uv[:, 0], uv[:, 1])
-    mult = 1.0 - albedo[:, 3]
-    att_rgb = torch.where(blocked[:, None], albedo[:, :3] * albedo[:, 3:4] + mult[:, None], 1.0)
-    w = torch.where(blocked, mult, 1.0)
-    if strict:
-        ior_change = scene.materials.ior[cur_mat.long()] != mrow["ior"]
-        w = torch.where(blocked & ior_change, 0.0, w)
-    return _shadow_prims(scene, o_walk, dirs, cur_mat, att_rgb, w, max_t, strict)
+    att_rgb, w = nee_mod.binary_chain(scene, res, cur_mat, max_t, strict)[:2]
+    return _shadow_prims(scene, origins + dirs * OFFSET, dirs, cur_mat, att_rgb, w, max_t, strict)
 
 
 def _shadow_prims(scene: Scene, o_walk, dirs, cur_mat, att_rgb, w, max_t, strict: bool):
@@ -150,20 +121,9 @@ def _shadow_prims(scene: Scene, o_walk, dirs, cur_mat, att_rgb, w, max_t, strict
     (B, 4): the nearest primitive along the walk (from ``o_walk``, short of
     ``max_t``) contributes one attenuation factor, with the strict-IOR zero;
     a translucent primitive behind another is not walked on to."""
-    if scene.prims is not None:
-        p_hit, p_t, p_mat, p_uv, _ = _prim_hit(scene, o_walk, dirs)
-        if max_t is not None:
-            p_hit = p_hit & (p_t < max_t)
-        albedo_p = _albedo_at(scene, p_mat, p_uv)
-        mult_p = 1.0 - albedo_p[:, 3]
-        att_rgb = torch.where(p_hit[:, None], att_rgb * (albedo_p[:, :3] * albedo_p[:, 3:4] + mult_p[:, None]),
-                              att_rgb)
-        new_w = w * mult_p
-        if strict:
-            ior = scene.materials.ior
-            new_w = torch.where(ior[cur_mat.long()] != ior[p_mat.long()], 0.0, new_w)
-        w = torch.where(p_hit, new_w, w)
-    return torch.cat([att_rgb, w[:, None]], -1)
+    if scene.prims is None:
+        return torch.cat([att_rgb, w[:, None]], -1)
+    return nee_mod.prim_fold(scene, _prim_hit(scene, o_walk, dirs), cur_mat, att_rgb, w, max_t, strict)[0]
 
 
 def _prim_hit(scene: Scene, origins, dirs):
@@ -190,103 +150,24 @@ def _init_state(origins, dirs):
 def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool):
     """Shade one resolved traversal: the base shading (sky on miss, lobe
     scatter and emission on hit) through kernel K4 (``ops/shade.shade``),
-    then the sun and emitter NEE on diffuse bounces from its hand-off."""
+    then the sun and emitter NEE on diffuse bounces from its hand-off
+    through K4's next-event half (``ops/nee.nee``)."""
     # analytic primitives compete with the octree hit; the nearer surface wins
     prim = _prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
     out = shade(scene, st, u, res, prim, is_first, may_scatter)
-    radiance = out.state["radiance"]
-    n, hitpoint, albedo = out.normal, out.hitpoint, out.albedo
-
-    strat = scene.sun_sampling
-    if strat.sun_sampling:  # sun NEE on diffuse bounces
-        sun_dir = random_sun_direction(scene.sun, u[:, U_SUN1], u[:, U_SUN2])
-        cos_sun = torch.sum(sun_dir * n, dim=-1)
-        front = cos_sun > 0.0
-        flags = scene.materials.flags[out.mat.long()]
-        sss = ((flags & FLAG_SUBSURFACE_SCATTER) != 0) & (u[:, U_SUBSURFACE] < scene.f_sub_surface)
-        shadow_on = out.diffuse_on & (front | sss)
-        shadow_origin = torch.where(front[:, None], hitpoint, hitpoint - OFFSET * n)
-        att = shadow_attenuation(scene, shadow_origin, sun_dir, st["cur_mat"], active=shadow_on)
-        lum = scene.sun.luminosity_pdf if strat.sun_luminosity else 1.0
-        mult = torch.abs(cos_sun) * lum * att[:, 3]
-        nee = albedo[:, :3] * (att[:, :3] * mult[:, None]) * scene.sun.emittance[None, :3]
-        radiance = radiance + torch.where(shadow_on[:, None], st["throughput"] * nee, 0.0)
-
-    if scene.emitter_sampling != EmitterSampling.NONE and scene.emitters is not None and scene.emitters_enabled:
-        em_contrib = _emitter_nee(scene, st, u, out.diffuse_on, hitpoint, n, albedo)
-        radiance = radiance + st["throughput"] * em_contrib
-
-    return dict(out.state, radiance=radiance)
+    return dict(out.state, radiance=nee(scene, st, u, out))
 
 
 def _emitter_nee(scene: Scene, st, u, base_on, hitpoint, n, albedo):
-    """Emitter NEE of one bounce, (B, 3) before the throughput: ONE samples
-    one face point of one spatially picked emitter, ONE_BLOCK sums the 3
-    toward faces of one uniformly picked emitter, ALL sums them over every
-    emitter.  ONE_BLOCK and ALL reuse the (U_EM1, U_EM2) pair for every
-    face, as the reference does (unbiased; the face samples correlate)."""
-    em = scene.emitters
-    # A lane off the diffuse lobe contributes nothing (the masks below), but a
-    # miss's hit point lies at infinity and would make its terms NaN; the
-    # masks' backward then multiplies 0 by NaN into the atlas and emittance
-    # gradients (the reference does so on every scene rays escape from).  A
-    # finite stand-in point keeps those terms finite; no value changes.
-    hitpoint = torch.where(base_on[:, None], hitpoint, 0.0)
-    hp_sg = hitpoint.detach()
-
-    def em_face_contrib(q, ne, mat_e, uv, inv_pdf):
-        """Area-form contribution of one sampled emitter point, masked to
-        zero off-lobe and on back-facing pairs."""
-        to_q = q.detach() - hitpoint
-        # sqrt(max(., eps^2)) keeps the backward finite on masked lanes
-        # where q == hitpoint
-        dist = torch.sqrt(torch.clamp(torch.sum(to_q * to_q, -1), min=EPSILON * EPSILON))
-        wi = to_q / dist[:, None]
-        cos_s = torch.sum(wi * n, dim=-1)
-        cos_e = torch.sum(-wi * ne, dim=-1)
-        on = base_on & (cos_s > 0.0) & (cos_e > 0.0)
-        # truncate the walk just short of the emitter, so that its own entry
-        # face never shadows it
-        att = shadow_attenuation(scene, hitpoint, wi, st["cur_mat"], active=on, max_t=dist * (1.0 - 1e-3))
-        mrow_e = gather_rows(scene.materials, mat_e)
-        albedo_e = sample_atlas(scene.atlas, mrow_e["texture_index"], uv[:, 0], uv[:, 1])
-        l_e = albedo_e[:, :3] * albedo_e[:, :3] * mrow_e["emittance"][:, None]
-        geom = cos_s * cos_e / torch.clamp(dist * dist, min=EPSILON) / math.pi
-        contrib = albedo[:, :3] * l_e * att[:, :3] * (geom * inv_pdf * att[:, 3])[:, None]
-        return torch.where(on[:, None], contrib, 0.0)
-
-    if scene.emitter_sampling == EmitterSampling.ONE:
-        smp = sample_emitter_point(em, hp_sg, u[:, U_EM_PICK], u[:, U_EM1], u[:, U_EM2], n=n.detach())
-        return em_face_contrib(smp["q"], smp["ne"], smp["mat"], smp["uv"], smp["inv_pdf"])
-    e_cnt = em.count
-    acc = torch.zeros_like(albedo[:, :3])
-    if scene.emitter_sampling == EmitterSampling.ONE_BLOCK:
-        idx = torch.clamp((u[:, U_EM_PICK] * e_cnt).to(torch.int32), max=e_cnt - 1).long()
-        pos_e, size_e, mat_e = em.pos[idx], em.size[idx], em.mat[idx]
-        inv_pdf = float(e_cnt) * size_e * size_e
-        for axis in range(3):
-            q, ne, uv = toward_face_sample(pos_e, size_e, hp_sg, axis, u[:, U_EM1], u[:, U_EM2])
-            acc = acc + em_face_contrib(q, ne, mat_e, uv, inv_pdf)
-        return acc
-    # EmitterSampling.ALL: one step per emitter block
-    if e_cnt > ALL_MAX_EMITTERS:
-        raise ValueError(
-            f"EmitterSampling.ALL sums 3 shadow traversals per "
-            f"emitter per diffuse bounce — O(E) work; this scene has "
-            f"E={e_cnt} > {ALL_MAX_EMITTERS}.  Use EmitterSampling."
-            f"ONE (spatially-selected, O(1) per bounce) for large "
-            f"emitter tables."
-        )
-    b_lanes = hitpoint.shape[0]
-    for i in range(e_cnt):
-        pos_e = em.pos[i].expand(b_lanes, 3)
-        size_e = em.size[i].expand(b_lanes)
-        mat_e = em.mat[i].expand(b_lanes)
-        inv_pdf = size_e * size_e  # a deterministic block sum: no pick factor
-        for axis in range(3):
-            q, ne, uv = toward_face_sample(pos_e, size_e, hp_sg, axis, u[:, U_EM1], u[:, U_EM2])
-            acc = acc + em_face_contrib(q, ne, mat_e, uv, inv_pdf)
-    return acc
+    """Emitter NEE of one bounce through the plain versions, (B, 3) before
+    the throughput: ONE samples one face point of one spatially picked
+    emitter, ONE_BLOCK sums the 3 toward faces of one uniformly picked
+    emitter, ALL sums them over every emitter (``ops/nee``)."""
+    plan = nee_mod.nee_plan(dataclasses.replace(scene, sun_sampling=dataclasses.replace(
+        scene.sun_sampling, sun_sampling=False)))
+    rays = nee_mod.nee_setup_reference(scene, plan, st["cur_mat"], u, hitpoint, n, None, base_on)
+    walk, prim = nee_mod.nee_walks(scene, plan, rays)
+    return nee_mod._nee_terms(scene, plan, rays, walk, prim, albedo, st["cur_mat"], False)[2]
 
 
 def _bounce(scene: Scene, st, u, is_first: bool, may_scatter: bool):

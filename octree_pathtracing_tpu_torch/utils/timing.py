@@ -16,7 +16,7 @@ of one or more checkouts of the port beside the PyTorch calls that compute
 the same functions (``torch.index_select``, ``torch.rand``), and the
 traversal kernels at the shapes the main paths give them::
 
-    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] ROOT [ROOT ...]
+    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] ROOT [ROOT ...]
 
 Each ROOT is a directory holding ``octree_pathtracing_tpu_torch/`` (this
 checkout, or an older commit unpacked with ``git archive``); each is timed
@@ -37,7 +37,13 @@ carries the max, p50 and p99 of its per-ray fetches.  K4's rows time
 ms) and with its backward (call ms), whatever shading the checkout has (its
 kernels, or the eager shading before them); the headline frame itself is
 timed forward and with bench.py's backward (host ms, median of 5) with the
-device activities torch.profiler counts in it.  Every kernel result
+device activities torch.profiler counts in it; so are the light lines
+(the depth-9 terrain under the HIGH_QUALITY sun, with and without
+one-emitter NEE; the cutout, the plant field and the analytic scene under
+it, and the analytic scene under IMPORTANCE; with ``--world FILE`` a region
+read at depth 9 under HIGH_QUALITY with one-emitter NEE), where a checkout
+with the next-event kernels also counts the activities through their plain
+version.  Every kernel result
 is checked bit for bit against its plain-torch twin first.  The depth-9
 octrees are cached under ``build/scenes`` of this file's checkout.  Needs
 a CUDA card.
@@ -269,6 +275,112 @@ def check_shade(call, cot, need=(True, True, True, True), label: str = "") -> di
             "out": k_out, "resid": k_res, "backward_args": args}
 
 
+def nee_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
+    """The arguments ``(scene, st, u, out)`` of every next-event call
+    (``ops/nee.nee``) of one ``trace_paths`` frame taken with bench.py's
+    gradient (the mean radiance into the atlas and the emittance), in
+    order, each followed by the radiance cotangent its backward received
+    (None where it received none)."""
+    from octree_pathtracing_tpu_torch.ops import nee as k
+    from octree_pathtracing_tpu_torch.parallel import apply_params
+
+    calls, real, real_bwd = [], pathtracer.nee, k.NeeFunction.backward
+    cots = []
+
+    def recording(*a):
+        calls.append(a)
+        return real(*a)
+
+    def recording_bwd(ctx, g):
+        cots.append(g)
+        return real_bwd(ctx, g)
+
+    pathtracer.nee = recording
+    k.NeeFunction.backward = staticmethod(recording_bwd)
+    try:
+        p = {"atlas": scene.atlas.detach().clone().requires_grad_(True),
+             "emittance": scene.materials.emittance.detach().clone().requires_grad_(True)}
+        pathtracer.trace_paths(apply_params(scene, p), origins, dirs, uniforms).mean().backward()
+    finally:
+        pathtracer.nee = real
+        k.NeeFunction.backward = staticmethod(real_bwd)
+    cots = cots[::-1] + [None] * (len(calls) - len(cots))
+    return [(*c, g) for c, g in zip(calls, cots)]
+
+
+def _gate(pairs, lanes: int, label: str, what: str) -> dict:
+    """The forward gate on [(field, kernel, plain)], each lane-major over
+    ``lanes`` rows: the rows not bit-equal, and those outside rtol 1e-5 /
+    atol 1e-6 (integers exact), each at most 0.1% of the rows."""
+    dev = pairs[0][1].device
+    differ, any_differ, outside, err = {}, torch.zeros(lanes, dtype=torch.bool, device=dev), \
+        torch.zeros(lanes, dtype=torch.bool, device=dev), 0.0
+    for f, k, r in pairs:
+        k, r = k.detach().reshape(lanes, -1).to(r.dtype), r.detach().reshape(lanes, -1)
+        d = _bits_differ(k, r)
+        differ[f] = int(d.sum())
+        any_differ |= d
+        if r.is_floating_point():
+            ok = torch.isclose(k, r, rtol=1e-5, atol=1e-6) | (k.isnan() & r.isnan()) | ((k == r) & k.isinf())
+            fin = torch.isfinite(k) & torch.isfinite(r)
+            if bool(fin.any()):
+                err = max(err, float((k - r)[fin].abs().max()))
+            outside |= ~ok.all(-1)
+        else:
+            outside |= d
+    n_diff, n_out = int(any_differ.sum()), int(outside.sum())
+    if n_diff > 0.001 * lanes or n_out > 0.001 * lanes:
+        raise AssertionError(f"{what} disagrees with its plain version on {label}: {n_diff} of {lanes} rows not "
+                             f"bit-equal, {n_out} outside rtol 1e-5 / atol 1e-6; per field {differ}")
+    return {"rows": lanes, "differ": differ, "not_bit_equal": n_diff, "outside": n_out, "max_abs_err": err}
+
+
+def check_nee(call, g_radiance=None, label: str = "") -> dict:
+    """The acceptance gate of K4's next-event kernels on one ``nee`` call's
+    arguments ``call`` = (scene, st, u, out): ``nee_setup`` against
+    ``nee_setup_reference`` on every ray field, ``nee_resolve`` against
+    ``nee_resolve_reference`` on the kernel's rays and the same walks
+    (radiance and residual), each bit-equal on all but 0.1% of its rows
+    and within rtol 1e-5 / atol 1e-6 there; then ``nee_backward`` against
+    ``nee_backward_reference`` on the kernel's residual and the radiance
+    cotangent ``g_radiance`` (seeded ones where None), within rtol 1e-5 /
+    atol 1e-7 (float atomics add in the schedule's order).  Raises
+    AssertionError naming ``label``.  Returns {"setup", "resolve" (the
+    gates' counts), "backward_err", "args" (what each kernel was given:
+    "setup", "resolve", "backward")}."""
+    from octree_pathtracing_tpu_torch.ops import nee as k
+
+    scene, st, u, out = call
+    plan = k.nee_plan(scene)
+    c = k._Call(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
+    b = int(st["cur_mat"].shape[0])
+    k_rays = k._setup_cuda(c)
+    r_rays = k.nee_setup_reference(scene, plan, *c[2:])
+    setup = _gate([(f, getattr(k_rays, f), getattr(r_rays, f)) for f in k.NeeRays._fields], plan.faces * b,
+                  label, "nee_setup")
+    walk, prim = k.nee_walks(scene, plan, k_rays)
+    tp, rad, alb = st["throughput"].detach(), out.state["radiance"].detach(), out.albedo.detach()
+    k_out, k_res = k._resolve_cuda(c, k_rays, walk, prim, tp, rad, alb, True)
+    r_out, r_res = k.nee_resolve_reference(scene, plan, k_rays, walk, prim, alb, tp, rad, st["cur_mat"])
+    resolve = _gate([("radiance", k_out, r_out)], b, label, "nee_resolve")
+    resid = _gate([("residual ints", k_res.ints, r_res.ints)], plan.faces * b, label, "nee_resolve's residual")
+    resolve["residual"] = resid
+    if g_radiance is None:
+        g = torch.Generator().manual_seed(b)
+        g_radiance = (torch.rand((b, 3), generator=g) + 0.5).to(tp.device)
+    data = scene.atlas.data if hasattr(scene.atlas, "sizes") else scene.atlas
+    args = (alb, tp, k_res, data, scene.materials.emittance, scene.sun.emittance, plan, g_radiance,
+            (True, True, True, True, True))
+    got, want = k._backward_cuda(*args), k.nee_backward_reference(*args)
+    got, want = ([None if x is None else x.detach() for x in r] for r in (got, want))
+    b_err = 0.0
+    for name, x, y in zip(("throughput", "radiance", "albedo", "atlas", "emittance"), got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-7, msg=lambda m, name=name: f"nee_backward {label} {name}: {m}")
+        b_err = max(b_err, float((x - y).abs().max()) if x.numel() else 0.0)
+    return {"setup": setup, "resolve": resolve, "backward_err": b_err, "rays": k_rays, "walk": (walk, prim),
+            "args": {"setup": (c,), "resolve": (c, k_rays, walk, prim, tp, rad, alb, False), "backward": args}}
+
+
 def profile_launches(fn, tries: int = 3) -> dict:
     """{"kernels", "memsets", "memcpys"}: the device activities torch.profiler
     records over one call of ``fn`` (which synchronizes the card).  A
@@ -355,6 +467,82 @@ def _shade_cases(dev, cache_dir) -> dict:
     return out
 
 
+# (line, scene, sun, emitter sampling) of the light lines' frames
+LIGHT_LINES = (("nee", "terrain", "high_quality", "none"), ("cutout", "cutout", "high_quality", "none"),
+               ("config3", "terrain", "high_quality", "one"), ("plant", "plant", "high_quality", "none"),
+               ("analytic", "analytic", "importance", "none"), ("analytic_hq", "analytic", "high_quality", "none"),
+               ("world", "world", "high_quality", "one"))
+
+
+def _light_lines(dev, cache_dir, world) -> dict:
+    """The light lines' frames at the headline's shape (256x256, 5 bounces,
+    depth 9, the uniforms of seed 1), forward and with bench.py's backward:
+    host ms (median of 5) and the device activities torch.profiler counts in
+    one frame; in a checkout with the next-event kernels, also through their
+    plain version (``plain_nee``).  ``world``: a region file, or None."""
+    import dataclasses
+    import statistics
+
+    from octree_pathtracing_tpu_torch.models import (
+        analytic_sphere_scene,
+        cutout_chunk_scene,
+        minecraft_chunk_scene,
+        minecraft_scene_from_region,
+        pixel_grid_rays,
+        plant_scene,
+    )
+    from octree_pathtracing_tpu_torch.models.emitters import with_emitter_sampling
+    from octree_pathtracing_tpu_torch.models.sun import SunSampling
+    from octree_pathtracing_tpu_torch.parallel import apply_params
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    try:
+        from octree_pathtracing_tpu_torch.ops import nee as nee_mod
+    except ImportError:  # a checkout from before the next-event kernels: its path is the eager one
+        nee_mod = None
+    builds = {"terrain": lambda: minecraft_chunk_scene(depth=9, cache_dir=cache_dir),
+              "cutout": lambda: cutout_chunk_scene(depth=9, cache_dir=cache_dir),
+              "plant": lambda: plant_scene(depth=9), "analytic": lambda: analytic_sphere_scene(depth=9)}
+    if world:
+        builds["world"] = lambda: minecraft_scene_from_region(world, depth=9)
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
+    scenes, out = {}, {}
+    for name, which, sun, sampling in LIGHT_LINES:
+        if which not in builds:
+            continue
+        if which not in scenes:
+            sc, cam = builds[which]()
+            scenes[which] = (sc.to(dev), cam.to(dev))
+        sc, cam = scenes[which]
+        sc = with_emitter_sampling(dataclasses.replace(sc, sun_sampling=getattr(SunSampling, sun)()), sampling)
+        o, d = pixel_grid_rays(cam, 256, 256)
+
+        def fwd(sc=sc, o=o, d=d):
+            pathtracer.trace_paths(sc, o, d, u)
+
+        def fwd_bwd(sc=sc, o=o, d=d):
+            p = {"atlas": sc.atlas.detach().clone().requires_grad_(True),
+                 "emittance": sc.materials.emittance.detach().clone().requires_grad_(True)}
+            pathtracer.trace_paths(apply_params(sc, p), o, d, u).mean().backward()
+
+        for step, fn in (("forward", fwd), ("fwd+bwd", fwd_bwd)):
+            def synced(fn=fn):
+                fn()
+                torch.cuda.synchronize()
+
+            times = host_ms(fn)
+            row = {"host_ms": statistics.median(times), "host_ms_runs": times, **profile_launches(synced)}
+            if nee_mod is not None and nee_mod.nee_plan(sc) is not None:
+                real = pathtracer.nee
+                pathtracer.nee = lambda *a: nee_mod.nee_reference(*a)[0]
+                try:
+                    row["plain_nee"] = profile_launches(synced)
+                finally:
+                    pathtracer.nee = real
+            out[f"{name} line {step}"] = row
+    return out
+
+
 def _traversal_cases(dev, cache_dir) -> dict:
     """name -> ((call, its twin), arguments): the traversal rows."""
     from octree_pathtracing_tpu_torch import cli
@@ -438,9 +626,9 @@ def _equal(k, r) -> bool:
                for a, b in ((getattr(k, f), getattr(r, f)) for f in fields))
 
 
-def _time_checkout() -> dict:
-    """P1, P2 and the traversal of the package on ``sys.path`` (see the
-    module's text)."""
+def _time_checkout(world=None) -> dict:
+    """P1, P2, the traversal, K4 and the light lines of the package on
+    ``sys.path`` (see the module's text)."""
     import octree_pathtracing_tpu_torch as port
     from octree_pathtracing_tpu_torch.ops import gather
     from octree_pathtracing_tpu_torch.ops.random import philox_uniforms, philox_uniforms_reference
@@ -492,6 +680,7 @@ def _time_checkout() -> dict:
     cache_dir = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "build",
                                               "scenes"))
     out.update(_shade_cases(dev, cache_dir))
+    out.update(_light_lines(dev, cache_dir, world))
     for name, ((kernel, twin), args) in _traversal_cases(dev, cache_dir).items():
         k = kernel(*args)
         if not _equal(k, twin(*args)):
@@ -510,18 +699,22 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             print("timing: no CUDA device", file=sys.stderr)
             return 1
-        print("RESULT " + json.dumps(_time_checkout()), flush=True)
+        print("RESULT " + json.dumps(_time_checkout(args[3] if args[2:3] == ["--world"] else None)), flush=True)
         return 0
-    out_file = None
-    if args[:1] == ["--out"]:
-        out_file, args = args[1], args[2:]
+    out_file = world = None
+    while args[:1] in (["--out"], ["--world"]):
+        if args[0] == "--out":
+            out_file = args[1]
+        else:
+            world = os.path.abspath(args[1])
+        args = args[2:]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
     for root in args:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
+                              + (["--world", world] if world else []), capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
@@ -533,7 +726,10 @@ def main(argv=None) -> int:
             print(f"{name}: " + " | ".join(
                 f"{r['root']}: host ms {r[name]['host_ms']!r} {[round(t, 3) for t in r[name]['host_ms_runs']]}, "
                 f"kernels {r[name]['kernels']} memsets {r[name]['memsets']} memcpys {r[name]['memcpys']}"
-                for r in runs), flush=True)
+                + (f" (through the next-event plain version: kernels {r[name]['plain_nee']['kernels']} memsets "
+                   f"{r[name]['plain_nee']['memsets']} memcpys {r[name]['plain_nee']['memcpys']})"
+                   if "plain_nee" in r[name] else "")
+                for r in runs if name in r), flush=True)
             continue
         cells = " | ".join(f"{r['root']}: call {r[name]['call_ms']!r} device {r[name]['device_ms']!r}"
                            + ("" if r[name]["device_by"] == "graph" else f" ({r[name]['device_by']})")

@@ -2,9 +2,11 @@
 traversal in its four modes (K1, K2 alpha accept, K3r recording walk, K3s
 shadow walk) and K2q (the block-model variant of modes 1-3), K7 (the
 analytic-primitive scan), K8 (the BVH walk over quads), P2 (Philox
-uniforms), P1 (row gather, from one table and from two) and K4 (hit
+uniforms), P1 (row gather, from one table and from two), K4 (hit
 resolve and shade, forward and backward, on every scene kind at 1 to
-65,536 lanes and on bounce 2's live sub-batch), also captured
+65,536 lanes and on bounce 2's live sub-batch) and K4's next-event half
+with K6 (``nee_setup``, ``nee_resolve``, ``nee_backward``, on every light
+line's bounces at 1 to 65,536 lanes and bounce 2's sub-batch), also captured
 in a CUDA graph, and the path tracer's frame and gradients through the
 kernels against the same through the twins, with and without light
 sampling, block models and primitives, and on a world read from a region
@@ -38,6 +40,7 @@ from octree_pathtracing_tpu_torch.models import (
 from octree_pathtracing_tpu_torch.models import emitters, make_region_fixture, minecraft_scene_from_region
 from octree_pathtracing_tpu_torch.models.prims import intersect_prims, intersect_prims_reference
 from octree_pathtracing_tpu_torch.models.sun import SunSampling, random_sun_direction
+from octree_pathtracing_tpu_torch.ops import nee as nee_mod
 from octree_pathtracing_tpu_torch.ops import random as prandom
 from octree_pathtracing_tpu_torch.ops.bvh import build_bvh, bvh_intersect_quads, bvh_intersect_reference, quad_prim_fn
 from octree_pathtracing_tpu_torch.ops.geometry import make_quads
@@ -99,6 +102,17 @@ def _assert_equal_results(k, r):
     if k.quad is not None:
         for f in k.quad._fields:
             assert torch.equal(getattr(k.quad, f), getattr(r.quad, f)), f"quad.{f}"
+
+
+def _plain_nee(monkeypatch):
+    """The next-event half through its plain versions, differentiated by
+    autograd, its walks through the traversal and K7 twins: the path the
+    light lines ran before its kernels."""
+    monkeypatch.setattr(pathtracer, "nee", lambda *a: nee_mod.nee_reference(*a)[0])
+    for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
+                       ("traverse_shadow", traverse_shadow_reference),
+                       ("intersect_prims", intersect_prims_reference)):
+        monkeypatch.setattr(nee_mod, name, twin)
 
 
 @pytest.mark.gpu
@@ -571,14 +585,17 @@ def test_light_sampling_frame_and_gradients_through_kernels_match_twins(cuda, mo
         rad.mean().backward()
         return rad.detach(), p["atlas"].grad, p["emittance"].grad
 
-    counts = (traverse_shadow.launches, row_gather.launches)
+    counts = (traverse_shadow.launches, row_gather.launches, nee_mod.nee.setup_launches,
+              nee_mod.nee.backward_launches)
     got = run()
     assert traverse_shadow.launches > counts[0] or scene.shadow_binary
-    assert row_gather.launches > counts[1] or sampling != "one"
+    # K6's pick runs inside nee_setup: P1 has left the path
+    assert row_gather.launches == counts[1]
+    assert nee_mod.nee.setup_launches > counts[2] and nee_mod.nee.backward_launches > counts[3]
     for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
                        ("traverse_shadow", traverse_shadow_reference)):
         monkeypatch.setattr(pathtracer, name, twin)
-    monkeypatch.setattr(emitters, "row_gather_pair", row_gather_pair_reference)
+    _plain_nee(monkeypatch)
     want = run()
     torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
     for g, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
@@ -724,6 +741,8 @@ def test_model_and_prim_frames_through_kernels_match_twins(cuda, monkeypatch, bu
                        ("traverse_shadow", traverse_shadow_reference),
                        ("intersect_prims", intersect_prims_reference)):
         monkeypatch.setattr(pathtracer, name, twin)
+    if sun == "high_quality":
+        _plain_nee(monkeypatch)
     want = run()
     torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
     for g, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
@@ -796,13 +815,14 @@ def test_world_frame_through_kernels_matches_twins(cuda, tmp_path, monkeypatch):
         rad.mean().backward()
         return rad.detach(), p["atlas"].grad, p["emittance"].grad
 
-    before = (traverse.launches, traverse_shadow.launches, row_gather.launches)
+    before = (traverse.launches, traverse_shadow.launches, nee_mod.nee.setup_launches, row_gather.launches)
     got = run()
-    assert traverse.launches > before[0] and traverse_shadow.launches > before[1] and row_gather.launches > before[2]
+    assert traverse.launches > before[0] and traverse_shadow.launches > before[1]
+    assert nee_mod.nee.setup_launches > before[2] and row_gather.launches == before[3]
     for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
                        ("traverse_shadow", traverse_shadow_reference)):
         monkeypatch.setattr(pathtracer, name, twin)
-    monkeypatch.setattr(emitters, "row_gather_pair", row_gather_pair_reference)
+    _plain_nee(monkeypatch)
     want = run()
     torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
     for gr, w in zip(got[1:], want[1:]):  # scatter-adds in an order the card does not fix
@@ -988,3 +1008,173 @@ def test_shade_refuses_what_the_kernel_does_not_take_and_raises_on_a_refused_lau
     with pytest.raises(RuntimeError, match="shade_forward launch failed: invalid argument"):
         k4.shade(scene, st, u, res, prim, is_first, may_scatter)
     assert k4.shade.launches == before
+
+
+# ---- K4's next-event half and K6 (csrc/nee.cu) against their plain versions
+
+def _nee_scene(name):
+    """The light lines at depth 5 (the world at 4, the room at 3 and 4)."""
+    hq = SunSampling.high_quality()
+    if name == "room_all":
+        return emitters.with_emitter_sampling(emissive_room_scene(depth=3)[0], "all"), emissive_room_scene(depth=3)[1]
+    if name == "room_one_block":
+        sc, cam = emissive_room_scene(depth=4)
+        return emitters.with_emitter_sampling(sc, "one_block"), cam
+    if name == "world":
+        sc, cam = _k4_scene("world_hq")
+        return emitters.with_emitter_sampling(sc, "one"), cam
+    build = {"nee": minecraft_chunk_scene, "fast": minecraft_chunk_scene, "config3": minecraft_chunk_scene,
+             "cutout": cutout_chunk_scene, "cutout_lenient": cutout_chunk_scene, "plant": plant_scene,
+             "analytic_hq": analytic_sphere_scene}[name]
+    sc, cam = build(depth=5)
+    sun = {"fast": SunSampling.fast(), "cutout_lenient": dataclasses.replace(hq, strict_direct_light=False)}.get(name, hq)
+    return emitters.with_emitter_sampling(dataclasses.replace(sc, sun_sampling=sun),
+                                          "one" if name in ("config3", "cutout_lenient") else "none"), cam
+
+
+NEE_SCENES = ("nee", "fast", "cutout", "cutout_lenient", "config3", "plant", "analytic_hq", "world",
+              "room_one_block", "room_all")
+
+
+def _nee_calls(name, n, dev):
+    """Every next-event call of one 5-bounce fwd+bwd frame over ``n`` lanes
+    of ``name``'s 256x256 primaries (a seeded shuffle), each with the radiance
+    cotangent its backward received; the room's rays go every way."""
+    from octree_pathtracing_tpu_torch.utils.timing import nee_calls
+
+    key = ("nee", name)
+    if key not in _SCENES:
+        _SCENES[key] = _nee_scene(name)
+    sc, cam = (x.to(dev) for x in _SCENES[key])
+    o, d = pixel_grid_rays(cam, 256, 256)
+    g = torch.Generator().manual_seed(n)
+    pick = torch.randperm(o.shape[0], generator=g)[:n].to(dev)
+    o, d = o[pick].contiguous(), d[pick].contiguous()
+    if name.startswith("room"):
+        d = torch.randn(d.shape, generator=g).to(dev)
+        d = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    u = torch.from_numpy(np.random.default_rng(n).random((n, 5, 21), dtype=np.float32)).to(dev)
+    return nee_calls(pathtracer, sc, o, d, u)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["1", "31", "65536", "bounce 2"])
+@pytest.mark.parametrize("name", NEE_SCENES)
+def test_nee_kernels_match_plain_versions(cuda, name, size):
+    """``nee_setup``, ``nee_resolve`` and ``nee_backward`` against their plain
+    versions under ``utils.timing.check_nee``'s gate (the one chip_smoke.py
+    holds them to): every ray field, the radiance and the residual bit-equal
+    on all but 0.1% of the rows and within rtol 1e-5 / atol 1e-6; the
+    backward, on the cotangent the frame's backward handed the bounce,
+    within rtol 1e-5 / atol 1e-7.  The rows not bit-equal are printed."""
+    from octree_pathtracing_tpu_torch.utils.timing import check_nee
+
+    n = 65536 if size == "bounce 2" else int(size)
+    calls = _nee_calls(name, n, cuda)
+    call = calls[1] if size == "bounce 2" else calls[0]
+    b = call[1]["throughput"].shape[0]
+    if size == "bounce 2":  # the live lanes gathered by K5 (all of them in the closed room)
+        assert 0 < b <= n
+    before = (nee_mod.nee.setup_launches, nee_mod.nee.resolve_launches, nee_mod.nee.backward_launches)
+    r = check_nee(call[:4], call[4], label=f"{name}, {size}")
+    print(f"nee {name} {size}: {b} lanes x {nee_mod.nee_plan(call[0]).faces} faces, {int(r['rays'].active.sum())} "
+          f"cast; rows not bit-equal setup {r['setup']['differ']}, resolve {r['resolve']['differ']}, residual "
+          f"{r['resolve']['residual']['differ']}; backward max abs err {r['backward_err']!r}")
+    after = (nee_mod.nee.setup_launches, nee_mod.nee.resolve_launches, nee_mod.nee.backward_launches)
+    assert after == tuple(x + (1 if b else 0) for x in before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nee", "cutout", "config3"])
+def test_nee_kernels_match_plain_versions_on_the_depth9_bounces(cuda, name):
+    """The light lines' shape: every bounce of one 65,536-lane depth-9 frame."""
+    from octree_pathtracing_tpu_torch.utils.timing import check_nee, nee_calls
+
+    sc, cam = (cutout_chunk_scene if name == "cutout" else minecraft_chunk_scene)(depth=9)
+    sc = emitters.with_emitter_sampling(dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()),
+                                        "one" if name == "config3" else "none")
+    sc, cam = sc.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 256, 256)
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, cuda)
+    for k, call in enumerate(nee_calls(pathtracer, sc, o, d, u), start=1):
+        r = check_nee(call[:4], call[4], label=f"{name} depth 9, bounce {k}")
+        print(f"nee {name} depth 9 bounce {k}: rows not bit-equal setup {r['setup']['not_bit_equal']}, resolve "
+              f"{r['resolve']['not_bit_equal']}; backward max abs err {r['backward_err']!r}")
+
+
+@pytest.mark.gpu
+def test_one_nee_launch_each_per_bounce(cuda):
+    """torch.profiler over one fwd+bwd frame of the cutout under the
+    HIGH_QUALITY sun and one-emitter NEE: one ``nee_setup`` and one
+    ``nee_resolve`` kernel per ``_shade`` call, one ``nee_backward`` per
+    bounce, one shadow walk per bounce for the sun and emitter faces
+    together, and no P1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sc, cam = cutout_chunk_scene(depth=5)
+    sc = emitters.with_emitter_sampling(dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()), "one")
+    sc, cam = sc.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 64, 64)
+    u = torch.from_numpy(np.random.default_rng(4).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    bounces = int((pathtracer.trace_paths_census(sc, o, d, u)[1] > 0).sum())
+
+    def step():
+        p = {"atlas": sc.atlas.clone().requires_grad_(True),
+             "emittance": sc.materials.emittance.clone().requires_grad_(True)}
+        pathtracer.trace_paths(apply_params(sc, p), o, d, u).mean().backward()
+        torch.cuda.synchronize()
+
+    step()
+    for _ in range(3):  # a profiler session now and then records no device activity at all
+        before = (nee_mod.nee.setup_launches, nee_mod.nee.resolve_launches, nee_mod.nee.backward_launches,
+                  traverse_shadow.launches, row_gather.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    counted = [sum(f"{k}_kernel" in x for x in device) for k in ("nee_setup", "nee_resolve", "nee_backward")]
+    assert bounces == 5 and counted == [bounces] * 3, (counted, bounces)
+    after = (nee_mod.nee.setup_launches, nee_mod.nee.resolve_launches, nee_mod.nee.backward_launches,
+             traverse_shadow.launches, row_gather.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (bounces, bounces, bounces, bounces, 0)
+
+
+@pytest.mark.gpu
+def test_nee_refuses_what_the_kernels_do_not_take_and_raises_on_a_refused_launch(cuda, monkeypatch):
+    from octree_pathtracing_tpu_torch.utils.cuda_build import load_library
+
+    scene, st, u, out, _ = _nee_calls("config3", 31, cuda)[0]
+    with pytest.raises(ValueError, match="throughput"):
+        nee_mod.nee(scene, dict(st, throughput=st["throughput"].double()), u, out)
+    cpu_mats = dataclasses.replace(scene.materials, ior=scene.materials.ior.cpu())
+    with pytest.raises(ValueError, match="card"):
+        nee_mod.nee(dataclasses.replace(scene, materials=cpu_mats), st, u, out)
+    sun = dataclasses.replace(scene.sun, su=scene.sun.su.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="sun.su"):
+        nee_mod.nee(dataclasses.replace(scene, sun=sun), st, u, out)
+    room = emitters.with_emitter_sampling(emissive_room_scene(depth=4)[0], "all").to(cuda)
+    with pytest.raises(ValueError, match="E=256 > 64"):
+        nee_mod.nee(room, st, u, out)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        load_library("nee", ("--no-such-option",))
+    refused = types.SimpleNamespace(nee_setup=lambda *a: 1, nee_error_string=lambda rc: b"invalid argument")
+    monkeypatch.setattr(nee_mod, "_library", lambda: refused)
+    before = nee_mod.nee.setup_launches
+    with pytest.raises(RuntimeError, match="nee_setup launch failed: invalid argument"):
+        nee_mod.nee(scene, st, u, out)
+    assert nee_mod.nee.setup_launches == before
+
+
+@pytest.mark.gpu
+def test_nee_build_reports_registers_stack_and_spills(cuda):
+    """A fresh build of ``csrc/nee.cu`` (a macro in the flags gives it a
+    library of its own) and ptxas's report of each of its three kernels."""
+    from octree_pathtracing_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library("nee", ("-fmad=false", "-DNEE_PTXAS_REPORT"))
+    log = lib.build_info["log"]
+    lines = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    print("\n".join(lines))
+    for kernel in ("nee_setup_kernel", "nee_resolve_kernel", "nee_backward_kernel"):
+        assert any(kernel in ln for ln in lines) or lib.build_info["seconds"] == 0.0, kernel

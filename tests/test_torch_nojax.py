@@ -165,6 +165,37 @@ def test_cli_world_render_with_jax_blocked(tmp_path):
     assert data.startswith(header) and len(data) == len(header) + 8 * 6 * 3 and max(data[len(header):]) > 0
 
 
+_NEE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["octree_pathtracing_tpu"] = None
+import numpy as np
+import torch
+from octree_pathtracing_tpu_torch.models import emissive_room_scene, pixel_grid_rays
+from octree_pathtracing_tpu_torch.models.emitters import with_emitter_sampling
+from octree_pathtracing_tpu_torch.ops import nee
+from octree_pathtracing_tpu_torch.render import trace_paths
+scene, cam = emissive_room_scene(depth=3)
+scene = with_emitter_sampling(scene, "all")
+o, d = pixel_grid_rays(cam, 4, 3)
+u = torch.from_numpy(np.random.default_rng(0).random((12, 2, 21), dtype=np.float32))
+rad = trace_paths(scene, o, d, u)
+assert nee.nee_plan(scene).faces == 3 * scene.emitters.count and bool(torch.isfinite(rad).all())
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+print("faces", nee.nee_plan(scene).faces)
+"""
+
+
+def test_nee_module_runs_with_jax_blocked():
+    """``ops/nee.py`` (K4's next-event half and K6) imports and runs
+    (``EmitterSampling.ALL`` over the room's 64 emitters, on the CPU) with
+    neither jax nor the JAX package importable."""
+    proc = subprocess.run([sys.executable, "-c", _NEE], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "faces 192" in proc.stdout
+    assert os.path.exists(os.path.join(PORT, "ops", "nee.py"))  # among the sources the scan below reads
+
+
 def test_no_port_source_imports_jax():
     pattern = re.compile(
         r"^\s*(import\s+jax\b|from\s+jax\b"
