@@ -22,8 +22,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and, beside them, the C++ region
    parser with g++ (host code: where it does not build, the numpy parser
    reads regions, as in the JAX package, and the line says why); ptxas's
-   report of every kernel (registers, stack frame, spills) and the
-   traversal's shared-memory stack;
+   report of every kernel (registers, stack frame, spills), the
+   traversal's shared-memory stack, and K4's launch configuration (blocks,
+   shared memory per block, resident blocks per SM, where its tables are
+   read) at the headline's 65,536 and 4,072 lanes;
 2. every kernel against its plain-torch twin on the card, timed beside its
    bound twice, by call (CUDA events around back-to-back calls: what an
    eager caller pays, host path included) and on the device alone (the same
@@ -65,7 +67,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      every output and the residual within rtol 1e-5 / atol 1e-6 of the
      twin on all but 0.1% of the lanes (the lanes not bit-equal counted
      field by field), the backward (on the kernel's forward outputs) within
-     rtol 1e-5 / atol 1e-7 of the backward twin; by call and on the device.
+     rtol 1e-5 / atol 1e-7 of the backward twin; by call and on the device,
+     each row with the variant its launch took.
    - K4's next-event half on the bounce-1 lanes of the NEE, cutout and
      config-3 lines (the world's in phase 8), ``utils/timing.check_nee``:
      ``nee_setup`` against its plain version on every ray field,
@@ -956,6 +959,14 @@ def main() -> int:
                 log(f"    ptxas: {line.strip()}")
     p2_grid = prandom._library().philox_resident_blocks()
     log(f"  P2's grid: {p2_grid} blocks of 256 threads (SMs x resident blocks)")
+    k4_probe = minecraft_chunk_scene(depth=3)[0].to(dev)  # the terrain's tables: 6 materials, 6 atlas layers
+    for lanes in (WIDTH * HEIGHT, 4072):
+        cfg = shade_mod.launch_configs(k4_probe, lanes)
+        for name, c in cfg.items():
+            log(f"  K4 {name} on {lanes} terrain lanes: {c['blocks']} blocks of {c['threads']} threads, "
+                f"{c['smem_bytes']} bytes of shared memory per block, {c['resident_blocks_per_sm']} resident "
+                f"blocks per SM on {c['sms']} SMs; "
+                + (f"tables read from {c['tables']}" if name == "forward" else f"sums {c['sums']}"))
     log(f"  the traversal's stack: {(DEPTH + 1) * 8} bytes of dynamic shared memory per thread at depth {DEPTH} "
         f"(depth + 1 rows of parent and t_max), beside the registers and stack frame ptxas reports")
 
@@ -1058,19 +1069,26 @@ def main() -> int:
         f_bound = shade_bound(call, k_out, k_res, grad=False)
         b_t = both(lambda: shade_mod._backward_cuda(*bwd_args))
         b_bound = shade_backward_bound(bwd_args)
+        cfg = shade_mod.launch_configs(sc_k, lanes)
+        variants = {"shade": f"tables read from {cfg['forward']['tables']}, {cfg['forward']['blocks']} blocks of "
+                             f"{cfg['forward']['threads']}",
+                    "shade_backward": f"{cfg['backward']['sums']} sums, {cfg['backward']['blocks']} blocks of "
+                                      f"{cfg['backward']['threads']}"}
         rows = {"shade": dict(lanes=lanes, max_abs_err=chk["forward_err"], ms=f_t["call_ms"],
                               device_ms=f_t["device_ms"], plain_ms=call_ms(lambda: real_shade_twin(*call), 5),
-                              bound_ms=f_bound[0], bound_by=f_bound[1], uniform_words=f_bound[2]),
+                              bound_ms=f_bound[0], bound_by=f_bound[1], uniform_words=f_bound[2],
+                              variant=variants["shade"]),
                 "shade_backward": dict(lanes=lanes, max_abs_err=chk["backward_err"], ms=b_t["call_ms"],
                                        device_ms=b_t["device_ms"],
                                        plain_ms=call_ms(lambda: real_shade_bwd_twin(*bwd_args), 5),
                                        bound_ms=b_bound[0], bound_by=b_bound[1],
-                                       cotangents=[g is not None for g in cot])}
+                                       cotangents=[g is not None for g in cot], variant=variants["shade_backward"])}
         for name, row in rows.items():
             k4_rows[name][f"bounce {k}"] = row
             log(f"  {name} call {row['ms']!r} ms, device {row['device_ms']!r} ms "
                 f"({(f_t if name == 'shade' else b_t)['device_by']}), twin {row['plain_ms']!r} ms, bound "
-                f"{row['bound_ms']!r} ms ({row['bound_by']}) on the {lanes} lanes of headline bounce {k} [{card}]")
+                f"{row['bound_ms']!r} ms ({row['bound_by']}) on the {lanes} lanes of headline bounce {k}; "
+                f"variant: {row['variant']} [{card}]")
     for name, rows in k4_rows.items():  # the row of bounce 1 (the 256^2 primaries), the others beside it
         results[name] = dict(rows["bounce 1"], max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                              headline_bounces={b: r for b, r in rows.items() if b != "bounce 1"})

@@ -72,6 +72,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "torch_rounding.cuh"
+
 #define EPS_F 5e-8f                          // Ray::EPSILON
 #define EPS2_F ((float)(5e-8 * 5e-8))        // EPSILON * EPSILON as Python computes it
 #define OFFSET_F 1e-6f                       // Ray::OFFSET
@@ -187,16 +189,6 @@ struct ResolveIn {
   const int* cur_mat;
   long long throughput_stride, radiance_stride;
 };
-
-// ---- PyTorch's rounding rules on the card
-
-__device__ __forceinline__ float sum3(float a0, float a1, float a2) { return (a0 + a2) + a1; }
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
 
 // ops/texture.texel_index: nearest texel with the clamp and the v-flip
 __device__ __forceinline__ int texel_of(const NeeTables& tb, int mat, float u, float v) {

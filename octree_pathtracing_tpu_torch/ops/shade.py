@@ -18,7 +18,14 @@ emittance.  :func:`shade` launches the forward kernel of
 ``csrc/shade.cu`` on CUDA tensors, and its backward kernel when the
 gradient is taken; on CPU tensors it runs the plain-torch twins
 :func:`shade_reference` and :func:`shade_backward_reference`.  There is no
-fallback from one to the other.
+fallback from one to the other.  Where no gradient can be taken (grad mode
+off, or none of the throughput, the radiance, the atlas texels and the
+emittance requiring grad) :func:`shade` calls the forward alone, without
+an autograd node or a residual.  On the card a forward call is one
+allocation, carved into every output (:func:`_output_layout`), and one
+entry-point call with the per-lane pointers in one flat array; a backward
+call is one zero-filled allocation for the atlas and emittance gradients
+and one entry-point call.
 
 The forward leaves a residual for the backward (24 bytes per lane): the
 linear index of the texel read, the hit material and a lane code (miss,
@@ -343,7 +350,7 @@ class ShadeFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, throughput, radiance, atlas, emittance, call: _Call):
         want_grad = any(ctx.needs_input_grad[:4])
-        if throughput.is_cuda:
+        if _uses_kernels(throughput):
             out, resid = _forward_cuda(call, want_grad)
         else:
             out, resid = shade_reference(*call)
@@ -361,12 +368,18 @@ class ShadeFunction(torch.autograd.Function):
         g_tp, g_rad, g_alb = grads[2], grads[3], grads[7]
         need = ctx.needs_input_grad[:4]
         resid = ShadeResidual(ints, floats)
-        if albedo.is_cuda:
+        if _uses_kernels(albedo):
             d = _backward_cuda(albedo, throughput, resid, emittance, ctx.atlas_shape, g_tp, g_rad, g_alb, need)
         else:
             d = shade_backward_reference(albedo, throughput, resid, emittance, ctx.atlas_shape,
                                          g_tp, g_rad, g_alb, need)
         return (*d, None)
+
+
+def _uses_kernels(x) -> bool:
+    """Whether ``x``'s device runs K4's kernels (a CUDA tensor) rather than
+    the twins (a CPU tensor)."""
+    return x.is_cuda
 
 
 def _atlas_data(atlas):
@@ -376,39 +389,57 @@ def _atlas_data(atlas):
 def _check_no_other_grad(scene: Scene, st: dict, u, res, prim):
     """Raise where a tensor other than the throughput, the radiance, the
     atlas texels and the emittance requires grad: K4 has no gradient for
-    it, and nothing may be dropped silently.  (``requires_grad`` can be
-    set in place, so this runs on every call.)"""
+    it, and nothing may be dropped silently.  One pass over the scene's
+    material and sun columns and the call's tensors; the names are built
+    only to raise.  (``requires_grad`` can be set in place, so this runs on
+    every call that may record a gradient.)"""
     m, sun = scene.materials, scene.sun
-    named = [("materials", f, getattr(m, f)) for f in ("ior", "specular", "roughness", "metalness")]
-    named += [("sun", f, getattr(sun, f)) for f in SUN_FIELDS]
-    named += [("state", k, st[k]) for k in ("origin", "dir")] + [("", "uniforms", u)]
-    named += [("hit", f, getattr(res, f)) for f in ("t", "uv")]
+    scene_tensors = (m.ior, m.specular, m.roughness, m.metalness, *(getattr(sun, f) for f in SUN_FIELDS))
+    per_call = (st["origin"], st["dir"], u, res.t, res.uv)
     if res.quad is not None:
-        named += [("quad", f, getattr(res.quad, f)) for f in ("uv", "normal", "t")]
+        per_call += (res.quad.uv, res.quad.normal, res.quad.t)
     if prim is not None:
-        named += [("primitive", f, x) for f, x in zip(("t", "uv", "normal"), (prim[1], prim[3], prim[4]))]
-    bad = [f"{group}.{f}" if group else f for group, f, x in named if x.requires_grad]
-    if bad:
-        raise ValueError(f"shade: K4 differentiates only the throughput, radiance, atlas and emittance; "
-                         f"{bad} require grad")
+        per_call += (prim[1], prim[3], prim[4])
+    if not any(x.requires_grad for x in scene_tensors + per_call):
+        return
+    names = [f"materials.{f}" for f in ("ior", "specular", "roughness", "metalness")]
+    names += [f"sun.{f}" for f in SUN_FIELDS]
+    names += ["state.origin", "state.dir", "uniforms", "hit.t", "hit.uv"]
+    if res.quad is not None:
+        names += ["quad.uv", "quad.normal", "quad.t"]
+    if prim is not None:
+        names += ["primitive.t", "primitive.uv", "primitive.normal"]
+    bad = [name for name, x in zip(names, scene_tensors + per_call) if x.requires_grad]
+    raise ValueError(f"shade: K4 differentiates only the throughput, radiance, atlas and emittance; "
+                     f"{bad} require grad")
 
 
 def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool) -> Shaded:
-    """One bounce's base shading (see the module's text) through
-    :class:`ShadeFunction`.  CUDA tensors launch the forward kernel, counted
-    in ``shade.launches``, and the backward kernel when the gradient is
-    taken, counted in ``shade.backward_launches``; CPU tensors run
-    :func:`shade_reference` and :func:`shade_backward_reference`.  Any other
-    device raises, and so does a tensor other than the throughput, the
-    radiance, the atlas texels and the emittance that requires grad."""
-    dev = st["throughput"].device
+    """One bounce's base shading (see the module's text).  CUDA tensors
+    launch the forward kernel, counted in ``shade.launches``, and the
+    backward kernel when the gradient is taken, counted in
+    ``shade.backward_launches``; CPU tensors run :func:`shade_reference`
+    and :func:`shade_backward_reference`.  Where a gradient may be taken
+    (grad mode on and one of the throughput, the radiance, the atlas
+    texels and the emittance requiring grad) the call goes through
+    :class:`ShadeFunction`; otherwise it launches the forward alone, with
+    no autograd node and no residual.  Both give the same outputs bit for
+    bit.  Any other device raises, and so does a tensor other than those
+    four that requires grad while grad mode is on."""
+    tp = st["throughput"]
+    dev = tp.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"shade: unsupported device {dev}")
-    _check_no_other_grad(scene, st, u, res, prim)
-    call = _Call(scene, st, u, res, prim, bool(is_first), bool(may_scatter))
-    out = ShadeFunction.apply(st["throughput"], st["radiance"], _atlas_data(scene.atlas),
-                              scene.materials.emittance, call)
-    return Shaded(dict(zip(STATE_KEYS, out[:7])), *out[7:])
+    if torch.is_grad_enabled():
+        atlas, emittance = _atlas_data(scene.atlas), scene.materials.emittance
+        _check_no_other_grad(scene, st, u, res, prim)
+        if tp.requires_grad or st["radiance"].requires_grad or atlas.requires_grad or emittance.requires_grad:
+            out = ShadeFunction.apply(tp, st["radiance"], atlas, emittance,
+                                      _Call(scene, st, u, res, prim, bool(is_first), bool(may_scatter)))
+            return Shaded(dict(zip(STATE_KEYS, out[:7])), *out[7:])
+    if _uses_kernels(tp):
+        return _forward_cuda((scene, st, u, res, prim, bool(is_first), bool(may_scatter)), False)[0]
+    return shade_reference(scene, st, u, res, prim, bool(is_first), bool(may_scatter))[0]
 
 
 shade.launches = 0
@@ -432,29 +463,10 @@ class _Tables(ctypes.Structure):
                 ("face_material", ctypes.c_void_p),
                 ("ior", ctypes.c_void_p), ("specular", ctypes.c_void_p), ("emittance", ctypes.c_void_p),
                 ("roughness", ctypes.c_void_p), ("metalness", ctypes.c_void_p), ("flags", ctypes.c_void_p),
-                ("texture_index", ctypes.c_void_p),
+                ("texture_index", ctypes.c_void_p), ("n_mat", ctypes.c_int),
                 ("atlas", ctypes.c_void_p), ("sizes", ctypes.c_void_p),
-                ("atlas_h", ctypes.c_int), ("atlas_w", ctypes.c_int),
+                ("n_layers", ctypes.c_int), ("atlas_h", ctypes.c_int), ("atlas_w", ctypes.c_int),
                 ("sun", _SunParams)]
-
-
-class _Lanes(ctypes.Structure):
-    """``struct ShadeLanes`` of ``csrc/shade.cu``: the inputs per lane."""
-
-    _fields_ = ([(f, ctypes.c_void_p) for f in ("origin", "dir", "throughput", "radiance")]
-                + [(f"{f}_stride", ctypes.c_longlong) for f in ("origin", "dir", "throughput", "radiance")]
-                + [(f, ctypes.c_void_p) for f in ("active", "specular", "cur_mat", "u")]
-                + [("u_stride", ctypes.c_longlong)]
-                + [(f, ctypes.c_void_p) for f in ("hit", "t", "face_id", "uv", "leaf_value",
-                                                  "q_found", "q_mat", "q_uv", "q_normal", "q_t",
-                                                  "p_hit", "p_t", "p_mat", "p_uv", "p_normal")])
-
-
-class _Outputs(ctypes.Structure):
-    """``struct ShadeOutputs`` of ``csrc/shade.cu``."""
-
-    _fields_ = [(f, ctypes.c_void_p) for f in STATE_KEYS + ("albedo", "hitpoint", "normal", "mat",
-                                                             "diffuse_on", "resid_i", "resid_f")]
 
 
 class _Flags(ctypes.Structure):
@@ -462,6 +474,22 @@ class _Flags(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_int) for f in ("is_first", "may_scatter", "importance", "diffuse_sun",
                                             "draw_texture", "emission")]
+
+
+# The forward's flat slot array (``enum LaneSlot`` of ``csrc/shade.cu``):
+# the inputs' pointers, the four state rows' and the uniforms' row strides,
+# the outputs' pointers.
+IN_SLOTS = ("origin", "dir", "throughput", "radiance", "active", "specular", "cur_mat", "u",
+            "hit", "t", "face_id", "uv", "leaf_value",
+            "q_found", "q_mat", "q_uv", "q_normal", "q_t", "p_hit", "p_t", "p_mat", "p_uv", "p_normal")
+STRIDE_SLOTS = ("origin_stride", "dir_stride", "throughput_stride", "radiance_stride", "u_stride")
+OUT_SLOTS = STATE_KEYS + ("albedo", "hitpoint", "normal", "mat", "diffuse_on", "resid_i", "resid_f")
+N_LANE_SLOTS = len(IN_SLOTS) + len(STRIDE_SLOTS) + len(OUT_SLOTS)
+# the backward's slot array (``enum BackwardSlot``)
+BACKWARD_SLOTS = ("g_throughput", "g_radiance", "g_albedo", "albedo", "throughput", "resid_i", "resid_f",
+                  "emittance", "d_throughput", "d_atlas", "d_emittance")
+LANE_ARRAY = ctypes.c_void_p * N_LANE_SLOTS
+BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
 
 
 @functools.cache
@@ -472,12 +500,15 @@ def _library():
 
     # no FMA contraction: the twin's eager torch rounds every multiply and add
     lib = load_library("shade", ("-fmad=false",))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.shade_forward.argtypes = [ci, ctypes.POINTER(_Tables), ctypes.POINTER(_Lanes),
-                                  ctypes.POINTER(_Outputs), ctypes.POINTER(_Flags), vp]
+    vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.shade_forward.argtypes = [ci, vp, vp, vp, ci, vp]  # b, tables, flags, slots, slot count, stream
     lib.shade_forward.restype = ci
-    lib.shade_backward.argtypes = [ci] + [vp] * 12  # b, 3 cotangents, 5 saved, 3 gradients, the stream
+    lib.shade_forward_config.argtypes = [ci, ctypes.POINTER(_Tables), pi]
+    lib.shade_forward_config.restype = ci
+    lib.shade_backward.argtypes = [ci, vp, ci, vp]  # b, slots, slot count, stream
     lib.shade_backward.restype = ci
+    lib.shade_backward_config.argtypes = [ci, pi]
+    lib.shade_backward_config.restype = ci
     lib.shade_error_string.argtypes = [ci]
     lib.shade_error_string.restype = ctypes.c_char_p
     return lib
@@ -502,8 +533,17 @@ def _dense(x, shape, dtype, name: str, who: str = "shade"):
     return x
 
 
-# the newest scenes' tables, checked and packed: [(their tensors, their
-# device, the _Tables struct)], the newest last
+class _SceneEntry(NamedTuple):
+    """A scene's tables checked and packed once for all its bounces."""
+
+    tensors: tuple  # the table tensors (the cache's key, by identity)
+    device: torch.device
+    tables: _Tables
+    tables_ref: object  # ctypes.byref(tables)
+    flags: dict  # (is_first, may_scatter, importance, diffuse_sun, draw_texture, emission) -> byref(_Flags)
+
+
+# the newest scenes' entries, the newest last
 _TABLE_CACHE: list = []
 _TABLE_CACHE_SIZE = 4
 
@@ -511,20 +551,21 @@ _TABLE_CACHE_SIZE = 4
 def _table_tensors(scene: Scene) -> tuple:
     """Every table of ``scene`` that the forward kernel reads (None where
     the scene has none)."""
-    mod, atlas = scene.models, scene.atlas
+    mod, atlas, m, sun = scene.models, scene.atlas, scene.materials, scene.sun
     return (_atlas_data(atlas), atlas.sizes if isinstance(atlas, Atlas) else None, scene.leaf_material,
             None if mod is None else mod.leaf_model, None if mod is None else mod.face_material,
-            *(getattr(scene.materials, f) for f in MATERIAL_FIELDS), *(getattr(scene.sun, f) for f in SUN_FIELDS))
+            m.ior, m.specular, m.emittance, m.roughness, m.metalness, m.flags, m.texture_index,
+            sun.azimuth, sun.altitude, sun.radius, sun.color, sun.luminosity, sun.importance_sample_chance,
+            sun.importance_sample_radius, sun.sw, sun.su, sun.sv, sun.apparent_texture_brightness)
 
 
-def _scene_tables(scene: Scene):
-    """(device, :class:`_Tables`) of ``scene``'s tables, checked and packed
-    once for all its bounces.  The cache is keyed by the identity of the
-    table tensors and holds them, so no key outlives its tensors."""
+def _scene_entry(scene: Scene) -> _SceneEntry:
+    """``scene``'s :class:`_SceneEntry`.  The cache is keyed by the identity
+    of the table tensors and holds them, so no key outlives its tensors."""
     key = _table_tensors(scene)
-    for tensors, dev, tables in _TABLE_CACHE:
-        if all(a is b for a, b in zip(tensors, key)):
-            return dev, tables
+    for entry in reversed(_TABLE_CACHE):
+        if all(a is b for a, b in zip(entry.tensors, key)):
+            return entry
     data, sizes, leaf_material, leaf_model, face_material = key[:5]
     cols = key[5:5 + len(MATERIAL_FIELDS)]
     f32, i32 = torch.float32, torch.int32
@@ -551,73 +592,142 @@ def _scene_tables(scene: Scene):
     tables = _Tables(
         leaf_material.data_ptr(), leaf_material.shape[0],
         _ptr(leaf_model), 0 if leaf_model is None else leaf_model.shape[0], _ptr(face_material),
-        *(x.data_ptr() for x in cols), data.data_ptr(), _ptr(sizes), data.shape[1], data.shape[2],
-        _SunParams(*(x.data_ptr() for x in key[5 + len(MATERIAL_FIELDS):])),
+        *(x.data_ptr() for x in cols), n_mat, data.data_ptr(), _ptr(sizes), data.shape[0], data.shape[1],
+        data.shape[2], _SunParams(*(x.data_ptr() for x in key[5 + len(MATERIAL_FIELDS):])),
     )
-    _TABLE_CACHE.append((key, dev, tables))
+    entry = _SceneEntry(key, dev, tables, ctypes.byref(tables), {})
+    _TABLE_CACHE.append(entry)
     del _TABLE_CACHE[:-_TABLE_CACHE_SIZE]
-    return dev, tables
+    return entry
 
 
-def _forward_cuda(call: _Call, want_grad: bool):
-    scene, st, u, res, prim = call.scene, call.st, call.u, call.res, call.prim
-    b = st["throughput"].shape[0]
-    dev = st["throughput"].device
-    f32, i32, bool_ = torch.float32, torch.int32, torch.bool
-    if b >= 2**31:
-        raise ValueError("shade: too many lanes for one launch")
-    table_dev, tables = _scene_tables(scene)
+def _flags(entry: _SceneEntry, scene: Scene, is_first: bool, may_scatter: bool):
+    """``byref`` of the call's :class:`_Flags`, cached in the scene's entry."""
+    strat = scene.sun_sampling
+    key = (is_first, may_scatter, strat.importance_sampling, strat.diffuse_sun, scene.sun.draw_texture,
+           emission_counts(scene, is_first))
+    ref = entry.flags.get(key)
+    if ref is None:
+        ref = entry.flags[key] = ctypes.byref(_Flags(*(int(x) for x in key)))
+    return ref
 
-    origin = _rows(st["origin"], b, 3, f32, "origin")
-    dirs = _rows(st["dir"], b, 3, f32, "dir")
-    tp = _rows(st["throughput"], b, 3, f32, "throughput")
-    rad = _rows(st["radiance"], b, 3, f32, "radiance")
-    uu = _rows(u, b, N_UNIFORMS, f32, "the uniforms")
-    lanes_in = [_dense(st["active"], (b,), bool_, "active"), _dense(st["specular"], (b,), bool_, "specular"),
-                _dense(st["cur_mat"], (b,), i32, "cur_mat"),
-                _dense(res.hit, (b,), bool_, "hit"), _dense(res.t, (b,), f32, "hit t"),
-                _dense(res.face_id, (b,), i32, "face_id"), _dense(res.uv, (b, 2), f32, "hit uv"),
-                _dense(res.leaf_value, (b,), i32, "leaf_value")]
+
+@functools.lru_cache(maxsize=256)
+def _output_layout(b: int, want_grad: bool) -> tuple:
+    """(bytes, ((offset in the output's dtype, shape, stride, dtype index), ...)
+    in ``OUT_SLOTS``' order, the byte offsets): the forward's outputs carved
+    from one buffer of ``b`` lanes, each starting on a 16-byte boundary (the
+    kernel stores the albedo as 16-byte vectors).  Dtype index 0 float32,
+    1 int32, 2 bool."""
+    # (B, k) float32 rows, int32 columns, bool columns; the residual last
+    spec = {"origin": (3, 0), "dir": (3, 0), "throughput": (3, 0), "radiance": (3, 0), "active": (1, 2),
+            "specular": (1, 2), "cur_mat": (1, 1), "albedo": (4, 0), "hitpoint": (3, 0), "normal": (3, 0),
+            "mat": (1, 1), "diffuse_on": (1, 2), "resid_i": (3, 1), "resid_f": (3, 0)}
+    item = (4, 4, 1)
+    order = sorted(OUT_SLOTS[:-2], key=lambda k: (spec[k][1] == 2, -spec[k][0])) + (
+        ["resid_i", "resid_f"] if want_grad else [])
+    offsets, end = {}, 0
+    for k in order:
+        offsets[k] = end
+        end = (end + b * spec[k][0] * item[spec[k][1]] + 15) // 16 * 16
+    views = []
+    for k in OUT_SLOTS:
+        if k not in offsets:
+            views.append(None)
+            continue
+        width, kind = spec[k]
+        shape, stride = ((b, width), (width, 1)) if width > 1 else ((b,), (1,))
+        views.append((offsets[k] // item[kind], shape, stride, kind, offsets[k]))
+    return max(end, 16), tuple(views)
+
+
+def _carve(b: int, want_grad: bool, dev):
+    """The forward's outputs as views of one new buffer: (the tensors in
+    ``OUT_SLOTS``' order, None for an absent residual; their addresses)."""
+    n_bytes, views = _output_layout(b, want_grad)
+    buf = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    typed = (buf.view(torch.float32), buf.view(torch.int32), buf.view(torch.bool))
+    base = buf.data_ptr()
+    outs = [None if v is None else typed[v[3]].as_strided(v[1], v[2], v[0]) for v in views]
+    return outs, [None if v is None else base + v[4] for v in views]
+
+
+def _lane_inputs(scene: Scene, st: dict, u, res, prim) -> tuple:
+    """The forward's inputs in ``IN_SLOTS``' order (None where the scene
+    has no quad models or the call no primitives)."""
     if scene.has_quad_models:
         q = res.quad
         if q is None:
             raise ValueError("shade: a scene with quad models needs the accepting traversal's quad surfaces")
-        quad = [_dense(q.found, (b,), bool_, "quad found"), _dense(q.mat, (b,), i32, "quad mat"),
-                _dense(q.uv, (b, 2), f32, "quad uv"), _dense(q.normal, (b, 3), f32, "quad normal"),
-                _dense(q.t, (b,), f32, "quad t")]
+        quad = (q.found, q.mat, q.uv, q.normal, q.t)
     else:
-        quad = [None] * 5
-    if prim is not None:
-        p = [_dense(prim[0], (b,), bool_, "primitive hit"), _dense(prim[1], (b,), f32, "primitive t"),
-             _dense(prim[2], (b,), i32, "primitive mat"), _dense(prim[3], (b, 2), f32, "primitive uv"),
-             _dense(prim[4], (b, 3), f32, "primitive normal")]
-    else:
-        p = [None] * 5
-    if table_dev != dev or any(x is not None and x.device != dev for x in [origin, dirs, tp, rad, uu] + lanes_in + quad + p):
-        raise ValueError("shade: every input must be on the lanes' card")
+        quad = (None,) * 5
+    return (st["origin"], st["dir"], st["throughput"], st["radiance"], st["active"], st["specular"],
+            st["cur_mat"], u, res.hit, res.t, res.face_id, res.uv, res.leaf_value, *quad,
+            *((None,) * 5 if prim is None else prim))
 
-    empty = functools.partial(torch.empty, device=dev)
-    state = dict(origin=empty((b, 3), dtype=f32), dir=empty((b, 3), dtype=f32),
-                 throughput=empty((b, 3), dtype=f32), radiance=empty((b, 3), dtype=f32),
-                 active=empty((b,), dtype=bool_), specular=empty((b,), dtype=bool_), cur_mat=empty((b,), dtype=i32))
-    out = Shaded(state, empty((b, 4), dtype=f32), empty((b, 3), dtype=f32), empty((b, 3), dtype=f32),
-                 empty((b,), dtype=i32), empty((b,), dtype=bool_))
-    resid = ShadeResidual(empty((b, 3), dtype=i32), empty((b, 3), dtype=f32)) if want_grad else None
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+# each input slot's (dtype, width: 0 for (B,), k for (B, k), -k for rows of k with any row stride)
+_IN_SPEC = ((_F32, -3), (_F32, -3), (_F32, -3), (_F32, -3), (_BOOL, 0), (_BOOL, 0), (_I32, 0), (_F32, -N_UNIFORMS),
+            (_BOOL, 0), (_F32, 0), (_I32, 0), (_F32, 2), (_I32, 0),
+            (_BOOL, 0), (_I32, 0), (_F32, 2), (_F32, 3), (_F32, 0),
+            (_BOOL, 0), (_F32, 0), (_I32, 0), (_F32, 2), (_F32, 3))
+
+
+@functools.lru_cache(maxsize=256)
+def _expected_inputs(b: int, present: tuple) -> tuple:
+    """The (dtype, shape) of every present input slot for ``b`` lanes."""
+    return tuple((dt, torch.Size((b,) if w == 0 else (b, abs(w))))
+                 for (dt, w), here in zip(_IN_SPEC, present) if here)
+
+
+def _checked_inputs(ins: tuple, b: int, dev):
+    """``ins`` checked in one pass (dtype, shape, a dense last axis, dense
+    1-D and (B, 2|3) columns, the lanes' card); a row input whose last axis
+    is strided is copied dense.  A wrong input raises naming it."""
+    present = tuple(x is not None for x in ins)
+    here = [x for x in ins if x is not None]
+    if (tuple((x.dtype, x.shape) for x in here) == _expected_inputs(b, present)
+            and all(x.is_contiguous() for x in here[4:7] + here[8:])
+            and all(x.stride(-1) == 1 for x in here[:4] + here[7:8])
+            and all(x.device == dev for x in here)):
+        return ins
+    checked = []
+    for x, (dt, w), name in zip(ins, _IN_SPEC, IN_SLOTS):
+        if x is None:
+            checked.append(None)
+            continue
+        checked.append(_rows(x, b, -w, dt, name) if w < 0 else _dense(x, (b,) if w == 0 else (b, w), dt, name))
+        if checked[-1].device != dev:
+            raise ValueError("shade: every input must be on the lanes' card")
+    return tuple(checked)
+
+
+def _forward_cuda(call, want_grad: bool):
+    """The forward kernel on ``call`` (``_Call``'s fields): one output
+    allocation, one entry-point call.  Returns (:class:`Shaded`,
+    :class:`ShadeResidual` or None)."""
+    scene, st, u, res, prim, is_first, may_scatter = call
+    tp = st["throughput"]
+    b = tp.shape[0]
+    dev = tp.device
+    if b >= 2**31:
+        raise ValueError("shade: too many lanes for one launch")
+    entry = _scene_entry(scene)
+    if entry.device != dev:
+        raise ValueError("shade: every input must be on the lanes' card")
+    ins = _checked_inputs(_lane_inputs(scene, st, u, res, prim), b, dev)
+    outs, out_ptrs = _carve(b, want_grad, dev)
+    out = Shaded(dict(zip(STATE_KEYS, outs[:7])), *outs[7:12])
+    resid = ShadeResidual(outs[12], outs[13]) if want_grad else None
     if b == 0:  # an empty batch launches nothing
         return out, resid
-
-    lanes = _Lanes(origin.data_ptr(), dirs.data_ptr(), tp.data_ptr(), rad.data_ptr(),
-                   origin.stride(0), dirs.stride(0), tp.stride(0), rad.stride(0),
-                   *(x.data_ptr() for x in lanes_in[:3]), uu.data_ptr(), uu.stride(0),
-                   *(x.data_ptr() for x in lanes_in[3:]), *(_ptr(x) for x in quad + p))
-    outs = _Outputs(*(state[k].data_ptr() for k in STATE_KEYS), *(x.data_ptr() for x in out[1:]),
-                    _ptr(None if resid is None else resid.ints), _ptr(None if resid is None else resid.floats))
-    strat = scene.sun_sampling
-    flags = _Flags(int(call.is_first), int(call.may_scatter), int(strat.importance_sampling),
-                   int(strat.diffuse_sun), int(scene.sun.draw_texture), int(emission_counts(scene, call.is_first)))
+    slots = LANE_ARRAY(*(None if x is None else x.data_ptr() for x in ins),
+                       *(ins[k].stride(0) for k in (0, 1, 2, 3, 7)), *out_ptrs)
     lib = _library()
-    rc = on_current_stream(lib.shade_forward, tp.get_device(),
-                           b, ctypes.byref(tables), ctypes.byref(lanes), ctypes.byref(outs), ctypes.byref(flags))
+    rc = on_current_stream(lib.shade_forward, dev.index, b, entry.tables_ref,
+                           _flags(entry, scene, is_first, may_scatter), slots, N_LANE_SLOTS)
     if rc != 0:
         raise RuntimeError(f"shade_forward launch failed: {lib.shade_error_string(rc).decode()}")
     shade.launches += 1
@@ -626,22 +736,50 @@ def _forward_cuda(call: _Call, want_grad: bool):
 
 def _backward_cuda(albedo, throughput, resid: ShadeResidual, emittance, atlas_shape,
                    g_throughput, g_radiance, g_albedo, need):
+    """The backward kernel: the atlas and emittance gradients carved from
+    one zero-filled allocation (one fill), one entry-point call."""
     b = albedo.shape[0]
     dev = albedo.device
-    grads = []
-    for g, k, name in ((g_throughput, 3, "throughput"), (g_radiance, 3, "radiance"), (g_albedo, 4, "albedo")):
-        grads.append(None if g is None else _dense(g.contiguous(), (b, k), torch.float32, f"the {name} cotangent"))
+    g_tp, g_rad, g_alb = (None if g is None else _dense(g.contiguous(), (b, k), torch.float32, f"the {name} cotangent")
+                          for g, k, name in ((g_throughput, 3, "throughput"), (g_radiance, 3, "radiance"),
+                                             (g_albedo, 4, "albedo")))
     d_tp = torch.empty((b, 3), dtype=torch.float32, device=dev) if need[0] else None
-    d_atlas = torch.zeros(atlas_shape, dtype=torch.float32, device=dev) if need[2] else None
-    d_emit = torch.zeros_like(emittance) if need[3] else None
+    d_atlas = d_emit = None
+    if need[2] or need[3]:
+        t, h, w = atlas_shape[:3]
+        n_atlas = 4 * t * h * w if need[2] else 0
+        zeros = torch.zeros(n_atlas + (emittance.shape[0] if need[3] else 0), dtype=torch.float32, device=dev)
+        if need[2]:
+            d_atlas = zeros.as_strided(atlas_shape, (h * w * 4, w * 4, 4, 1))
+        if need[3]:
+            d_emit = zeros.as_strided(emittance.shape, (1,), n_atlas)
     if b > 0 and (need[0] or need[2] or need[3]):
         lib = _library()
         tp = throughput.contiguous()
-        rc = on_current_stream(lib.shade_backward, albedo.get_device(),
-                               b, *(_ptr(g) for g in grads), albedo.data_ptr(), tp.data_ptr(),
-                               resid.ints.data_ptr(), resid.floats.data_ptr(), emittance.data_ptr(),
-                               _ptr(d_tp), _ptr(d_atlas), _ptr(d_emit))
+        slots = BACKWARD_ARRAY(_ptr(g_tp), _ptr(g_rad), _ptr(g_alb), albedo.data_ptr(), tp.data_ptr(),
+                               resid.ints.data_ptr(), resid.floats.data_ptr(), emittance.data_ptr(), _ptr(d_tp),
+                               _ptr(d_atlas), _ptr(d_emit))
+        rc = on_current_stream(lib.shade_backward, dev.index, b, slots, len(BACKWARD_SLOTS))
         if rc != 0:
             raise RuntimeError(f"shade_backward launch failed: {lib.shade_error_string(rc).decode()}")
         shade.backward_launches += 1
     return d_tp, (g_radiance if need[1] else None), d_atlas, d_emit
+
+
+def launch_configs(scene: Scene, b: int) -> dict:
+    """How K4's kernels launch on ``b`` lanes of ``scene`` (on the current
+    card): {"forward": {...}, "backward": {...}}, each with threads, blocks,
+    dynamic shared memory bytes per block, resident blocks per SM and SMs;
+    the forward's with where its tables are read (shared memory, or global
+    memory through __ldg above ``csrc/shade.cu``'s K4_TABLE_SMEM_BUDGET),
+    the backward's with how it sums (warp-combined atomics)."""
+    entry = _scene_entry(scene)
+    lib = _library()
+    keys = ("threads", "blocks", "smem_bytes", "resident_blocks_per_sm", "sms")
+    fwd, bwd = (ctypes.c_int * 6)(), (ctypes.c_int * 6)()
+    with torch.cuda.device(entry.device):
+        for rc in (lib.shade_forward_config(b, ctypes.byref(entry.tables), fwd), lib.shade_backward_config(b, bwd)):
+            if rc != 0:
+                raise RuntimeError(f"shade launch configuration failed: {lib.shade_error_string(rc).decode()}")
+    return {"forward": dict(zip(keys, fwd[:5]), tables="shared memory" if fwd[5] else "__ldg"),
+            "backward": dict(zip(keys, bwd[:5]), sums="warp-combined")}

@@ -16,7 +16,7 @@ of one or more checkouts of the port beside the PyTorch calls that compute
 the same functions (``torch.index_select``, ``torch.rand``), and the
 traversal kernels at the shapes the main paths give them::
 
-    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] ROOT [ROOT ...]
+    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4] ROOT [ROOT ...]
 
 Each ROOT is a directory holding ``octree_pathtracing_tpu_torch/`` (this
 checkout, or an older commit unpacked with ``git archive``); each is timed
@@ -35,7 +35,10 @@ plant field (primaries; sun and hemisphere walks).  Each traversal row
 carries the max, p50 and p99 of its per-ray fetches.  K4's rows time
 ``_shade`` on each bounce of one headline frame, forward (call and device
 ms) and with its backward (call ms), whatever shading the checkout has (its
-kernels, or the eager shading before them); the headline frame itself is
+kernels, or the eager shading before them), and K4's backward call alone
+on each bounce (call and device ms, its fills included), on the cotangents
+a real fwd+bwd of the frame hands it, where the checkout has the kernels;
+the headline frame itself is
 timed forward and with bench.py's backward (host ms, median of 5) with the
 device activities torch.profiler counts in it; so are the light lines
 (the depth-9 terrain under the HIGH_QUALITY sun, with and without
@@ -44,7 +47,8 @@ it, and the analytic scene under IMPORTANCE; with ``--world FILE`` a region
 read at depth 9 under HIGH_QUALITY with one-emitter NEE), where a checkout
 with the next-event kernels also counts the activities through their plain
 version.  Every kernel result
-is checked bit for bit against its plain-torch twin first.  The depth-9
+is checked bit for bit against its plain-torch twin first.  ``--k4``
+times K4's rows and the headline frames alone (an A/B of K4's design).  The depth-9
 octrees are cached under ``build/scenes`` of this file's checkout.  Needs
 a CUDA card.
 """
@@ -450,6 +454,13 @@ def _shade_cases(dev, cache_dir) -> dict:
         row = both(fwd)
         row.update(lanes=int(st["throughput"].shape[0]), fwd_bwd_call_ms=call_ms(fwd_bwd, 20))
         out[f"K4 _shade headline bounce {k}"] = row
+    if hasattr(pathtracer, "shade"):  # the backward alone, on the cotangents a real fwd+bwd hands each bounce
+        from octree_pathtracing_tpu_torch.ops import shade as k4
+
+        for k, args in enumerate(shade_gradients(pathtracer, scene, o, d, u), start=1):
+            row = both(lambda args=args: k4._backward_cuda(*args))
+            row.update(lanes=int(args[0].shape[0]))
+            out[f"K4 backward headline bounce {k}"] = row
 
     def frame_fwd_bwd():
         pathtracer.trace_paths(apply_params(scene, params()), o, d, u).mean().backward()
@@ -699,10 +710,23 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             print("timing: no CUDA device", file=sys.stderr)
             return 1
-        print("RESULT " + json.dumps(_time_checkout(args[3] if args[2:3] == ["--world"] else None)), flush=True)
+        if args[-1:] == ["--k4"]:
+            dev = torch.device("cuda", torch.cuda.current_device())
+            cache_dir = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                                                      "build", "scenes"))
+            import octree_pathtracing_tpu_torch as port
+
+            result = {"package": os.path.dirname(port.__file__), "card": card_line(), **_shade_cases(dev, cache_dir)}
+        else:
+            result = _time_checkout(args[3] if args[2:3] == ["--world"] else None)
+        print("RESULT " + json.dumps(result), flush=True)
         return 0
     out_file = world = None
-    while args[:1] in (["--out"], ["--world"]):
+    k4_only = False
+    while args[:1] in (["--out"], ["--world"], ["--k4"]):
+        if args[0] == "--k4":
+            k4_only, args = True, args[1:]
+            continue
         if args[0] == "--out":
             out_file = args[1]
         else:
@@ -714,7 +738,8 @@ def main(argv=None) -> int:
     runs = []
     for root in args:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
-                              + (["--world", world] if world else []), capture_output=True, text=True, timeout=900)
+                              + (["--world", world] if world else []) + (["--k4"] if k4_only else []),
+                              capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)

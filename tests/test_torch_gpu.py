@@ -20,6 +20,8 @@ without the repo's conftest:
 """
 
 import dataclasses
+import functools
+import math
 import tempfile
 import types
 
@@ -891,13 +893,15 @@ K4_SCENES = ("terrain", "terrain_off", "terrain_glossy", "cutout", "plant", "ana
 
 def _k4_calls(name, n, dev):
     """The arguments of every ``shade`` call of one 5-bounce frame over
-    ``n`` lanes of ``name``'s 256x256 primaries (a seeded shuffle): the
-    first is the primary bounce, the second bounce 2's live sub-batch."""
+    ``n`` lanes of ``name``'s 256x256 primaries (a seeded shuffle; a larger
+    square grid where ``n`` is larger): the first is the primary bounce,
+    the second bounce 2's live sub-batch."""
     key = ("k4", name)
     if key not in _SCENES:
         _SCENES[key] = _k4_scene(name)
     sc, cam = (x.to(dev) for x in _SCENES[key])
-    o, d = pixel_grid_rays(cam, 256, 256)
+    side = max(256, math.isqrt(n - 1) + 1)
+    o, d = pixel_grid_rays(cam, side, side)
     g = torch.Generator().manual_seed(n)
     pick = torch.randperm(o.shape[0], generator=g)[:n].to(dev)
     u = torch.from_numpy(np.random.default_rng(n).random((n, 5, 21), dtype=np.float32)).to(dev)
@@ -932,13 +936,30 @@ def _assert_k4_matches_twin(call, label):
     print(f"K4 {label}: {b} lanes; lanes not bit-equal per field {r['differ']}; outside the gate {r['outside']}")
     if b:
         assert (k4.shade.launches, k4.shade.backward_launches) == (before[0] + 1, before[1] + 1)
+    return r
+
+
+def _resident_slots(scene):
+    """The card's resident-thread slots of K4's widest grids: SMs x resident
+    blocks x threads, the larger of the forward's and the backward's (a
+    batch one lane past it makes every block walk a second tile)."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    cfg = k4.launch_configs(scene, 1 << 22)
+    return max(c["sms"] * c["resident_blocks_per_sm"] * c["threads"] for c in cfg.values())
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("size", ["1", "31", "4072", "65536", "bounce 2"])
+@pytest.mark.parametrize("size", ["1", "31", "4072", "65536", "65553", "slots + 1", "bounce 2"])
 @pytest.mark.parametrize("name", K4_SCENES)
 def test_shade_kernels_match_twins(cuda, name, size):
-    n = 65536 if size == "bounce 2" else int(size)
+    if size == "slots + 1":
+        key = ("k4", name)
+        if key not in _SCENES:
+            _SCENES[key] = _k4_scene(name)
+        n = _resident_slots(_SCENES[key][0].to(cuda)) + 1
+    else:
+        n = 65536 if size == "bounce 2" else int(size)
     calls = _k4_calls(name, n, cuda)
     call = calls[1] if size == "bounce 2" else calls[0]
     if size == "bounce 2":  # the live lanes gathered by K5 (all of them in the closed room)
@@ -1008,6 +1029,191 @@ def test_shade_refuses_what_the_kernel_does_not_take_and_raises_on_a_refused_lau
     with pytest.raises(RuntimeError, match="shade_forward launch failed: invalid argument"):
         k4.shade(scene, st, u, res, prim, is_first, may_scatter)
     assert k4.shade.launches == before
+
+
+def _padded(scene, n_mat=None, layers=None):
+    """``scene`` with its material table padded to ``n_mat`` rows (copies of
+    row 0, which no leaf names beyond its own) or its atlas to ``layers``
+    layers (copies of layer 0): the same lanes and the same shading over
+    larger tables."""
+    if n_mat is not None:
+        m = scene.materials
+        pad = n_mat - m.count
+
+        def grow(x):
+            return torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
+
+        fields = {f.name: grow(getattr(m, f.name)) for f in dataclasses.fields(m)
+                  if isinstance(getattr(m, f.name), torch.Tensor) and getattr(m, f.name).shape[:1] == (m.count,)}
+        scene = dataclasses.replace(scene, materials=dataclasses.replace(m, **fields))
+    if layers is not None:
+        a = scene.atlas
+        scene = dataclasses.replace(scene, atlas=torch.cat([a, a[:1].expand(layers - a.shape[0], *a.shape[1:])]))
+    return scene
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tables", ["the terrain's", "700 materials", "100 atlas layers"])
+def test_shade_kernels_on_both_sides_of_the_table_budget(cuda, tables):
+    """The forward's tables in shared memory (the terrain's 6 materials) and
+    above K4_TABLE_SMEM_BUDGET (700 materials: read through __ldg), and the
+    backward's sums into a 100-layer atlas gradient, on the same lanes."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    for call in _k4_calls("terrain", 4072, cuda)[:2]:
+        sc = {"the terrain's": call[0], "700 materials": _padded(call[0], n_mat=700),
+              "100 atlas layers": _padded(call[0], layers=100)}[tables]
+        route = k4.launch_configs(sc, call[1]["throughput"].shape[0])["forward"]["tables"]
+        assert route == ("__ldg" if tables == "700 materials" else "shared memory")
+        _assert_k4_matches_twin((sc,) + tuple(call[1:]), f"terrain, {tables} tables (read through {route})")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", [None, 100])
+def test_shade_backward_under_full_contention(cuda, layers):
+    """Every one of 65,536 lanes reads one texel of one emitting material
+    and scatters diffusely on the primary bounce, so each gradient sum takes
+    65,536 terms (2,048 warp-combined atomics on one address): the backward
+    within check_shade's gate, on the room's atlas and on a 100-layer one."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.ops.shading import U_DIFFUSE
+
+    scene, st, u, res, prim, is_first, may_scatter = _k4_calls("room", 65536, cuda)[0]
+    if layers is not None:
+        scene = _padded(scene, layers=layers)
+    emitting = int(torch.nonzero(scene.materials.emittance > 0)[0])
+    leaf = int(torch.nonzero(scene.leaf_material == emitting)[0])
+    b = st["throughput"].shape[0]
+    full = functools.partial(torch.full, (b,), device=cuda)
+    res = res._replace(hit=full(True), t=full(1.0), face_id=full(2, dtype=torch.int32),
+                       uv=torch.full((b, 2), 0.5, device=cuda), leaf_value=full(leaf, dtype=torch.int32))
+    st = dict(st, active=full(True))
+    u = u.clone()
+    u[:, U_DIFFUSE] = 0.0
+    assert is_first
+    r = _assert_k4_matches_twin((scene, st, u, res, prim, is_first, may_scatter), f"full contention, {layers} layers")
+    print(f"K4 backward under full contention ({layers} layers): max abs err {r['backward_err']!r}")
+    assert (r["resid"].ints[:, 2] & k4.CODE_EMIT).all() and (r["resid"].ints[:, 0] == r["resid"].ints[0, 0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["terrain", "cutout", "plant", "analytic", "room", "world_hq"])
+def test_shade_no_grad_route_is_bit_equal_to_the_autograd_route(cuda, name):
+    """``shade`` without a gradient (no autograd node, no residual) and with
+    one (through ShadeFunction) give the same outputs bit for bit."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    for call in _k4_calls(name, 4072, cuda)[:2]:
+        scene, st = call[0], call[1]
+        with torch.no_grad():
+            plain = k4.shade(*call)
+        s = dict(st, throughput=st["throughput"].clone().requires_grad_(True))
+        graded = k4.shade(scene, s, *call[2:])
+        assert plain.state["throughput"].grad_fn is None and graded.state["throughput"].grad_fn is not None
+        for a, b in zip(_shaded_fields(plain), _shaded_fields(graded)):
+            assert torch.equal(a.view(torch.uint8), b.detach().view(torch.uint8))
+
+
+def _shaded_fields(out):
+    return [out.state[k] for k in out.state] + [out.albedo, out.hitpoint, out.normal, out.mat, out.diffuse_on]
+
+
+@pytest.mark.gpu
+def test_shade_kernels_replay_from_a_cuda_graph(cuda):
+    """K4's forward (the no-grad route) and backward captured in one CUDA
+    graph each; between replays their outputs are spoiled, and every
+    replay writes them again equal to the eager calls'."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.utils.timing import shade_gradients
+
+    scene, cam = _k4_scene("terrain")
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 64, 64)
+    u = torch.from_numpy(np.random.default_rng(5).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    bwd_args = shade_gradients(pathtracer, scene, o, d, u)[1]
+    call = _k4_calls("terrain", 4072, cuda)[1]
+    def gradients(d):  # the backward's own outputs (its second is the radiance cotangent, passed through)
+        return [x for x in (d[0], d[2], d[3]) if x is not None]
+
+    with torch.no_grad():
+        want_f = _shaded_fields(k4.shade(*call))
+        want_b = gradients(k4._backward_cuda(*bwd_args))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k4.shade(*call)
+            k4._backward_cuda(*bwd_args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got_f = _shaded_fields(k4.shade(*call))
+            got_b = gradients(k4._backward_cuda(*bwd_args))
+        for _ in range(3):
+            for x in got_f + got_b:
+                x.view(torch.uint8).fill_(0xFF)  # NaN floats, -1 ints, bytes that are no bool
+            graph.replay()
+            torch.cuda.synchronize()
+            for a, b in zip(got_f, want_f):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(got_b, want_b):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_shade_call_is_one_forward_kernel_and_at_most_two_backward_activities(cuda):
+    """torch.profiler over ten forward calls on a bounce's lanes, by each
+    route, and ten backward calls: the forward's device activities are its
+    kernel and nothing else, one launch a call by its counter; the
+    backward's its kernel and at most one other activity (the fill) a
+    call.  Fifty marker kernels open each session, and a session can drop
+    activities: it counts what it recorded after the markers as an upper
+    bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.utils.timing import shade_gradients
+
+    scene, cam = _k4_scene("terrain")
+    scene, cam = scene.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 64, 64)
+    u = torch.from_numpy(np.random.default_rng(6).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    bwd_calls = shade_gradients(pathtracer, scene, o, d, u)
+    marker = torch.zeros(1, device=cuda)
+
+    def activities(fn, calls=10):
+        """(the device activities of ``calls`` calls of ``fn`` after the
+        markers, the calls of ``fn`` made in all)."""
+        fn()
+        made = 1
+        for _ in range(3):  # a profiler session now and then records no device activity at all
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    marker.sin_()
+                torch.cuda.synchronize()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            made += calls
+            events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            names = [e.name for e in events if "sin" not in e.name]
+            if names:
+                break
+        return names, made
+
+    for k, call in enumerate(_k4_calls("terrain", 4072, cuda)[:2]):
+        s = dict(call[1], throughput=call[1]["throughput"].clone().requires_grad_(True))
+        for route in (lambda: k4.shade(*call), lambda: k4.shade(call[0], s, *call[2:])):
+            before = k4.shade.launches
+            names, made = activities(route)
+            assert k4.shade.launches - before == made
+            assert names and set(names) == {"shade_forward_kernel(ForwardParams)"} and len(names) <= 10, names
+        before = k4.shade.backward_launches
+        names, made = activities(lambda: k4._backward_cuda(*bwd_calls[k]))
+        assert k4.shade.backward_launches - before == made
+        kernels = sum("shade_backward_kernel" in x for x in names)
+        assert 1 <= kernels <= 10 and len(names) - kernels <= 10, names
 
 
 # ---- K4's next-event half and K6 (csrc/nee.cu) against their plain versions
