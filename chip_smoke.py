@@ -17,9 +17,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (``csrc/prims.cu``, the analytic-primitive scan), K8 (``csrc/bvh.cu``,
    the BVH walk over quads), P2 (``csrc/uniforms.cu``, Philox uniforms),
    P1 (``csrc/gather.cu``, row gather), K4 (``csrc/shade.cu``, hit
-   resolve and shade, forward and backward) and K4's next-event half with
-   K6 (``csrc/nee.cu``: ``nee_setup``, ``nee_resolve``, ``nee_backward``);
-   and, beside them, the C++ region
+   resolve and shade, forward and backward), K4's next-event half with
+   K6 (``csrc/nee.cu``: ``nee_setup``, ``nee_resolve``, ``nee_backward``)
+   and K5 (``csrc/compact.cu``: ``compact_forward``, ``compact_backward``,
+   the unpermute and its backward); and, beside them, the C++ region
    parser with g++ (host code: where it does not build, the numpy parser
    reads regions, as in the JAX package, and the line says why); ptxas's
    report of every kernel (registers, stack frame, spills), the
@@ -32,8 +33,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    calls captured in a CUDA graph and replayed); P1 and P2 beside the same
    two times of ``torch.index_select`` and ``torch.rand``:
    - K1 on a random depth-4 octree (4096 rays with an active mask), on
-     the 256x256 primaries of the depth-9 terrain and on the live rays of
-     bounces 2-5 of one headline frame (phase 5's uniforms);
+     the 256x256 primaries of the depth-9 terrain and on bounces 2-5 of
+     one headline frame (phase 5's uniforms: the whole batch, K5's live
+     lanes first, with its active mask);
    - P2 on the (65536, 5, 21) uniform block and on ragged sizes (one not a
      multiple of the grid's stride), bit for bit;
    - K2 on the 256x256 primaries of the depth-9 cutout scene and on its
@@ -63,7 +65,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      from the twin's walk; then K8's main path, one
      ``bvh_intersect_quads`` call through the entry point.
    - K4's forward and backward on the lanes of each bounce of one headline
-     frame (the 65,536 primaries, then bounces 2-5's live sub-batches):
+     frame (the 65,536 primaries, then bounces 2-5's whole batches, their
+     live lanes first and their dead lanes passed through):
      every output and the residual within rtol 1e-5 / atol 1e-6 of the
      twin on all but 0.1% of the lanes (the lanes not bit-equal counted
      field by field), the backward (on the kernel's forward outputs) within
@@ -77,6 +80,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
      ``nee_backward`` on the cotangent the frame's backward hands the
      bounce, within rtol 1e-5 / atol 1e-7; by call and on the device,
      beside the plain versions and the bound (``nee_bounds``).
+   - K5, ``utils/timing.check_compact``: ``compact_forward`` against
+     ``compact_reference`` on every output (the state, the carried index,
+     the bounce's uniforms, ``pos``, the live count), ``compact_backward``,
+     the unpermute and its backward against theirs, all bit for bit, on the
+     compactions of one headline frame (bounces 2-5), its bounce-2 state
+     repeated to 1,048,576 and 2,097,152 lanes, a branched frame's 64x64 x
+     10 lanes, 1 lane and a batch with no live lane; by call and on the
+     device beside the byte bound, the plain version, a stable
+     ``torch.argsort`` with one ``index_select`` per field, and the
+     parent's ``nonzero``, gathers and ``index_put``s.
    Every traversal row carries the max, p50 and p99 of its per-ray fetch
    counts (whether its longest walk sets the call).  Every traversal result
    must equal its twin's on every lane and field bit for bit: hit, t, face,
@@ -106,8 +119,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    2e-3, no lane outside;
 5. timing of the forward frame (256x256, 5 bounces, median of 5 after a
    warm-up), with nominal and live rays per second, and its launches
-   (torch.profiler's device activities) through K4's kernels and through
-   its eager twin;
+   (torch.profiler's device activities: kernels, fills and copies) through
+   K4's kernels and through its eager twin;
 6. bench.py's fwd+bwd step (``jax.grad`` of the mean radiance into atlas and
    emittance, bench.py:61-71) on the depth-9 terrain at 256x256 and
    5 bounces: median of 5 after a warm-up, rays/s, peak memory, its
@@ -115,6 +128,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    gradient through the kernels against the gradient through the twins at
    64x64, per element within rtol 1e-5 / atol 1e-7 (the backward of the
    atlas gather accumulates in an order the card does not fix);
+6a. the headline and the NEE line (terrain, HIGH_QUALITY) forward and
+   fwd+bwd under ``torch.cuda.set_sync_debug_mode("error")``: nothing in a
+   frame reads the card from the host; then the headline forward frame
+   captured in a CUDA graph and replayed, bit-equal to the eager frame,
+   its replay ms (the frame's device floor) beside phase 5's eager ms;
 6b. bench.py's NEE line (terrain, HIGH_QUALITY: the binary shadow walk), its
    cutout line (cutout, HIGH_QUALITY: K3s) and BASELINE's config 3 (terrain
    with its glowstone emitters, HIGH_QUALITY + ``EmitterSampling.ONE``),
@@ -152,14 +170,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
    never transparent enough to reject a hit, so the bounces run K1; leaves,
    glass and water make the sun walks K3s).
 
-The launch counts of the main paths (phases 3, 3b, 3c, 6, 6b, 6c, 7, 8 and
-K8's walk in phase 2) are
+The launch counts of the main paths (phases 3, 3b, 3c, 5, 6, 6a, 6b, 6c,
+7, 8 and K8's walk in phase 2) are
 set to 0 just before each path and read just after; the kernels'
 comparisons with their twins do not count.  Every path must have launched
 K4's forward, and its backward where a gradient is taken, and no path may
-run a twin (the twins' entry points are counted, K4's and the next-event
-half's too); every light-sampling path must have launched ``nee_setup``
-and ``nee_resolve``, and ``nee_backward`` where a gradient is taken.  The
+run a twin (the twins' entry points are counted, K4's, the next-event
+half's and K5's too); every light-sampling path must have launched ``nee_setup``
+and ``nee_resolve``, and ``nee_backward`` where a gradient is taken; the
+Renderer and every line of phases 5, 6, 6a, 6b, 6c and 8d K5's forward and
+unpermute, and with a gradient their backwards; each line prints its
+kernels, fills and copies per frame.  The
 script names only the port; jax and the JAX package are blocked before
 anything is imported.
 
@@ -302,7 +323,23 @@ KERNELS = {
                     "octree_pathtracing_tpu/render/pathtracer.py:1390"),
     "nee_backward": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
                      "octree_pathtracing_tpu/render/pathtracer.py:804"),
+    # K5: _sort_state_by_active (:666) with the uniforms' gather (:891); its
+    # VJP; the final .at[idx].set (:1016) and its VJP
+    "compact_forward": ("octree_pathtracing_tpu_torch/csrc/compact.cu",
+                        "octree_pathtracing_tpu/render/pathtracer.py:666"),
+    "compact_backward": ("octree_pathtracing_tpu_torch/csrc/compact.cu",
+                         "octree_pathtracing_tpu/render/pathtracer.py:666"),
+    "unpermute": ("octree_pathtracing_tpu_torch/csrc/compact.cu",
+                  "octree_pathtracing_tpu/render/pathtracer.py:1016"),
+    "unpermute_backward": ("octree_pathtracing_tpu_torch/csrc/compact.cu",
+                           "octree_pathtracing_tpu/render/pathtracer.py:1016"),
 }
+K5_KERNELS = ("compact_forward", "compact_backward", "unpermute", "unpermute_backward")
+# K5 per lane: the state's rows (origin, dir, throughput, radiance), flags
+# (active, specular), medium and carried index, read once and written once;
+# pos written; the bounce's 21 uniform words read and written
+K5_STATE_BYTES = 48 + 2 + 4 + 4
+K5_LANE_BYTES = 2 * K5_STATE_BYTES + 4 + 2 * 84
 NEE_KERNELS = ("nee_setup", "nee_resolve", "nee_backward")
 # the block-model and primitive lines at bench.py's shapes: (name, scene, sun)
 MODEL_CELLS = (("plant", "plant", "high_quality"), ("analytic", "analytic", "importance"),
@@ -729,6 +766,7 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.ops import bvh as bvh_mod
     from octree_pathtracing_tpu_torch.ops import shade as shade_mod
     from octree_pathtracing_tpu_torch.ops import nee as nee_mod
+    from octree_pathtracing_tpu_torch.ops import compact as compact_mod
     from octree_pathtracing_tpu_torch.ops import gather
     from octree_pathtracing_tpu_torch.ops.bvh import (
         BVH,
@@ -763,18 +801,25 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.render import Renderer, pathtracer, renderer, trace_paths, trace_paths_census
     from octree_pathtracing_tpu_torch.render.hit import accept_tables, resolve_hit
     from octree_pathtracing_tpu_torch.utils.timing import (
+        argsort_route,
         both,
         bounce_rays,
         call_ms,
+        capture_frame,
         card_line,
-        device_ms,
-        fetch_stats,
+        check_compact,
         check_nee,
         check_shade,
+        compact_calls,
+        device_ms,
+        fetch_stats,
         nee_calls,
+        nonzero_route,
         profile_launches,
+        replay_ms,
         shade_calls,
         shade_gradients,
+        tiled_compaction,
     )
 
     # each kernel's launch count, as its wrapper keeps it (K2q's three modes
@@ -792,10 +837,15 @@ def main() -> int:
         "shade": (shade_mod.shade, "launches"), "shade_backward": (shade_mod.shade, "backward_launches"),
         "nee_setup": (nee_mod.nee, "setup_launches"), "nee_resolve": (nee_mod.nee, "resolve_launches"),
         "nee_backward": (nee_mod.nee, "backward_launches"),
+        "compact_forward": (compact_mod.compact, "launches"),
+        "compact_backward": (compact_mod.compact, "backward_launches"),
+        "unpermute": (compact_mod.unpermute, "launches"),
+        "unpermute_backward": (compact_mod.unpermute, "backward_launches"),
     }
     # the twins' own entry points, counted so that a main path can show it ran none
     twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0, "K4 backward twin": 0,
-                  "nee_setup twin": 0, "nee_resolve twin": 0, "nee_backward twin": 0}
+                  "nee_setup twin": 0, "nee_resolve twin": 0, "nee_backward twin": 0, "K5 twin": 0,
+                  "K5 backward twin": 0, "unpermute twin": 0, "unpermute backward twin": 0}
     real_walk, real_prims_twin = traversal._walk_reference, prims_mod.intersect_prims_reference
     real_bvh_twin = bvh_mod.bvh_intersect_reference
     real_shade_twin, real_shade_bwd_twin = shade_mod.shade_reference, shade_mod.shade_backward_reference
@@ -830,6 +880,10 @@ def main() -> int:
     real_nee = {name: getattr(nee_mod, f"{name}_reference") for name in NEE_KERNELS}
     for name, fn in real_nee.items():
         setattr(nee_mod, f"{name}_reference", counting(f"{name} twin", fn))
+    real_k5 = {f: getattr(compact_mod, f) for f in ("compact_reference", "compact_backward_reference",
+                                                    "unpermute_reference", "unpermute_backward_reference")}
+    for f, twin_name in zip(real_k5, ("K5 twin", "K5 backward twin", "unpermute twin", "unpermute backward twin")):
+        setattr(compact_mod, f, counting(twin_name, real_k5[f]))
     traversal._walk_reference = counting_walk
     prims_mod.intersect_prims_reference = counting_prims_twin
     bvh_mod.bvh_intersect_reference = counting_bvh_twin
@@ -867,8 +921,16 @@ def main() -> int:
                 mock.patch.object(nee_mod, "traverse", traverse_reference), \
                 mock.patch.object(nee_mod, "traverse_alpha", traverse_alpha_reference), \
                 mock.patch.object(nee_mod, "traverse_shadow", traverse_shadow_reference), \
-                mock.patch.object(nee_mod, "intersect_prims", intersect_prims_reference):
+                mock.patch.object(nee_mod, "intersect_prims", intersect_prims_reference), \
+                mock.patch.object(pathtracer, "compact", k5_plain), \
+                mock.patch.object(pathtracer, "unpermute", real_k5["unpermute_reference"]):
             yield
+
+    def k5_plain(st, uniforms, bounce, counts):
+        """K5 through its plain version on the card, differentiated by
+        autograd (its gathers) where a gradient is taken."""
+        out, u_b, _ = real_k5["compact_reference"](st, uniforms, bounce, counts)
+        return out, u_b
 
     def high_quality(sc, emitter_sampling="none"):
         """``sc`` under the HIGH_QUALITY sun and ``--emitter-sampling``."""
@@ -941,7 +1003,8 @@ def main() -> int:
     threads = [threading.Thread(target=build, args=a)
                for a in (("traversal", traversal._library), ("uniforms", prandom._library),
                          ("gather", gather._library), ("prims", prims_mod._library), ("bvh", bvh_mod._library),
-                         ("shade", shade_mod._library), ("nee", nee_mod._library))]
+                         ("shade", shade_mod._library), ("nee", nee_mod._library),
+                         ("compact", compact_mod._library))]
     threads.append(threading.Thread(target=build_native))
     for th in threads:
         th.start()
@@ -949,7 +1012,7 @@ def main() -> int:
         th.join()
     if errors:
         raise errors[0]
-    log(f"phase 1 build: the seven libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
+    log(f"phase 1 build: the eight libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
         f"parser {native_build['result']}")
     for name, lib in builds.items():
         info = lib.build_info
@@ -1025,25 +1088,28 @@ def main() -> int:
     log(f"  K1 {results['esvo_traverse']['ms']!r} ms (device {results['esvo_traverse']['device_ms']!r} ms), twin {results['esvo_traverse']['plain_ms']!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}: {fetches} node rows fetched; per ray {fetch_stats(k_res.fetches)}) "
         f"on the {WIDTH}x{HEIGHT} depth-{DEPTH} primaries [{card}]")
-    # K1 on the live rays of bounces 2-5 of one headline frame (phase 5's uniforms)
+    # K1 on bounces 2-5 of one headline frame (phase 5's uniforms): the
+    # whole batch, K5's live lanes first, with its active mask
     bounces = {}
     frame_u = pathtracer.draw_uniforms(1, 0, WIDTH * HEIGHT, N_BOUNCES, dev)
-    for k, (bo, bd) in enumerate(bounce_rays(pathtracer, scene, prim[4], prim[5], frame_u)[1:], start=2):
-        brays = prim[:4] + (bo, bd)
+    for k, (bo, bd, b_act) in enumerate(bounce_rays(pathtracer, scene, prim[4], prim[5], frame_u)[1:], start=2):
+        brays = prim[:4] + (bo, bd, 1024.0, b_act)
+        b_live = int(b_act.sum())
         b_res = traverse(*brays)
-        err_k1 = max(err_k1, compare_hits(b_res, traverse_reference(*brays), f"K1, headline bounce {k}, {bo.shape[0]} live rays",
-                                          exact=True))
+        err_k1 = max(err_k1, compare_hits(b_res, traverse_reference(*brays),
+                                          f"K1, headline bounce {k}, {bo.shape[0]} lanes, {b_live} live", exact=True))
         bt = both(lambda r=brays: traverse(*r))
         b_bound = traversal_bound(b_res)
-        bounces[f"bounce {k}"] = dict(lanes=int(bo.shape[0]), ms=bt["call_ms"], device_ms=bt["device_ms"],
+        bounces[f"bounce {k}"] = dict(lanes=int(bo.shape[0]), live=b_live, ms=bt["call_ms"], device_ms=bt["device_ms"],
                                       bound_ms=b_bound[0], **fetch_stats(b_res.fetches))
         log(f"  K1 call {bt['call_ms']!r} ms, device {bt['device_ms']!r} ms ({bt['device_by']}), bound {b_bound[0]!r} ms "
-            f"({b_bound[2]} node rows; per ray {fetch_stats(b_res.fetches)}) on the {bo.shape[0]} live rays of "
-            f"headline bounce {k} [{card}]")
+            f"({b_bound[2]} node rows; per ray {fetch_stats(b_res.fetches)}) on the {bo.shape[0]} lanes ({b_live} "
+            f"live) of headline bounce {k} [{card}]")
     results["esvo_traverse"]["headline_bounces"] = bounces
 
     # K4 forward and backward on the headline's lanes: bounce 1's 65,536,
-    # then bounces 2-5's live sub-batches (phase 5's uniforms); the backward
+    # then bounces 2-5's (the whole batch, K5's live lanes first; phase 5's
+    # uniforms); the backward
     # with the cotangents that a real fwd+bwd of the same frame hands each
     # bounce (bench.py's mean-radiance loss, the atlas and the emittance
     # taking gradient)
@@ -1055,13 +1121,13 @@ def main() -> int:
     for k, (rec, grad_args) in enumerate(zip(k4_calls, k4_grads), start=1):
         sc_k, st_k, u_k, res_k, is_first, may_scatter = rec
         call = (sc_k, st_k, u_k, res_k, None, is_first, may_scatter)
-        lanes = int(st_k["throughput"].shape[0])
+        lanes, live_k = int(st_k["throughput"].shape[0]), int(st_k["active"].sum())
         cot, need = grad_args[5:8], grad_args[8]
         chk = check_shade(call, cot, need, f"headline bounce {k}")
         k_out, k_res, bwd_args = chk["out"], chk["resid"], chk["backward_args"]
         if not torch.equal(grad_args[2].ints, k_res.ints):  # the cotangents belong to these lanes
             raise AssertionError(f"K4: the fwd+bwd's bounce {k} shaded other lanes than the forward's")
-        log(f"  K4 headline bounce {k}: {lanes} lanes; lanes not bit-equal per field {chk['differ']}; outside "
+        log(f"  K4 headline bounce {k}: {lanes} lanes, {live_k} live; lanes not bit-equal per field {chk['differ']}; outside "
             f"rtol 1e-5 / atol 1e-6: {chk['outside']}; forward max abs err {chk['forward_err']!r}; backward "
             f"cotangents {[g is not None for g in cot]} (throughput, radiance, albedo), gradients wanted "
             f"{list(need)}, max abs err {chk['backward_err']!r}")
@@ -1074,11 +1140,11 @@ def main() -> int:
                              f"{cfg['forward']['threads']}",
                     "shade_backward": f"{cfg['backward']['sums']} sums, {cfg['backward']['blocks']} blocks of "
                                       f"{cfg['backward']['threads']}"}
-        rows = {"shade": dict(lanes=lanes, max_abs_err=chk["forward_err"], ms=f_t["call_ms"],
+        rows = {"shade": dict(lanes=lanes, live=live_k, max_abs_err=chk["forward_err"], ms=f_t["call_ms"],
                               device_ms=f_t["device_ms"], plain_ms=call_ms(lambda: real_shade_twin(*call), 5),
                               bound_ms=f_bound[0], bound_by=f_bound[1], uniform_words=f_bound[2],
                               variant=variants["shade"]),
-                "shade_backward": dict(lanes=lanes, max_abs_err=chk["backward_err"], ms=b_t["call_ms"],
+                "shade_backward": dict(lanes=lanes, live=live_k, max_abs_err=chk["backward_err"], ms=b_t["call_ms"],
                                        device_ms=b_t["device_ms"],
                                        plain_ms=call_ms(lambda: real_shade_bwd_twin(*bwd_args), 5),
                                        bound_ms=b_bound[0], bound_by=b_bound[1],
@@ -1092,6 +1158,92 @@ def main() -> int:
     for name, rows in k4_rows.items():  # the row of bounce 1 (the 256^2 primaries), the others beside it
         results[name] = dict(rows["bounce 1"], max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                              headline_bounces={b: r for b, r in rows.items() if b != "bounce 1"})
+
+    # K5 on the compactions of one headline frame (bounces 2-5, phase 5's
+    # uniforms), on its bounce-2 state repeated to 1,048,576 and 2,097,152
+    # lanes, on a branched frame's B x K lanes, on 1 lane and on a batch with
+    # no live lane: bit for bit against the plain versions, forward and
+    # backward; timed by call and on the device beside its byte bound, the
+    # plain version and two library routes (a stable argsort with one
+    # index_select per field; the parent's nonzero, gathers and index_puts)
+    def recorded_compactions(fn):
+        calls, real = [], pathtracer.compact
+
+        def rec(st, uu, bounce, counts):
+            calls.append(({k: v.detach().clone() for k, v in st.items()}, uu, bounce,
+                          None if counts is None else counts.clone()))
+            return real(st, uu, bounce, counts)
+
+        with mock.patch.object(pathtracer, "compact", rec), torch.no_grad():
+            fn()
+        return calls
+
+    k5_calls = compact_calls(pathtracer, scene, prim[4], prim[5], frame_u)
+    bro, brd = pixel_grid_rays(cam, 64, 64)
+    bu = torch.from_numpy(np.random.default_rng(3).random((64 * 64, 10, N_BOUNCES, 21), dtype=np.float32)).to(dev)
+    k5_first = k5_calls[0]
+    k5_cases = [(f"headline bounce {c[2] + 1}", c) for c in k5_calls] + [
+        ("1,048,576 lanes", tiled_compaction(k5_first, 16)), ("2,097,152 lanes", tiled_compaction(k5_first, 32)),
+        ("branched 64x64 x 10 lanes", recorded_compactions(lambda: pathtracer.trace_paths_branched(scene, bro, brd,
+                                                                                                   bu))[0]),
+        ("1 lane", ({k: None if v is None else v[:1] for k, v in k5_first[0].items()}, k5_first[1][:1],
+                    k5_first[2], k5_first[3])),
+        ("no live lane", (dict(k5_first[0], active=torch.zeros_like(k5_first[0]["active"])),) + k5_first[1:])]
+    k5_rows = {name: {} for name in K5_KERNELS}
+    for label, (st_c, u_c, bounce_c, counts_c) in k5_cases:
+        chk = check_compact(st_c, u_c, bounce_c, label)
+        lanes, live_c = chk["lanes"], chk["live"]
+        log(f"  K5 {label}: {lanes} lanes, {live_c} live; forward, backward and unpermute bit-equal to their plain "
+            f"versions")
+        if not (label.startswith("headline") or label.startswith("2,097,152")):
+            continue
+        pos_c, g_tp, g_rad = chk["backward_args"]
+        big = lanes > 1 << 20
+        fns = {"compact_forward": (lambda: compact_mod._forward_cuda(st_c, u_c, bounce_c, counts_c),
+                                   lambda: real_k5["compact_reference"](st_c, u_c, bounce_c),
+                                   lambda: argsort_route(st_c, u_c, bounce_c), bound(lanes * K5_LANE_BYTES + 4, 0)),
+               "compact_backward": (lambda: compact_mod._backward_cuda(pos_c, g_tp, g_rad),
+                                    lambda: real_k5["compact_backward_reference"](pos_c, g_tp, g_rad), None,
+                                    bound(lanes * (4 + 4 * 12), 0))}
+        for name, (kernel, plain, library, (b_ms, b_by)) in fns.items():
+            dms = device_ms(kernel, calls=10 if big else 100)[0]
+            row = dict(lanes=lanes, live=live_c, max_abs_err=0.0, ms=call_ms(kernel, 20 if big else 200),
+                       device_ms=dms, plain_ms=call_ms(plain, 5), bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            if library is not None:
+                lib_t = both(library)
+                par_t = both(lambda: nonzero_route(st_c, u_c, bounce_c))
+                row.update(library_ms=lib_t["call_ms"], library_device_ms=lib_t["device_ms"],
+                           library_route="torch.argsort(~active, stable=True) + index_select per field",
+                           parent_route_ms=par_t["call_ms"], parent_route_device_ms=par_t["device_ms"],
+                           parent_route_device_by=par_t["device_by"])
+            k5_rows[name][label] = row
+            log(f"  {name} call {row['ms']!r} ms, device {dms!r} ms, plain {row['plain_ms']!r} ms, bound {b_ms!r} ms "
+                f"({b_by}) on {label} ({lanes} lanes, {live_c} live)"
+                + (f"; argsort + index_select call {row['library_ms']!r} ms, device {row['library_device_ms']!r} ms; "
+                   f"nonzero + gathers + index_put (the parent's) call {row['parent_route_ms']!r} ms, device "
+                   f"{row['parent_route_device_ms']!r} ms ({row['parent_route_device_by']})"
+                   if library is not None else "") + f" [{card}]")
+        if label == "headline bounce 5":  # the frame's last state: the unpermute both ways
+            rad_c, idx_c, g_c = chk["unpermute_args"]
+            for name, scatter, x, plain, library in (
+                    ("unpermute", True, rad_c, lambda: real_k5["unpermute_reference"](rad_c, idx_c),
+                     lambda: torch.empty_like(rad_c).index_copy_(0, idx_c.long(), rad_c)),
+                    ("unpermute_backward", False, g_c, lambda: real_k5["unpermute_backward_reference"](g_c, idx_c),
+                     lambda: g_c.index_select(0, idx_c.long()))):
+                t = both(lambda scatter=scatter, x=x: compact_mod._unpermute_cuda(x, idx_c, scatter))
+                lib_t = both(library)
+                b_ms, b_by = bound(lanes * (4 + 12 + 12), 0)
+                k5_rows[name][label] = row = dict(
+                    lanes=lanes, max_abs_err=0.0, ms=t["call_ms"], device_ms=t["device_ms"], plain_ms=call_ms(plain, 20),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_t["call_ms"], library_device_ms=lib_t["device_ms"],
+                    library_route="index_copy_" if scatter else "index_select")
+                log(f"  {name} call {row['ms']!r} ms, device {row['device_ms']!r} ms, plain {row['plain_ms']!r} ms, "
+                    f"bound {b_ms!r} ms ({b_by}), {row['library_route']} call {row['library_ms']!r} ms, device "
+                    f"{row['library_device_ms']!r} ms on the headline's {lanes} lanes [{card}]")
+    for name, rows in k5_rows.items():  # bounce 2's row (the unpermute's: the last state's), the others beside it
+        head = rows.get("headline bounce 2", rows.get("headline bounce 5"))
+        results[name] = dict(head, others={k: r for k, r in rows.items() if r is not head})
+    del k5_calls, k5_cases, k5_first, bu
 
     # K4's next-event half on the bounce-1 lanes of the light lines, with the
     # radiance cotangent a real fwd+bwd of the frame hands them (bench.py's
@@ -1514,7 +1666,7 @@ def main() -> int:
         while r.step():
             torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    read_counts("the Renderer", ("esvo_traverse", "philox_uniforms", "shade"))
+    read_counts("the Renderer", ("esvo_traverse", "philox_uniforms", "shade", "compact_forward", "unpermute"))
     frame = r.framebuffer
     log(f"  passes {passes}; spp {r.spp}; {render_s:.2f} s")
     if r.spp != 20 or {p[0] for p in passes} != {"render_pass", "render_pass_branched"}:
@@ -1599,6 +1751,7 @@ def main() -> int:
     fu = pathtracer.draw_uniforms(1, 0, WIDTH * HEIGHT, N_BOUNCES, dev)
     _, live = trace_paths_census(scene, fo, fd, fu)
     times = []
+    reset_counts()
     for i in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1606,6 +1759,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if i:  # the first run is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
+    read_counts("the forward frame", ("esvo_traverse", "shade", "compact_forward", "unpermute"))
     frame_ms = statistics.median(times)
     rays_nominal = WIDTH * HEIGHT * N_BOUNCES
     rays_live = int(live.sum())
@@ -1652,7 +1806,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if i:  # the first run is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
-    read_counts("the fwd+bwd step", ("esvo_traverse", "shade", "shade_backward"))
+    read_counts("the fwd+bwd step", ("esvo_traverse", "shade", "shade_backward") + K5_KERNELS)
     fwdbwd_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated(dev)
     if not (bool(torch.isfinite(g_atlas).all()) and bool(torch.isfinite(g_emit).all())
@@ -1701,9 +1855,9 @@ def main() -> int:
         rays_live = int(live.sum())
         for step, fn in (("forward", lambda: trace_paths(sc, lo, ld, fu)),
                          ("fwd+bwd", lambda: fwdbwd(sc, lo, ld, fu))):
-            need = required + ("shade",) + (("nee_setup", "nee_resolve") if light else ())
+            need = required + ("shade", "compact_forward", "unpermute") + (("nee_setup", "nee_resolve") if light else ())
             if step == "fwd+bwd":
-                need += ("shade_backward",) + (("nee_backward",) if light else ())
+                need += ("shade_backward", "compact_backward", "unpermute_backward") + (("nee_backward",) if light else ())
             reset_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             times = []
@@ -1728,6 +1882,39 @@ def main() -> int:
                 k_launch, p_launch = light_launches(fn)
                 log(f"  launches per {label} {step} frame (torch.profiler): {k_launch} through the next-event "
                     f"kernels, {p_launch} through their plain version [{card}]")
+            else:
+                log(f"  launches per {label} {step} frame (torch.profiler): "
+                    f"{profile_launches(lambda: (fn(), torch.cuda.synchronize()))} [{card}]")
+
+    # ---- 6a. no host read in a frame, and the forward frame as a CUDA graph
+    log(f"phase 6a frames without a host read; the headline forward frame as a CUDA graph [{card}]")
+    for label, sc in (("headline", scene), ("NEE (HIGH_QUALITY)", high_quality(scene))):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # any read of the card from the host raises
+        try:
+            trace_paths(sc, fo, fd, fu)
+            fwdbwd(sc, fo, fd, fu)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        read_counts(f"the {label} frame, forward and fwd+bwd, under set_sync_debug_mode('error')",
+                    ("esvo_traverse", "shade", "shade_backward") + K5_KERNELS)
+        log(f"  {label}: forward and fwd+bwd ran with the sync debug mode at 'error': no host read")
+    eager = trace_paths(scene, fo, fd, fu)
+    reset_counts()
+    graph, replayed = capture_frame(lambda: trace_paths(scene, fo, fd, fu))
+    read_counts("the captured headline forward frame", ("esvo_traverse", "shade", "compact_forward", "unpermute"))
+    replayed.view(torch.uint8).fill_(0xFF)  # spoiled: the replays must write it again
+    graph_runs = replay_ms(graph)
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, eager):
+        raise AssertionError("the replayed headline frame is not bit-equal to the eager frame")
+    graph_ms = statistics.median(graph_runs)
+    log(f"  headline forward frame replayed from a CUDA graph: median {graph_ms!r} ms (device floor; "
+        f"{[round(t, 4) for t in graph_runs]}) beside {frame_ms!r} ms eager (phase 5): the device busy "
+        f"{graph_ms / frame_ms:.3f} of the eager frame; the replay bit-equal to the eager frame [{card}]")
+    del graph, replayed, eager
 
     # ---- 6b. bench.py's NEE and cutout lines and BASELINE's config 3
     log(f"phase 6b light sampling at bench.py's shapes [{card}]: emitters E = "

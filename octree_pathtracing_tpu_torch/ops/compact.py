@@ -1,0 +1,364 @@
+"""Kernel K5, the compaction of live lanes between bounces: a stable
+partition of the lane state with the live lanes first, its backward, and
+the final scatter of the radiance back to the lanes' own order (port of
+``render/pathtracer.py`` ``_sort_state_by_active`` with ``key="active"``,
+the gather of each bounce's uniforms through the carried lane index, and
+the final ``.at[idx].set``).
+
+Lane ``i`` goes to row ``pos[i]``: the live lanes before it if it is live,
+the live count plus the dead lanes before it if it is dead (JAX's cumsum
+formula).  Every state field moves with it, and so does ``idx``, the lane's
+original index (the identity before the first compaction); the bounce's
+uniform rows are read through ``idx``.  Every shape stays the batch's, so
+no call reads the card from the host: the live count goes to slot
+``bounce`` of a device ``counts`` tensor.  Only the throughput and the
+radiance carry gradient; the backward moves each cotangent row back
+through ``pos``.
+
+:func:`compact` and :func:`unpermute` launch the kernels of
+``csrc/compact.cu`` on CUDA tensors and run the plain versions
+(:func:`compact_reference`, :func:`unpermute_reference` and their
+backwards) on CPU tensors; any other device raises.  There is no fallback
+from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..utils.cuda_build import on_current_stream
+from .shading import N_UNIFORMS
+
+# the lane state a bounce reads and writes, and the carried original index
+STATE_KEYS = ("origin", "dir", "throughput", "radiance", "active", "specular", "cur_mat")
+FLOAT_KEYS = STATE_KEYS[:4]
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+_DTYPES = dict.fromkeys(FLOAT_KEYS, _F32) | {"active": _BOOL, "specular": _BOOL, "cur_mat": _I32, "idx": _I32}
+
+
+# ---- the plain versions
+
+def compact_reference(st: dict, uniforms, bounce: int, counts=None):
+    """Plain version of ``compact_forward`` (any device): ``st`` holds
+    ``STATE_KEYS`` and ``idx`` ((B,) int32, or None for the identity);
+    ``uniforms`` is the frame's (B, n_bounces, N_UNIFORMS) block.  Returns
+    (the new state with ``idx``, the bounce's (B, N_UNIFORMS) uniforms,
+    ``pos`` (B,) int32); writes the live count to ``counts[bounce]`` where
+    ``counts`` is given."""
+    active = st["active"]
+    b = active.shape[0]
+    # JAX's destination of each lane: the live lanes first in their order, then the dead ones
+    a = active.to(torch.int64)
+    n_act = torch.cumsum(a, 0)
+    total = n_act[-1] if b else a.sum()
+    pos = torch.where(active, n_act - 1, total + torch.cumsum(1 - a, 0) - 1).to(torch.int32)
+    perm = torch.empty((b,), dtype=torch.int64, device=pos.device)
+    perm[pos.long()] = torch.arange(b, device=pos.device)
+    idx = st.get("idx")
+    idx = torch.arange(b, dtype=_I32, device=pos.device) if idx is None else idx
+    out = {k: st[k][perm] for k in STATE_KEYS}
+    out["idx"] = idx[perm]
+    if counts is not None:
+        counts[bounce] = total
+    return out, uniforms[out["idx"].long(), bounce], pos
+
+
+def compact_backward_reference(pos, g_throughput, g_radiance):
+    """Plain version of ``compact_backward`` (any device): the cotangents of
+    the compacted throughput and radiance moved back to the lanes' rows,
+    ``d[i] = g[pos[i]]`` (None stays None)."""
+    p = pos.long()
+    return tuple(None if g is None else g[p] for g in (g_throughput, g_radiance))
+
+
+def unpermute_reference(radiance, idx):
+    """Plain version of ``unpermute``'s forward (any device):
+    ``zeros.at[idx].set(radiance)``, each lane's row back at its own index."""
+    return torch.zeros_like(radiance).index_put_((idx.long(),), radiance)
+
+
+def unpermute_backward_reference(g, idx):
+    """Plain version of ``unpermute``'s backward: ``d[j] = g[idx[j]]``."""
+    return g[idx.long()]
+
+
+# ---- the autograd functions and the wrappers
+
+class CompactFunction(torch.autograd.Function):
+    """K5 as an autograd function of (throughput, radiance), the rest of the
+    call in ``call`` = (state, uniforms, bounce, counts).  Returns the new
+    state's fields (``STATE_KEYS`` then ``idx``), the bounce's uniforms and
+    ``pos``; only the throughput and the radiance are differentiable.  CUDA
+    tensors run the kernels of ``csrc/compact.cu``, CPU tensors the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, throughput, radiance, call):
+        st, uniforms, bounce, counts = call
+        fn = _forward_cuda if throughput.is_cuda else compact_reference
+        out, u, pos = fn(st, uniforms, bounce, counts)
+        outputs = tuple(out[k] for k in STATE_KEYS) + (out["idx"], u, pos)
+        ctx.mark_non_differentiable(*(x for i, x in enumerate(outputs) if i not in (2, 3)))
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(pos)
+        return outputs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (pos,) = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        g = tuple(x if n else None for x, n in zip(grads[2:4], need))
+        fn = _backward_cuda if pos.is_cuda else compact_backward_reference
+        return (*fn(pos, *g), None)
+
+
+def _check(st: dict, uniforms, bounce: int):
+    """Raise on what neither route takes: a missing field, a wrong dtype or
+    shape, a bounce outside the block, a tensor on another device, or a
+    gradient K5 does not carry."""
+    b = st["active"].shape[0]
+    for k, dt in _DTYPES.items():
+        x = st.get(k)
+        if x is None and k == "idx":
+            continue
+        if x is None:
+            raise ValueError(f"compact: the state has no {k}")
+        shape = (b, 3) if k in FLOAT_KEYS else (b,)
+        if x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(f"compact: {k} must be {shape} {dt}")
+        if x.device != st["active"].device:
+            raise ValueError(f"compact: every input must be on the lanes' device")
+    if uniforms.dtype != _F32 or uniforms.dim() != 3 or uniforms.shape[0] != b or uniforms.shape[2] != N_UNIFORMS:
+        raise ValueError(f"compact: the uniforms must be ({b}, n_bounces, {N_UNIFORMS}) float32")
+    if uniforms.device != st["active"].device:
+        raise ValueError(f"compact: every input must be on the lanes' device")
+    if not 0 <= bounce < uniforms.shape[1]:
+        raise ValueError(f"compact: bounce {bounce} outside the block's {uniforms.shape[1]} bounces")
+    if torch.is_grad_enabled():
+        bad = [k for k in ("origin", "dir") if st[k].requires_grad] + (["uniforms"] if uniforms.requires_grad else [])
+        if bad:
+            raise ValueError(f"compact: K5 carries a gradient only for the throughput and radiance; {bad} require grad")
+
+
+def compact(st: dict, uniforms, bounce: int, counts=None):
+    """The lane state stably partitioned, the live lanes first, for bounce
+    ``bounce`` (see the module's text).  ``st`` holds ``STATE_KEYS`` and
+    optionally ``idx`` (absent or None: the identity); ``counts``: a
+    (n_bounces,) int32 tensor on the lanes' device whose slot ``bounce``
+    takes the live count, or None.  Returns (the new state with ``idx``, the
+    bounce's (B, N_UNIFORMS) uniforms).
+
+    CUDA tensors launch ``compact_forward`` once, counted in
+    ``compact.launches``, and ``compact_backward`` when the gradient is
+    taken (``compact.backward_launches``); CPU tensors run the plain
+    versions.  Without a gradient to take (grad mode off, or neither the
+    throughput nor the radiance requiring grad) no autograd node is made.
+    Any other device raises."""
+    dev = st["active"].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"compact: unsupported device {dev}")
+    _check(st, uniforms, bounce)
+    if counts is not None and (counts.dtype != _I32 or counts.dim() != 1 or counts.shape[0] < uniforms.shape[1]
+                               or counts.device != dev):
+        raise ValueError("compact: counts must be a (n_bounces,) int32 tensor on the lanes' device")
+    tp, rad = st["throughput"], st["radiance"]
+    if torch.is_grad_enabled() and (tp.requires_grad or rad.requires_grad):
+        out = CompactFunction.apply(tp, rad, (st, uniforms, bounce, counts))
+        return dict(zip(STATE_KEYS + ("idx",), out[:8])), out[8]
+    fn = _forward_cuda if dev.type == "cuda" else compact_reference
+    out, u, _ = fn(st, uniforms, bounce, counts)
+    return out, u
+
+
+compact.launches = 0
+compact.backward_launches = 0
+
+
+class UnpermuteFunction(torch.autograd.Function):
+    """The final scatter as an autograd function of the radiance."""
+
+    @staticmethod
+    def forward(ctx, radiance, idx):
+        ctx.save_for_backward(idx)
+        return _unpermute_cuda(radiance, idx, True) if radiance.is_cuda else unpermute_reference(radiance, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        d = _unpermute_cuda(g, idx, False) if g.is_cuda else unpermute_backward_reference(g, idx)
+        return d, None
+
+
+def unpermute(radiance, idx):
+    """(B, 3) radiance back in the lanes' own order: row ``idx[j]`` of the
+    result is row ``j`` of ``radiance``; ``idx`` (B,) int32 is a permutation
+    of 0..B-1, as :func:`compact` carries it.  CUDA tensors launch the
+    scatter (``unpermute.launches``) and, with a gradient, the gather back
+    (``unpermute.backward_launches``); CPU tensors run the plain versions.
+    Any other device raises."""
+    b = radiance.shape[0]
+    if radiance.dtype != _F32 or tuple(radiance.shape) != (b, 3):
+        raise ValueError("unpermute: the radiance must be (B, 3) float32")
+    if idx.dtype != _I32 or tuple(idx.shape) != (b,) or idx.device != radiance.device:
+        raise ValueError(f"unpermute: idx must be a ({b},) int32 tensor on the radiance's device")
+    if radiance.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unpermute: unsupported device {radiance.device}")
+    if torch.is_grad_enabled() and radiance.requires_grad:
+        return UnpermuteFunction.apply(radiance, idx)
+    return _unpermute_cuda(radiance, idx, True) if radiance.is_cuda else unpermute_reference(radiance, idx)
+
+
+unpermute.launches = 0
+unpermute.backward_launches = 0
+
+
+# ---- the CUDA kernels
+
+class _In(ctypes.Structure):
+    """``struct CompactIn`` of ``csrc/compact.cu``."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in STATE_KEYS + ("idx", "uniforms")]
+                + [("u_lane_stride", ctypes.c_longlong), ("bounce", ctypes.c_int)])
+
+
+class _Out(ctypes.Structure):
+    """``struct CompactOut`` of ``csrc/compact.cu``."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in STATE_KEYS + ("idx", "u", "pos", "counts")]
+
+
+@functools.cache
+def _library():
+    """K5's shared library (the forward, the backward, the unpermute),
+    built at first use."""
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("compact")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.compact_tiles.argtypes = [ci]
+    lib.compact_tiles.restype = ci
+    lib.compact_forward.argtypes = [ci, ctypes.POINTER(_In), ctypes.POINTER(_Out), vp, vp]
+    lib.compact_backward.argtypes = [ci, vp, vp, vp, vp, vp, vp]
+    lib.unpermute.argtypes = [ci, vp, vp, vp, ci, vp]
+    for fn in (lib.compact_forward, lib.compact_backward, lib.unpermute):
+        fn.restype = ci
+    lib.compact_error_string.argtypes = [ci]
+    lib.compact_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(name: str, fn, device_index: int, *args):
+    rc = on_current_stream(fn, device_index, *args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {_library().compact_error_string(rc).decode()}")
+
+
+# per card: the forward's scratch buffers (control words and one status
+# word per tile), zero when allocated, the newest last; the kernel leaves a
+# buffer ready for the next call.  A buffer outgrown stays allocated: a CUDA
+# graph captured with it replays against it.
+_SCRATCH: dict = {}
+_CTL_WORDS64 = 2
+
+
+def _scratch(dev, tiles: int):
+    """The scratch of card ``dev`` for ``tiles`` tiles: calls on one card
+    share it, and so must run on one stream, one after another.  It grows
+    outside a CUDA graph capture only (a capture would record the fill and
+    leave the buffer unset until a replay); a capture needs one eager call
+    of at least its size first."""
+    bufs = _SCRATCH.setdefault(dev.index, [])
+    if not bufs or bufs[-1].numel() < _CTL_WORDS64 + tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("compact: the scratch must be allocated before a CUDA graph capture; run one call of "
+                               "this batch size outside the capture first")
+        bufs.append(torch.zeros(_CTL_WORDS64 + max(tiles, 256), dtype=torch.int64, device=dev))
+    return bufs[-1]
+
+
+def _dense_rows(x):
+    return x if x.is_contiguous() else x.contiguous()
+
+
+# the forward's outputs carved from one buffer: (key, row width, dtype),
+# each part starting on a 16-byte boundary.  The throughput and pos, which
+# a gradient's autograd nodes save (K4's, the next-event half's, K5's own),
+# are allocations of their own, so that saving them keeps nothing else of a
+# bounce alive until the backward.
+_PARTS = (("origin", 3, _F32), ("dir", 3, _F32), ("radiance", 3, _F32), ("u", N_UNIFORMS, _F32),
+          ("cur_mat", 1, _I32), ("idx", 1, _I32), ("active", 1, _BOOL), ("specular", 1, _BOOL))
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(b: int) -> tuple:
+    """(bytes, ((key, byte offset, width, dtype), ...)) of the forward's outputs."""
+    parts, end = [], 0
+    for key, width, dt in _PARTS:
+        parts.append((key, end, width, dt))
+        end = (end + b * width * dt.itemsize + 15) // 16 * 16
+    return max(end, 16), tuple(parts)
+
+
+def _forward_cuda(st: dict, uniforms, bounce: int, counts):
+    """``compact_forward`` on the card: three output allocations, one
+    launch."""
+    dev = st["active"].device
+    b = st["active"].shape[0]
+    if b >= 2**31 - 1:
+        raise ValueError("compact: too many lanes for one launch")
+    ins = {k: _dense_rows(st[k].detach()) for k in STATE_KEYS}
+    idx = st.get("idx")
+    u = uniforms.detach()
+    if u.stride(2) != 1 or u.stride(1) != N_UNIFORMS:
+        u = u.contiguous()
+    if counts is None:
+        counts = torch.empty((uniforms.shape[1],), dtype=_I32, device=dev)
+    lib = _library()
+    scratch = _scratch(dev, lib.compact_tiles(b))
+    n_bytes, parts = _layout(b)
+    buf = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
+    out = {"throughput": torch.empty((b, 3), dtype=_F32, device=dev), "pos": torch.empty((b,), dtype=_I32, device=dev)}
+    for key, off, width, dt in parts:
+        view = buf[off:off + b * width * dt.itemsize].view(dt)
+        out[key] = view.view(b, width) if width > 1 else view
+    c_in = _In(*(ins[k].data_ptr() for k in STATE_KEYS), None if idx is None else _dense_rows(idx).data_ptr(),
+               u.data_ptr(), u.stride(0), bounce)
+    c_out = _Out(*(out[k].data_ptr() for k in STATE_KEYS + ("idx", "u", "pos")), counts.data_ptr())
+    _launch("compact_forward", lib.compact_forward, dev.index, b, ctypes.byref(c_in), ctypes.byref(c_out),
+            scratch.data_ptr())
+    compact.launches += 1
+    new = {k: out[k] for k in STATE_KEYS + ("idx",)}
+    return new, out["u"], out["pos"]
+
+
+def _backward_cuda(pos, g_throughput, g_radiance):
+    """``compact_backward`` on the card: both cotangents in one launch."""
+    b = pos.shape[0]
+    g = [None if x is None else _dense_rows(x) for x in (g_throughput, g_radiance)]
+    if all(x is None for x in g):
+        return None, None
+    d = [None if x is None else torch.empty((b, 3), dtype=_F32, device=pos.device) for x in g]
+    if b > 0:
+        ptr = [None if x is None else x.data_ptr() for x in g + d]
+        _launch("compact_backward", _library().compact_backward, pos.device.index, b, pos.data_ptr(), *ptr)
+        compact.backward_launches += 1
+    return tuple(d)
+
+
+def _unpermute_cuda(x, idx, scatter: bool):
+    """The scatter ``out[idx[j]] = x[j]`` (``scatter``) or the gather
+    ``out[j] = x[idx[j]]`` on the card, one launch."""
+    b = x.shape[0]
+    x = _dense_rows(x.detach())
+    out = torch.empty((b, 3), dtype=_F32, device=x.device)
+    if b > 0:
+        _launch("unpermute", _library().unpermute, x.device.index, b, _dense_rows(idx).data_ptr(), x.data_ptr(),
+                out.data_ptr(), int(scatter))
+        if scatter:
+            unpermute.launches += 1
+        else:
+            unpermute.backward_launches += 1
+    return out

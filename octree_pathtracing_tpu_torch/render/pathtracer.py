@@ -13,11 +13,19 @@ helpers) stay here for callers of a single walk.  The recursion is an iterative
 bounce loop over a structure-of-arrays lane batch.  The bounce axis of the
 uniform block ``(B, n_bounces, 21)`` sets the depth cap.
 
-Before every bounce after the first, the live lanes are selected
-(``active.nonzero()``) and only they are traversed and shaded; a dead lane's
-state is left as it is, which is exactly what the full-batch update does to
-it.  The JAX package's TPU scheduling (tiles, straggler drain, sort
-schedule, beam) has no counterpart: it never changed the output.
+Before every bounce after the first, kernel K5 (``ops/compact.compact``)
+stably partitions the lane state, the live lanes first, carrying each
+lane's original index and gathering the bounce's uniforms through it, as
+the JAX package's ``_sort_state_by_active`` does; every bounce then runs
+over all B lanes, a dead lane fetching nothing in the traversal and
+leaving its state as it is in the shading, and one scatter
+(``ops/compact.unpermute``) puts the radiance back in the lanes' order at
+the end.  Every shape stays the batch's and nothing between the first
+bounce and the last reads the card from the host (the live counts stay on
+the card until ``trace_paths_census`` reads them once), so a frame can be
+captured in a CUDA graph.  The JAX package's TPU scheduling (tiles,
+straggler drain, sort schedule, beam) has no counterpart: it never changed
+the output.
 
 Traversals: kernel K1 on all-opaque scenes, K2 (the in-loop alpha accept)
 on scenes with alpha-holed textures, and its block-model variant K2q on
@@ -41,6 +49,7 @@ import torch
 from ..models.prims import intersect_prims
 from ..models.scene import MAX_DIST, Scene
 from ..ops import nee as nee_mod
+from ..ops.compact import compact, unpermute
 from ..ops.nee import nee
 from ..ops.random import philox_uniforms
 from ..ops.shade import shade, sky_radiance  # noqa: F401 (sky_radiance: this module's name since the port began)
@@ -171,50 +180,52 @@ def _emitter_nee(scene: Scene, st, u, base_on, hitpoint, n, albedo):
 
 
 def _bounce(scene: Scene, st, u, is_first: bool, may_scatter: bool):
-    # every lane of ``st`` is live: the first bounce starts all active, and
-    # later bounces see only the lanes ``_live_bounces`` selected
-    res = _trace(scene, st["origin"], st["dir"])
+    # the first bounce starts all active; later ones run over the whole
+    # batch, and the traversal fetches nothing for a dead lane
+    res = _trace(scene, st["origin"], st["dir"], None if is_first else st["active"])
     return _shade(scene, st, u, res, is_first, may_scatter)
 
 
-def _live_bounces(scene: Scene, st, uniforms, first: int):
-    """Bounces ``first..n_bounces-1`` over the live lanes only.  Returns the
-    final state and the live-lane count entering each of those bounces."""
+def _live_bounces(scene: Scene, st, uniforms, first: int, counts):
+    """Bounces ``first..n_bounces-1`` over every lane, each after one K5
+    compaction (live lanes first); then the radiance back in the lanes'
+    order.  ``counts`` (n_bounces,) int32 on the lanes' device, or None,
+    takes the live count entering each of those bounces.  Returns the
+    (B, 3) radiance."""
     n_bounces = uniforms.shape[1]
-    live = []
     for bounce in range(first, n_bounces):
-        idx = st["active"].nonzero().squeeze(1)
-        live.append(int(idx.numel()))
-        if live[-1] == 0:
-            live += [0] * (n_bounces - bounce - 1)
-            break
-        sub = _bounce(
-            scene,
-            {k: v[idx] for k, v in st.items()},
-            uniforms[idx, bounce],
-            is_first=False,
-            may_scatter=bounce + 1 < n_bounces,
-        )
-        st = {k: v.index_put((idx,), sub[k]) for k, v in st.items()}
-    return st, live
+        st, u = compact(st, uniforms, bounce, counts)
+        idx = st["idx"]
+        st = dict(_bounce(scene, st, u, is_first=False, may_scatter=bounce + 1 < n_bounces), idx=idx)
+    return unpermute(st["radiance"], st["idx"]) if "idx" in st else st["radiance"]
+
+
+def _frame(scene: Scene, origins, dirs, uniforms):
+    """(radiance (B, 3), the live counts (n_bounces,) int32 on the lanes'
+    device, slot 0 unset) of one frame."""
+    n_bounces = uniforms.shape[1]
+    counts = torch.empty((n_bounces,), dtype=torch.int32, device=origins.device)
+    st = _bounce(scene, _init_state(origins, dirs), uniforms[:, 0], True, n_bounces > 1)
+    return _live_bounces(scene, st, uniforms, 1, counts), counts
 
 
 def trace_paths_census(scene: Scene, origins, dirs, uniforms):
     """Trace a lane batch to completion.  Returns (radiance (B, 3),
     live (n_bounces,) int64): ``live[i]`` lanes entered bounce ``i`` active —
-    the honest denominator for rays/s."""
-    n_bounces = uniforms.shape[1]
-    st = _bounce(scene, _init_state(origins, dirs), uniforms[:, 0], True, n_bounces > 1)
-    st, live = _live_bounces(scene, st, uniforms, 1)
-    return st["radiance"], torch.tensor([origins.shape[0]] + live)
+    the honest denominator for rays/s.  The counts are read from the card
+    once, after the frame."""
+    radiance, counts = _frame(scene, origins, dirs, uniforms)
+    live = counts.to("cpu", torch.int64)
+    live[0] = origins.shape[0]
+    return radiance, live
 
 
 def trace_paths(scene: Scene, origins, dirs, uniforms):
     """Trace a lane batch to completion; returns (B, 3) linear radiance.
 
     ``uniforms``: (B, n_bounces, N_UNIFORMS) pre-drawn block (slot map in
-    ``ops/shading.py``)."""
-    return trace_paths_census(scene, origins, dirs, uniforms)[0]
+    ``ops/shading.py``).  Reads nothing from the card."""
+    return _frame(scene, origins, dirs, uniforms)[0]
 
 
 def trace_paths_branched(scene: Scene, origins, dirs, uniforms):
@@ -230,8 +241,7 @@ def trace_paths_branched(scene: Scene, origins, dirs, uniforms):
     st = _init_state(origins.repeat_interleave(k, dim=0), dirs.repeat_interleave(k, dim=0))
     u = uniforms.reshape(b * k, n_bounces, uniforms.shape[-1])
     st = _shade(scene, st, u[:, 0], res_k, is_first=True, may_scatter=n_bounces > 1)
-    st, _ = _live_bounces(scene, st, u, 1)
-    return st["radiance"].reshape(b, k, 3).mean(dim=1)
+    return _live_bounces(scene, st, u, 1, None).reshape(b, k, 3).mean(dim=1)
 
 
 def _repeat_lanes(res: HitResult, k: int) -> HitResult:

@@ -16,7 +16,7 @@ of one or more checkouts of the port beside the PyTorch calls that compute
 the same functions (``torch.index_select``, ``torch.rand``), and the
 traversal kernels at the shapes the main paths give them::
 
-    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4] ROOT [ROOT ...]
+    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4 | --bounces | --k5] ROOT [ROOT ...]
 
 Each ROOT is a directory holding ``octree_pathtracing_tpu_torch/`` (this
 checkout, or an older commit unpacked with ``git archive``); each is timed
@@ -27,8 +27,9 @@ parent" compares two commits on one card.  Shapes: P1 at the probe's
 pick's two gathers (one pair launch, or two single launches where the
 checkout has no pair); P2 on the (65536, 5, 21) uniform block.  The
 traversal on the depth-9 scenes: K1 on the terrain's 256x256 primaries and
-on the live rays of bounces 2-5 of one headline frame (``trace_paths``,
-IMPORTANCE sun, the uniforms of seed 1); K2 on the cutout's 256x256
+on bounces 2-5 of one headline frame (``trace_paths``, IMPORTANCE sun, the
+uniforms of seed 1: since K5 the whole batch with its active mask, before
+it the live rays alone; each row with its lanes and live lanes); K2 on the cutout's 256x256
 primaries and its 8 training views at 512x512; K3r on the terrain's
 training views; K3s on the cutout's sun walk; K2q in its three modes on the
 plant field (primaries; sun and hemisphere walks).  Each traversal row
@@ -47,8 +48,18 @@ it, and the analytic scene under IMPORTANCE; with ``--world FILE`` a region
 read at depth 9 under HIGH_QUALITY with one-emitter NEE), where a checkout
 with the next-event kernels also counts the activities through their plain
 version.  Every kernel result
-is checked bit for bit against its plain-torch twin first.  ``--k4``
-times K4's rows and the headline frames alone (an A/B of K4's design).  The depth-9
+is checked bit for bit against its plain-torch twin first.  The next-event
+kernels are timed on each bounce of one NEE-line frame (lanes and live
+lanes beside each row).  In a checkout with K5 (``ops/compact``): its
+forward and backward on the headline frame's compactions and at 2,097,152
+lanes beside its plain version and two library routes (``argsort_route``,
+``nonzero_route``), the unpermute both ways, and the headline forward frame
+captured in a CUDA graph (``capture_frame``; the replays' device ms,
+bit-equal to the eager frame; a capture that fails raises).  ``--k4``
+times K4's rows and the headline frames alone (an A/B of K4's design);
+``--bounces`` the bounce loop's rows alone: K1, K4 and the next-event
+kernels per bounce, the headline frames, K5's rows; ``--k5`` K5's rows and
+the headline frame's graph replay alone (an A/B of K5's design).  The depth-9
 octrees are cached under ``build/scenes`` of this file's checkout.  Needs
 a CUDA card.
 """
@@ -154,14 +165,16 @@ def fetch_stats(fetches) -> dict:
 
 
 def bounce_rays(pathtracer, scene, origins, dirs, uniforms) -> list:
-    """The (origins, dirs) of every traversal ``trace_paths`` makes on an
-    all-opaque scene without shadow walks, in order: the primaries, then the
-    live rays of each later bounce."""
+    """The (origins, dirs, active) of every traversal ``trace_paths`` makes
+    on an all-opaque scene without shadow walks, in order: the primaries
+    (active None), then each later bounce's rays: since K5, the whole batch
+    with its live lanes first and its ``active`` mask (in a checkout from
+    before K5, the live rays alone, active None)."""
     calls = []
     real = pathtracer.traverse
 
     def recording(nodes, root, depth, scale, o, d, *rest):
-        calls.append((o, d))
+        calls.append((o, d, rest[1] if len(rest) > 1 else None))
         return real(nodes, root, depth, scale, o, d, *rest)
 
     pathtracer.traverse = recording
@@ -175,7 +188,9 @@ def bounce_rays(pathtracer, scene, origins, dirs, uniforms) -> list:
 def shade_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
     """The arguments ``(scene, st, u, res, is_first, may_scatter)`` of every
     ``_shade`` call one ``trace_paths`` frame makes, in order: the primary
-    bounce's lanes, then each later bounce's live sub-batch."""
+    bounce's lanes, then each later bounce's: since K5 the whole batch, its
+    live lanes first (``int(st["active"].sum())`` of them); in a checkout
+    from before K5, the live sub-batch."""
     calls = []
     real = pathtracer._shade
 
@@ -189,6 +204,27 @@ def shade_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
             pathtracer.trace_paths(scene, origins, dirs, uniforms)
     finally:
         pathtracer._shade = real
+    return calls
+
+
+def compact_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
+    """The arguments ``(st, uniforms, bounce, counts)`` of every K5
+    compaction one ``trace_paths`` frame makes (bounces 2 to n), each state
+    detached and cloned as the compaction found it."""
+    calls = []
+    real = pathtracer.compact
+
+    def recording(st, u, bounce, counts):
+        calls.append(({k: None if v is None else v.detach().clone() for k, v in st.items()}, u, bounce,
+                      None if counts is None else counts.clone()))
+        return real(st, u, bounce, counts)
+
+    pathtracer.compact = recording
+    try:
+        with torch.no_grad():
+            pathtracer.trace_paths(scene, origins, dirs, uniforms)
+    finally:
+        pathtracer.compact = real
     return calls
 
 
@@ -385,23 +421,122 @@ def check_nee(call, g_radiance=None, label: str = "") -> dict:
             "args": {"setup": (c,), "resolve": (c, k_rays, walk, prim, tp, rad, alb, False), "backward": args}}
 
 
+def check_compact(st, uniforms, bounce: int, label: str = "") -> dict:
+    """K5's acceptance gate on one compaction's arguments: the kernel
+    against ``compact_reference`` bit for bit on every output (the state
+    fields, the carried index, the bounce's uniforms, ``pos``, the live
+    count), the backward kernel against ``compact_backward_reference`` bit
+    for bit on seeded cotangents of the throughput and the radiance, and the
+    unpermute and its backward against theirs on the compacted radiance.
+    Raises AssertionError naming ``label``.  Returns {"lanes", "live",
+    "forward" (the kernel's outputs), "backward_args", "unpermute_args"}."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+
+    b, n_b = int(st["active"].shape[0]), int(uniforms.shape[1])
+    counts = torch.full((n_b,), -1, dtype=torch.int32, device=st["active"].device)
+    r_counts = counts.cpu()
+    k_out, k_u, k_pos = k5._forward_cuda(st, uniforms, bounce, counts)
+    r_out, r_u, r_pos = k5.compact_reference({k: None if v is None else v.cpu() for k, v in st.items()},
+                                             uniforms.cpu(), bounce, r_counts)
+    pairs = [(k, k_out[k], r_out[k]) for k in r_out] + [("uniforms", k_u, r_u), ("pos", k_pos, r_pos),
+                                                        ("counts", counts, r_counts)]
+    differ = {f: int(_bits_differ(k.cpu().reshape(max(1, k.shape[0]), -1), r.reshape(max(1, r.shape[0]), -1)).sum())
+              for f, k, r in pairs if k.numel()}
+    if any(differ.values()):
+        raise AssertionError(f"K5 disagrees with its plain version on {label}: rows not bit-equal per field {differ}")
+    g = torch.Generator().manual_seed(b)
+    g_tp, g_rad = ((torch.rand((b, 3), generator=g) - 0.5).to(k_pos.device) for _ in range(2))
+    got, want = k5._backward_cuda(k_pos, g_tp, g_rad), k5.compact_backward_reference(k_pos.cpu(), g_tp.cpu(), g_rad.cpu())
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(got, want)):
+        raise AssertionError(f"K5's backward disagrees with its plain version on {label}")
+    rad, idx = k_out["radiance"], k_out["idx"]
+    scattered = k5._unpermute_cuda(rad, idx, True)
+    gathered = k5._unpermute_cuda(g_tp, idx, False)
+    if not (torch.equal(scattered.cpu(), k5.unpermute_reference(rad.cpu(), idx.cpu()))
+            and torch.equal(gathered.cpu(), k5.unpermute_backward_reference(g_tp.cpu(), idx.cpu()))):
+        raise AssertionError(f"the unpermute disagrees with its plain version on {label}")
+    return {"lanes": b, "live": int(r_counts[bounce]), "forward": (k_out, k_u, k_pos),
+            "backward_args": (k_pos, g_tp, g_rad), "unpermute_args": (rad, idx, g_tp)}
+
+
+def argsort_route(st, uniforms, bounce: int):
+    """K5's function through library calls, the yardstick: a stable
+    ``torch.argsort`` of the dead flags, then one ``index_select`` per field
+    and of the bounce's uniforms."""
+    perm = torch.argsort(~st["active"], stable=True)
+    out = {k: v.index_select(0, perm) for k, v in st.items() if v is not None}
+    idx = out.get("idx", perm)
+    return out, uniforms[:, bounce].index_select(0, idx.long())
+
+
+def nonzero_route(st, uniforms, bounce: int):
+    """The parent's K5 (before the kernel): the live lanes by ``nonzero``
+    (a read of the count back to the host), their fields and uniforms
+    gathered, and each field ``index_put`` back after the bounce (here with
+    the gathered rows themselves)."""
+    idx = st["active"].nonzero().squeeze(1)
+    sub = {k: v[idx] for k, v in st.items() if v is not None and k != "idx"}
+    u = uniforms[idx, bounce]
+    return {k: st[k].index_put((idx,), sub[k]) for k in sub}, u
+
+
+def capture_frame(fn):
+    """(graph, output): ``fn()`` (a frame that reads nothing from the card)
+    warmed up on a side stream, then captured in a CUDA graph.  A capture
+    that fails raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def replay_ms(graph, replays: int = 20) -> list:
+    """Device ms of each of ``replays`` replays of ``graph`` (CUDA events),
+    after one."""
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
 def profile_launches(fn, tries: int = 3) -> dict:
     """{"kernels", "memsets", "memcpys"}: the device activities torch.profiler
     records over one call of ``fn`` (which synchronizes the card).  A
-    session that records no device activity at all is taken again, up to
-    ``tries`` times."""
+    session can drop activities (or record none at all), so ``tries``
+    sessions are taken and the fullest one counts."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    names = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
+        got = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(got) > len(names):
+            names = got
     memsets = sum(n.startswith("Memset") for n in names)
     memcpys = sum(n.startswith("Memcpy") for n in names)
     return {"kernels": len(names) - memsets - memcpys, "memsets": memsets, "memcpys": memcpys}
+
+
+def radiance_digest(radiance) -> str:
+    """sha256 of a frame's radiance bytes: two checkouts' frames compare
+    bit for bit across processes."""
+    import hashlib
+
+    return hashlib.sha256(radiance.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def host_ms(fn, runs: int = 5) -> list:
@@ -452,7 +587,8 @@ def _shade_cases(dev, cache_dir) -> dict:
             (r["throughput"].sum() + r["radiance"].sum()).backward()
 
         row = both(fwd)
-        row.update(lanes=int(st["throughput"].shape[0]), fwd_bwd_call_ms=call_ms(fwd_bwd, 20))
+        row.update(lanes=int(st["throughput"].shape[0]), live=int(st["active"].sum()),
+                   fwd_bwd_call_ms=call_ms(fwd_bwd, 20))
         out[f"K4 _shade headline bounce {k}"] = row
     if hasattr(pathtracer, "shade"):  # the backward alone, on the cotangents a real fwd+bwd hands each bounce
         from octree_pathtracing_tpu_torch.ops import shade as k4
@@ -475,6 +611,108 @@ def _shade_cases(dev, cache_dir) -> dict:
 
         out[f"headline {name}"] = {"host_ms": statistics.median(times), "host_ms_runs": times,
                                    **profile_launches(synced)}
+    out["headline frame forward"]["radiance_sha256"] = radiance_digest(pathtracer.trace_paths(scene, o, d, u))
+    if hasattr(pathtracer, "compact"):  # since K5 the forward frame captures: its replays are its device time
+        out["headline frame forward, CUDA graph replay"] = _graph_frame_case(scene, o, d, u)
+    return out
+
+
+def _graph_frame_case(scene, o, d, u) -> dict:
+    """A forward frame captured in a CUDA graph: {"replay_ms" (the median),
+    "replay_ms_runs", "bit_equal" (a replay against the eager frame)}."""
+    import statistics
+
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    eager = pathtracer.trace_paths(scene, o, d, u)
+    graph, replayed = capture_frame(lambda: pathtracer.trace_paths(scene, o, d, u))
+    times = replay_ms(graph)
+    return {"replay_ms": statistics.median(times), "replay_ms_runs": times,
+            "bit_equal": bool(torch.equal(replayed, eager))}
+
+
+def tiled_compaction(call, times: int):
+    """A compaction's arguments repeated ``times`` times over the lanes (the
+    carried index kept a permutation): the same live share at a larger
+    batch."""
+    st, u, bounce, counts = call
+    b = st["active"].shape[0]
+    big = {k: None if v is None else v.repeat((times,) + (1,) * (v.dim() - 1)) for k, v in st.items()}
+    if big.get("idx") is not None:
+        big["idx"] = (big["idx"].view(times, b) + b * torch.arange(times, device=u.device, dtype=torch.int32)[:, None]
+                      ).reshape(-1)
+    return big, u.repeat(times, 1, 1), bounce, counts
+
+
+def _compact_cases(dev, cache_dir) -> dict:
+    """K5's rows, in a checkout that has it: the forward and the backward on
+    the compactions of one headline frame (bounces 2-5) and on the bounce-2
+    state repeated to 2,097,152 lanes, each checked bit for bit first, by
+    call and on the device, beside the plain version on the card and two
+    library routes (``argsort_route``, ``nonzero_route``); the unpermute and
+    its backward on the frame's last state."""
+    from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene, pixel_grid_rays
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    scene, cam = minecraft_chunk_scene(depth=9, cache_dir=cache_dir)
+    scene, cam = scene.to(dev), cam.to(dev)
+    o, d = pixel_grid_rays(cam, 256, 256)
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
+    calls = compact_calls(pathtracer, scene, o, d, u)
+    cases = [(f"headline bounce {c[2] + 1}", c) for c in calls] + [("2,097,152 lanes", tiled_compaction(calls[0], 32))]
+    out, last = {}, None
+    for label, (st, uu, bounce, counts) in cases:
+        chk = check_compact(st, uu, bounce, label)
+        if chk["lanes"] == 256 * 256:
+            last = chk
+        pos, g_tp, g_rad = chk["backward_args"]
+        big = chk["lanes"] > 1 << 20
+        rows = {"K5 compact_forward": lambda: k5._forward_cuda(st, uu, bounce, counts),
+                "K5 compact_backward": lambda: k5._backward_cuda(pos, g_tp, g_rad),
+                "argsort + index_select": lambda: argsort_route(st, uu, bounce),
+                "nonzero + gathers + index_put": lambda: nonzero_route(st, uu, bounce)}
+        for name, fn in rows.items():
+            dms, how = device_ms(fn, calls=10 if big else GRAPH_CALLS)
+            row = {"call_ms": call_ms(fn, 20 if big else CALLS), "device_ms": dms, "device_by": how,
+                   "lanes": chk["lanes"], "live": chk["live"]}
+            if name == "K5 compact_forward":
+                row["plain_ms"] = call_ms(lambda: k5.compact_reference(st, uu, bounce), 5)
+            out[f"{name} {label}"] = row
+    rad, idx, g = last["unpermute_args"]  # the last bounce's
+    for name, scatter, x in (("K5 unpermute", True, rad), ("K5 unpermute backward", False, g)):
+        row = both(lambda scatter=scatter, x=x: k5._unpermute_cuda(x, idx, scatter))
+        out[f"{name} headline"] = dict(row, lanes=int(idx.shape[0]))
+    return out
+
+
+def _nee_bounce_cases(dev, cache_dir) -> dict:
+    """The next-event kernels on each bounce of one frame of the NEE line
+    (the depth-9 terrain under the HIGH_QUALITY sun, 256x256, the uniforms of
+    seed 1), checked against their plain versions first: ``nee_setup``,
+    ``nee_resolve`` and ``nee_backward`` by call and on the device, with the
+    lanes and live lanes each was given (the live sub-batch before K5)."""
+    import dataclasses
+
+    from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene, pixel_grid_rays
+    from octree_pathtracing_tpu_torch.models.sun import SunSampling
+    from octree_pathtracing_tpu_torch.ops import nee as nee_mod
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    scene, cam = minecraft_chunk_scene(depth=9, cache_dir=cache_dir)
+    scene = dataclasses.replace(scene, sun_sampling=SunSampling.high_quality()).to(dev)
+    o, d = pixel_grid_rays(cam.to(dev), 256, 256)
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
+    out = {}
+    for k, call in enumerate(nee_calls(pathtracer, scene, o, d, u), start=1):
+        chk = check_nee(call[:4], call[4], f"the NEE line's bounce {k}")
+        args = chk["args"]
+        c = args["setup"][0]
+        extra = {"lanes": int(c.cur_mat.shape[0]), "live": int(call[1]["active"].sum())}
+        for name, fn in (("nee_setup", lambda: nee_mod._setup_cuda(c)),
+                         ("nee_resolve", lambda: nee_mod._resolve_cuda(*args["resolve"])),
+                         ("nee_backward", lambda: nee_mod._backward_cuda(*args["backward"]))):
+            out[f"{name} NEE line bounce {k}"] = dict(both(fn), **extra)
     return out
 
 
@@ -490,7 +728,9 @@ def _light_lines(dev, cache_dir, world) -> dict:
     depth 9, the uniforms of seed 1), forward and with bench.py's backward:
     host ms (median of 5) and the device activities torch.profiler counts in
     one frame; in a checkout with the next-event kernels, also through their
-    plain version (``plain_nee``).  ``world``: a region file, or None."""
+    plain version (``plain_nee``); in a checkout with K5, the forward
+    frame's CUDA graph replay (``graph``: its device floor, or the capture's
+    error).  ``world``: a region file, or None."""
     import dataclasses
     import statistics
 
@@ -543,6 +783,14 @@ def _light_lines(dev, cache_dir, world) -> dict:
 
             times = host_ms(fn)
             row = {"host_ms": statistics.median(times), "host_ms_runs": times, **profile_launches(synced)}
+            if step == "forward":
+                row["radiance_sha256"] = radiance_digest(pathtracer.trace_paths(sc, o, d, u))
+                if hasattr(pathtracer, "compact"):  # since K5: the frame's device floor, its graph's replay
+                    try:
+                        row["graph"] = _graph_frame_case(sc, o, d, u)
+                    except RuntimeError as e:  # said on the row: a host read in this line's frame
+                        torch.cuda.synchronize()
+                        row["graph"] = {"error": f"{type(e).__name__}: {e}"}
             if nee_mod is not None and nee_mod.nee_plan(sc) is not None:
                 real = pathtracer.nee
                 pathtracer.nee = lambda *a: nee_mod.nee_reference(*a)[0]
@@ -551,6 +799,39 @@ def _light_lines(dev, cache_dir, world) -> dict:
                 finally:
                     pathtracer.nee = real
             out[f"{name} line {step}"] = row
+    return out
+
+
+def _k1_bounce_cases(dev, terrain, cam) -> dict:
+    """name -> ((call, its twin), arguments): K1 on bounces 2-5 of one
+    headline frame (the uniforms of seed 1): the whole batch with its
+    ``active`` mask since K5, the live rays before it."""
+    from octree_pathtracing_tpu_torch.models import pixel_grid_rays
+    from octree_pathtracing_tpu_torch.ops import traversal as tv
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    o, d = pixel_grid_rays(cam, 256, 256)
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
+    head = (terrain.nodes, terrain.root, terrain.depth, terrain.octree_scale)
+    return {f"K1 headline bounce {k}": ((tv.traverse, tv.traverse_reference),
+                                         head + (bo.contiguous(), bd.contiguous(), 1024.0, act))
+            for k, (bo, bd, act) in enumerate(bounce_rays(pathtracer, terrain, o, d, u)[1:], start=2)}
+
+
+def _time_traversals(cases) -> dict:
+    """Each traversal case checked bit for bit against its twin, then timed
+    by call and on the device, with its lanes, live lanes and fetches."""
+    out = {}
+    for name, ((kernel, twin), args) in cases.items():
+        k = kernel(*args)
+        if not _equal(k, twin(*args)):
+            raise AssertionError(f"{name}: the kernel disagrees with its twin")
+        big = args[4].shape[0] > 1 << 20  # the training views: fewer calls
+        dms, how = device_ms(lambda: kernel(*args), calls=10 if big else GRAPH_CALLS)
+        active = args[7] if len(args) > 7 and isinstance(args[7], torch.Tensor) else None
+        out[name] = {"call_ms": call_ms(lambda: kernel(*args), 20 if big else CALLS), "device_ms": dms,
+                     "device_by": how, "lanes": int(args[4].shape[0]),
+                     "live": int(args[4].shape[0]) if active is None else int(active.sum()), **fetch_stats(k.fetches)}
     return out
 
 
@@ -567,7 +848,6 @@ def _traversal_cases(dev, cache_dir) -> dict:
     from octree_pathtracing_tpu_torch.models.sun import random_sun_direction
     from octree_pathtracing_tpu_torch.ops import traversal as tv
     from octree_pathtracing_tpu_torch.ops.shading import OFFSET
-    from octree_pathtracing_tpu_torch.render import pathtracer
     from octree_pathtracing_tpu_torch.render.hit import accept_tables, resolve_hit
 
     depth, side, views, view_side = 9, 256, 8, 512
@@ -587,9 +867,7 @@ def _traversal_cases(dev, cache_dir) -> dict:
     cases = {}
     prim = head(terrain, *pixel_grid_rays(cam, side, side))
     cases[f"K1 terrain {side}^2 primaries"] = ((tv.traverse, tv.traverse_reference), prim)
-    u = pathtracer.draw_uniforms(1, 0, side * side, 5, dev)
-    for k, (o, d) in enumerate(bounce_rays(pathtracer, terrain, prim[4], prim[5], u)[1:], start=2):
-        cases[f"K1 headline bounce {k}"] = ((tv.traverse, tv.traverse_reference), head(terrain, o, d))
+    cases.update(_k1_bounce_cases(dev, terrain, cam))
     cut_tables, terrain_tables, plant_tables = accept_tables(cut), accept_tables(terrain), accept_tables(plant)
     cprim = head(cut, *pixel_grid_rays(cut_cam, side, side))
     alpha = (tv.traverse_alpha, tv.traverse_alpha_reference)
@@ -691,16 +969,52 @@ def _time_checkout(world=None) -> dict:
     cache_dir = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "build",
                                               "scenes"))
     out.update(_shade_cases(dev, cache_dir))
+    out.update(_nee_bounce_cases(dev, cache_dir))
+    if _has_compact():
+        out.update(_compact_cases(dev, cache_dir))
     out.update(_light_lines(dev, cache_dir, world))
-    for name, ((kernel, twin), args) in _traversal_cases(dev, cache_dir).items():
-        k = kernel(*args)
-        if not _equal(k, twin(*args)):
-            raise AssertionError(f"{name}: the kernel disagrees with its twin")
-        big = args[4].shape[0] > 1 << 20  # the training views: fewer calls
-        dms, how = device_ms(lambda: kernel(*args), calls=10 if big else GRAPH_CALLS)
-        out[name] = {"call_ms": call_ms(lambda: kernel(*args), 20 if big else CALLS), "device_ms": dms,
-                     "device_by": how, "lanes": int(args[4].shape[0]), **fetch_stats(k.fetches)}
+    out.update(_time_traversals(_traversal_cases(dev, cache_dir)))
     return out
+
+
+def _has_compact() -> bool:
+    """Whether the checkout on ``sys.path`` has K5's kernel."""
+    import importlib.util
+
+    return importlib.util.find_spec("octree_pathtracing_tpu_torch.ops.compact") is not None
+
+
+def _time_k5(dev, cache_dir) -> dict:
+    """K5's rows and the headline forward frame's CUDA graph replay alone
+    (``--k5``: an A/B of K5's design)."""
+    from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene, pixel_grid_rays
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    scene, cam = minecraft_chunk_scene(depth=9, cache_dir=cache_dir)
+    scene, cam = scene.to(dev), cam.to(dev)
+    o, d = pixel_grid_rays(cam, 256, 256)
+    out = _compact_cases(dev, cache_dir)
+    out["headline frame forward, CUDA graph replay"] = _graph_frame_case(
+        scene, o, d, pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev))
+    return out
+
+
+def _time_bounces(dev, cache_dir) -> dict:
+    """The bounce loop's rows alone (``--bounces``): K1, K4 and the
+    next-event kernels on each bounce of one frame, the headline frames, and
+    K5's rows where the checkout has it."""
+    from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene
+
+    terrain, cam = minecraft_chunk_scene(depth=9, cache_dir=cache_dir)
+    out = _time_traversals(_k1_bounce_cases(dev, terrain.to(dev), cam.to(dev)))
+    out.update(_shade_cases(dev, cache_dir))
+    out.update(_nee_bounce_cases(dev, cache_dir))
+    if _has_compact():
+        out.update(_compact_cases(dev, cache_dir))
+    return out
+
+
+MODES = ("--k4", "--bounces", "--k5")
 
 
 def main(argv=None) -> int:
@@ -710,22 +1024,22 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             print("timing: no CUDA device", file=sys.stderr)
             return 1
-        if args[-1:] == ["--k4"]:
+        if args[-1:] and args[-1] in MODES:
             dev = torch.device("cuda", torch.cuda.current_device())
             cache_dir = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                                                       "build", "scenes"))
             import octree_pathtracing_tpu_torch as port
 
-            result = {"package": os.path.dirname(port.__file__), "card": card_line(), **_shade_cases(dev, cache_dir)}
+            rows = {"--k4": _shade_cases, "--bounces": _time_bounces, "--k5": _time_k5}[args[-1]](dev, cache_dir)
+            result = {"package": os.path.dirname(port.__file__), "card": card_line(), **rows}
         else:
             result = _time_checkout(args[3] if args[2:3] == ["--world"] else None)
         print("RESULT " + json.dumps(result), flush=True)
         return 0
-    out_file = world = None
-    k4_only = False
-    while args[:1] in (["--out"], ["--world"], ["--k4"]):
-        if args[0] == "--k4":
-            k4_only, args = True, args[1:]
+    out_file = world = mode = None
+    while args[:1] in (["--out"], ["--world"]) or (args[:1] and args[0] in MODES):
+        if args[0] in MODES:
+            mode, args = args[0], args[1:]
             continue
         if args[0] == "--out":
             out_file = args[1]
@@ -737,34 +1051,53 @@ def main(argv=None) -> int:
         return 2
     runs = []
     for root in args:
+        # one hash seed for every checkout: the block palette seeds its textures
+        # with hash(), salted per process (ROADMAP §3), and the frames compare
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
-                              + (["--world", world] if world else []) + (["--k4"] if k4_only else []),
-                              capture_output=True, text=True, timeout=900)
+                              + (["--world", world] if world else []) + ([mode] if mode else []),
+                              capture_output=True, text=True, timeout=900,
+                              env=dict(os.environ, PYTHONHASHSEED="0"))
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
             raise RuntimeError(f"timing {root} failed (exit {proc.returncode})")
         runs.append(dict(root=root, **json.loads(lines[-1][len("RESULT "):])))
         print(f"{root}: {runs[-1]['package']} [{runs[-1]['card']}]", flush=True)
-    for name in (k for k, v in runs[0].items() if isinstance(v, dict)):
-        if "host_ms" in runs[0][name]:  # a frame: host ms and its device launches
+    names = list(dict.fromkeys(k for r in runs for k, v in r.items() if isinstance(v, dict)))
+    for name in names:
+        have = [r for r in runs if name in r]
+        if "host_ms" in have[0][name]:  # a frame: host ms and its device launches
             print(f"{name}: " + " | ".join(
                 f"{r['root']}: host ms {r[name]['host_ms']!r} {[round(t, 3) for t in r[name]['host_ms_runs']]}, "
                 f"kernels {r[name]['kernels']} memsets {r[name]['memsets']} memcpys {r[name]['memcpys']}"
                 + (f" (through the next-event plain version: kernels {r[name]['plain_nee']['kernels']} memsets "
                    f"{r[name]['plain_nee']['memsets']} memcpys {r[name]['plain_nee']['memcpys']})"
                    if "plain_nee" in r[name] else "")
-                for r in runs if name in r), flush=True)
+                for r in have)
+                + ("" if "radiance_sha256" not in have[0][name] else
+                   f" || radiance bit-equal in every checkout: "
+                   f"{len({r[name]['radiance_sha256'] for r in have}) == 1}")
+                + "".join(f" || {r['root']}: graph replay "
+                          + (f"{r[name]['graph']['replay_ms']!r} ms, bit-equal {r[name]['graph']['bit_equal']}"
+                             if "replay_ms" in r[name]["graph"] else r[name]["graph"]["error"])
+                          for r in have if "graph" in r[name]), flush=True)
+            continue
+        if "replay_ms" in have[0][name]:  # a captured frame's replays
+            print(f"{name}: " + " | ".join(
+                f"{r['root']}: median {r[name]['replay_ms']!r} ms {[round(t, 4) for t in r[name]['replay_ms_runs']]}, "
+                f"bit-equal to the eager frame {r[name]['bit_equal']}" for r in have), flush=True)
             continue
         cells = " | ".join(f"{r['root']}: call {r[name]['call_ms']!r} device {r[name]['device_ms']!r}"
                            + ("" if r[name]["device_by"] == "graph" else f" ({r[name]['device_by']})")
                            + (f" fwd+bwd call {r[name]['fwd_bwd_call_ms']!r}" if "fwd_bwd_call_ms" in r[name] else "")
-                           for r in runs)
-        extra = runs[0][name]
-        if "lanes" in extra and "fetch_max" not in extra:
+                           + (f" plain {r[name]['plain_ms']!r}" if "plain_ms" in r[name] else "")
+                           + (f" [lanes {r[name]['lanes']}, live {r[name]['live']}]" if "live" in r[name] else "")
+                           for r in have)
+        extra = have[0][name]
+        if "lanes" in extra and "live" not in extra:
             cells += f" || lanes {extra['lanes']}"
         if "fetch_max" in extra:  # the same rays and fetches in every checkout
-            cells += (f" || lanes {extra['lanes']}, fetches max {extra['fetch_max']} p50 {extra['fetch_p50']!r} "
+            cells += (f" || fetches max {extra['fetch_max']} p50 {extra['fetch_p50']!r} "
                       f"p99 {extra['fetch_p99']!r}")
         print(f"{name}: {cells}", flush=True)
     if out_file:

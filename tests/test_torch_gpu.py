@@ -4,13 +4,17 @@ shadow walk) and K2q (the block-model variant of modes 1-3), K7 (the
 analytic-primitive scan), K8 (the BVH walk over quads), P2 (Philox
 uniforms), P1 (row gather, from one table and from two), K4 (hit
 resolve and shade, forward and backward, on every scene kind at 1 to
-65,536 lanes and on bounce 2's live sub-batch) and K4's next-event half
-with K6 (``nee_setup``, ``nee_resolve``, ``nee_backward``, on every light
-line's bounces at 1 to 65,536 lanes and bounce 2's sub-batch), also captured
-in a CUDA graph, and the path tracer's frame and gradients through the
-kernels against the same through the twins, with and without light
-sampling, block models and primitives, and on a world read from a region
-file.
+65,536 lanes and on bounce 2's whole batch, its live lanes first) and K4's
+next-event half with K6 (``nee_setup``, ``nee_resolve``, ``nee_backward``,
+on every light line's bounces at 1 to 65,536 lanes and bounce 2's whole
+batch), both on states with ~60% of the lanes dead, K5 (the compaction of
+live lanes, its backward and the final unpermute, ``csrc/compact.cu``, at 1
+to 2,097,152 lanes and four live shares), also captured in a CUDA graph,
+and the path tracer's frame and gradients through the kernels against the
+same through the twins, with and without light sampling, block models and
+primitives, and on a world read from a region file; a headline frame
+replayed from a CUDA graph bit-equal to the eager one, and run with the
+card's sync debug mode set to raise.
 
 Every test here is marked ``gpu`` and skips where there is no card.  The
 file imports no jax (the machine with the card has none), so it runs there
@@ -895,7 +899,7 @@ def _k4_calls(name, n, dev):
     """The arguments of every ``shade`` call of one 5-bounce frame over
     ``n`` lanes of ``name``'s 256x256 primaries (a seeded shuffle; a larger
     square grid where ``n`` is larger): the first is the primary bounce,
-    the second bounce 2's live sub-batch."""
+    the second bounce 2's (the whole batch, its live lanes first)."""
     key = ("k4", name)
     if key not in _SCENES:
         _SCENES[key] = _k4_scene(name)
@@ -962,8 +966,9 @@ def test_shade_kernels_match_twins(cuda, name, size):
         n = 65536 if size == "bounce 2" else int(size)
     calls = _k4_calls(name, n, cuda)
     call = calls[1] if size == "bounce 2" else calls[0]
-    if size == "bounce 2":  # the live lanes gathered by K5 (all of them in the closed room)
-        assert not call[5] and call[1]["throughput"].shape[0] <= n
+    if size == "bounce 2":  # the whole batch, K5's live lanes first (all of them live in the closed room)
+        live = int(call[1]["active"].sum())
+        assert not call[5] and call[1]["throughput"].shape[0] == n and bool(call[1]["active"][:live].all())
     _assert_k4_matches_twin(call, f"{name}, {size}")
 
 
@@ -1279,8 +1284,8 @@ def test_nee_kernels_match_plain_versions(cuda, name, size):
     calls = _nee_calls(name, n, cuda)
     call = calls[1] if size == "bounce 2" else calls[0]
     b = call[1]["throughput"].shape[0]
-    if size == "bounce 2":  # the live lanes gathered by K5 (all of them in the closed room)
-        assert 0 < b <= n
+    if size == "bounce 2":  # the whole batch, K5's live lanes first (all of them live in the closed room)
+        assert b == n and int(call[1]["active"].sum()) > 0
     before = (nee_mod.nee.setup_launches, nee_mod.nee.resolve_launches, nee_mod.nee.backward_launches)
     r = check_nee(call[:4], call[4], label=f"{name}, {size}")
     print(f"nee {name} {size}: {b} lanes x {nee_mod.nee_plan(call[0]).faces} faces, {int(r['rays'].active.sum())} "
@@ -1384,3 +1389,256 @@ def test_nee_build_reports_registers_stack_and_spills(cuda):
     print("\n".join(lines))
     for kernel in ("nee_setup_kernel", "nee_resolve_kernel", "nee_backward_kernel"):
         assert any(kernel in ln for ln in lines) or lib.build_info["seconds"] == 0.0, kernel
+
+
+# ---- dead lanes through K4 and its next-event half: since K5 compacts
+# without shrinking the batch, every bounce after the first hands them
+# its dead lanes
+
+def _dead(call, seed):
+    """``call`` (a recorded ``shade`` call) on a later bounce with ~60% of
+    its lanes dead (seeded), traversed as the bounce loop traverses it."""
+    scene, st = call[0], call[1]
+    g = torch.Generator().manual_seed(seed)
+    live = (torch.rand(st["active"].shape, generator=g) >= 0.6).to(st["active"].device)
+    st = dict(st, active=st["active"] & live)
+    res = pathtracer._trace(scene, st["origin"], st["dir"], st["active"])
+    prim = pathtracer._prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
+    return (scene, st, call[2], res, prim, False, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", K4_SCENES)
+def test_shade_kernels_pass_dead_lanes_through(cuda, name):
+    """K4's kernels against their twins on a state with ~60% dead lanes,
+    under ``check_shade``'s gate; the kernel leaves a dead lane's state bit
+    for bit as it was, passes its throughput and radiance cotangents
+    through, and adds nothing to the atlas or the emittance from it."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    call = _dead(_k4_calls(name, 4072, cuda)[0], 7)
+    dead = ~call[1]["active"]
+    assert 0.5 < float(dead.float().mean()) < 0.7
+    r = _assert_k4_matches_twin(call, f"{name}, 60% dead")
+    out = r["out"]
+    for k, v in out.state.items():
+        assert torch.equal(v[dead].view(torch.uint8), call[1][k][dead].view(torch.uint8)), k
+    assert not bool(out.diffuse_on[dead].any())
+    albedo, tp, resid, emittance, shape = r["backward_args"][:5]
+    g = torch.Generator().manual_seed(8)
+    cot = [(torch.rand((dead.shape[0], n), generator=g) + 0.5).to(cuda) * dead[:, None] for n in (3, 3)]
+    d_tp, d_rad, d_atlas, d_emit = k4._backward_cuda(albedo, tp, resid, emittance, shape, *cot, None,
+                                                     (True, True, True, True))
+    assert torch.equal(d_tp, cot[0]) and torch.equal(d_rad, cot[1])
+    assert not bool(d_atlas.any()) and not bool(d_emit.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NEE_SCENES)
+def test_nee_kernels_pass_dead_lanes_through(cuda, name):
+    """The next-event kernels against their plain versions on a state with
+    ~60% dead lanes, under ``check_nee``'s gate; no shadow ray is cast for a
+    dead lane, its radiance leaves bit for bit as K4 wrote it, and a
+    cotangent on the dead lanes alone gives nothing to the throughput, the
+    albedo, the atlas or the emittance."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.utils.timing import check_nee
+
+    scene, st, u, _, _ = _nee_calls(name, 4072, cuda)[0]
+    res = pathtracer._trace(scene, st["origin"], st["dir"])
+    prim = pathtracer._prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
+    call = _dead((scene, st, u, res, prim, True, True), 9)
+    dead = ~call[1]["active"]
+    with torch.no_grad():
+        out = k4.shade(*call)
+    r = check_nee((scene, call[1], u, out), None, label=f"{name}, 60% dead")
+    b = dead.shape[0]
+    cast = r["rays"].active.view(-1, b)
+    assert not bool(cast[:, dead].any())
+    k_rad, _ = nee_mod._resolve_cuda(*r["args"]["resolve"])
+    assert torch.equal(k_rad[dead], out.state["radiance"][dead])
+    args = list(r["args"]["backward"])
+    args[7] = torch.ones((b, 3), device=cuda) * dead[:, None]
+    d_tp, d_rad, d_alb, d_atlas, d_emit = nee_mod._backward_cuda(*args)
+    assert not bool(d_tp.any()) and not bool(d_alb.any()) and not bool(d_atlas.any()) and not bool(d_emit.any())
+    assert torch.equal(d_rad, args[7])
+
+
+# ---- K5: the compaction of live lanes (csrc/compact.cu)
+
+K5_SIZES = (1, 31, 255, 256, 257, 65536, 65553, 1 << 20, 1 << 21)
+K5_SHARES = ("0", "1", "0.3", "last")
+
+
+def _k5_state(b, share, dev, seed=0, with_idx=True):
+    g = torch.Generator().manual_seed(seed + b)
+    active = {"0": torch.zeros(b, dtype=torch.bool), "1": torch.ones(b, dtype=torch.bool),
+              "0.3": torch.rand(b, generator=g) < 0.3, "last": torch.arange(b) == b - 1}[share]
+    st = dict(origin=torch.randn((b, 3), generator=g), dir=torch.randn((b, 3), generator=g),
+              throughput=torch.rand((b, 3), generator=g), radiance=torch.rand((b, 3), generator=g),
+              active=active, specular=torch.rand(b, generator=g) < 0.5,
+              cur_mat=torch.randint(0, 9, (b,), generator=g, dtype=torch.int32),
+              idx=torch.randperm(b, generator=g).to(torch.int32) if with_idx else None)
+    u = torch.rand((b, 5, 21), generator=g)
+    return {k: None if v is None else v.to(dev) for k, v in st.items()}, u.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("share", K5_SHARES)
+@pytest.mark.parametrize("b", K5_SIZES)
+def test_compact_kernels_match_plain_versions_bit_for_bit(cuda, b, share):
+    """``compact_forward`` against ``compact_reference`` on every output
+    (state, carried index, uniforms, pos, the live count), its backward and
+    the unpermute and its backward against theirs, bit for bit
+    (``utils.timing.check_compact``); with and without a carried index; one
+    launch a call."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+    from octree_pathtracing_tpu_torch.utils.timing import check_compact
+
+    for with_idx, bounce in ((True, 3), (False, 1)):
+        st, u = _k5_state(b, share, cuda, with_idx=with_idx)
+        before = k5.compact.launches
+        r = check_compact(st, u, bounce, f"{b} lanes, {share} live")
+        assert k5.compact.launches == before + 1
+        assert r["live"] == int(st["active"].sum())
+
+
+@pytest.mark.gpu
+def test_compact_replays_from_a_cuda_graph_and_reuses_its_scratch(cuda):
+    """Forward calls of three sizes, eager and captured in one CUDA graph
+    and replayed with their outputs spoiled between replays, each equal to
+    the plain version every time (the scratch's epoch carries from call to
+    call, with no fill)."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+
+    cases = [(_k5_state(b, "0.3", cuda, seed=s), s % 4 + 1) for s, b in enumerate((4097, 65536, 300))]
+    want = [k5.compact_reference(st, u, bounce) for (st, u), bounce in cases]
+    for _ in range(3):  # eager, many epochs
+        for ((st, u), bounce), w in zip(cases, want):
+            got = k5._forward_cuda(st, u, bounce, None)
+            assert all(torch.equal(got[0][k], w[0][k]) for k in w[0]) and torch.equal(got[1], w[1])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [k5._forward_cuda(st, u, bounce, None) for (st, u), bounce in cases]
+    for _ in range(3):
+        for o in outs:
+            for x in list(o[0].values()) + [o[1], o[2]]:
+                x.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert all(torch.equal(o[0][k], w[0][k]) for k in w[0]) and torch.equal(o[1], w[1])
+            assert torch.equal(o[2], w[2])
+
+
+@pytest.mark.gpu
+def test_compact_refuses_a_build_and_a_launch(cuda, monkeypatch):
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+    from octree_pathtracing_tpu_torch.utils.cuda_build import load_library
+
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        load_library("compact", ("--no-such-option",))
+    st, u = _k5_state(64, "0.3", cuda)
+    with pytest.raises(ValueError, match="throughput"):
+        k5.compact(dict(st, throughput=st["throughput"].double()), u, 1)
+    with pytest.raises(ValueError, match="device"):
+        k5.compact(dict(st, cur_mat=st["cur_mat"].cpu()), u, 1)
+    refused = types.SimpleNamespace(compact_tiles=lambda n: 1, compact_forward=lambda *a: 1,
+                                    compact_backward=lambda *a: 1, unpermute=lambda *a: 1,
+                                    compact_error_string=lambda rc: b"invalid argument")
+    monkeypatch.setattr(k5, "_library", lambda: refused)
+    before = (k5.compact.launches, k5.unpermute.launches)
+    with pytest.raises(RuntimeError, match="compact_forward launch failed: invalid argument"):
+        k5.compact(st, u, 1)
+    with pytest.raises(RuntimeError, match="unpermute launch failed: invalid argument"):
+        k5.unpermute(st["radiance"], st["idx"])
+    assert (k5.compact.launches, k5.unpermute.launches) == before
+
+
+def _frame_case(dev, side=64):
+    scene, cam = minecraft_chunk_scene(depth=5)
+    scene, cam = scene.to(dev), cam.to(dev)
+    o, d = pixel_grid_rays(cam, side, side)
+    u = torch.from_numpy(np.random.default_rng(11).random((o.shape[0], 5, 21), dtype=np.float32)).to(dev)
+    return scene, o, d, u
+
+
+@pytest.mark.gpu
+def test_frame_through_k5_is_one_compaction_per_bounce_and_no_index_kernel(cuda):
+    """torch.profiler over one forward and one fwd+bwd frame: one
+    ``compact_forward`` kernel before each bounce after the first, one
+    ``compact_backward`` per bounce of the backward, one unpermute each way,
+    and no ``nonzero``, indexing or ``index_put`` kernel and no copy from the
+    card to the host.  A profiler session can drop activities, so up to
+    five sessions are taken, until one records every K5 launch the
+    wrappers counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+
+    scene, o, d, u = _frame_case(cuda)
+
+    def fwd():
+        pathtracer.trace_paths(scene, o, d, u)
+        torch.cuda.synchronize()
+
+    def fwd_bwd():
+        p = {"atlas": scene.atlas.clone().requires_grad_(True),
+             "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+        pathtracer.trace_paths(apply_params(scene, p), o, d, u).mean().backward()
+        torch.cuda.synchronize()
+
+    for fn, backward in ((fwd, False), (fwd_bwd, True)):
+        want = [4, 4 if backward else 0, 2 if backward else 1]
+        fn()
+        for _ in range(5):
+            before = (k5.compact.launches, k5.compact.backward_launches, k5.unpermute.launches,
+                      k5.unpermute.backward_launches)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+            after = (k5.compact.launches, k5.compact.backward_launches, k5.unpermute.launches,
+                     k5.unpermute.backward_launches)
+            assert tuple(a - b for a, b in zip(after, before)) == (4, 4 if backward else 0, 1, 1 if backward else 0)
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            lowered = [x.lower() for x in names]
+            bad = [x for x in lowered if "nonzero" in x or "index" in x or "scatter" in x or "dtoh" in x
+                   or "device -> host" in x or "write_indices" in x or "flag_kernel" in x]
+            assert not bad, bad
+            counted = [sum(f"{k}_kernel" in x for x in names) for k in ("compact_forward", "compact_backward")]
+            counted.append(sum("unpermute_kernel" in x for x in names))
+            print(f"{'fwd+bwd' if backward else 'forward'}: {len(names)} device activities, K5 {counted}")
+            if counted == want:
+                break
+        assert counted == want, counted
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampling", ["importance", "high_quality"])
+def test_frame_runs_without_a_sync_and_replays_from_a_cuda_graph(cuda, sampling):
+    """A frame forward and fwd+bwd under ``torch.cuda.set_sync_debug_mode
+    ("error")`` (any read of the card from the host raises), then the
+    forward frame captured in a CUDA graph: each replay, with its output
+    spoiled before it, bit-equal to the eager frame."""
+    from octree_pathtracing_tpu_torch.utils.timing import capture_frame
+
+    scene, o, d, u = _frame_case(cuda)
+    if sampling == "high_quality":
+        scene = dataclasses.replace(scene, sun_sampling=SunSampling.high_quality())
+    eager = pathtracer.trace_paths(scene, o, d, u)
+    p = {"atlas": scene.atlas.clone().requires_grad_(True),
+         "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = pathtracer.trace_paths(scene, o, d, u)
+        pathtracer.trace_paths(apply_params(scene, p), o, d, u).mean().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again, eager) and bool(torch.isfinite(p["atlas"].grad).all())
+    graph, out = capture_frame(lambda: pathtracer.trace_paths(scene, o, d, u))
+    for _ in range(3):
+        out.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)

@@ -135,7 +135,7 @@ def cases():
         texels = jscene.atlas.data if isinstance(jscene.atlas, JaxAtlas) else jscene.atlas
         primals = (texels, jscene.materials.emittance, jst["throughput"], jst["radiance"])
         jout, vjp = jax.vjp(_jax_shade_fn(jscene, jst, jnp.asarray(u), jres, is_first), *primals)
-        built[name] = dict(call=call, jout=jout, vjp=vjp, scene=scene)
+        built[name] = dict(call=call, jout=jout, vjp=vjp, scene=scene, jscene=jscene, st_np=st_np, u=u)
     return built
 
 
@@ -266,3 +266,96 @@ def test_nee_counts_no_launch_on_the_cpu(cases):
     tnee.nee(sc, st, u, out).sum().backward()
     assert texels.grad.abs().max() > 0
     assert (tnee.nee.setup_launches, tnee.nee.resolve_launches, tnee.nee.backward_launches) == counts
+
+
+# ---- dead lanes: since K5 compacts without shrinking the batch, every bounce
+# after the first hands the next-event half its dead lanes too
+
+DEAD_CASES = ("cutout_hq_strict", "room_one", "analytic_hq")
+
+
+@pytest.fixture(scope="module")
+def dead_cases(cases):
+    """Per case the state of ``cases`` with ~60% of its lanes dead (seeded),
+    traversed as the bounce loop traverses it, and the JAX ``_shade`` (NEE
+    on) and its VJP with the same ``active``."""
+    built = {}
+    for i, name in enumerate(DEAD_CASES):
+        c = cases[name]
+        scene, jscene = c["scene"], c["jscene"]
+        _, _, u, _, _, is_first, _ = c["call"]
+        # ~60% dead, but 8 of the lanes that cast a shadow ray in ``cases``
+        # kept live, so that the live lanes cast some at this small size
+        cast = np.flatnonzero((((_port(c["call"])[3].ints[..., 0] & tnee.CODE_ON) != 0).any(0)).numpy())
+        live = np.random.default_rng(400 + i).random(c["st_np"]["active"].shape[0]) >= 0.6
+        live[cast[::max(1, len(cast) // 8)][:8]] = True
+        st_np = dict(c["st_np"], active=live)
+        st = {k: torch.from_numpy(v) for k, v in st_np.items()}
+        res = tpt._trace(scene, st["origin"], st["dir"], st["active"])
+        prim = tpt._prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
+        # A dead lane's walk misses at t = inf, and JAX's emitter terms then
+        # take a point at infinity, whose masked backward is 0 * NaN (the
+        # reference's fault under emitter sampling, as on a miss); the JAX
+        # side gets t = 0 there, which changes none of its forward values.
+        t = np.where(live, res.t.numpy(), np.float32(0.0))
+        jres = JaxHitResult(hit=jnp.asarray(res.hit.numpy()), t=jnp.asarray(t),
+                            face_id=jnp.asarray(res.face_id.numpy()), uv=jnp.asarray(res.uv.numpy()),
+                            leaf_value=jnp.asarray(res.leaf_value.numpy().astype(np.uint32)),
+                            voxel_pos=jnp.asarray(res.voxel_pos.numpy()),
+                            voxel_size=jnp.asarray(res.voxel_size.numpy()), steps=jnp.int32(0))
+        jst = {k: jnp.asarray(v) for k, v in st_np.items()}
+        texels = jscene.atlas.data if isinstance(jscene.atlas, JaxAtlas) else jscene.atlas
+        primals = (texels, jscene.materials.emittance, jst["throughput"], jst["radiance"])
+        jout, vjp = jax.vjp(_jax_shade_fn(jscene, jst, jnp.asarray(c["u"]), jres, is_first), *primals)
+        assert np.isinf(res.t.numpy()[~live]).all()  # the port's side keeps the walk's own t
+        built[name] = dict(call=(scene, st, u, res, prim, is_first, True), jout=jout, vjp=vjp,
+                           dead=~st_np["active"])
+    return built
+
+
+@pytest.mark.parametrize("name", DEAD_CASES)
+def test_dead_lanes_pass_through_the_next_event_half(dead_cases, name):
+    """Forward: K4's twin and the next-event half's plain versions against
+    the JAX ``_shade`` (NEE on) with the same ``active``; a dead lane casts
+    no shadow ray and keeps its radiance bit for bit.  Backward, composed
+    as the render path composes it, against ``jax.vjp``; a dead lane passes
+    its cotangents through, and cotangents on the dead lanes alone add
+    nothing to the atlas, the emittance or the albedo."""
+    c = dead_cases[name]
+    scene, st = c["call"][0], c["call"][1]
+    dead = c["dead"]
+    assert 0.5 < dead.mean() < 0.7
+    out, resid, rad, nres = _port(c["call"])
+    bad = _bad_lanes(out, rad, c["jout"])
+    assert bad.sum() <= 2, (name, int(bad.sum()), np.flatnonzero(bad)[:5])
+    cast = ((nres.ints[..., 0] & tnee.CODE_ON) != 0).numpy()
+    assert cast.any() and not cast[:, dead].any()
+    assert np.array_equal(rad.numpy()[dead], st["radiance"].numpy()[dead])
+    agree = ~bad & ~_grazing(c["call"], out)
+    rng = np.random.default_rng(37)
+    b = agree.shape[0]
+    cot = {k: (rng.uniform(0.5, 1.5, size=(b, 3)) * agree[:, None]).astype(np.float32)
+           for k in ("throughput", "radiance")}
+    zeros = {k: np.zeros(np.shape(v), np.asarray(v).dtype) if np.asarray(v).dtype.kind == "f"
+             else np.zeros(np.shape(v), jax.dtypes.float0) for k, v in c["jout"].items()}
+    want = c["vjp"](dict(zeros, throughput=cot["throughput"], radiance=cot["radiance"]))
+    data = scene.atlas.data if hasattr(scene.atlas, "sizes") else scene.atlas
+    plan = tnee.nee_plan(scene)
+
+    def backward(cots):
+        g_tp, g_rad = (torch.from_numpy(cots[k]) for k in ("throughput", "radiance"))
+        n_tp, n_rad, n_alb, n_atlas, n_emit = tnee.nee_backward_reference(
+            out.albedo, st["throughput"], nres, data, scene.materials.emittance, scene.sun.emittance, plan, g_rad)
+        k_tp, _, k_atlas, k_emit = tshade.shade_backward_reference(
+            out.albedo, st["throughput"], resid, scene.materials.emittance, tuple(data.shape), g_tp, n_rad, n_alb)
+        return k_atlas + n_atlas, k_emit + n_emit, k_tp + n_tp, n_rad, n_alb
+
+    got = backward(cot)
+    for label, g, w in zip(("atlas", "emittance", "throughput", "radiance"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-7, err_msg=f"{name}: {label}")
+    assert np.array_equal(got[2].numpy()[dead], cot["throughput"][dead])
+    assert np.array_equal(got[3].numpy()[dead], cot["radiance"][dead])
+    only_dead = {k: v * dead[:, None] for k, v in cot.items()}
+    d_atlas, d_emit, d_tp, d_rad, d_alb = backward(only_dead)
+    assert not d_atlas.any() and not d_emit.any() and not d_alb.any()
+    assert np.array_equal(d_tp.numpy(), only_dead["throughput"]) and np.array_equal(d_rad.numpy(), only_dead["radiance"])

@@ -196,6 +196,36 @@ def test_nee_module_runs_with_jax_blocked():
     assert os.path.exists(os.path.join(PORT, "ops", "nee.py"))  # among the sources the scan below reads
 
 
+_COMPACT = """
+import sys
+sys.modules["jax"] = None
+sys.modules["octree_pathtracing_tpu"] = None
+import torch
+from octree_pathtracing_tpu_torch.ops import compact
+g = torch.Generator().manual_seed(0)
+st = dict(origin=torch.rand((9, 3), generator=g), dir=torch.rand((9, 3), generator=g),
+          throughput=torch.rand((9, 3), generator=g), radiance=torch.rand((9, 3), generator=g),
+          active=torch.rand(9, generator=g) < 0.5, specular=torch.zeros(9, dtype=torch.bool),
+          cur_mat=torch.zeros(9, dtype=torch.int32))
+counts = torch.zeros(3, dtype=torch.int32)
+out, u = compact.compact(st, torch.rand((9, 3, 21), generator=g), 1, counts)
+n = int(st["active"].sum())
+assert int(counts[1]) == n and bool(out["active"][:n].all()) and not bool(out["active"][n:].any())
+assert torch.equal(compact.unpermute(out["radiance"], out["idx"]), st["radiance"])
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+print("live", n)
+"""
+
+
+def test_compact_module_runs_with_jax_blocked():
+    """``ops/compact.py`` (K5) imports and runs its plain versions on the
+    CPU with neither jax nor the JAX package importable."""
+    proc = subprocess.run([sys.executable, "-c", _COMPACT], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "live" in proc.stdout
+    assert os.path.exists(os.path.join(PORT, "ops", "compact.py"))  # among the sources the scan below reads
+
+
 def test_no_port_source_imports_jax():
     pattern = re.compile(
         r"^\s*(import\s+jax\b|from\s+jax\b"

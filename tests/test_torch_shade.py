@@ -199,7 +199,8 @@ def cases(tmp_path_factory):
         fn = _jax_shade_fn(jscene, jst, jnp.asarray(u), jres, is_first, may_scatter)
         primals = (texels, jscene.materials.emittance, jst["throughput"], jst["radiance"])
         (jout, jalb), vjp = jax.vjp(fn, *primals)
-        built[name] = dict(call=call, jout=jout, jalb=np.asarray(jalb), vjp=vjp, scene=scene)
+        built[name] = dict(call=call, jout=jout, jalb=np.asarray(jalb), vjp=vjp, scene=scene, jscene=jscene,
+                           st_np=st_np, u=u)
     return built
 
 
@@ -306,3 +307,86 @@ def test_shade_counts_no_launch_on_the_cpu(cases):
     out.albedo.sum().backward()
     assert texels.grad.abs().max() > 0
     assert (tshade.shade.launches, tshade.shade.backward_launches) == before
+
+
+# ---- dead lanes: since K5 compacts without shrinking the batch, every bounce
+# after the first shades its dead lanes too
+
+DEAD_CASES = ("terrain_glossy", "plant_field", "analytic", "world_pack")
+
+
+def _jax_hit(res):
+    return JaxHitResult(hit=jnp.asarray(res.hit.numpy()), t=jnp.asarray(res.t.numpy()),
+                        face_id=jnp.asarray(res.face_id.numpy()), uv=jnp.asarray(res.uv.numpy()),
+                        leaf_value=jnp.asarray(res.leaf_value.numpy().astype(np.uint32)),
+                        voxel_pos=jnp.asarray(res.voxel_pos.numpy()),
+                        voxel_size=jnp.asarray(res.voxel_size.numpy()), steps=jnp.int32(0))
+
+
+@pytest.fixture(scope="module")
+def dead_cases(cases):
+    """Per case the state of ``cases`` with a seeded ~60% of its lanes dead,
+    traversed as the bounce loop traverses it (a dead lane fetches nothing),
+    and the JAX ``_shade`` and its VJP with the same ``active``."""
+    built = {}
+    for i, name in enumerate(DEAD_CASES):
+        c = cases[name]
+        scene, jscene = c["scene"], dataclasses.replace(c["jscene"], sun_sampling=dataclasses.replace(
+            c["jscene"].sun_sampling, sun_sampling=False))
+        _, _, u, _, _, is_first, may_scatter = c["call"]
+        st_np = dict(c["st_np"], active=np.random.default_rng(300 + i).random(c["st_np"]["active"].shape[0]) >= 0.6)
+        st = {k: torch.from_numpy(v) for k, v in st_np.items()}
+        res = tpt._trace(scene, st["origin"], st["dir"], st["active"])
+        prim = tpt._prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
+        jst = {k: jnp.asarray(v) for k, v in st_np.items()}
+        texels = jscene.atlas.data if isinstance(jscene.atlas, JaxAtlas) else jscene.atlas
+        fn = _jax_shade_fn(jscene, jst, jnp.asarray(c["u"]), _jax_hit(res), is_first, may_scatter)
+        (jout, jalb), vjp = jax.vjp(fn, texels, jscene.materials.emittance, jst["throughput"], jst["radiance"])
+        built[name] = dict(call=(scene, st, u, res, prim, is_first, may_scatter), jout=jout, jalb=np.asarray(jalb),
+                           vjp=vjp, dead=~st_np["active"])
+    return built
+
+
+@pytest.mark.parametrize("name", DEAD_CASES)
+def test_dead_lanes_pass_through_the_shading(dead_cases, name):
+    """Forward: the twin against the JAX ``_shade`` with the same ``active``,
+    and every state field of a dead lane bit-unchanged, with no diffuse
+    hand-off.  Backward: the twin against ``jax.vjp``; a dead lane passes its
+    throughput and radiance cotangents through unchanged, and cotangents on
+    the dead lanes alone add nothing to the atlas or the emittance."""
+    c = dead_cases[name]
+    scene, st = c["call"][0], c["call"][1]
+    dead = c["dead"]
+    assert 0.5 < dead.mean() < 0.7
+    out, resid = tshade.shade_reference(*c["call"])
+    got = {k: v.numpy() for k, v in out.state.items()}
+    bad = _bad_lanes(got, c["jout"])
+    assert bad.sum() <= 2, (name, int(bad.sum()), np.flatnonzero(bad)[:5])
+    for k, v in out.state.items():
+        assert np.array_equal(v.numpy()[dead], st[k].numpy()[dead]), k
+    assert not out.diffuse_on.numpy()[dead].any() and (resid.ints[:, 2].numpy()[dead] == 0).all()
+    # the backward on one-signed cotangents over the lanes whose forward agrees, as the twin's test takes it
+    rng = np.random.default_rng(27)
+    b = dead.shape[0]
+    cot = {k: (rng.uniform(0.5, 1.5, size=(b, n)) * ~bad[:, None]).astype(np.float32)
+           for k, n in (("throughput", 3), ("radiance", 3), ("albedo", 4))}
+    cot["albedo"][dead] = 0.0  # what the next-event half hands a dead lane
+    zeros = {k: np.zeros(np.shape(v), np.asarray(v).dtype) if np.asarray(v).dtype.kind == "f"
+             else np.zeros(np.shape(v), jax.dtypes.float0) for k, v in c["jout"].items()}
+    want = c["vjp"]((dict(zeros, throughput=cot["throughput"], radiance=cot["radiance"]), cot["albedo"]))
+    data = scene.atlas.data if isinstance(scene.atlas, Atlas) else scene.atlas
+
+    def backward(cots):
+        return tshade.shade_backward_reference(out.albedo, st["throughput"], resid, scene.materials.emittance,
+                                               tuple(data.shape), *(torch.from_numpy(cots[k]) for k in
+                                                                    ("throughput", "radiance", "albedo")))
+
+    got = backward(cot)
+    for label, g, w in zip(("atlas", "emittance", "throughput", "radiance"), (got[2], got[3], got[0], got[1]), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-7, err_msg=f"{name}: {label}")
+    for label, g in (("throughput", got[0]), ("radiance", got[1])):
+        assert np.array_equal(g.numpy()[dead], cot[label][dead]), label
+    only_dead = {k: v * dead[:, None] for k, v in cot.items()}
+    d_tp, d_rad, d_atlas, d_emit = backward(only_dead)
+    assert not d_atlas.any() and not d_emit.any()
+    assert np.array_equal(d_tp.numpy(), only_dead["throughput"]) and np.array_equal(d_rad.numpy(), only_dead["radiance"])
