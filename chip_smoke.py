@@ -132,7 +132,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    fwd+bwd under ``torch.cuda.set_sync_debug_mode("error")``: nothing in a
    frame reads the card from the host; then the headline forward frame
    captured in a CUDA graph and replayed, bit-equal to the eager frame,
-   its replay ms (the frame's device floor) beside phase 5's eager ms;
+   its replay ms (the frame's device floor) beside phase 5's eager ms; and
+   config 3's fwd+bwd frame (``nee_backward``'s cooperative launch on every
+   bounce) captured whole and replayed with its outputs spoiled: the
+   radiance bit-equal to the eager frame's, the gradients within rtol 1e-5
+   / atol 1e-7, its replay ms beside the eager step's;
 6b. bench.py's NEE line (terrain, HIGH_QUALITY: the binary shadow walk), its
    cutout line (cutout, HIGH_QUALITY: K3s) and BASELINE's config 3 (terrain
    with its glowstone emitters, HIGH_QUALITY + ``EmitterSampling.ONE``),
@@ -813,6 +817,7 @@ def main() -> int:
         compact_calls,
         device_ms,
         fetch_stats,
+        host_ms,
         nee_calls,
         nonzero_route,
         profile_launches,
@@ -1030,6 +1035,12 @@ def main() -> int:
                 f"{c['smem_bytes']} bytes of shared memory per block, {c['resident_blocks_per_sm']} resident "
                 f"blocks per SM on {c['sms']} SMs; "
                 + (f"tables read from {c['tables']}" if name == "forward" else f"sums {c['sums']}"))
+    for lanes in (WIDTH * HEIGHT, 8 * 512 * 512):
+        c = nee_mod.backward_config(lanes, tuple(k4_probe.atlas.shape), k4_probe.materials.emittance.numel(), dev)
+        log(f"  nee_backward on {lanes} terrain lanes: a {c['launch']} launch of {c['blocks']} blocks of "
+            f"{c['threads']} threads ({c['resident_blocks_per_sm']} resident blocks per SM on {c['sms']} SMs), "
+            f"the lanes grid-stride, then a grid-wide barrier and the dense float32 gradients from the card's "
+            f"float64 scratch")
     log(f"  the traversal's stack: {(DEPTH + 1) * 8} bytes of dynamic shared memory per thread at depth {DEPTH} "
         f"(depth + 1 rows of parent and t_max), beside the registers and stack frame ptxas reports")
 
@@ -1274,6 +1285,10 @@ def main() -> int:
             f"{chk['resolve']['residual']['differ']}; backward max abs err {chk['backward_err']!r}")
         for name, (kernel, plain) in fns.items():
             t = both(kernel)
+            if name == "nee_backward":  # the kernel leaves its float64 sums zero, eager and replayed
+                torch.cuda.synchronize()
+                if not all(bool((x == 0).all()) for x in nee_mod._SCRATCH[dev.index]):
+                    raise AssertionError(f"nee_backward left its scratch nonzero on the {line} line")
             row = dict(lanes=lanes, faces=c.plan.faces, cast=cast, max_abs_err=errs[name], ms=t["call_ms"],
                        device_ms=t["device_ms"], plain_ms=call_ms(plain, 5), bound_ms=bounds[name][0],
                        bound_by=bounds[name][1], library_ms=None)
@@ -1915,6 +1930,53 @@ def main() -> int:
         f"{[round(t, 4) for t in graph_runs]}) beside {frame_ms!r} ms eager (phase 5): the device busy "
         f"{graph_ms / frame_ms:.3f} of the eager frame; the replay bit-equal to the eager frame [{card}]")
     del graph, replayed, eager
+
+    # config 3's fwd+bwd frame (the sun and one-emitter NEE, nee_backward's
+    # cooperative launch on every bounce) captured whole and replayed
+    c3 = high_quality(scene, "one")
+    c3_p = {"atlas": c3.atlas.detach().clone().requires_grad_(True),
+            "emittance": c3.materials.emittance.detach().clone().requires_grad_(True)}
+
+    def c3_step():
+        rad = trace_paths(apply_params(c3, c3_p), fo, fd, fu)
+        rad.mean().backward()
+        return rad
+
+    c3_eager = c3_step().detach().clone()
+    c3_grads = {k: v.grad.clone() for k, v in c3_p.items()}
+    fwdbwd_ms = statistics.median(host_ms(lambda: fwdbwd(c3, fo, fd, fu)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture asks
+        for v in c3_p.values():
+            v.grad = None
+        c3_step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for v in c3_p.values():
+        v.grad = None
+    reset_counts()
+    c3_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(c3_graph):
+        c3_rad = c3_step()
+    read_counts("the captured config-3 fwd+bwd frame", ("esvo_traverse", "shade", "shade_backward") + NEE_KERNELS
+                + K5_KERNELS)
+    c3_rad.detach().fill_(float("nan"))  # spoiled: the replays must write them again
+    for v in c3_p.values():
+        v.grad.fill_(float("nan"))
+    c3_runs = replay_ms(c3_graph)
+    torch.cuda.synchronize()
+    if not torch.equal(c3_rad.detach(), c3_eager):
+        raise AssertionError("the replayed config-3 fwd+bwd frame's radiance is not bit-equal to the eager frame's")
+    for k, v in c3_p.items():
+        torch.testing.assert_close(v.grad, c3_grads[k], rtol=1e-5, atol=1e-7,
+                                   msg=lambda m, k=k: f"the replayed config-3 fwd+bwd frame's {k} gradient: {m}")
+    c3_ms = statistics.median(c3_runs)
+    log(f"  config 3's fwd+bwd frame replayed from a CUDA graph: median {c3_ms!r} ms "
+        f"({[round(t, 4) for t in c3_runs]}) beside {fwdbwd_ms!r} ms eager: the device busy "
+        f"{c3_ms / fwdbwd_ms:.3f} of the eager step; the radiance bit-equal to the eager frame's, the gradients "
+        f"within rtol 1e-5 / atol 1e-7 [{card}]")
+    del c3_graph, c3_rad, c3_p, c3_grads, c3_eager
 
     # ---- 6b. bench.py's NEE and cutout lines and BASELINE's config 3
     log(f"phase 6b light sampling at bench.py's shapes [{card}]: emitters E = "

@@ -26,6 +26,18 @@
 // (its EPSILON^2 clamp), wi, the two cosines, whether it is cast, max_t and
 // the geometry scale; the emitter point's texel.  It writes the rays the
 // walks read (origin, direction, active, medium) and what nee_resolve reads.
+// K6 reads the lane's supercell row once: one left-to-right pass folds the
+// CDF, finds the pick (the first entry the CDF reaches: the row's weights
+// are >= 0, so the CDF never falls and that entry is the count of those it
+// passed) and the uniform pick's weight, with 16-byte loads where the row
+// allows (grid_vec: K a multiple of 4 and both tables 16-byte aligned, as
+// the wrapper checks).  A row holds distinct emitters
+// (models/emitters.build_spatial_grid), so the pick's own weight is its
+// membership weight.  Measured and dropped (PERF.md): the row staged in
+// shared memory once for the lanes of a warp that share a supercell
+// (__match_any_sync; twice as slow at K = 8), and the rays' 12-byte rows
+// staged through shared memory and written as the warp's consecutive
+// words (no faster than each lane's own stores).
 //
 // The walks between the two are the existing kernels, one call each for
 // all faces: K1 / K2 on shadow_binary scenes, K3s (mode 3 of traversal.cu,
@@ -43,20 +55,31 @@
 // nee_backward, per lane: from the radiance cotangent, the throughput's
 // and the shading point's albedo's gradients (the albedo's reach the atlas
 // through K4's backward); the blockers' rgba and the emitter's rgb are
-// atomicAdd-ed into the one dense atlas gradient, the emitter's emission
-// into the emittance's.  It re-reads the texels the residual names and
-// walks nothing again.  The two sums are float64: under ALL a bounce adds
-// 3 E terms per lane, ~10^7 onto one material, and a float32 sum in the
+// summed into the atlas gradient, the emitter's emission into the
+// emittance's.  It re-reads the texels the residual names and walks
+// nothing again.  The two sums are float64: under ALL a bounce adds 3 E
+// terms per lane, ~10^7 onto one material, and a float32 sum in the
 // schedule's order drifts from any other order by ~1e-4 relative; in
-// float64 every order agrees to the float32 result.
+// float64 every order agrees to the float32 result.  One launch per
+// bounce: a cooperative grid of at most the card's resident blocks walks
+// the lanes; each warp combines its lanes that name the same texel (or
+// material) before one float64 atomicAdd per channel into a per-card
+// scratch that is zero between calls; after a grid-wide barrier the same
+// grid writes the dense float32 gradients from the scratch and zeroes it
+// again.  So no fill and no conversion kernel runs around it, and it
+// captures in a CUDA graph.  Measured (PERF.md): a grid of one block per SM
+// lost to one block per 128 lanes; two plain launches (the sums, then the
+// sweep) took 0.0006-0.0013 ms less on the device than the barrier, for a
+// second device activity a bounce.
 //
 // What bounds them: bytes.  Per lane and face nee_setup writes 41 bytes of
 // rays and reads a few words of the hand-off, the uniforms and tables that
-// stay in L2 (the supercell row, 64 bytes); nee_resolve reads the walk's
-// record (up to 65 bytes) and 1-6 texels; the arithmetic is a few dozen
-// operations per face (sinf / cosf and two sqrtf on the sun face), far
-// below the card's float32 rate.  They are written for a few launches in
-// place of thousands, not yet for that bound.
+// stay in L2 (the supercell row, 8 bytes an entry); nee_resolve reads the
+// walk's record (up to 65 bytes) and 1-6 texels; nee_backward the residual
+// (36 bytes a cast face), the texels and the dense gradients once; the
+// arithmetic is a few dozen operations per face (sinf / cosf and two sqrtf
+// on the sun face), far below the card's float32 rate.  At 65,536 lanes
+// each is a few microseconds, near a launch's floor.
 //
 // Parity with the plain versions on the card: built with -fmad=false, every
 // operation in the plain version's order, with PyTorch's rounding rules on
@@ -68,9 +91,12 @@
 // them; a sum with one nonzero term (the pdf's membership row, the face
 // weight, the hi test) is that term in any order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "torch_rounding.cuh"
 
@@ -102,7 +128,14 @@
 #define EM_ONE_BLOCK 2
 #define EM_ALL 3
 
+#define MAX_GRID_K 64  // the widest supercell row (ops/nee.MAX_GRID_K)
+
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 128;
+constexpr int kBwdThreads = 128;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 struct NeeTables {
   const float* ior;
@@ -129,6 +162,7 @@ struct NeeTables {
   const int* grid_idx;  // (C, K) supercell rows; null: the uniform pick
   const float* grid_w;
   int n_emit, grid_k, grid_side;
+  int grid_vec;  // the rows read as 16-byte vectors (K % 4 == 0, both tables 16-byte aligned)
   // the pick's Python scalars, rounded as the card's torch rounds them
   float cell_offset;    // 0.01 * cell_size
   float inv_cell;       // 1 / cell_size
@@ -144,14 +178,11 @@ struct NeeFlags {
   float f_sub;  // the subsurface chance
 };
 
-struct SetupIn {  // K4's hand-off and the lane's state
-  const float* hitpoint;
-  const float* normal;
-  const int* mat;
-  const uint8_t* diffuse_on;
-  const int* cur_mat;
-  const float* u;
-  long long u_stride;
+// nee_setup's slot array (ops/nee.SETUP_SLOTS): the hand-off and the lane's
+// state, the uniforms' row stride, then the outputs (ops/nee.NeeRays)
+enum SetupSlot {
+  S_HITPOINT, S_NORMAL, S_MAT, S_DIFFUSE_ON, S_CUR_MAT, S_U, S_U_STRIDE,
+  S_ORIGIN, S_DIR, S_MAX_T, S_SCALE, S_ACTIVE, S_OUT_CUR_MAT, S_E_TEXEL, S_E_MAT, N_SETUP_SLOTS
 };
 
 struct Rays {  // ops/nee.NeeRays, (F * B) rows
@@ -163,6 +194,20 @@ struct Rays {  // ops/nee.NeeRays, (F * B) rows
   int* cur_mat;
   int* e_texel;
   int* e_mat;
+};
+
+struct SetupParams {
+  NeeTables tb;
+  NeeFlags fl;
+  const float* hitpoint;
+  const float* normal;
+  const int* mat;
+  const uint8_t* diffuse_on;
+  const int* cur_mat;
+  const float* u;
+  long long u_stride;
+  Rays out;
+  int n;
 };
 
 struct Walk {  // the binary walk's first hit or the stateful walk's record, and K7's hit
@@ -190,6 +235,32 @@ struct ResolveIn {
   long long throughput_stride, radiance_stride;
 };
 
+// nee_backward's slot array (ops/nee.BACKWARD_SLOTS): a null gradient is
+// not wanted, and neither is its scratch
+enum BackwardSlot {
+  B_ATLAS, B_EMITTANCE, B_SUN_EMITTANCE, B_G_RADIANCE, B_ALBEDO, B_THROUGHPUT, B_RESID, B_SCALE,
+  B_D_THROUGHPUT, B_D_ALBEDO, B_D_ATLAS, B_D_EMITTANCE, B_SUM_ATLAS, B_SUM_EMITTANCE, N_BACKWARD_SLOTS
+};
+
+struct BackwardParams {
+  const float* atlas;
+  const float* emittance;
+  const float* sun_emittance;
+  const float* g_rad;
+  const float* albedo;
+  const float* throughput;
+  const int* resid;
+  const float* scales;
+  float* d_tp;
+  float* d_alb;
+  float* d_atlas;  // (T * H * W * 4) float32, written whole
+  float* d_emit;   // (M,)
+  double* sum_atlas;  // the per-card scratch: zero on entry, zero again on exit
+  double* sum_emit;
+  long long n_texels;
+  int n_emit, n, sun, em_mode, faces;
+};
+
 // ops/texture.texel_index: nearest texel with the clamp and the v-flip
 __device__ __forceinline__ int texel_of(const NeeTables& tb, int mat, float u, float v) {
   int layer = __ldg(tb.texture_index + mat);
@@ -207,88 +278,134 @@ __device__ __forceinline__ int texel_of(const NeeTables& tb, int mat, float u, f
   return (layer * tb.atlas_h + tj) * tb.atlas_w + ti;
 }
 
-__device__ __forceinline__ float4 texel_rgba(const NeeTables& tb, int texel) {
-  return __ldg(reinterpret_cast<const float4*>(tb.atlas) + texel);
+__device__ __forceinline__ float4 texel4(const float* atlas, int texel) {
+  return __ldg(reinterpret_cast<const float4*>(atlas) + texel);
 }
 
-__device__ __forceinline__ void put_ray(const Rays& out, long long r, const float o[3], const float d[3],
-                                        float max_t, float scale, bool on, int cm, int e_texel, int e_mat) {
-  for (int c = 0; c < 3; ++c) {
-    out.origin[3 * r + c] = o[c];
-    out.dir[3 * r + c] = d[c];
-  }
-  out.max_t[r] = max_t;
-  out.scale[r] = scale;
-  out.active[r] = on;
-  out.cur_mat[r] = cm;
-  out.e_texel[r] = e_texel;
-  out.e_mat[r] = e_mat;
+__device__ __forceinline__ float4 texel_rgba(const NeeTables& tb, int texel) { return texel4(tb.atlas, texel); }
+
+// ---- nee_setup
+
+// Where a lane stands: its index, and whether it is in the batch.  Every
+// lane of a warp runs the whole kernel; one past the batch reads lane 0's
+// inputs and stores nothing (measured faster than returning early: PERF.md).
+struct Lane {
+  long long i;
+  bool valid;
+};
+
+__device__ __forceinline__ void put_ray(const SetupParams& p, const Lane& ln, long long f, const float o[3],
+                                        const float d[3], float max_t, float scale, bool on, int cm, int e_texel,
+                                        int e_mat) {
+  if (!ln.valid) return;
+  const long long r = f * p.n + ln.i;
+  for (int c = 0; c < 3; ++c) p.out.origin[3 * r + c] = o[c];
+  for (int c = 0; c < 3; ++c) p.out.dir[3 * r + c] = d[c];
+  p.out.max_t[r] = max_t;
+  p.out.scale[r] = scale;
+  p.out.active[r] = on;
+  p.out.cur_mat[r] = cm;
+  p.out.e_texel[r] = e_texel;
+  p.out.e_mat[r] = e_mat;
 }
 
 // ops/nee.nee_setup_reference's emitter face: the shadow ray from the
 // (masked) shading point p toward the point q of outward normal ne
-__device__ void emitter_face(const NeeTables& tb, const Rays& out, long long r, const float p[3],
-                             const float n[3], bool don, int cm, const float q[3], const float ne[3],
-                             int mat_e, float eu, float ev, float inv_pdf) {
+__device__ void emitter_face(const SetupParams& p, const Lane& ln, long long f, const float pt[3], const float n[3],
+                             bool don, int cm, const float q[3], const float ne[3], int mat_e, float eu, float ev,
+                             float inv_pdf) {
   float to_q[3], wi[3], o[3];
-  for (int c = 0; c < 3; ++c) to_q[c] = q[c] - p[c];
+  for (int c = 0; c < 3; ++c) to_q[c] = q[c] - pt[c];
   float dist = sqrtf(clamp_min(sum3(to_q[0] * to_q[0], to_q[1] * to_q[1], to_q[2] * to_q[2]), EPS2_F));
   for (int c = 0; c < 3; ++c) wi[c] = to_q[c] / dist;
   float cos_s = sum3(wi[0] * n[0], wi[1] * n[1], wi[2] * n[2]);
   float cos_e = sum3(-wi[0] * ne[0], -wi[1] * ne[1], -wi[2] * ne[2]);
   bool on = don && cos_s > 0.0f && cos_e > 0.0f;
   float geom = ((cos_s * cos_e) / clamp_min(dist * dist, EPS_F)) * INV_PI_F;
-  for (int c = 0; c < 3; ++c) o[c] = p[c] + wi[c] * OFFSET_F;
-  put_ray(out, r, o, wi, dist * MAX_T_FRAC, geom * inv_pdf, on, cm, texel_of(tb, mat_e, eu, ev), mat_e);
+  for (int c = 0; c < 3; ++c) o[c] = pt[c] + wi[c] * OFFSET_F;
+  put_ray(p, ln, f, o, wi, dist * MAX_T_FRAC, geom * inv_pdf, on, cm, texel_of(p.tb, mat_e, eu, ev), mat_e);
+}
+
+// One row's pass, left to right: the CDF fold, the first entry it reaches
+// (the pick), and the weight of the uniform pick idx_u.
+struct RowFold {
+  float cdf, w_u, w_s, last_w;
+  int idx_s, last_id;
+  bool found;
+};
+
+__device__ __forceinline__ void fold_entry(RowFold& r, int m, int id, float w, float u_s, int idx_u) {
+  r.cdf = m == 0 ? w : r.cdf + w;
+  if (!(u_s > r.cdf) && !r.found) {
+    r.found = true;
+    r.idx_s = id;
+    r.w_s = 0.0f + w;
+  }
+  if (id == idx_u) r.w_u = r.w_u + w;
+  r.last_id = id;
+  r.last_w = w;
+}
+
+__device__ __forceinline__ void fold_row(RowFold& r, const int* gi, const float* gw, int k, bool vec, float u_s,
+                                         int idx_u) {
+  if (vec) {
+    for (int m = 0; m < k; m += 4) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(gi + m));
+      const float4 w = __ldg(reinterpret_cast<const float4*>(gw + m));
+      fold_entry(r, m, a.x, w.x, u_s, idx_u);
+      fold_entry(r, m + 1, a.y, w.y, u_s, idx_u);
+      fold_entry(r, m + 2, a.z, w.z, u_s, idx_u);
+      fold_entry(r, m + 3, a.w, w.w, u_s, idx_u);
+    }
+  } else {
+    for (int m = 0; m < k; ++m) fold_entry(r, m, __ldg(gi + m), __ldg(gw + m), u_s, idx_u);
+  }
 }
 
 // models/emitters._spatial_pick: (idx, 1 / p_pick) for the point pc
-__device__ int spatial_pick(const NeeTables& tb, const float pc[3], float u_pick, float* pick_inv) {
-  int e = tb.n_emit;
+__device__ int spatial_pick(const NeeTables& tb, bool valid, const float pc[3], float u_pick, float* pick_inv) {
+  const int e = tb.n_emit;
   if (tb.grid_idx == nullptr) {
     *pick_inv = (float)e;
     return min((int)(u_pick * (float)e), e - 1);
   }
-  int g = tb.grid_side, k = tb.grid_k;
+  const int g = tb.grid_side, k = tb.grid_k;
   int cell[3];
   for (int c = 0; c < 3; ++c) cell[c] = min(max((int)(pc[c] * tb.inv_cell), 0), g - 1);
-  long long row = (long long)((cell[0] * g + cell[1]) * g + cell[2]) * k;
-  const int* gi = tb.grid_idx + row;
-  const float* gw = tb.grid_w + row;
-  bool uni = u_pick < tb.lam;
-  float u_u = clampf(u_pick * tb.inv_lam, 0.0f, PICK_MAX);
-  int idx_u = min((int)(u_u * (float)e), e - 1);
-  float u_s = clampf((u_pick - tb.lam) * tb.inv_one_m_lam, 0.0f, PICK_MAX);
-  // (u_s > cdf).sum over the left-to-right fold of the row's weights
-  float cdf = 0.0f;
-  int j = 0;
-  for (int m = 0; m < k; ++m) {
-    float w = __ldg(gw + m);
-    cdf = m == 0 ? w : cdf + w;
-    j += u_s > cdf ? 1 : 0;
+  const long long base = (long long)((cell[0] * g + cell[1]) * g + cell[2]) * k;
+  const bool uni = u_pick < tb.lam;
+  const float u_u = clampf(u_pick * tb.inv_lam, 0.0f, PICK_MAX);
+  const int idx_u = min((int)(u_u * (float)e), e - 1);
+  const float u_s = clampf((u_pick - tb.lam) * tb.inv_one_m_lam, 0.0f, PICK_MAX);
+  RowFold r{0.0f, 0.0f, 0.0f, 0.0f, 0, 0, false};
+  if (valid) fold_row(r, tb.grid_idx + base, tb.grid_w + base, k, tb.grid_vec != 0, u_s, idx_u);
+  if (!r.found) {  // the CDF never reached u_s: the row's last entry
+    r.idx_s = r.last_id;
+    r.w_s = 0.0f + r.last_w;
   }
-  j = min(j, k - 1);
-  int idx = uni ? idx_u : __ldg(gi + j);
-  float w_match = 0.0f;  // the row's weight of idx: at most one entry matches
-  for (int m = 0; m < k; ++m)
-    if (__ldg(gi + m) == idx) w_match = w_match + __ldg(gw + m);
-  float p_pick = w_match * tb.one_m_lam + tb.lam_over_e;
+  const int idx = uni ? idx_u : r.idx_s;
+  const float w_match = uni ? r.w_u : r.w_s;  // the row's weight of idx: at most one entry matches
+  const float p_pick = w_match * tb.one_m_lam + tb.lam_over_e;
   *pick_inv = 1.0f / p_pick;
   return idx;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    nee_setup_kernel(int n, NeeTables tb, SetupIn in, Rays out, NeeFlags fl) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__global__ void __launch_bounds__(kThreads) nee_setup_kernel(const __grid_constant__ SetupParams p) {
+  const NeeTables& tb = p.tb;
+  const NeeFlags& fl = p.fl;
+  Lane ln;
+  ln.i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  ln.valid = ln.i < p.n;
+  if (ln.i - (threadIdx.x & 31) >= p.n) return;  // the whole warp lies past the batch
+  const long long li = ln.valid ? ln.i : 0;
   float hp[3], nrm[3];
   for (int c = 0; c < 3; ++c) {
-    hp[c] = in.hitpoint[3 * i + c];
-    nrm[c] = in.normal[3 * i + c];
+    hp[c] = p.hitpoint[3 * li + c];
+    nrm[c] = p.normal[3 * li + c];
   }
-  bool don = in.diffuse_on[i] != 0;
-  int cm = in.cur_mat[i];
-  const float* u = in.u + i * in.u_stride;
+  const bool don = p.diffuse_on[li] != 0;
+  const int cm = p.cur_mat[li];
+  const float* u = p.u + li * p.u_stride;
   long long f = 0;
 
   if (fl.sun) {  // models/sun.random_sun_direction, then the front and subsurface tests
@@ -301,32 +418,32 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 3; ++c) sd[c] = (__ldg(tb.su + c) * cp + __ldg(tb.sv + c) * sp) + __ldg(tb.sw + c) * cos_a;
     float cos_sun = sum3(sd[0] * nrm[0], sd[1] * nrm[1], sd[2] * nrm[2]);
     bool front = cos_sun > 0.0f;
-    bool sss = (__ldg(tb.flags + in.mat[i]) & FLAG_SUBSURFACE) != 0 && u[U_SUBSURFACE] < fl.f_sub;
+    bool sss = (__ldg(tb.flags + p.mat[li]) & FLAG_SUBSURFACE) != 0 && u[U_SUBSURFACE] < fl.f_sub;
     bool on = don && (front || sss);
     for (int c = 0; c < 3; ++c) {
       float so = front ? hp[c] : hp[c] - nrm[c] * OFFSET_F;
       o[c] = so + sd[c] * OFFSET_F;
     }
     float lum = fl.sun_luminosity ? 1.0f / __ldg(tb.luminosity) : 1.0f;
-    put_ray(out, i, o, sd, __int_as_float(0x7f800000), fabsf(cos_sun) * lum, on, cm, -1, -1);
+    put_ray(p, ln, 0, o, sd, __int_as_float(0x7f800000), fabsf(cos_sun) * lum, on, cm, -1, -1);
     f = 1;
   }
   if (fl.em_mode == EM_NONE) return;
 
   // a lane off the diffuse lobe samples from a finite stand-in point
-  float p[3];
-  for (int c = 0; c < 3; ++c) p[c] = don ? hp[c] : 0.0f;
+  float pt[3];
+  for (int c = 0; c < 3; ++c) pt[c] = don ? hp[c] : 0.0f;
   float u_pick = u[U_EM_PICK], u1 = u[U_EM1], u2 = u[U_EM2];
   if (fl.em_mode == EM_ONE) {  // models/emitters.sample_emitter_point
     float pc[3], pick_inv;
-    for (int c = 0; c < 3; ++c) pc[c] = p[c] + nrm[c] * tb.cell_offset;
-    int idx = spatial_pick(tb, pc, u_pick, &pick_inv);
+    for (int c = 0; c < 3; ++c) pc[c] = pt[c] + nrm[c] * tb.cell_offset;
+    int idx = spatial_pick(tb, ln.valid, pc, u_pick, &pick_inv);
     float size = __ldg(tb.e_size + idx);
     int mat_e = __ldg(tb.e_mat + idx);
     float pos[3], dpc[3], w[3];
     for (int c = 0; c < 3; ++c) {
       pos[c] = __ldg(tb.e_pos + 3 * idx + c);
-      dpc[c] = p[c] - (pos[c] + size * 0.5f);
+      dpc[c] = pt[c] - (pos[c] + size * 0.5f);
     }
     float dn = sqrtf(clamp_min((dpc[0] * dpc[0] + dpc[1] * dpc[1]) + dpc[2] * dpc[2], 1e-12f));
     for (int c = 0; c < 3; ++c) w[c] = fabsf(dpc[c]) / dn + 1e-6f;
@@ -346,24 +463,23 @@ __global__ void __launch_bounds__(kThreads)
       ne[c] = rel == 0 ? 2.0f * hi - 1.0f : 0.0f;
     }
     float inv_pdf = (((pick_inv * size) * size) * total) / w_a;
-    emitter_face(tb, out, f * n + i, p, nrm, don, cm, q, ne, mat_e, a, u2, inv_pdf);
+    emitter_face(p, ln, f, pt, nrm, don, cm, q, ne, mat_e, a, u2, inv_pdf);
     return;
   }
   // ONE_BLOCK: one uniformly picked emitter; ALL: every emitter.  Each sums
-  // its 3 toward faces (models/emitters.toward_face_sample)
-  int first = 0, last = tb.n_emit;
-  if (fl.em_mode == EM_ONE_BLOCK) {
-    first = min((int)(u_pick * (float)tb.n_emit), tb.n_emit - 1);
-    last = first + 1;
-  }
-  for (int e = first; e < last; ++e) {
+  // its 3 toward faces (models/emitters.toward_face_sample); every lane of
+  // a warp runs the same number of faces
+  const int picks = fl.em_mode == EM_ONE_BLOCK ? 1 : tb.n_emit;
+  const int chosen = min((int)(u_pick * (float)tb.n_emit), tb.n_emit - 1);
+  for (int k = 0; k < picks; ++k) {
+    const int e = fl.em_mode == EM_ONE_BLOCK ? chosen : k;
     float size = __ldg(tb.e_size + e);
     int mat_e = __ldg(tb.e_mat + e);
     float inv_pdf = fl.em_mode == EM_ONE_BLOCK ? ((float)tb.n_emit * size) * size : size * size;
     float pos[3];
     for (int c = 0; c < 3; ++c) pos[c] = __ldg(tb.e_pos + 3 * e + c);
     for (int axis = 0; axis < 3; ++axis, ++f) {
-      float p_ax = axis == 0 ? p[0] : (axis == 1 ? p[1] : p[2]);
+      float p_ax = axis == 0 ? pt[0] : (axis == 1 ? pt[1] : pt[2]);
       float pos_ax = axis == 0 ? pos[0] : (axis == 1 ? pos[1] : pos[2]);
       float hi = p_ax - (pos_ax + size * 0.5f) > 0.0f ? 1.0f : 0.0f;
       float q[3], ne[3];
@@ -373,10 +489,12 @@ __global__ void __launch_bounds__(kThreads)
         q[c] = pos[c] + coord;
         ne[c] = rel == 0 ? 2.0f * hi - 1.0f : 0.0f;
       }
-      emitter_face(tb, out, f * n + i, p, nrm, don, cm, q, ne, mat_e, u1, u2, inv_pdf);
+      emitter_face(p, ln, f, pt, nrm, don, cm, q, ne, mat_e, u1, u2, inv_pdf);
     }
   }
 }
+
+// ---- nee_resolve
 
 // One face's attenuation (ops/nee.attenuation_reference): rgb and w, and
 // the slots' texels (-1 where a slot did not attenuate) and strict zeros.
@@ -513,125 +631,270 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < 3; ++c) out_rad[3 * i + c] = rad[c];
 }
 
-// The backward of one bounce's next-event terms, per lane (ops/nee.py
-// `nee_backward_reference` written out): a null gradient is not wanted.
-__global__ void __launch_bounds__(kThreads)
-    nee_backward_kernel(int n, NeeTables tb, NeeFlags fl, const float* __restrict__ g_rad,
-                        const float* __restrict__ albedo, const float* __restrict__ throughput,
-                        const int* __restrict__ resid, const float* __restrict__ scales, float* __restrict__ d_tp,
-                        float* __restrict__ d_alb, double* __restrict__ d_atlas, double* __restrict__ d_emit) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float4 alb4 = reinterpret_cast<const float4*>(albedo)[i];
-  float alb[3] = {alb4.x, alb4.y, alb4.z};
-  float g[3], h[3], dt[3] = {0.0f, 0.0f, 0.0f}, da[3] = {0.0f, 0.0f, 0.0f}, acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int c = 0; c < 3; ++c) {
-    g[c] = g_rad[3 * i + c];
-    h[c] = g[c] * throughput[3 * i + c];
+// ---- nee_backward
+
+// The warp's lanes that hold one key (>= 0), summed by the first of them
+// in lane order, in float64, and added once per nonzero channel to
+// dst[STRIDE * key + c].  Every lane of the warp calls it; `vals` is the
+// warp's 128 words of shared memory.  A warp with no key skips it whole.
+template <int W, int STRIDE>
+__device__ __forceinline__ void warp_combined_add(int key, const float (&v)[W], double* dst, float* vals, int lane) {
+  if (__ballot_sync(kFullMask, key >= 0) == 0) return;
+  const unsigned peers = __match_any_sync(kFullMask, key);
+  for (int c = 0; c < W; ++c) vals[W * lane + c] = v[c];
+  __syncwarp();
+  if (key >= 0 && lane == __ffs(peers) - 1) {
+    double acc[W];
+    for (int c = 0; c < W; ++c) acc[c] = 0.0;
+    for (unsigned m = peers; m != 0; m &= m - 1) {
+      const int k = __ffs(m) - 1;
+      for (int c = 0; c < W; ++c) acc[c] += (double)vals[W * k + c];
+    }
+    for (int c = 0; c < W; ++c)
+      if (acc[c] != 0.0) atomicAdd(dst + (long long)STRIDE * key + c, acc[c]);
   }
-  for (int f = 0; f < fl.faces; ++f) {
-    const int* row = resid + ((long long)f * n + i) * RESID_INTS;
-    int code = row[0];
-    if (!(code & CODE_ON)) continue;
-    float scale = scales[(long long)f * n + i];
+  __syncwarp();
+}
+
+// One lane's gradients (ops/nee.py `nee_backward_reference` written out),
+// with the atlas's and the emittance's sums combined across the warp.
+// Every lane of the warp calls it; `valid` says whether lane i is in the batch.
+__device__ void backward_lane(const BackwardParams& p, long long i, bool valid, float* vals, int lane) {
+  float alb[3] = {0.0f, 0.0f, 0.0f}, g[3] = {0.0f, 0.0f, 0.0f}, h[3] = {0.0f, 0.0f, 0.0f};
+  float dt[3] = {0.0f, 0.0f, 0.0f}, da[3] = {0.0f, 0.0f, 0.0f}, acc[3] = {0.0f, 0.0f, 0.0f};
+  if (valid) {
+    const float4 alb4 = reinterpret_cast<const float4*>(p.albedo)[i];
+    alb[0] = alb4.x;
+    alb[1] = alb4.y;
+    alb[2] = alb4.z;
+    for (int c = 0; c < 3; ++c) {
+      g[c] = p.g_rad[3 * i + c];
+      h[c] = g[c] * p.throughput[3 * i + c];
+    }
+  }
+  for (int f = 0; f < p.faces; ++f) {
+    const int* row = p.resid + ((long long)f * p.n + i) * RESID_INTS;
+    const int code = valid ? row[0] : 0;
+    const bool on = (code & CODE_ON) != 0;
+    if (__ballot_sync(kFullMask, on) == 0) continue;  // no lane of the warp casts this face
+    int texels[N_SLOTS];
+    for (int s = 0; s < N_SLOTS; ++s) texels[s] = on ? row[1 + s] : -1;
+    const float scale = on ? p.scales[(long long)f * p.n + i] : 0.0f;
     // the chain's values before each slot, from the texels it read
     float att_pre[N_SLOTS + 1][3], w_pre[N_SLOTS + 1];
     for (int c = 0; c < 3; ++c) att_pre[0][c] = 1.0f;
     w_pre[0] = 1.0f;
 #pragma unroll
     for (int s = 0; s < N_SLOTS; ++s) {
-      int texel = row[1 + s];
       for (int c = 0; c < 3; ++c) att_pre[s + 1][c] = att_pre[s][c];
       w_pre[s + 1] = w_pre[s];
-      if (texel < 0) continue;
-      float4 a = texel_rgba(tb, texel);
-      float mult = 1.0f - a.w;
+      if (texels[s] < 0) continue;
+      const float4 a = texel4(p.atlas, texels[s]);
+      const float mult = 1.0f - a.w;
       att_pre[s + 1][0] = att_pre[s][0] * (a.x * a.w + mult);
       att_pre[s + 1][1] = att_pre[s][1] * (a.y * a.w + mult);
       att_pre[s + 1][2] = att_pre[s][2] * (a.z * a.w + mult);
       w_pre[s + 1] = (code >> (ZERO_SHIFT + s)) & 1 ? 0.0f : w_pre[s] * mult;
     }
     const float* att = att_pre[N_SLOTS];
-    float w = w_pre[N_SLOTS];
-    float d_att[3], d_w;
-    if (fl.sun && f == 0) {
-      float mult = scale * w;
-      float y[3];
-      for (int c = 0; c < 3; ++c) {
-        float e_c = __ldg(tb.sun_emittance + c);
-        y[c] = att[c] * mult;
-        dt[c] = dt[c] + g[c] * ((alb[c] * y[c]) * e_c);
-        float dx = h[c] * e_c;
-        da[c] = da[c] + dx * y[c];
-        float dy = dx * alb[c];
-        d_att[c] = dy * mult;
-        y[c] = dy * att[c];
+    const float w = w_pre[N_SLOTS];
+    float d_att[3] = {0.0f, 0.0f, 0.0f}, d_w = 0.0f;
+    if (p.sun && f == 0) {
+      if (on) {
+        const float mult = scale * w;
+        float y[3];
+        for (int c = 0; c < 3; ++c) {
+          const float e_c = __ldg(p.sun_emittance + c);
+          y[c] = att[c] * mult;
+          dt[c] = dt[c] + g[c] * ((alb[c] * y[c]) * e_c);
+          const float dx = h[c] * e_c;
+          da[c] = da[c] + dx * y[c];
+          const float dy = dx * alb[c];
+          d_att[c] = dy * mult;
+          y[c] = dy * att[c];
+        }
+        d_w = sum3(y[0], y[1], y[2]) * scale;
       }
-      d_w = sum3(y[0], y[1], y[2]) * scale;
     } else {
-      int e_texel = row[1 + N_SLOTS], e_mat = row[2 + N_SLOTS];
-      float4 ae4 = texel_rgba(tb, e_texel);
-      float ae[3] = {ae4.x, ae4.y, ae4.z};
-      float e = __ldg(tb.emittance + e_mat);
-      float s_ = scale * w;
-      float hx[3], dle_ae2[3];
-      for (int c = 0; c < 3; ++c) {
-        float le = (ae[c] * ae[c]) * e;
-        float y = alb[c] * le;
-        float x = y * att[c];
-        float contrib = x * s_;
-        acc[c] = fl.em_mode == EM_ONE ? contrib : acc[c] + contrib;
-        float dx = h[c] * s_;
-        float dy = dx * att[c];
-        d_att[c] = dx * y;
-        da[c] = da[c] + dy * le;
-        float dle = dy * alb[c];
-        hx[c] = h[c] * x;
-        dle_ae2[c] = dle * (ae[c] * ae[c]);
-        if (d_atlas != nullptr) atomicAdd(d_atlas + 4 * (long long)e_texel + c, (double)(2.0f * (dle * e) * ae[c]));
+      const int e_texel = on ? row[1 + N_SLOTS] : -1, e_mat = on ? row[2 + N_SLOTS] : -1;
+      float d_ae[3] = {0.0f, 0.0f, 0.0f}, d_e[1] = {0.0f};
+      if (on) {
+        const float4 ae4 = texel4(p.atlas, e_texel);
+        const float ae[3] = {ae4.x, ae4.y, ae4.z};
+        const float e = __ldg(p.emittance + e_mat);
+        const float s_ = scale * w;
+        float hx[3], dle_ae2[3];
+        for (int c = 0; c < 3; ++c) {
+          const float le = (ae[c] * ae[c]) * e;
+          const float y = alb[c] * le;
+          const float x = y * att[c];
+          const float contrib = x * s_;
+          acc[c] = p.em_mode == EM_ONE ? contrib : acc[c] + contrib;
+          const float dx = h[c] * s_;
+          const float dy = dx * att[c];
+          d_att[c] = dx * y;
+          da[c] = da[c] + dy * le;
+          const float dle = dy * alb[c];
+          hx[c] = h[c] * x;
+          dle_ae2[c] = dle * (ae[c] * ae[c]);
+          d_ae[c] = 2.0f * (dle * e) * ae[c];
+        }
+        d_w = sum3(hx[0], hx[1], hx[2]) * scale;
+        d_e[0] = sum3(dle_ae2[0], dle_ae2[1], dle_ae2[2]);
       }
-      d_w = sum3(hx[0], hx[1], hx[2]) * scale;
-      if (d_emit != nullptr) atomicAdd(d_emit + e_mat, (double)sum3(dle_ae2[0], dle_ae2[1], dle_ae2[2]));
+      if (p.sum_atlas != nullptr) warp_combined_add<3, 4>(e_texel, d_ae, p.sum_atlas, vals, lane);
+      if (p.sum_emit != nullptr) warp_combined_add<1, 1>(e_mat, d_e, p.sum_emit, vals, lane);
     }
     // back through the slots, last to first
 #pragma unroll
     for (int s = N_SLOTS - 1; s >= 0; --s) {
-      int texel = row[1 + s];
-      if (texel < 0) continue;
-      bool zero = (code >> (ZERO_SHIFT + s)) & 1;
-      float4 a4 = texel_rgba(tb, texel);
-      float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float mult = 1.0f - a[3];
-      float d_f[3], fa[3];
-      for (int c = 0; c < 3; ++c) {
-        d_f[c] = d_att[c] * att_pre[s][c];
-        d_att[c] = d_att[c] * (a[c] * a[3] + mult);
-        fa[c] = d_f[c] * a[c];
+      const int texel = texels[s];
+      float d_a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (texel >= 0) {
+        const bool zero = (code >> (ZERO_SHIFT + s)) & 1;
+        const float4 a4 = texel4(p.atlas, texel);
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float mult = 1.0f - a[3];
+        float d_f[3], fa[3];
+        for (int c = 0; c < 3; ++c) {
+          d_f[c] = d_att[c] * att_pre[s][c];
+          d_att[c] = d_att[c] * (a[c] * a[3] + mult);
+          fa[c] = d_f[c] * a[c];
+        }
+        const float d_m = zero ? 0.0f : d_w * w_pre[s];
+        d_w = zero ? 0.0f : d_w * mult;
+        for (int c = 0; c < 3; ++c) d_a[c] = d_f[c] * a[3];
+        d_a[3] = sum3(fa[0], fa[1], fa[2]) - (sum3(d_f[0], d_f[1], d_f[2]) + d_m);
       }
-      float d_m = zero ? 0.0f : d_w * w_pre[s];
-      d_w = zero ? 0.0f : d_w * mult;
-      if (d_atlas != nullptr) {
-        for (int c = 0; c < 3; ++c) atomicAdd(d_atlas + 4 * (long long)texel + c, (double)(d_f[c] * a[3]));
-        atomicAdd(d_atlas + 4 * (long long)texel + 3,
-                  (double)(sum3(fa[0], fa[1], fa[2]) - (sum3(d_f[0], d_f[1], d_f[2]) + d_m)));
-      }
+      if (p.sum_atlas != nullptr) warp_combined_add<4, 4>(texel, d_a, p.sum_atlas, vals, lane);
     }
   }
-  if (fl.em_mode != EM_NONE)
+  if (!valid) return;
+  if (p.em_mode != EM_NONE)
     for (int c = 0; c < 3; ++c) dt[c] = dt[c] + g[c] * acc[c];
-  if (d_tp != nullptr)
-    for (int c = 0; c < 3; ++c) d_tp[3 * i + c] = dt[c];
-  if (d_alb != nullptr) {
-    for (int c = 0; c < 3; ++c) d_alb[4 * i + c] = da[c];
-    d_alb[4 * i + 3] = 0.0f;
+  if (p.d_tp != nullptr)
+    for (int c = 0; c < 3; ++c) p.d_tp[3 * i + c] = dt[c];
+  if (p.d_alb != nullptr)
+    reinterpret_cast<float4*>(p.d_alb)[i] = make_float4(da[0], da[1], da[2], 0.0f);
+}
+
+// The lanes, grid-stride (every lane of a block in every round, so the
+// warps stay whole).
+__device__ __forceinline__ void backward_lanes(const BackwardParams& p, float* vals) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < p.n; base += stride) {
+    const long long i = base + threadIdx.x;
+    backward_lane(p, i, i < p.n, vals, lane);
   }
 }
 
-extern "C" int nee_setup(int n, const NeeTables* tables, const SetupIn* in, const Rays* rays,
-                         const NeeFlags* flags, void* stream) {
+// The dense float32 gradients from the float64 scratch, which is zeroed
+// behind them.
+__device__ __forceinline__ void backward_sweep(const BackwardParams& p) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p.sum_atlas != nullptr) {
+    double2* sum = reinterpret_cast<double2*>(p.sum_atlas);
+    for (long long k = t; k < p.n_texels; k += stride) {
+      const double2 lo = __ldcg(sum + 2 * k), hi = __ldcg(sum + 2 * k + 1);
+      reinterpret_cast<float4*>(p.d_atlas)[k] = make_float4((float)lo.x, (float)lo.y, (float)hi.x, (float)hi.y);
+      sum[2 * k] = make_double2(0.0, 0.0);
+      sum[2 * k + 1] = make_double2(0.0, 0.0);
+    }
+  }
+  if (p.sum_emit != nullptr) {
+    for (long long k = t; k < p.n_emit; k += stride) {
+      p.d_emit[k] = (float)__ldcg(p.sum_emit + k);
+      p.sum_emit[k] = 0.0;
+    }
+  }
+}
+
+// The backward of one bounce's next-event terms: the lanes, a grid-wide
+// barrier, then the sweep.  Launched cooperatively: the grid is at most the
+// card's resident blocks.
+__global__ void __launch_bounds__(kBwdThreads) nee_backward_kernel(const __grid_constant__ BackwardParams p) {
+  __shared__ float vals[kBwdThreads / 32][32 * 4];
+  backward_lanes(p, vals[threadIdx.x >> 5]);
+  if (p.sum_atlas == nullptr && p.sum_emit == nullptr) return;  // uniform over the grid
+  cg::this_grid().sync();
+  backward_sweep(p);
+}
+
+// ---- launch configuration
+
+static int card_sms(int dev, int* sms) {
+  static int per_device[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (per_device[dev] == 0) {
+    cudaError_t e = cudaDeviceGetAttribute(&per_device[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  *sms = per_device[dev];
+  return 0;
+}
+
+// nee_backward's cooperative grid on the current card: one block per
+// kBwdThreads lanes or texels, at most SMs x resident blocks.  `out`:
+// threads, blocks, resident blocks per SM, SMs.
+static int backward_config(int n, long long n_texels, int n_emit, int* out) {
+  static int resident[kMaxDevices];
+  static std::mutex mu;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int rc = card_sms(dev, &sms);
+  if (rc != 0) return rc;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (resident[dev] == 0) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[dev], nee_backward_kernel, kBwdThreads, 0);
+      if (e != cudaSuccess) return (int)e;
+      if (resident[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+  }
+  long long work = n;
+  if (n_texels > work) work = n_texels;
+  if (n_emit > work) work = n_emit;
+  const long long cap = (long long)sms * resident[dev];
+  long long blocks = (work + kBwdThreads - 1) / kBwdThreads;
+  blocks = blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
+  out[0] = kBwdThreads;
+  out[1] = (int)blocks;
+  out[2] = resident[dev];
+  out[3] = sms;
+  return 0;
+}
+
+// ---- entry points; each returns a cudaError_t
+
+// `slots`: the N_SETUP_SLOTS words of SetupSlot's order (pointers, the
+// uniforms' row stride).
+extern "C" int nee_setup(int n, const NeeTables* tables, const NeeFlags* flags, const void* const* slots,
+                         int n_slots, void* stream) {
+  if (n_slots != N_SETUP_SLOTS) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  nee_setup_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(n, *tables, *in, *rays,
-                                                                                         *flags);
+  SetupParams p;
+  p.tb = *tables;
+  p.fl = *flags;
+  p.hitpoint = (const float*)slots[S_HITPOINT];
+  p.normal = (const float*)slots[S_NORMAL];
+  p.mat = (const int*)slots[S_MAT];
+  p.diffuse_on = (const uint8_t*)slots[S_DIFFUSE_ON];
+  p.cur_mat = (const int*)slots[S_CUR_MAT];
+  p.u = (const float*)slots[S_U];
+  p.u_stride = (long long)(intptr_t)slots[S_U_STRIDE];
+  p.out.origin = (float*)slots[S_ORIGIN];
+  p.out.dir = (float*)slots[S_DIR];
+  p.out.max_t = (float*)slots[S_MAX_T];
+  p.out.scale = (float*)slots[S_SCALE];
+  p.out.active = (uint8_t*)slots[S_ACTIVE];
+  p.out.cur_mat = (int*)slots[S_OUT_CUR_MAT];
+  p.out.e_texel = (int*)slots[S_E_TEXEL];
+  p.out.e_mat = (int*)slots[S_E_MAT];
+  p.n = n;
+  nee_setup_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -643,14 +906,46 @@ extern "C" int nee_resolve(int n, const NeeTables* tables, const ResolveIn* in, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int nee_backward(int n, const NeeTables* tables, const NeeFlags* flags, const void* g_rad,
-                            const void* albedo, const void* throughput, const void* resid, const void* scales,
-                            void* d_tp, void* d_alb, void* d_atlas, void* d_emit, void* stream) {
-  if (n == 0) return 0;
-  nee_backward_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      n, *tables, *flags, (const float*)g_rad, (const float*)albedo, (const float*)throughput, (const int*)resid,
-      (const float*)scales, (float*)d_tp, (float*)d_alb, (double*)d_atlas, (double*)d_emit);
+// `slots`: the N_BACKWARD_SLOTS pointers of BackwardSlot's order.  The
+// scratch sums, where given, are zero and are left zero.
+extern "C" int nee_backward(int n, const void* const* slots, int n_slots, long long n_texels, int n_emit, int sun,
+                            int em_mode, int faces, void* stream) {
+  if (n_slots != N_BACKWARD_SLOTS) return (int)cudaErrorInvalidValue;
+  BackwardParams p;
+  p.atlas = (const float*)slots[B_ATLAS];
+  p.emittance = (const float*)slots[B_EMITTANCE];
+  p.sun_emittance = (const float*)slots[B_SUN_EMITTANCE];
+  p.g_rad = (const float*)slots[B_G_RADIANCE];
+  p.albedo = (const float*)slots[B_ALBEDO];
+  p.throughput = (const float*)slots[B_THROUGHPUT];
+  p.resid = (const int*)slots[B_RESID];
+  p.scales = (const float*)slots[B_SCALE];
+  p.d_tp = (float*)slots[B_D_THROUGHPUT];
+  p.d_alb = (float*)slots[B_D_ALBEDO];
+  p.d_atlas = (float*)slots[B_D_ATLAS];
+  p.d_emit = (float*)slots[B_D_EMITTANCE];
+  p.sum_atlas = p.d_atlas == nullptr ? nullptr : (double*)slots[B_SUM_ATLAS];
+  p.sum_emit = p.d_emit == nullptr ? nullptr : (double*)slots[B_SUM_EMITTANCE];
+  p.n_texels = n_texels;
+  p.n_emit = n_emit;
+  p.n = n;
+  p.sun = sun;
+  p.em_mode = em_mode;
+  p.faces = faces;
+  int cfg[4];
+  int rc = backward_config(n, n_texels, n_emit, cfg);
+  if (rc != 0) return rc;
+  void* args[] = {&p};
+  cudaError_t e = cudaLaunchCooperativeKernel((const void*)nee_backward_kernel, dim3(cfg[1]), dim3(cfg[0]), args, 0,
+                                              (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// `out`: nee_backward's threads, blocks, resident blocks per SM and SMs on
+// the current card for `n` lanes and the given gradient sizes.
+extern "C" int nee_backward_config(int n, long long n_texels, int n_emit, int* out) {
+  return backward_config(n, n_texels, n_emit, out);
 }
 
 extern "C" const char* nee_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

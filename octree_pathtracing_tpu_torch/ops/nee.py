@@ -43,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import operator
 from typing import NamedTuple
 
 import numpy as np
@@ -505,15 +506,16 @@ class _Call(NamedTuple):
 class NeeFunction(torch.autograd.Function):
     """The next-event half of one bounce as an autograd function of
     (throughput, radiance, albedo, atlas texels, emittance), the rest of the
-    call in ``call``; returns the new radiance (B, 3).  CUDA tensors run the
-    kernels of ``csrc/nee.cu`` and the walks' kernels, CPU tensors the plain
+    call in ``call`` (and, on the card, the scene's cached ``entry``);
+    returns the new radiance (B, 3).  CUDA tensors run the kernels of
+    ``csrc/nee.cu`` and the walks' kernels, CPU tensors the plain
     versions."""
 
     @staticmethod
-    def forward(ctx, throughput, radiance, albedo, atlas, emittance, call: _Call):
+    def forward(ctx, throughput, radiance, albedo, atlas, emittance, call: _Call, entry=None):
         want_grad = any(ctx.needs_input_grad[:5])
-        if throughput.is_cuda:
-            out, resid = _forward_cuda(call, throughput, radiance, albedo, want_grad)
+        if _uses_kernels(throughput):
+            out, resid = _forward_cuda(call, throughput, radiance, albedo, want_grad, entry)
         else:
             c = call
             rays = nee_setup_reference(c.scene, c.plan, c.cur_mat, c.u, c.hitpoint, c.normal, c.mat, c.diffuse_on)
@@ -531,50 +533,97 @@ class NeeFunction(torch.autograd.Function):
     def backward(ctx, g_radiance):
         need = ctx.needs_input_grad[:5]
         if g_radiance is None:
-            return (None,) * 6
+            return (None,) * 7
         albedo, throughput, ints, scale, atlas, emittance, sun_emittance = ctx.saved_tensors
         args = (albedo, throughput, NeeResidual(ints, scale), atlas, emittance, sun_emittance, ctx.plan,
                 g_radiance, need)
-        d = _backward_cuda(*args) if albedo.is_cuda else nee_backward_reference(*args)
-        return (*d, None)
+        d = _backward_cuda(*args) if _uses_kernels(albedo) else nee_backward_reference(*args)
+        return (*d, None, None)
 
 
-def _check_no_other_grad(scene: Scene, st: dict, u, out):
+def _uses_kernels(x) -> bool:
+    """Whether ``x``'s device runs the kernels of ``csrc/nee.cu`` (a CUDA
+    tensor) rather than the plain versions (a CPU tensor)."""
+    return x.is_cuda
+
+
+# the scenes' plans, the newest last: [(sun sampling, emitter sampling,
+# emitters enabled, the emitter table, plan)]
+_PLANS: list = []
+_PLANS_SIZE = 8
+
+
+def _scene_plan(scene: Scene) -> NeePlan | None:
+    """:func:`nee_plan` of ``scene``, computed once per scene (keyed by the
+    settings it reads and the emitter table's identity).  A plan that
+    raises is not kept, so it raises on every call."""
+    ss, mode, on, em = scene.sun_sampling.sun_sampling, scene.emitter_sampling, scene.emitters_enabled, scene.emitters
+    for e in reversed(_PLANS):
+        if e[3] is em and e[0] == ss and e[1] == mode and e[2] == on:
+            return e[4]
+    plan = nee_plan(scene)
+    _PLANS.append((ss, mode, on, em, plan))
+    del _PLANS[:-_PLANS_SIZE]
+    return plan
+
+
+def _scene_no_grad(scene: Scene) -> tuple:
+    """The scene's tensors the next-event terms read but do not
+    differentiate: (name, tensor) pairs."""
+    sun, em = scene.sun, scene.emitters
+    named = [("materials.ior", scene.materials.ior)]
+    named += [(f"sun.{f}", getattr(sun, f)) for f in ("su", "sv", "sw", "radius_cos", "emittance", "luminosity")]
+    if em is not None:
+        named += [(f"emitters.{f}", getattr(em, f)) for f in ("pos", "size", "grid_w") if getattr(em, f) is not None]
+    return tuple(named)
+
+
+def _check_no_other_grad(no_grad: tuple, u, out):
     """Raise where a tensor the next-event terms read, other than the
     throughput, the radiance, the albedo, the atlas texels and the
-    emittance, requires grad: nothing may be dropped silently."""
-    sun, em = scene.sun, scene.emitters
-    named = [("materials", "ior", scene.materials.ior)]
-    named += [("sun", f, getattr(sun, f)) for f in ("su", "sv", "sw", "radius_cos", "emittance", "luminosity")]
-    if em is not None:
-        named += [("emitters", f, getattr(em, f)) for f in ("pos", "size", "grid_w") if getattr(em, f) is not None]
-    named += [("", "uniforms", u), ("hand-off", "hitpoint", out.hitpoint), ("hand-off", "normal", out.normal)]
-    bad = [f"{group}.{f}" if group else f for group, f, x in named if x.requires_grad]
-    if bad:
-        raise ValueError(f"nee: the next-event kernels differentiate only the throughput, radiance, albedo, atlas "
-                         f"and emittance; {bad} require grad")
+    emittance, requires grad: nothing may be dropped silently.  One pass;
+    the names are built only to raise.  (``requires_grad`` can be set in
+    place, so this runs on every call.)"""
+    per_call = (("uniforms", u), ("hand-off.hitpoint", out.hitpoint), ("hand-off.normal", out.normal))
+    if not any(x.requires_grad for _, x in no_grad + per_call):
+        return
+    bad = [name for name, x in no_grad + per_call if x.requires_grad]
+    raise ValueError(f"nee: the next-event kernels differentiate only the throughput, radiance, albedo, atlas "
+                     f"and emittance; {bad} require grad")
 
 
 def nee(scene: Scene, st: dict, u, out):
     """The next-event half of one bounce (see the module's text): the new
     radiance (B, 3) from the incoming state ``st``, the uniforms ``u`` and
     K4's hand-off ``out`` (``ops/shade.Shaded``); K4's radiance where the
-    scene samples no light.  CUDA tensors launch ``nee_setup`` and
-    ``nee_resolve`` (counted in ``nee.setup_launches`` and
-    ``nee.resolve_launches``) around the walks, and ``nee_backward`` when
-    the gradient is taken (``nee.backward_launches``); CPU tensors run the
-    plain versions.  Any other device raises, and so does a tensor other
-    than the five differentiated that requires grad."""
-    plan = nee_plan(scene)
+    scene samples no light (one cached lookup of its plan).  CUDA tensors
+    launch ``nee_setup`` and ``nee_resolve`` (counted in
+    ``nee.setup_launches`` and ``nee.resolve_launches``) around the walks,
+    and ``nee_backward`` when the gradient is taken
+    (``nee.backward_launches``); CPU tensors run the plain versions.  Where
+    a gradient may be taken (grad mode on and one of the throughput, the
+    radiance, the albedo, the atlas texels and the emittance requiring
+    grad) the call goes through :class:`NeeFunction`; otherwise the CUDA
+    route launches the forward alone, with no autograd node and no
+    residual.  Any other device raises, and so does a tensor other than the
+    five differentiated that requires grad."""
+    plan = _scene_plan(scene)
     if plan is None:
         return out.state["radiance"]
-    dev = st["throughput"].device
+    tp = st["throughput"]
+    dev = tp.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"nee: unsupported device {dev}")
-    _check_no_other_grad(scene, st, u, out)
+    cuda = _uses_kernels(tp)
+    entry = _scene_entry(scene, plan) if cuda else None
+    _check_no_other_grad(_scene_no_grad(scene) if entry is None else entry.no_grad, u, out)
     call = _Call(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
-    return NeeFunction.apply(st["throughput"], out.state["radiance"], out.albedo, _atlas_data(scene.atlas),
-                             scene.materials.emittance, call)
+    rad, albedo = out.state["radiance"], out.albedo
+    atlas, emittance = _atlas_data(scene.atlas), scene.materials.emittance
+    if not cuda or (torch.is_grad_enabled() and (tp.requires_grad or rad.requires_grad or albedo.requires_grad
+                                                 or atlas.requires_grad or emittance.requires_grad)):
+        return NeeFunction.apply(tp, rad, albedo, atlas, emittance, call, entry)
+    return _forward_cuda(call, tp, rad, albedo, False, entry)[0]
 
 
 nee.setup_launches = 0
@@ -597,7 +646,7 @@ class _Tables(ctypes.Structure):
                    ("n_leaf_model", ctypes.c_int), ("face_material", ctypes.c_void_p)]
                 + [(f, ctypes.c_void_p) for f in ("su", "sv", "sw", "radius_cos", "sun_emittance", "luminosity",
                                                   "e_pos", "e_size", "e_mat", "grid_idx", "grid_w")]
-                + [(f, ctypes.c_int) for f in ("n_emit", "grid_k", "grid_side")]
+                + [(f, ctypes.c_int) for f in ("n_emit", "grid_k", "grid_side", "grid_vec")]
                 + [(f, ctypes.c_float) for f in ("cell_offset", "inv_cell", "lam", "inv_lam", "inv_one_m_lam",
                                                  "one_m_lam", "lam_over_e")])
 
@@ -607,13 +656,6 @@ class _Flags(ctypes.Structure):
 
     _fields_ = ([(f, ctypes.c_int) for f in ("sun", "em_mode", "faces", "strict", "sun_luminosity", "binary")]
                 + [("f_sub", ctypes.c_float)])
-
-
-class _SetupIn(ctypes.Structure):
-    """``struct SetupIn`` of ``csrc/nee.cu``."""
-
-    _fields_ = ([(f, ctypes.c_void_p) for f in ("hitpoint", "normal", "mat", "diffuse_on", "cur_mat", "u")]
-                + [("u_stride", ctypes.c_longlong)])
 
 
 class _Rays(ctypes.Structure):
@@ -637,6 +679,17 @@ class _ResolveIn(ctypes.Structure):
                 + [(f, ctypes.c_longlong) for f in ("throughput_stride", "radiance_stride")])
 
 
+# nee_setup's slot array (``enum SetupSlot``): the hand-off and the lane's
+# state, the uniforms' row stride, then the outputs in NeeRays' order
+SETUP_IN = ("hitpoint", "normal", "mat", "diffuse_on", "cur_mat", "u")
+SETUP_SLOTS = SETUP_IN + ("u_stride",) + NeeRays._fields
+SETUP_ARRAY = ctypes.c_void_p * len(SETUP_SLOTS)
+# nee_backward's slot array (``enum BackwardSlot``)
+BACKWARD_SLOTS = ("atlas", "emittance", "sun_emittance", "g_radiance", "albedo", "throughput", "resid", "scale",
+                  "d_throughput", "d_albedo", "d_atlas", "d_emittance", "sum_atlas", "sum_emittance")
+BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
+
+
 @functools.cache
 def _library():
     """The library of ``nee_setup``, ``nee_resolve`` and ``nee_backward``,
@@ -645,22 +698,35 @@ def _library():
 
     # no FMA contraction: the plain versions' eager torch rounds every multiply and add
     lib = load_library("nee", ("-fmad=false",))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.nee_setup.argtypes = [ci, ctypes.POINTER(_Tables), ctypes.POINTER(_SetupIn), ctypes.POINTER(_Rays),
-                              ctypes.POINTER(_Flags), vp]
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nee_setup.argtypes = [ci, vp, vp, vp, ci, vp]  # b, tables, flags, slots, slot count, stream
     lib.nee_resolve.argtypes = [ci, ctypes.POINTER(_Tables), ctypes.POINTER(_ResolveIn), ctypes.POINTER(_Rays),
-                                ctypes.POINTER(_Walk), ctypes.POINTER(_Flags), vp, vp, vp]
-    # b, tables, flags, the cotangent, 4 saved tensors, 4 gradients, the stream
-    lib.nee_backward.argtypes = [ci, ctypes.POINTER(_Tables), ctypes.POINTER(_Flags)] + [vp] * 10
-    for fn in (lib.nee_setup, lib.nee_resolve, lib.nee_backward):
+                                ctypes.POINTER(_Walk), vp, vp, vp, vp]
+    # b, slots, slot count, texels, materials, sun, emitter mode, faces, stream
+    lib.nee_backward.argtypes = [ci, vp, ci, ll, ci, ci, ci, ci, vp]
+    lib.nee_backward_config.argtypes = [ci, ll, ci, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.nee_setup, lib.nee_resolve, lib.nee_backward, lib.nee_backward_config):
         fn.restype = ci
     lib.nee_error_string.argtypes = [ci]
     lib.nee_error_string.restype = ctypes.c_char_p
     return lib
 
 
-# the newest scenes' tables, checked and packed: [(their tensors, the
-# scalars, their device, the _Tables struct)], the newest last
+class _SceneEntry(NamedTuple):
+    """A light-sampling scene's tables checked and packed once for all its
+    bounces, with its flags."""
+
+    tensors: tuple  # the table tensors (the cache's key, by identity)
+    settings: tuple  # the plan, the sampling settings and the emitter grid's scalars (the key, by value)
+    device: torch.device
+    tables: _Tables
+    tables_ref: object  # ctypes.byref(tables)
+    flags: _Flags
+    flags_ref: object  # ctypes.byref(flags)
+    no_grad: tuple  # (name, tensor) of the tables read but not differentiated
+
+
+# the newest scenes' entries, the newest last
 _TABLE_CACHE: list = []
 _TABLE_CACHE_SIZE = 4
 
@@ -673,16 +739,21 @@ def _table_tensors(scene: Scene) -> tuple:
             sun.luminosity, *((None,) * 5 if em is None else (em.pos, em.size, em.mat, em.grid_idx, em.grid_w)))
 
 
-def _scene_tables(scene: Scene):
-    """(device, :class:`_Tables`) of ``scene``'s tables, checked and packed
-    once for all its bounces (keyed by the tables' identity and the
-    emitter grid's scalars)."""
+def _settings(scene: Scene, plan: NeePlan) -> tuple:
+    strat, em = scene.sun_sampling, scene.emitters
+    grid = None if em is None else (em.grid_bits, em.cell_size, em.lam)
+    return (plan, strat.strict_direct_light, strat.sun_luminosity, scene.shadow_binary, scene.f_sub_surface, grid)
+
+
+def _scene_entry(scene: Scene, plan: NeePlan) -> _SceneEntry:
+    """``scene``'s :class:`_SceneEntry` under ``plan``.  The cache is keyed
+    by the identity of the table tensors and the value of the sampling
+    settings, and holds the tensors, so no key outlives them."""
     key = _table_tensors(scene)
-    em = scene.emitters
-    scalars = None if em is None else (em.grid_bits, em.cell_size, em.lam)
-    for tensors, sc, dev, tables in _TABLE_CACHE:
-        if sc == scalars and all(a is b for a, b in zip(tensors, key)):
-            return dev, tables
+    settings = _settings(scene, plan)
+    for entry in reversed(_TABLE_CACHE):
+        if entry.settings == settings and all(map(operator.is_, entry.tensors, key)):
+            return entry
     data, sizes, ior, emit, flags, tex, leaf_material, leaf_model, face_material = key[:9]
     f32, i32 = torch.float32, torch.int32
     if data.dtype != f32 or data.dim() != 4 or data.shape[3] != 4 or not data.is_contiguous():
@@ -702,7 +773,8 @@ def _scene_tables(scene: Scene):
     for name, x, shape in (("su", key[9], (3,)), ("sv", key[10], (3,)), ("sw", key[11], (3,)),
                            ("radius_cos", key[12], ()), ("emittance", key[13], (4,)), ("luminosity", key[14], ())):
         _dense(x, shape, f32, f"sun.{name}")
-    e_cnt, grid_k, grid_side, consts = 0, 0, 0, (0.0,) * 7
+    em = scene.emitters
+    e_cnt, grid_k, grid_side, grid_vec, consts = 0, 0, 0, 0, (0.0,) * 7
     if em is not None:
         e_cnt = em.count
         _dense(em.pos, (e_cnt, 3), f32, "emitters.pos")
@@ -717,6 +789,8 @@ def _scene_tables(scene: Scene):
                 raise ValueError(f"nee: supercell rows of {grid_k} emitters (the kernel takes 1 to {MAX_GRID_K})")
             _dense(em.grid_idx, (grid_side ** 3, grid_k), i32, "emitters.grid_idx")
             _dense(em.grid_w, (grid_side ** 3, grid_k), f32, "emitters.grid_w")
+            # the rows as 16-byte vectors where each row starts on a 16-byte boundary
+            grid_vec = int(grid_k % 4 == 0 and em.grid_idx.data_ptr() % 16 == 0 and em.grid_w.data_ptr() % 16 == 0)
         # the pick's Python scalars as the card's eager torch takes them: a
         # scalar operand rounded to float, a division by one a multiply by
         # the float reciprocal
@@ -731,33 +805,16 @@ def _scene_tables(scene: Scene):
         ior.data_ptr(), emit.data_ptr(), flags.data_ptr(), tex.data_ptr(), data.data_ptr(), _ptr(sizes),
         data.shape[1], data.shape[2], leaf_material.data_ptr(), leaf_material.shape[0], _ptr(leaf_model),
         0 if leaf_model is None else leaf_model.shape[0], _ptr(face_material),
-        *(x.data_ptr() for x in key[9:15]), *(_ptr(x) for x in key[15:]), e_cnt, grid_k, grid_side,
+        *(x.data_ptr() for x in key[9:15]), *(_ptr(x) for x in key[15:]), e_cnt, grid_k, grid_side, grid_vec,
         *(float(c) for c in consts))
-    _TABLE_CACHE.append((key, scalars, dev, tables))
-    del _TABLE_CACHE[:-_TABLE_CACHE_SIZE]
-    return dev, tables
-
-
-def _flags(scene: Scene, plan: NeePlan) -> _Flags:
     strat = scene.sun_sampling
-    return _Flags(int(plan.sun), EM_MODES.get(plan.emitters, 0), plan.faces, int(strat.strict_direct_light),
-                  int(strat.sun_luminosity), int(scene.shadow_binary), float(np.float32(scene.f_sub_surface)))
-
-
-def _carve(n_bytes: int, dev, parts):
-    """One allocation of ``n_bytes`` cut into the tensors ``parts`` names:
-    [(dtype, shape)], each at a 4-byte aligned offset."""
-    buf = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
-    out, off = [], 0
-    for dtype, shape in parts:
-        n = math.prod(shape) * dtype.itemsize
-        out.append(buf[off:off + n].view(dtype).view(shape))
-        off += -(-n // 4) * 4
-    return out
-
-
-def _parts_bytes(parts) -> int:
-    return sum(-(-math.prod(s) * d.itemsize // 4) * 4 for d, s in parts)
+    fl = _Flags(int(plan.sun), EM_MODES.get(plan.emitters, 0), plan.faces, int(strat.strict_direct_light),
+                int(strat.sun_luminosity), int(scene.shadow_binary), float(np.float32(scene.f_sub_surface)))
+    entry = _SceneEntry(key, settings, dev, tables, ctypes.byref(tables), fl, ctypes.byref(fl),
+                        _scene_no_grad(scene))
+    _TABLE_CACHE.append(entry)
+    del _TABLE_CACHE[:-_TABLE_CACHE_SIZE]
+    return entry
 
 
 def _launch(fn_name: str, fn, device_index: int, *args):
@@ -766,55 +823,104 @@ def _launch(fn_name: str, fn, device_index: int, *args):
         raise RuntimeError(f"{fn_name} launch failed: {_library().nee_error_string(rc).decode()}")
 
 
-def _setup_cuda(call: _Call) -> NeeRays:
-    """``nee_setup`` on the card: one launch, its outputs one allocation."""
-    scene, plan = call.scene, call.plan
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+# nee_setup's inputs: (dtype, width: 0 for (B,), k for (B, k) dense, -k for rows of k with any row stride)
+_SETUP_SPEC = ((_F32, 3), (_F32, 3), (_I32, 0), (_BOOL, 0), (_I32, 0), (_F32, -N_UNIFORMS))
+# NeeRays' fields carved from one buffer (width, dtype), each on a 16-byte
+# boundary; ``scale``, which the backward saves, is an allocation of its
+# own, so that saving it keeps nothing else of a bounce alive
+_RAY_PARTS = (("origin", 3, _F32), ("dir", 3, _F32), ("max_t", 1, _F32), ("cur_mat", 1, _I32),
+              ("e_texel", 1, _I32), ("e_mat", 1, _I32), ("active", 1, _BOOL))
+_DTYPE_INDEX = {_F32: 0, _I32: 1, _BOOL: 2}
+
+
+@functools.lru_cache(maxsize=256)
+def _expected_setup(b: int) -> tuple:
+    """The (dtype, shape) of ``nee_setup``'s inputs for ``b`` lanes."""
+    return tuple((dt, torch.Size((b,) if w == 0 else (b, abs(w)))) for dt, w in _SETUP_SPEC)
+
+
+@functools.lru_cache(maxsize=256)
+def _ray_layout(fb: int) -> tuple:
+    """(bytes, {field: (element offset in its dtype, shape, stride, dtype
+    index, byte offset)}) of NeeRays' carved fields for ``fb`` rays."""
+    parts, end = {}, 0
+    for name, width, dt in _RAY_PARTS:
+        shape, stride = ((fb, width), (width, 1)) if width > 1 else ((fb,), (1,))
+        parts[name] = (end // dt.itemsize, shape, stride, _DTYPE_INDEX[dt], end)
+        end = (end + fb * width * dt.itemsize + 15) // 16 * 16
+    return max(end, 16), parts
+
+
+def _checked_setup_inputs(call: _Call, b: int, dev) -> tuple:
+    """``nee_setup``'s inputs checked in one pass (dtype, shape, dense
+    columns and rows with a dense last axis, the lanes' card); the
+    uniforms copied dense where their last axis is strided.  A wrong input
+    raises naming it."""
+    ins = (call.hitpoint, call.normal, call.mat, call.diffuse_on, call.cur_mat, call.u)
+    if (tuple((x.dtype, x.shape) for x in ins) == _expected_setup(b)
+            and all(x.is_contiguous() for x in ins[:5]) and ins[5].stride(-1) == 1
+            and all(x.device == dev for x in ins)):
+        return ins
+    checked = []
+    for x, (dt, w), name in zip(ins, _SETUP_SPEC, SETUP_IN):
+        y = _rows(x, b, -w, dt, "the uniforms") if w < 0 else _dense(x, (b,) if w == 0 else (b, w), dt, name)
+        if y.device != dev:
+            raise ValueError("nee: every input must be on the lanes' card")
+        checked.append(y)
+    return tuple(checked)
+
+
+def _setup_cuda(call: _Call, entry: _SceneEntry | None = None) -> NeeRays:
+    """``nee_setup`` on the card: the scene's cached entry (looked up where
+    not given), the inputs checked in one pass, the rays one allocation and
+    ``scale`` another, one entry-point call."""
     b = call.cur_mat.shape[0]
-    fb = plan.faces * b
+    fb = call.plan.faces * b
     dev = call.cur_mat.device
-    f32, i32, bool_ = torch.float32, torch.int32, torch.bool
     if fb >= 2**31:
         raise ValueError("nee: too many shadow rays for one launch")
-    table_dev, tables = _scene_tables(scene)
-    uu = _rows(call.u, b, N_UNIFORMS, f32, "the uniforms")
-    hand = [_dense(call.hitpoint, (b, 3), f32, "hitpoint"), _dense(call.normal, (b, 3), f32, "normal"),
-            _dense(call.mat, (b,), i32, "mat"), _dense(call.diffuse_on, (b,), bool_, "diffuse_on"),
-            _dense(call.cur_mat, (b,), i32, "cur_mat")]
-    if table_dev != dev or any(x.device != dev for x in [uu] + hand):
+    entry = _scene_entry(call.scene, call.plan) if entry is None else entry
+    if entry.device != dev:
         raise ValueError("nee: every input must be on the lanes' card")
-    parts = [(f32, (fb, 3)), (f32, (fb, 3)), (f32, (fb,)), (f32, (fb,)), (bool_, (fb,)), (i32, (fb,)),
-             (i32, (fb,)), (i32, (fb,))]
-    rays = NeeRays(*_carve(_parts_bytes(parts), dev, parts))
+    ins = _checked_setup_inputs(call, b, dev)
+    n_bytes, parts = _ray_layout(fb)
+    buf = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    scale = torch.empty((fb,), dtype=_F32, device=dev)
+    typed = (buf.view(_F32), buf.view(_I32), buf.view(_BOOL))
+    rays = NeeRays._make(scale if f == "scale" else typed[parts[f][3]].as_strided(*parts[f][1:3], parts[f][0])
+                         for f in NeeRays._fields)
     if b == 0:  # an empty batch launches nothing
         return rays
-    lib = _library()
-    setup_in = _SetupIn(*(x.data_ptr() for x in hand), uu.data_ptr(), uu.stride(0))
-    _launch("nee_setup", lib.nee_setup, dev.index, b, ctypes.byref(tables), ctypes.byref(setup_in),
-            ctypes.byref(_Rays(*(x.data_ptr() for x in rays))), ctypes.byref(_flags(scene, plan)))
+    base = buf.data_ptr()
+    slots = SETUP_ARRAY(*(x.data_ptr() for x in ins), ins[5].stride(0),
+                        *(scale.data_ptr() if f == "scale" else base + parts[f][4] for f in NeeRays._fields))
+    _launch("nee_setup", _library().nee_setup, dev.index, b, entry.tables_ref, entry.flags_ref, slots,
+            len(SETUP_SLOTS))
     nee.setup_launches += 1
     return rays
 
 
-def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, albedo, want_grad: bool):
+def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, albedo, want_grad: bool,
+                  entry: _SceneEntry | None = None):
     """``nee_resolve`` on the card over the walks' records: (radiance (B, 3),
     :class:`NeeResidual` or None)."""
-    scene, plan = call.scene, call.plan
+    plan = call.plan
     b = throughput.shape[0]
     dev = throughput.device
-    f32, i32 = torch.float32, torch.int32
-    table_dev, tables = _scene_tables(scene)
-    tp = _rows(throughput, b, 3, f32, "throughput")
-    rad = _rows(radiance, b, 3, f32, "radiance")
-    alb = _dense(albedo, (b, 4), f32, "albedo")
-    cur_mat = _dense(call.cur_mat, (b,), i32, "cur_mat")
-    if table_dev != dev or any(x.device != dev for x in (tp, rad, alb, cur_mat, rays.origin)):
+    entry = _scene_entry(call.scene, plan) if entry is None else entry
+    tp = _rows(throughput, b, 3, _F32, "throughput")
+    rad = _rows(radiance, b, 3, _F32, "radiance")
+    alb = _dense(albedo, (b, 4), _F32, "albedo")
+    cur_mat = _dense(call.cur_mat, (b,), _I32, "cur_mat")
+    if entry.device != dev or any(x.device != dev for x in (tp, rad, alb, cur_mat, rays.origin)):
         raise ValueError("nee: every input must be on the lanes' card")
     if alb.data_ptr() % 16:
         raise ValueError("nee: the albedo rows must be 16-byte aligned")
-    out = torch.empty((b, 3), dtype=f32, device=dev)
+    out = torch.empty((b, 3), dtype=_F32, device=dev)
     resid = None
     if want_grad:
-        resid = NeeResidual(torch.empty((plan.faces, b, RESID_INTS), dtype=i32, device=dev),
+        resid = NeeResidual(torch.empty((plan.faces, b, RESID_INTS), dtype=_I32, device=dev),
                             rays.scale.view(plan.faces, b))
     if b == 0:  # an empty batch launches nothing
         return out, resid
@@ -825,43 +931,90 @@ def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, 
     p_ptrs = (None,) * 4 if prim is None else tuple(_ptr(x) for x in prim[:4])
     res_in = _ResolveIn(alb.data_ptr(), tp.data_ptr(), rad.data_ptr(), cur_mat.data_ptr(), tp.stride(0),
                         rad.stride(0))
-    lib = _library()
-    _launch("nee_resolve", lib.nee_resolve, dev.index, b, ctypes.byref(tables), ctypes.byref(res_in),
+    _launch("nee_resolve", _library().nee_resolve, dev.index, b, entry.tables_ref, ctypes.byref(res_in),
             ctypes.byref(_Rays(*(x.data_ptr() for x in rays))), ctypes.byref(_Walk(*w_ptrs, *p_ptrs)),
-            ctypes.byref(_flags(scene, plan)), out.data_ptr(), _ptr(None if resid is None else resid.ints))
+            entry.flags_ref, out.data_ptr(), _ptr(None if resid is None else resid.ints))
     nee.resolve_launches += 1
     return out, resid
 
 
-def _forward_cuda(call: _Call, throughput, radiance, albedo, want_grad: bool):
-    """The forward on the card: ``nee_setup``, the walks, ``nee_resolve``."""
-    rays = _setup_cuda(call)
+def _forward_cuda(call: _Call, throughput, radiance, albedo, want_grad: bool, entry: _SceneEntry | None = None):
+    """The forward on the card: ``nee_setup``, the walks, ``nee_resolve``,
+    the scene's entry looked up once."""
+    entry = _scene_entry(call.scene, call.plan) if entry is None else entry
+    rays = _setup_cuda(call, entry)
     walk, prim = nee_walks(call.scene, call.plan, rays)
-    return _resolve_cuda(call, rays, walk, prim, throughput, radiance, albedo, want_grad)
+    return _resolve_cuda(call, rays, walk, prim, throughput, radiance, albedo, want_grad, entry)
+
+
+# per card: the backward's float64 sums (the atlas's entries, then the
+# emittance's), zero when allocated, the newest last; the kernel leaves
+# what it summed zero again.  A buffer outgrown stays allocated: a CUDA
+# graph captured with it replays against it.
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, words: int):
+    """The float64 scratch of card ``dev`` for ``words`` sums: calls on one
+    card share it, and so must run on one stream, one after another.  It
+    grows outside a CUDA graph capture only (a capture would record the
+    fill and leave the buffer unset until a replay); a capture needs one
+    eager call of at least its size first."""
+    bufs = _SCRATCH.setdefault(dev.index, [])
+    if not bufs or bufs[-1].numel() < words:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("nee: the backward's scratch must be allocated before a CUDA graph capture; run one "
+                               "backward of this scene outside the capture first")
+        bufs.append(torch.zeros(max(words, 4096), dtype=torch.float64, device=dev))
+    return bufs[-1]
 
 
 def _backward_cuda(albedo, throughput, resid: NeeResidual, atlas, emittance, sun_emittance, plan: NeePlan,
                    g_radiance, need):
+    """``nee_backward`` on the card: one launch that sums the atlas and
+    emittance gradients in the card's float64 scratch and writes them
+    dense in float32 (no fill, no conversion); the lane gradients one
+    allocation, the table gradients another."""
     b = albedo.shape[0]
     dev = albedo.device
-    f32 = torch.float32
-    g = _dense(g_radiance.contiguous(), (b, 3), f32, "the radiance cotangent")
-    tp = throughput.contiguous()
-    d_tp = torch.empty((b, 3), dtype=f32, device=dev) if need[0] else None
-    d_alb = torch.empty((b, 4), dtype=f32, device=dev) if need[2] else None
-    # float64 sums (see nee_backward_reference), returned in float32
-    d_atlas = torch.zeros(atlas.shape, dtype=torch.float64, device=dev) if need[3] else None
-    d_emit = torch.zeros_like(emittance, dtype=torch.float64) if need[4] else None
-    if b > 0 and any(need[i] for i in (0, 2, 3, 4)):
-        lib = _library()
-        # the kernel reads the atlas, the emittance and the sun's emittance
-        # through the tables; the ones saved are the forward's own
-        tables = _Tables(emittance=emittance.data_ptr(), atlas=atlas.data_ptr(),
-                         sun_emittance=sun_emittance.data_ptr())
-        flags = _Flags(int(plan.sun), EM_MODES.get(plan.emitters, 0), plan.faces, 0, 0, 0, 0.0)
-        _launch("nee_backward", lib.nee_backward, dev.index, b, ctypes.byref(tables), ctypes.byref(flags),
-                g.data_ptr(), albedo.data_ptr(), tp.data_ptr(), resid.ints.data_ptr(), resid.scale.data_ptr(),
-                _ptr(d_tp), _ptr(d_alb), _ptr(d_atlas), _ptr(d_emit))
+    g = _dense(g_radiance if g_radiance.is_contiguous() else g_radiance.contiguous(), (b, 3), _F32,
+               "the radiance cotangent")
+    tp = throughput if throughput.is_contiguous() else throughput.contiguous()
+    lanes = torch.empty(7 * b if need[0] or need[2] else 0, dtype=_F32, device=dev)
+    d_tp = lanes.as_strided((b, 3), (3, 1), 4 * b) if need[0] else None
+    d_alb = lanes.as_strided((b, 4), (4, 1), 0) if need[2] else None
+    n_atlas, n_emit = atlas.numel(), emittance.numel()
+    d_atlas = d_emit = None
+    sums = (None, None)
+    if need[3] or need[4]:
+        tables = torch.empty((n_atlas if need[3] else 0) + (n_emit if need[4] else 0), dtype=_F32, device=dev)
+        if need[3]:
+            d_atlas = tables.as_strided(atlas.shape, atlas.stride(), 0)
+        if need[4]:
+            d_emit = tables.as_strided(emittance.shape, (1,), n_atlas if need[3] else 0)
+        scratch = _scratch(dev, n_atlas + n_emit)
+        base = scratch.data_ptr()
+        sums = (base if need[3] else None, base + 8 * n_atlas if need[4] else None)
+    if any(need[i] for i in (0, 2, 3, 4)) and (b > 0 or d_atlas is not None or d_emit is not None):
+        slots = BACKWARD_ARRAY(atlas.data_ptr(), emittance.data_ptr(), sun_emittance.data_ptr(), g.data_ptr(),
+                               albedo.data_ptr(), tp.data_ptr(), resid.ints.data_ptr(), resid.scale.data_ptr(),
+                               _ptr(d_tp), _ptr(d_alb), _ptr(d_atlas), _ptr(d_emit), *sums)
+        _launch("nee_backward", _library().nee_backward, dev.index, b, slots, len(BACKWARD_SLOTS), n_atlas // 4,
+                n_emit, int(plan.sun), EM_MODES.get(plan.emitters, 0), plan.faces)
         nee.backward_launches += 1
-    return (d_tp, (g_radiance if need[1] else None), d_alb, None if d_atlas is None else d_atlas.float(),
-            None if d_emit is None else d_emit.float())
+    return d_tp, (g_radiance if need[1] else None), d_alb, d_atlas, d_emit
+
+
+def backward_config(b: int, atlas_shape, n_emit: int, device=None) -> dict:
+    """How ``nee_backward`` launches on ``b`` lanes with a (T, H, W, 4)
+    atlas gradient and ``n_emit`` materials on the current card (or
+    ``device``): {"threads", "blocks", "resident_blocks_per_sm", "sms",
+    "launch": "cooperative"}."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    n_texels = math.prod(atlas_shape[:3])
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.nee_backward_config(b, n_texels, n_emit, out)
+    if rc != 0:
+        raise RuntimeError(f"nee_backward launch configuration failed: {lib.nee_error_string(rc).decode()}")
+    return dict(zip(("threads", "blocks", "resident_blocks_per_sm", "sms"), out[:4]), launch="cooperative")

@@ -16,7 +16,7 @@ of one or more checkouts of the port beside the PyTorch calls that compute
 the same functions (``torch.index_select``, ``torch.rand``), and the
 traversal kernels at the shapes the main paths give them::
 
-    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4 | --bounces | --k5] ROOT [ROOT ...]
+    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4 | --bounces | --k5 | --nee] ROOT [ROOT ...]
 
 Each ROOT is a directory holding ``octree_pathtracing_tpu_torch/`` (this
 checkout, or an older commit unpacked with ``git archive``); each is timed
@@ -55,7 +55,12 @@ forward and backward on the headline frame's compactions and at 2,097,152
 lanes beside its plain version and two library routes (``argsort_route``,
 ``nonzero_route``), the unpermute both ways, and the headline forward frame
 captured in a CUDA graph (``capture_frame``; the replays' device ms,
-bit-equal to the eager frame; a capture that fails raises).  ``--k4``
+bit-equal to the eager frame; a capture that fails raises).  ``--nee``
+times the next-event kernels alone (an A/B of their design): each of
+``nee_setup``, ``nee_resolve`` and ``nee_backward`` by call and on the
+device on every bounce of one frame of the NEE, cutout, config-3 and, with
+``--world``, world lines, then the light lines' frames and the headline's
+forward and fwd+bwd with their device activities.  ``--k4``
 times K4's rows and the headline frames alone (an A/B of K4's design);
 ``--bounces`` the bounce loop's rows alone: K1, K4 and the next-event
 kernels per bounce, the headline frames, K5's rows; ``--k5`` K5's rows and
@@ -723,14 +728,16 @@ LIGHT_LINES = (("nee", "terrain", "high_quality", "none"), ("cutout", "cutout", 
                ("world", "world", "high_quality", "one"))
 
 
-def _light_lines(dev, cache_dir, world) -> dict:
+def _light_lines(dev, cache_dir, world, lines=LIGHT_LINES, scenes=None) -> dict:
     """The light lines' frames at the headline's shape (256x256, 5 bounces,
     depth 9, the uniforms of seed 1), forward and with bench.py's backward:
     host ms (median of 5) and the device activities torch.profiler counts in
     one frame; in a checkout with the next-event kernels, also through their
     plain version (``plain_nee``); in a checkout with K5, the forward
     frame's CUDA graph replay (``graph``: its device floor, or the capture's
-    error).  ``world``: a region file, or None."""
+    error).  ``world``: a region file, or None; ``lines``: (name, scene,
+    sun, emitter sampling) of each frame; ``scenes``: {scene: (scene,
+    camera)} on the card already built (the rest are built here)."""
     import dataclasses
     import statistics
 
@@ -757,9 +764,9 @@ def _light_lines(dev, cache_dir, world) -> dict:
     if world:
         builds["world"] = lambda: minecraft_scene_from_region(world, depth=9)
     u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
-    scenes, out = {}, {}
-    for name, which, sun, sampling in LIGHT_LINES:
-        if which not in builds:
+    scenes, out = dict(scenes or {}), {}
+    for name, which, sun, sampling in lines:
+        if which not in builds and which not in scenes:
             continue
         if which not in scenes:
             sc, cam = builds[which]()
@@ -799,6 +806,60 @@ def _light_lines(dev, cache_dir, world) -> dict:
                 finally:
                     pathtracer.nee = real
             out[f"{name} line {step}"] = row
+    return out
+
+
+# (line, scene, emitter sampling) of the next-event rows, under the HIGH_QUALITY sun
+NEE_LINES = (("nee", "terrain", "none"), ("cutout", "cutout", "none"), ("config3", "terrain", "one"),
+             ("world", "world", "one"))
+
+
+def _time_nee(dev, cache_dir, world=None) -> dict:
+    """The next-event kernels alone (``--nee``: an A/B of their design):
+    ``nee_setup``, ``nee_resolve`` and ``nee_backward`` on each bounce of one
+    frame of the NEE, cutout, config-3 and (with ``world``) world lines,
+    each checked against its plain version first (``check_nee``) and timed
+    by call and on the device, with its lanes, live lanes, faces and cast
+    rays; then the light lines' frames and the headline's, forward and
+    fwd+bwd, with their device activities (``_light_lines``)."""
+    import dataclasses
+
+    from octree_pathtracing_tpu_torch.models import (
+        cutout_chunk_scene,
+        minecraft_chunk_scene,
+        minecraft_scene_from_region,
+        pixel_grid_rays,
+    )
+    from octree_pathtracing_tpu_torch.models.emitters import with_emitter_sampling
+    from octree_pathtracing_tpu_torch.models.sun import SunSampling
+    from octree_pathtracing_tpu_torch.ops import nee as nee_mod
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    scenes = {"terrain": minecraft_chunk_scene(depth=9, cache_dir=cache_dir),
+              "cutout": cutout_chunk_scene(depth=9, cache_dir=cache_dir)}
+    if world:
+        scenes["world"] = minecraft_scene_from_region(world, depth=9)
+    scenes = {k: (sc.to(dev), cam.to(dev)) for k, (sc, cam) in scenes.items()}
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
+    out = {}
+    for line, which, sampling in NEE_LINES:
+        if which not in scenes:
+            continue
+        sc, cam = scenes[which]
+        sc = with_emitter_sampling(dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()), sampling)
+        o, d = pixel_grid_rays(cam, 256, 256)
+        for k, call in enumerate(nee_calls(pathtracer, sc, o, d, u), start=1):
+            chk = check_nee(call[:4], call[4], f"the {line} line's bounce {k}")
+            args = chk["args"]
+            c = args["setup"][0]
+            extra = {"lanes": int(c.cur_mat.shape[0]), "live": int(call[1]["active"].sum()), "faces": c.plan.faces,
+                     "cast": int(chk["rays"].active.sum())}
+            for name, fn in (("nee_setup", lambda: nee_mod._setup_cuda(c)),
+                             ("nee_resolve", lambda: nee_mod._resolve_cuda(*args["resolve"])),
+                             ("nee_backward", lambda: nee_mod._backward_cuda(*args["backward"]))):
+                out[f"{name} {line} line bounce {k}"] = dict(both(fn), **extra)
+    lines = LIGHT_LINES + (("headline", "terrain", "importance", "none"),)
+    out.update(_light_lines(dev, cache_dir, world, lines, scenes))
     return out
 
 
@@ -1014,7 +1075,7 @@ def _time_bounces(dev, cache_dir) -> dict:
     return out
 
 
-MODES = ("--k4", "--bounces", "--k5")
+MODES = ("--k4", "--bounces", "--k5", "--nee")
 
 
 def main(argv=None) -> int:
@@ -1030,7 +1091,11 @@ def main(argv=None) -> int:
                                                       "build", "scenes"))
             import octree_pathtracing_tpu_torch as port
 
-            rows = {"--k4": _shade_cases, "--bounces": _time_bounces, "--k5": _time_k5}[args[-1]](dev, cache_dir)
+            world = args[3] if args[2:3] == ["--world"] else None
+            if args[-1] == "--nee":
+                rows = _time_nee(dev, cache_dir, world)
+            else:
+                rows = {"--k4": _shade_cases, "--bounces": _time_bounces, "--k5": _time_k5}[args[-1]](dev, cache_dir)
             result = {"package": os.path.dirname(port.__file__), "card": card_line(), **rows}
         else:
             result = _time_checkout(args[3] if args[2:3] == ["--world"] else None)
@@ -1091,7 +1156,9 @@ def main(argv=None) -> int:
                            + ("" if r[name]["device_by"] == "graph" else f" ({r[name]['device_by']})")
                            + (f" fwd+bwd call {r[name]['fwd_bwd_call_ms']!r}" if "fwd_bwd_call_ms" in r[name] else "")
                            + (f" plain {r[name]['plain_ms']!r}" if "plain_ms" in r[name] else "")
-                           + (f" [lanes {r[name]['lanes']}, live {r[name]['live']}]" if "live" in r[name] else "")
+                           + (f" [lanes {r[name]['lanes']}, live {r[name]['live']}"
+                              + (f", {r[name]['faces']} faces, {r[name]['cast']} cast" if "cast" in r[name] else "")
+                              + "]" if "live" in r[name] else "")
                            for r in have)
         extra = have[0][name]
         if "lanes" in extra and "live" not in extra:

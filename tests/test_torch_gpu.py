@@ -1234,6 +1234,22 @@ def _nee_scene(name):
     if name == "world":
         sc, cam = _k4_scene("world_hq")
         return emitters.with_emitter_sampling(sc, "one"), cam
+    if name in ("config3_nogrid", "config3_k7", "room_k64"):
+        # config 3's 8 emitters with no grid (the uniform pick) or rows of 7
+        # (not a multiple of 4); the room's 64 under ONE with rows of all 64
+        if name == "room_k64":
+            sc, cam = emissive_room_scene(depth=3)
+            sc = emitters.with_emitter_sampling(dataclasses.replace(sc, sun_sampling=hq), "one")
+        else:
+            sc, cam = _nee_scene("config3")
+        em = sc.emitters
+        if name == "config3_nogrid":
+            return dataclasses.replace(sc, emitters=dataclasses.replace(em, grid_idx=None, grid_w=None)), cam
+        k = int(name.rsplit("_k", 1)[1])
+        gi, gw = emitters.build_spatial_grid(em.pos.numpy(), em.size.numpy(), float(1 << sc.depth), em.grid_bits, k=k)
+        assert gi.shape[1] == k
+        return dataclasses.replace(sc, emitters=dataclasses.replace(em, grid_idx=torch.from_numpy(gi),
+                                                                    grid_w=torch.from_numpy(gw))), cam
     build = {"nee": minecraft_chunk_scene, "fast": minecraft_chunk_scene, "config3": minecraft_chunk_scene,
              "cutout": cutout_chunk_scene, "cutout_lenient": cutout_chunk_scene, "plant": plant_scene,
              "analytic_hq": analytic_sphere_scene}[name]
@@ -1389,6 +1405,309 @@ def test_nee_build_reports_registers_stack_and_spills(cuda):
     print("\n".join(lines))
     for kernel in ("nee_setup_kernel", "nee_resolve_kernel", "nee_backward_kernel"):
         assert any(kernel in ln for ln in lines) or lib.build_info["seconds"] == 0.0, kernel
+
+
+# ---- nee_setup at sizes around the card's grids on every kind of row, and
+# nee_backward's one cooperative launch: contention, its scratch, a frame
+# replayed from a CUDA graph
+
+# (scene, lane order): the light lines' kinds, config 3's emitters with no
+# grid and with rows of 7 entries (not a multiple of 4), the room's with
+# rows of 64; shuffled lanes mostly sit in different supercells, lanes in
+# pixel order share them
+SETUP_CASES = tuple((name, "shuffled") for name in NEE_SCENES + ("config3_nogrid", "config3_k7", "room_k64")) + tuple(
+    (name, "pixels") for name in ("config3", "config3_k7", "room_k64", "world"))
+
+
+def _backward_slots(dev):
+    """The card's resident-thread slots of ``nee_backward``'s cooperative
+    grid (SMs x resident blocks x threads): a batch one lane past it makes a
+    block take a second round of lanes."""
+    with torch.cuda.device(dev):
+        c = nee_mod.backward_config(1 << 22, (6, 16, 16, 4), 8)
+    return c["sms"] * c["resident_blocks_per_sm"] * c["threads"]
+
+
+def _forward_nee_calls(name, n, order, dev):
+    """The next-event calls (scene, st, u, out) of one 5-bounce forward frame
+    over ``n`` primary rays of ``name`` (the first ``n`` pixels of a square
+    grid, or a seeded shuffle of them): bounce 1's, then bounce 2's whole
+    batch with its dead lanes."""
+    key = ("nee", name)
+    if key not in _SCENES:
+        _SCENES[key] = _nee_scene(name)
+    sc, cam = (x.to(dev) for x in _SCENES[key])
+    side = max(256, math.isqrt(n - 1) + 1)
+    o, d = pixel_grid_rays(cam, side, side)
+    if order == "shuffled":
+        pick = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(n))[:n].to(dev)
+    else:
+        pick = torch.arange(n, device=dev)
+    o, d = o[pick].contiguous(), d[pick].contiguous()
+    if name.startswith("room"):
+        d = torch.randn(d.shape, generator=torch.Generator().manual_seed(n)).to(dev)
+        d = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    u = torch.from_numpy(np.random.default_rng(n).random((n, 5, 21), dtype=np.float32)).to(dev)
+    calls, real = [], pathtracer.nee
+
+    def recording(*a):
+        calls.append(a)
+        return real(*a)
+
+    pathtracer.nee = recording
+    try:
+        with torch.no_grad():
+            pathtracer.trace_paths(sc, o, d, u)
+    finally:
+        pathtracer.nee = real
+    return calls[:2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["1", "65553", "slots + 1"])
+@pytest.mark.parametrize("name,order", SETUP_CASES)
+def test_nee_setup_is_bit_equal_to_its_plain_version(cuda, name, order, size):
+    """``nee_setup`` against ``nee_setup_reference`` on every ray field, bit
+    for bit on every row (NaN equal to NaN), on bounce 1's lanes and bounce
+    2's whole batch (its dead lanes included): the sun face, K6's pick from
+    rows of 8, 7 and 64 entries or with no grid, lanes that share a
+    supercell and lanes that do not, ONE_BLOCK and ALL; 1 lane, 65,553
+    lanes and one past the backward's resident-thread slots."""
+    from octree_pathtracing_tpu_torch.utils.timing import _bits_differ
+
+    n = _backward_slots(cuda) + 1 if size == "slots + 1" else int(size)
+    for bounce, (scene, st, u, out) in enumerate(_forward_nee_calls(name, n, order, cuda), start=1):
+        plan = nee_mod.nee_plan(scene)
+        c = nee_mod._Call(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
+        before = nee_mod.nee.setup_launches
+        got = nee_mod._setup_cuda(c)
+        want = nee_mod.nee_setup_reference(scene, plan, *c[2:])
+        assert nee_mod.nee.setup_launches == before + 1
+        differ = {f: int(_bits_differ(getattr(got, f).reshape(plan.faces * n, -1),
+                                      getattr(want, f).reshape(plan.faces * n, -1)).sum()) for f in nee_mod.NeeRays._fields}
+        print(f"nee_setup {name} {order} {size} bounce {bounce}: {n} lanes x {plan.faces} faces, "
+              f"{int(got.active.sum())} cast, rows not bit-equal {differ}")
+        assert not any(differ.values()), (bounce, differ)
+
+
+def _contended_residual(plan, b, texel, e_texel, e_mat, dev, seed):
+    """A residual in which every face of every lane is cast, every sun face
+    blocked by ``texel`` in its first slot (a strict zero on a tenth of
+    them) and every emitter face unblocked on ``e_texel`` and ``e_mat``:
+    every lane's sums land on one texel or one material."""
+    g = torch.Generator().manual_seed(seed)
+    ints = torch.full((plan.faces, b, nee_mod.RESID_INTS), -1, dtype=torch.int32)
+    zero = (torch.rand((plan.faces, b), generator=g) < 0.1).to(torch.int32)
+    first_em = 1 if plan.sun else 0
+    ints[..., 0] = nee_mod.CODE_ON
+    ints[:first_em, :, 0] |= zero[:first_em] << nee_mod.ZERO_SHIFT
+    ints[:first_em, :, 1] = texel
+    ints[first_em:, :, -2] = e_texel
+    ints[first_em:, :, -1] = e_mat
+    scale = torch.rand((plan.faces, b), generator=g) + 0.5
+    return nee_mod.NeeResidual(ints.to(dev), scale.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["65536", "slots + 1"])
+@pytest.mark.parametrize("name", ["config3", "room_all"])
+def test_nee_backward_under_full_contention(cuda, name, size):
+    """Every lane's every face on one blocker texel and one emitter texel and
+    material (the room under ALL: 192 faces a lane onto one material):
+    ``nee_backward`` within rtol 1e-5 / atol 1e-7 of
+    ``nee_backward_reference``, its scratch left zero."""
+    key = ("nee", name)
+    if key not in _SCENES:
+        _SCENES[key] = _nee_scene(name)
+    scene = _SCENES[key][0].to(cuda)
+    plan = nee_mod.nee_plan(scene)
+    b = _backward_slots(cuda) + 1 if size == "slots + 1" else int(size)
+    g = torch.Generator().manual_seed(b)
+    atlas = scene.atlas.data if hasattr(scene.atlas, "sizes") else scene.atlas
+    em = scene.emitters
+    e_mat = int(em.mat[0])  # the emitter face's texel: one of its material's layer
+    e_texel = int(scene.materials.texture_index[e_mat]) * int(atlas.shape[1] * atlas.shape[2]) + 3
+    resid = _contended_residual(plan, b, 5, e_texel, e_mat, cuda, b)
+    albedo = torch.rand((b, 4), generator=g).to(cuda)
+    tp = (torch.rand((b, 3), generator=g) + 0.5).to(cuda)
+    cot = (torch.rand((b, 3), generator=g) - 0.5).to(cuda)
+    args = (albedo, tp, resid, atlas, scene.materials.emittance, scene.sun.emittance, plan, cot,
+            (True, True, True, True, True))
+    before = nee_mod.nee.backward_launches
+    got = nee_mod._backward_cuda(*args)
+    torch.cuda.synchronize()
+    assert nee_mod.nee.backward_launches == before + 1
+    want = nee_mod.nee_backward_reference(*args)
+    for label, x, y in zip(("throughput", "radiance", "albedo", "atlas", "emittance"), got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-7, msg=lambda m, label=label: f"{label}: {m}")
+        print(f"nee_backward {name} {size}, full contention: {label} max abs err {float((x - y).abs().max())!r}")
+    assert float(want[3].abs().max()) > 0 and float(want[4].abs().max()) > 0
+    assert bool((nee_mod._SCRATCH[cuda.index or 0][-1] == 0).all())
+
+
+@pytest.mark.gpu
+def test_nee_backward_scratch_is_left_zero_across_calls_sizes_and_replays(cuda):
+    """Calls of three batch sizes and each mix of wanted table gradients,
+    eager and then captured in one CUDA graph and replayed with their
+    outputs spoiled between replays: each equal to the plain version, and
+    the card's scratch all zero after every call and every replay (no fill
+    between them)."""
+    scene = _nee_scene("config3")[0].to(cuda)
+    plan = nee_mod.nee_plan(scene)
+    atlas = scene.atlas
+    emit = scene.materials.emittance
+    cases = []
+    for b, need in ((65536, (True, True, True, True, True)), (_backward_slots(cuda) + 1, (False, True, True, True, False)),
+                    (300, (True, False, False, False, True)), (1, (True, True, True, True, True))):
+        g = torch.Generator().manual_seed(b)
+        resid = _contended_residual(plan, b, 7, 11, int(scene.emitters.mat[1]), cuda, b)
+        ints = resid.ints.clone()
+        ints[..., 1] = torch.randint(-1, atlas.numel() // 4, ints.shape[:2], generator=g).to(cuda)
+        resid = nee_mod.NeeResidual(ints, resid.scale)
+        cases.append((torch.rand((b, 4), generator=g).to(cuda), (torch.rand((b, 3), generator=g) + 0.5).to(cuda),
+                      resid, atlas, emit, scene.sun.emittance, plan, (torch.rand((b, 3), generator=g) - 0.5).to(cuda),
+                      need))
+    want = [nee_mod.nee_backward_reference(*a) for a in cases]
+
+    def check(got):
+        torch.cuda.synchronize()
+        assert bool((nee_mod._SCRATCH[cuda.index or 0][-1] == 0).all())
+        for gg, ww in zip(got, want):
+            for x, y in zip(gg, ww):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-7)
+
+    for _ in range(2):
+        check([nee_mod._backward_cuda(*a) for a in cases])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [nee_mod._backward_cuda(*a) for a in cases]
+    for _ in range(3):
+        for o in outs:
+            for x in o:
+                if x is not None and x.dtype == torch.float32 and x.data_ptr() not in {a[7].data_ptr() for a in cases}:
+                    x.fill_(float("nan"))
+        graph.replay()
+        check(outs)
+
+
+def _profiled(fn):
+    """The device activities torch.profiler records over ``fn()``.  A
+    session can miss the first activities after it starts, so a few spin
+    kernels run first, and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(10000)
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [x for x in names if "spin" not in x.lower()]
+
+
+@pytest.mark.gpu
+def test_one_nee_backward_activity_per_light_bounce_and_no_fill_or_copy(cuda):
+    """torch.profiler over a fwd+bwd frame's backward, on the cutout under the
+    HIGH_QUALITY sun and one-emitter NEE and on the same frame with no light
+    sampling: one ``nee_backward_kernel`` per bounce, and the same fills and
+    copies in both (the next-event backward adds none); ``_backward_cuda``
+    alone is one device activity."""
+    sc, cam = cutout_chunk_scene(depth=5)
+    sc, cam = sc.to(cuda), cam.to(cuda)
+    light = emitters.with_emitter_sampling(dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()), "one")
+    plain = dataclasses.replace(light, sun_sampling=dataclasses.replace(light.sun_sampling, sun_sampling=False),
+                                emitter_sampling="none")
+    assert nee_mod.nee_plan(plain) is None
+    o, d = pixel_grid_rays(cam, 64, 64)
+    u = torch.from_numpy(np.random.default_rng(4).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+
+    def backward_activities(scene):
+        def loss():
+            p = {"atlas": scene.atlas.clone().requires_grad_(True),
+                 "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+            return pathtracer.trace_paths(apply_params(scene, p), o, d, u).mean()
+
+        loss().backward()
+        best = []
+        for _ in range(5):  # a profiler session can drop activities: the fullest counts
+            lo = loss()
+            torch.cuda.synchronize()
+            names = _profiled(lo.backward)
+            if len(names) > len(best):
+                best = names
+        low = [x.lower() for x in best]
+        return {"nee_backward": sum("nee_backward_kernel" in x for x in best),
+                "fills": sum("fill" in x or "memset" in x for x in low),
+                "copies": sum("copy" in x or "memcpy" in x for x in low), "all": len(best)}
+
+    with_nee, without = backward_activities(light), backward_activities(plain)
+    print(f"fwd+bwd frame's backward, device activities: with NEE {with_nee}, without {without}")
+    assert with_nee["nee_backward"] == 5 and without["nee_backward"] == 0
+    assert (with_nee["fills"], with_nee["copies"]) == (without["fills"], without["copies"])
+    # the call alone
+    from octree_pathtracing_tpu_torch.utils.timing import check_nee, nee_calls
+
+    call = nee_calls(pathtracer, light, o, d, u)[0]
+    args = check_nee(call[:4], call[4], "the cutout's bounce 1")["args"]["backward"]
+    nee_mod._backward_cuda(*args)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        names = _profiled(lambda: nee_mod._backward_cuda(*args))
+        if names:
+            break
+    assert len(names) == 1 and "nee_backward_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampling", ["none", "one"])
+def test_light_line_fwd_bwd_frame_replays_from_a_cuda_graph(cuda, sampling):
+    """A light line's whole fwd+bwd frame (the cutout under the HIGH_QUALITY
+    sun, with and without one-emitter NEE) captured in one CUDA graph:
+    each replay, with the radiance and the gradients spoiled before it,
+    gives the eager frame's radiance bit for bit and its atlas and
+    emittance gradients within rtol 1e-5 / atol 1e-7 (float atomics add in
+    the schedule's order)."""
+    sc, cam = cutout_chunk_scene(depth=5)
+    scene = emitters.with_emitter_sampling(dataclasses.replace(sc.to(cuda), sun_sampling=SunSampling.high_quality()),
+                                           sampling)
+    o, d = pixel_grid_rays(cam.to(cuda), 64, 64)
+    u = torch.from_numpy(np.random.default_rng(5).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    p = {"atlas": scene.atlas.clone().requires_grad_(True),
+         "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+
+    def step():
+        rad = pathtracer.trace_paths(apply_params(scene, p), o, d, u)
+        rad.mean().backward()
+        return rad
+
+    eager = step().detach().clone()
+    grads = {k: v.grad.clone() for k, v in p.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture asks
+        for _ in range(2):
+            for v in p.values():
+                v.grad = None
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for v in p.values():
+        v.grad = None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rad = step()
+    for _ in range(3):
+        rad.detach().fill_(float("nan"))
+        for v in p.values():
+            v.grad.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(rad.detach(), eager)
+        for k, v in p.items():
+            torch.testing.assert_close(v.grad, grads[k], rtol=1e-5, atol=1e-7)
+    assert float(grads["atlas"].abs().max()) > 0
 
 
 # ---- dead lanes through K4 and its next-event half: since K5 compacts
