@@ -89,7 +89,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      10 lanes, 1 lane and a batch with no live lane; by call and on the
      device beside the byte bound, the plain version, a stable
      ``torch.argsort`` with one ``index_select`` per field, and the
-     parent's ``nonzero``, gathers and ``index_put``s.
+     ``nonzero``, gathers and ``index_put``s that the main path ran before
+     the kernel.
    Every traversal row carries the max, p50 and p99 of its per-ray fetch
    counts (whether its longest walk sets the call).  Every traversal result
    must equal its twin's on every lane and field bit for bit: hit, t, face,
@@ -359,7 +360,14 @@ NEE_ROW_LINES = (("nee", "terrain", "none"), ("cutout", "cutout", "none"), ("con
 CHILDREN = {}
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str):
+    """One line of the run's report; a phase's first line carries the
+    seconds since the script started."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [at {time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1041,6 +1049,15 @@ def main() -> int:
             f"{c['threads']} threads ({c['resident_blocks_per_sm']} resident blocks per SM on {c['sms']} SMs), "
             f"the lanes grid-stride, then a grid-wide barrier and the dense float32 gradients from the card's "
             f"float64 scratch")
+    for lanes in (WIDTH * HEIGHT, 2097152):
+        c = compact_mod.launch_config(lanes, dev)
+        log(f"  compact_forward on {lanes} lanes: {c['blocks']} blocks of {c['threads']} threads, tiles of "
+            f"{c['tile']} lanes taken by ticket for their live lanes, then by block index for their dead ones, "
+            f"{c['smem_bytes']} bytes of shared memory per block, {c['resident_blocks_per_sm']} resident blocks "
+            f"per SM on {c['sms']} SMs, {c['registers']} registers")
+    c = nee_mod.resolve_config(WIDTH * HEIGHT, dev)
+    log(f"  nee_resolve on {WIDTH * HEIGHT} lanes: {c['blocks']} blocks of {c['threads']} threads, a face's reads "
+        f"issued before its fold, {c['registers']} registers, {c['resident_blocks_per_sm']} resident blocks per SM")
     log(f"  the traversal's stack: {(DEPTH + 1) * 8} bytes of dynamic shared memory per thread at depth {DEPTH} "
         f"(depth + 1 rows of parent and t_max), beside the registers and stack frame ptxas reports")
 
@@ -1176,7 +1193,8 @@ def main() -> int:
     # no live lane: bit for bit against the plain versions, forward and
     # backward; timed by call and on the device beside its byte bound, the
     # plain version and two library routes (a stable argsort with one
-    # index_select per field; the parent's nonzero, gathers and index_puts)
+    # index_select per field; nonzero, gathers and index_puts, the main
+    # path's route before the kernel)
     def recorded_compactions(fn):
         calls, real = [], pathtracer.compact
 
@@ -1216,10 +1234,18 @@ def main() -> int:
                "compact_backward": (lambda: compact_mod._backward_cuda(pos_c, g_tp, g_rad),
                                     lambda: real_k5["compact_backward_reference"](pos_c, g_tp, g_rad), None,
                                     bound(lanes * (4 + 4 * 12), 0))}
+        k5_cfg = compact_mod.launch_config(lanes, dev)
+        k5_variant = {"compact_forward": f"tiles of {k5_cfg['tile']} lanes, {k5_cfg['threads']} threads, "
+                                         f"{k5_cfg['blocks']} blocks, {k5_cfg['smem_bytes']} B of shared memory, "
+                                         f"{k5_cfg['resident_blocks_per_sm']} resident per SM, {k5_cfg['registers']} "
+                                         f"registers; one look-back over the live lanes, then the dead lanes "
+                                         f"in a streaming pass, rows through registers, the uniforms word by word",
+                      "compact_backward": "one thread a lane, grid-stride"}
         for name, (kernel, plain, library, (b_ms, b_by)) in fns.items():
             dms = device_ms(kernel, calls=10 if big else 100)[0]
             row = dict(lanes=lanes, live=live_c, max_abs_err=0.0, ms=call_ms(kernel, 20 if big else 200),
-                       device_ms=dms, plain_ms=call_ms(plain, 5), bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       device_ms=dms, plain_ms=call_ms(plain, 5), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       variant=k5_variant[name])
             if library is not None:
                 lib_t = both(library)
                 par_t = both(lambda: nonzero_route(st_c, u_c, bounce_c))
@@ -1229,10 +1255,10 @@ def main() -> int:
                            parent_route_device_by=par_t["device_by"])
             k5_rows[name][label] = row
             log(f"  {name} call {row['ms']!r} ms, device {dms!r} ms, plain {row['plain_ms']!r} ms, bound {b_ms!r} ms "
-                f"({b_by}) on {label} ({lanes} lanes, {live_c} live)"
+                f"({b_by}) on {label} ({lanes} lanes, {live_c} live); variant: {row['variant']}"
                 + (f"; argsort + index_select call {row['library_ms']!r} ms, device {row['library_device_ms']!r} ms; "
-                   f"nonzero + gathers + index_put (the parent's) call {row['parent_route_ms']!r} ms, device "
-                   f"{row['parent_route_device_ms']!r} ms ({row['parent_route_device_by']})"
+                   f"nonzero + gathers + index_put (the route before the kernel) call {row['parent_route_ms']!r} ms, "
+                   f"device {row['parent_route_device_ms']!r} ms ({row['parent_route_device_by']})"
                    if library is not None else "") + f" [{card}]")
         if label == "headline bounce 5":  # the frame's last state: the unpermute both ways
             rad_c, idx_c, g_c = chk["unpermute_args"]
@@ -1292,12 +1318,16 @@ def main() -> int:
             row = dict(lanes=lanes, faces=c.plan.faces, cast=cast, max_abs_err=errs[name], ms=t["call_ms"],
                        device_ms=t["device_ms"], plain_ms=call_ms(plain, 5), bound_ms=bounds[name][0],
                        bound_by=bounds[name][1], library_ms=None)
+            if name == "nee_resolve":
+                rc = nee_mod.resolve_config(lanes, dev)
+                row["variant"] = (f"{rc['blocks']} blocks of {rc['threads']} threads, a face's reads before its fold, "
+                                  f"{rc['registers']} registers, {rc['resident_blocks_per_sm']} resident per SM")
             if gates[name] is not None:
                 row["not_bit_equal"] = gates[name]["not_bit_equal"]
             nee_rows[name][line] = row
             log(f"  {name} call {row['ms']!r} ms, device {row['device_ms']!r} ms ({t['device_by']}), plain "
                 f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms ({row['bound_by']}) on the {line} line's "
-                f"bounce-1 lanes [{card}]")
+                f"bounce-1 lanes" + (f"; variant: {row['variant']}" if "variant" in row else "") + f" [{card}]")
 
     def nee_results():
         """The next-event kernels' rows: the NEE line's, the other lines beside it."""

@@ -26,20 +26,22 @@
 // ticket, not from blockIdx, so that a tile's predecessors are always held
 // by blocks that already run: the look-back then never waits on a tile that
 // no block has started.  Within a tile each warp's ballot gives its lanes'
-// ranks, and one warp scans the tile's 32 (row, warp) counts with shuffles.
+// ranks, and one warp scans the tile's (row, warp) counts with shuffles.
 // The tile publishes its count at once (flag A) and, after the look-back,
 // the live lanes before its end (flag P); the look-back reads 32
-// predecessors at a time, one per lane of the scanning warp.  A live lane's
-// row needs only its tile's prefix, so the live lanes are written then.  A
-// dead lane's row needs the total L, known only when the last tile has
-// published its prefix; so each block, once the tickets are spent, writes
-// the dead lanes of tiles blockIdx.x, blockIdx.x + gridDim.x, ...: by then
-// every tile belongs to a running block, so that wait ends too.  The tile
-// status words carry the call's epoch beside their flag, so that no fill
-// clears them between calls; the last block to finish resets the ticket and
-// advances the epoch.  The scratch (control words and one 64-bit status
-// word per tile) is the wrapper's, one buffer per card that calls on one
-// stream share; it is zero when first allocated.
+// predecessors at a time, one per lane of the scanning warp, and waits only
+// on those before the nearest prefix.  A live lane's row needs only its
+// tile's prefix, so the live lanes are written then.  A dead lane's row
+// needs the total L, known only when the last tile has published its
+// prefix; so each block, once the tickets are spent, writes the dead lanes
+// of tiles blockIdx.x, blockIdx.x + gridDim.x, ...: by then every tile
+// belongs to a running block, so that wait ends too, and the pass streams
+// with no look-back.  The tile status words carry the call's epoch beside
+// their flag, so that no fill clears them between calls; the last block to
+// finish resets the ticket and advances the epoch.  The scratch (control
+// words and one 64-bit status word per tile) is the wrapper's, one buffer
+// per card that calls on one stream share; it is zero when first
+// allocated.
 //
 // compact_backward: d_in[i] = d_out[pos[i]] for the throughput and the
 // radiance (the only state fields that carry a gradient), a permutation:
@@ -49,21 +51,28 @@
 // d[j] = g[idx[j]].  idx is a permutation of 0..B-1 (compact_forward's
 // output), so every output row is written once.
 //
-// What bounds them: bytes.  At the headline's 65,536 lanes the forward
-// moves ~15 MB (each state row read once and written once, 84 bytes of
-// uniforms per lane read and written, 4 bytes of pos); there is no
-// arithmetic to speak of, and at 65,536 lanes few blocks: the time is the
-// latency of dependent loads.  So a tile is 256 lanes, one per thread (256
-// blocks at 65,536 lanes; tiles of 1,024 and 512 lanes measured 2.0x and
-// 1.3x slower there, and 5% faster at 2,097,152 lanes: PERF.md); every
-// load of a lane is issued before any of its stores (a live lane's row
-// while the look-back runs, a dead lane's while its tile's prefix is
-// read), the state rows' reads are coalesced (each warp reads 32
-// consecutive lanes) and the writes nearly so (the live lanes of a tile land
-// in consecutive rows, as do its dead ones); the uniform rows are copied by
-// the whole block word by word through a list of (source row, destination
-// row) in shared memory, consecutive threads on consecutive words of one
-// row, eight loads in flight per thread before their stores.
+// What bounds them: bytes.  The forward moves 288 bytes a lane (each state
+// row read once and written once, the 84-byte uniform row read and written,
+// 4 bytes of pos); there is no arithmetic to speak of.  At the headline's
+// 65,536 lanes the time is the latency of the kernel's dependent steps; at
+// 2 M lanes it is device memory's rate.  So a tile is 256 lanes, one per
+// thread (tiles of 1,024 and 512 lanes measured 2.0x and 1.3x slower at
+// 65,536 lanes, 128 lanes slower at both sizes: PERF.md); every load of a
+// lane is issued before any of its stores (a live lane's row while the
+// look-back runs, a dead lane's while its tile's prefix is read); the state
+// rows' reads are coalesced (each warp reads 32 consecutive lanes) and the
+// writes nearly so (a tile's live lanes land in consecutive rows, as do its
+// dead ones); a run's uniform rows are copied by the whole block word by
+// word through the run's list of original indices in shared memory,
+// consecutive threads on consecutive words, eight loads in flight per
+// thread before their stores, and the stores land on consecutive words of
+// the run.  Measured on the card and dropped (PERF.md): a second look-back
+// over the dead lanes from the last tile back, so that no block waits for
+// the total (at best 0.002 ms faster at 65,536 lanes, a third slower at
+// 2 M, where this design's dead pass streams), with tiles staged in shared
+// memory by 16-byte cp.async and 16-byte run stores, or rows through
+// registers; the uniform rows written as aligned 16-byte stores of the
+// run (4-13% slower than the word copy).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,9 +81,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 1;  // lanes per thread and tile
 constexpr int kTile = kThreads * kItems;
-static_assert(kItems * kWarps <= 32, "one warp scans the tile's (row, warp) counts");
+static_assert(kItems * kWarps <= 32, "one warp scans a tile's (row, warp) counts");
 constexpr int N_U = 21;  // uniform words per lane and bounce (ops/shading.N_UNIFORMS)
+constexpr int kCopyUnroll = 8;  // uniform words a thread loads before it stores them
 constexpr int kCopyThreads = 256;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // a tile's status word: bits 32-63 the epoch (30 bits) and the flag, bits
 // 0-31 the value
@@ -83,11 +94,16 @@ constexpr unsigned FLAG_AGGREGATE = 1, FLAG_PREFIX = 2;
 // done, the epoch (as unsigned ints)
 constexpr int CTL_TICKET = 0, CTL_DONE = 1, CTL_EPOCH = 2, CTL_WORDS64 = 2;
 
-struct CompactIn {
-  const float* origin;
-  const float* dir;
-  const float* throughput;
-  const float* radiance;
+// compact_forward's slot array (ops/compact.FORWARD_SLOTS): the inputs,
+// the outputs, the scratch, then two integers
+enum Slot {
+  S_ORIGIN, S_DIR, S_THROUGHPUT, S_RADIANCE, S_ACTIVE, S_SPECULAR, S_CUR_MAT, S_IDX, S_UNIFORMS,
+  S_OUT_ORIGIN, S_OUT_DIR, S_OUT_THROUGHPUT, S_OUT_RADIANCE, S_OUT_ACTIVE, S_OUT_SPECULAR, S_OUT_CUR_MAT,
+  S_OUT_IDX, S_OUT_U, S_POS, S_COUNTS, S_SCRATCH, S_U_LANE_STRIDE, S_BOUNCE, N_SLOTS
+};
+
+struct Params {
+  const float* f_in[4];  // origin, dir, throughput, radiance: (B, 3)
   const uint8_t* active;
   const uint8_t* specular;
   const int* cur_mat;
@@ -95,28 +111,30 @@ struct CompactIn {
   const float* uniforms;  // the frame's block; lane l's rows start at l * u_lane_stride
   long long u_lane_stride;
   int bounce;
-};
-
-struct CompactOut {
-  float* origin;
-  float* dir;
-  float* throughput;
-  float* radiance;
-  uint8_t* active;
-  uint8_t* specular;
-  int* cur_mat;
-  int* idx;
-  float* u;  // (B, N_U)
+  float* f_out[4];
+  uint8_t* active_out;
+  uint8_t* specular_out;
+  int* cur_mat_out;
+  int* idx_out;
+  float* u_out;  // (B, N_U)
   int* pos;
   int* counts;  // counts[bounce] takes the live count
+  unsigned long long* scratch;
+  int n, n_tiles;
 };
 
-struct Params {
-  CompactIn in;
-  CompactOut out;
-  int n;
-  int n_tiles;
-  unsigned long long* scratch;
+// One lane's state row, held in registers between its load and its store.
+struct LaneRow {
+  float f[12];  // origin, dir, throughput, radiance
+  int cur_mat, src;  // the medium; the original index
+  uint8_t active, specular;
+};
+
+struct Smem {
+  int counts[65];  // the tile's (row, warp) counts, their exclusive scan, the total
+  int src[kTile];  // a run's original indices (their uniform rows) in destination order
+  unsigned ticket;
+  int excl, total;
 };
 
 __device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
@@ -139,6 +157,47 @@ __device__ __forceinline__ unsigned status_flag(unsigned long long w, unsigned e
   return (tag >> 2) == (epoch & 0x3FFFFFFFu) ? (tag & 3u) : 0u;
 }
 
+// tile t's prefix, the live lanes up to its end, once it is published
+__device__ __forceinline__ unsigned wait_prefix(const unsigned long long* status, int t, unsigned epoch) {
+  unsigned long long w;
+  do {
+    w = load_relaxed(status + t);
+  } while (status_flag(w, epoch) != FLAG_PREFIX);
+  return (unsigned)w;
+}
+
+// Warp-wide: publishes tile t's live count (its aggregate at once, its
+// inclusive prefix after the look-back) and returns the live lanes of the
+// tiles before t.  Every lane of the warp calls it.  A round reads the 32
+// tiles below the window's top, one a lane, and sums them back to the
+// nearest prefix; it reads them again while a tile before that prefix has
+// not published.
+__device__ unsigned look_back(unsigned long long* status, unsigned t, unsigned count, unsigned epoch) {
+  const int lane = threadIdx.x % 32;
+  if (t == 0) {
+    if (lane == 0) store_relaxed(status, status_word(epoch, FLAG_PREFIX, count));
+    return 0;
+  }
+  if (lane == 0) store_relaxed(status + t, status_word(epoch, FLAG_AGGREGATE, count));
+  unsigned excl = 0;
+  long long j = (long long)t - 1 - lane;  // lane k reads the tile k + 1 below the window's top
+  while (true) {
+    const unsigned long long w = j >= 0 ? load_relaxed(status + j) : status_word(epoch, FLAG_PREFIX, 0);
+    const unsigned flag = status_flag(w, epoch);
+    const unsigned prefix = __ballot_sync(kFullMask, flag == FLAG_PREFIX);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;  // the nearest prefix ends the walk
+    if (__any_sync(kFullMask, lane <= stop && flag == 0)) continue;  // a tile before it has not published
+    unsigned v = lane <= stop ? (unsigned)w : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d /= 2) v += __shfl_xor_sync(kFullMask, v, d);
+    excl += v;
+    if (prefix) break;
+    j -= 32;
+  }
+  if (lane == 0) store_relaxed(status + t, status_word(epoch, FLAG_PREFIX, excl + count));
+  return excl;
+}
+
 // What a tile's lanes are: per item row, each lane's liveness and, among
 // the tile's lanes before it, the live ones.
 struct TileRanks {
@@ -147,17 +206,18 @@ struct TileRanks {
   int count;  // live lanes of the tile
 };
 
-// Block-wide: the ranks of tile `t`'s lanes.  Lane (row k, thread tid) is
-// lane base + k * kThreads + tid, so the tile's order is row-major.
+// Block-wide: the ranks of the lanes of the tile at `base`.  Lane (row k,
+// thread tid) is lane base + k * kThreads + tid, so the tile's order is
+// row-major.
 __device__ void tile_ranks(const Params& p, long long base, TileRanks& r, int* s_counts) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const unsigned below = (1u << lane) - 1u;
   int in_warp[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    long long i = base + (long long)k * kThreads + tid;
-    r.live[k] = i < p.n && p.in.active[i] != 0;
-    unsigned ballot = __ballot_sync(0xFFFFFFFFu, r.live[k]);
+    const long long i = base + (long long)k * kThreads + tid;
+    r.live[k] = i < p.n && p.active[i] != 0;
+    const unsigned ballot = __ballot_sync(kFullMask, r.live[k]);
     in_warp[k] = __popc(ballot & below);
     if (lane == 0) s_counts[k * kWarps + warp] = __popc(ballot);
   }
@@ -166,7 +226,7 @@ __device__ void tile_ranks(const Params& p, long long base, TileRanks& r, int* s
     int v = lane < kItems * kWarps ? s_counts[lane] : 0, incl = v;
 #pragma unroll
     for (int d = 1; d < 32; d *= 2) {
-      int o = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      int o = __shfl_up_sync(kFullMask, incl, d);
       if (lane >= d) incl += o;
     }
     s_counts[32 + lane] = incl - v;
@@ -179,76 +239,61 @@ __device__ void tile_ranks(const Params& p, long long base, TileRanks& r, int* s
   __syncthreads();  // s_counts is reused by the next tile
 }
 
-// One lane's state row, held in registers between its load and its store.
-struct LaneRow {
-  float f[12];  // origin, dir, throughput, radiance
-  int cur_mat, src;  // the medium; the original index
-  uint8_t active, specular;
-};
-
-// Loads lane i's row; every load is issued before any store of the tile,
-// so the loads of a thread's lanes are in flight together.
-__device__ __forceinline__ void load_lane(const CompactIn& in, long long i, LaneRow& r) {
-  for (int c = 0; c < 3; ++c) {
-    r.f[c] = __ldg(in.origin + 3 * i + c);
-    r.f[3 + c] = __ldg(in.dir + 3 * i + c);
-    r.f[6 + c] = __ldg(in.throughput + 3 * i + c);
-    r.f[9 + c] = __ldg(in.radiance + 3 * i + c);
-  }
-  r.active = __ldg(in.active + i);
-  r.specular = __ldg(in.specular + i);
-  r.cur_mat = __ldg(in.cur_mat + i);
-  r.src = in.idx != nullptr ? __ldg(in.idx + i) : (int)i;
+// Loads lane i's row into registers; every load of a thread's lanes is
+// issued before any of its stores.
+__device__ __forceinline__ void load_lane(const Params& p, long long i, LaneRow& r) {
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) r.f[3 * f + c] = __ldg(p.f_in[f] + 3 * i + c);
+  r.active = __ldg(p.active + i);
+  r.specular = __ldg(p.specular + i);
+  r.cur_mat = __ldg(p.cur_mat + i);
+  r.src = p.idx != nullptr ? __ldg(p.idx + i) : (int)i;
 }
 
-// Writes lane i's row at `dst` and stages its uniform row's copy in `slot`.
-__device__ __forceinline__ void store_lane(const CompactOut& out, long long i, int dst, int slot, const LaneRow& r,
-                                           int* s_src, int* s_dst) {
-  for (int c = 0; c < 3; ++c) {
-    out.origin[3LL * dst + c] = r.f[c];
-    out.dir[3LL * dst + c] = r.f[3 + c];
-    out.throughput[3LL * dst + c] = r.f[6 + c];
-    out.radiance[3LL * dst + c] = r.f[9 + c];
-  }
-  out.active[dst] = r.active;
-  out.specular[dst] = r.specular;
-  out.cur_mat[dst] = r.cur_mat;
-  out.idx[dst] = r.src;
-  out.pos[i] = dst;
+// Writes lane i's row at `dst` and its pos, and puts its original index at
+// `slot` of the run's list.
+__device__ __forceinline__ void store_lane(const Params& p, long long i, int dst, int slot, const LaneRow& r,
+                                           int* s_src) {
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) p.f_out[f][3LL * dst + c] = r.f[3 * f + c];
+  p.active_out[dst] = r.active;
+  p.specular_out[dst] = r.specular;
+  p.cur_mat_out[dst] = r.cur_mat;
+  p.idx_out[dst] = r.src;
+  p.pos[i] = dst;
   s_src[slot] = r.src;
-  s_dst[slot] = dst;
 }
 
-// Block-wide: copies the `rows` uniform rows staged in (s_src, s_dst), word
+// Block-wide: the uniform rows of a run of `rows` lanes (their original
+// indices in `src`) at rows [dst0, dst0 + rows) of the output block, word
 // by word, consecutive threads on consecutive words, kCopyUnroll loads in
 // flight per thread before their stores.
-constexpr int kCopyUnroll = 8;
-__device__ __forceinline__ void copy_uniforms(const Params& p, int rows, const int* s_src, const int* s_dst) {
-  const float* u = p.in.uniforms + (long long)p.in.bounce * N_U;
+__device__ __forceinline__ void copy_uniforms(const Params& p, const int* src, int rows, int dst0) {
+  const float* u = p.uniforms + (long long)p.bounce * N_U;
+  float* out = p.u_out + (long long)dst0 * N_U;
   const int words = rows * N_U;
   for (int f0 = threadIdx.x; f0 < words; f0 += kThreads * kCopyUnroll) {
     float v[kCopyUnroll];
-    long long dst[kCopyUnroll];
 #pragma unroll
     for (int j = 0; j < kCopyUnroll; ++j) {
       const int f = f0 + j * kThreads;
       if (f < words) {
-        const int r = f / N_U, w = f - r * N_U;
-        v[j] = __ldg(u + (long long)s_src[r] * p.in.u_lane_stride + w);
-        dst[j] = (long long)s_dst[r] * N_U + w;
+        const int r = f / N_U;
+        v[j] = __ldg(u + (long long)src[r] * p.u_lane_stride + (f - r * N_U));
       }
     }
 #pragma unroll
     for (int j = 0; j < kCopyUnroll; ++j)
-      if (f0 + j * kThreads < words) p.out.u[dst[j]] = v[j];
+      if (f0 + j * kThreads < words) out[f0 + j * kThreads] = v[j];
   }
 }
 
 __global__ void __launch_bounds__(kThreads) compact_forward_kernel(const __grid_constant__ Params p) {
-  __shared__ int s_counts[65];
-  __shared__ int s_src[kTile], s_dst[kTile];
-  __shared__ unsigned s_tile;
-  __shared__ int s_excl, s_total;
+  __shared__ Smem s;
   unsigned* ctl = reinterpret_cast<unsigned*>(p.scratch);
   unsigned long long* status = p.scratch + CTL_WORDS64;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -256,99 +301,65 @@ __global__ void __launch_bounds__(kThreads) compact_forward_kernel(const __grid_
 
   // the live lanes of every tile this block takes
   while (true) {
-    if (tid == 0) s_tile = atomicAdd(ctl + CTL_TICKET, 1u);
+    if (tid == 0) s.ticket = atomicAdd(ctl + CTL_TICKET, 1u);
     __syncthreads();
-    const unsigned t = s_tile;
+    const unsigned t = s.ticket;
     if (t >= (unsigned)p.n_tiles) break;
     const long long base = (long long)t * kTile;
     TileRanks r;
-    tile_ranks(p, base, r, s_counts);
+    tile_ranks(p, base, r, s.counts);
     LaneRow rows[kItems];  // the live lanes' rows, loading while the look-back runs
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
-      if (r.live[k]) load_lane(p.in, base + (long long)k * kThreads + tid, rows[k]);
+      if (r.live[k]) load_lane(p, base + (long long)k * kThreads + tid, rows[k]);
     if (warp == 0) {  // publish the count, look back for the prefix
-      unsigned excl = 0;
-      if (t == 0) {
-        if (lane == 0) store_relaxed(status + t, status_word(epoch, FLAG_PREFIX, r.count));
-      } else {
-        if (lane == 0) store_relaxed(status + t, status_word(epoch, FLAG_AGGREGATE, r.count));
-        long long j = (long long)t - 1 - lane;  // lane k reads the tile k + 1 before t
-        while (true) {
-          unsigned long long w = j >= 0 ? load_relaxed(status + j) : status_word(epoch, FLAG_PREFIX, 0);
-          unsigned flag = status_flag(w, epoch);
-          if (__any_sync(0xFFFFFFFFu, flag == 0)) continue;  // a predecessor has not published yet
-          unsigned prefix = __ballot_sync(0xFFFFFFFFu, flag == FLAG_PREFIX);
-          int stop = prefix ? __ffs(prefix) - 1 : 31;  // the nearest prefix ends the walk
-          unsigned v = lane <= stop ? (unsigned)w : 0u;
-#pragma unroll
-          for (int d = 16; d > 0; d /= 2) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
-          excl += v;
-          if (prefix) break;
-          j -= 32;
-        }
-        if (lane == 0) store_relaxed(status + t, status_word(epoch, FLAG_PREFIX, excl + r.count));
-      }
+      const unsigned excl = look_back(status, t, (unsigned)r.count, epoch);
       if (lane == 0) {
-        s_excl = (int)excl;
-        if (t == (unsigned)p.n_tiles - 1) p.out.counts[p.in.bounce] = (int)excl + r.count;
+        s.excl = (int)excl;
+        if (t == (unsigned)p.n_tiles - 1) p.counts[p.bounce] = (int)excl + r.count;
       }
     }
     __syncthreads();
-    const int excl = s_excl;
+    const int excl = s.excl;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (r.live[k]) store_lane(p.out, base + (long long)k * kThreads + tid, excl + r.live_before[k], r.live_before[k],
-                                rows[k], s_src, s_dst);
-    }
+    for (int k = 0; k < kItems; ++k)
+      if (r.live[k])
+        store_lane(p, base + (long long)k * kThreads + tid, excl + r.live_before[k], r.live_before[k], rows[k], s.src);
     __syncthreads();
-    copy_uniforms(p, r.count, s_src, s_dst);
+    copy_uniforms(p, s.src, r.count, excl);
     __syncthreads();
   }
 
   // the dead lanes of tiles blockIdx.x, blockIdx.x + gridDim.x, ...: every
   // tile now belongs to a running block, so the total comes
-  if (tid == 0) {
-    unsigned long long w;
-    do {
-      w = load_relaxed(status + p.n_tiles - 1);
-    } while (status_flag(w, epoch) != FLAG_PREFIX);
-    s_total = (int)(unsigned)w;
-  }
+  if (tid == 0) s.total = (int)wait_prefix(status, p.n_tiles - 1, epoch);
   __syncthreads();
-  const int total = s_total;
+  const int total = s.total;
   for (int t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
     const long long base = (long long)t * kTile;
     TileRanks r;
-    tile_ranks(p, base, r, s_counts);
+    tile_ranks(p, base, r, s.counts);
     LaneRow rows[kItems];  // the dead lanes' rows, loading while the tile's prefix is read
     bool dead[kItems];
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const long long i = base + (long long)k * kThreads + tid;
       dead[k] = i < p.n && !r.live[k];
-      if (dead[k]) load_lane(p.in, i, rows[k]);
+      if (dead[k]) load_lane(p, i, rows[k]);
     }
-    if (tid == 0) {
-      unsigned long long w;
-      do {
-        w = load_relaxed(status + t);
-      } while (status_flag(w, epoch) != FLAG_PREFIX);
-      s_excl = (int)(unsigned)w - r.count;
-    }
+    if (tid == 0) s.excl = (int)wait_prefix(status, t, epoch) - r.count;
     __syncthreads();
-    const int excl = s_excl;
+    const int dst0 = total + (int)(base - s.excl);  // L + the dead lanes of the tiles before this one
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       // the dead lanes of the tile before this one: its place in the tile less the live ones
       const int dead_before = k * kThreads + tid - r.live_before[k];
       if (dead[k])
-        store_lane(p.out, base + (long long)k * kThreads + tid, total + (int)(base - excl) + dead_before, dead_before,
-                   rows[k], s_src, s_dst);
+        store_lane(p, base + (long long)k * kThreads + tid, dst0 + dead_before, dead_before, rows[k], s.src);
     }
     const long long tile_lanes = (long long)p.n - base < kTile ? (long long)p.n - base : kTile;
     __syncthreads();
-    copy_uniforms(p, (int)tile_lanes - r.count, s_src, s_dst);
+    copy_uniforms(p, s.src, (int)tile_lanes - r.count, dst0);
     __syncthreads();
   }
 
@@ -394,22 +405,62 @@ static unsigned copy_grid(int n) {
   return (unsigned)(g < 1 ? 1 : (g > 65535LL * 16 ? 65535LL * 16 : g));
 }
 
+static int n_tiles(int n) { return n <= 0 ? 1 : (int)(((long long)n + kTile - 1) / kTile); }
+
 // ---- entry points; each returns a cudaError_t
 
-// The tiles a batch of `n` lanes takes (the scratch holds CTL_WORDS64 +
-// this many 64-bit words).
-extern "C" int compact_tiles(int n) { return n <= 0 ? 1 : (int)(((long long)n + kTile - 1) / kTile); }
+// The 64-bit words of the forward's scratch for a batch of `n` lanes.
+extern "C" int compact_scratch_words(int n) { return CTL_WORDS64 + n_tiles(n); }
 
-// `in`, `out`: CompactIn and CompactOut; `scratch`: the wrapper's, at least
-// compact_tiles(n) + CTL_WORDS64 words, zero when first allocated.
-extern "C" int compact_forward(int n, const CompactIn* in, const CompactOut* out, void* scratch, void* stream) {
-  if (n < 0 || in == nullptr || out == nullptr || scratch == nullptr) return (int)cudaErrorInvalidValue;
+// `out`: the forward's launch on the current card for `n` lanes: threads,
+// lanes per tile, blocks, shared memory bytes per block, resident blocks
+// per SM, SMs, registers per thread.
+extern "C" int compact_forward_config(int n, int* out) {
+  int dev = 0, sms = 0, resident = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, compact_forward_kernel, kThreads, 0);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, compact_forward_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = kThreads;
+  out[1] = kTile;
+  out[2] = n_tiles(n);
+  out[3] = (int)sizeof(Smem);
+  out[4] = resident;
+  out[5] = sms;
+  out[6] = attr.numRegs;
+  return 0;
+}
+
+// `slots`: the N_SLOTS words of Slot's order (pointers; the uniforms'
+// lane stride and the bounce as integers).  The scratch holds at least
+// compact_scratch_words(n) words, zero when first allocated.
+extern "C" int compact_forward(int n, const void* const* slots, int n_slots, void* stream) {
+  if (n < 0 || n_slots != N_SLOTS || slots == nullptr) return (int)cudaErrorInvalidValue;
   Params p;
-  p.in = *in;
-  p.out = *out;
+  for (int f = 0; f < 4; ++f) {
+    p.f_in[f] = (const float*)slots[S_ORIGIN + f];
+    p.f_out[f] = (float*)slots[S_OUT_ORIGIN + f];
+  }
+  p.active = (const uint8_t*)slots[S_ACTIVE];
+  p.specular = (const uint8_t*)slots[S_SPECULAR];
+  p.cur_mat = (const int*)slots[S_CUR_MAT];
+  p.idx = (const int*)slots[S_IDX];
+  p.uniforms = (const float*)slots[S_UNIFORMS];
+  p.u_lane_stride = (long long)(intptr_t)slots[S_U_LANE_STRIDE];
+  p.bounce = (int)(intptr_t)slots[S_BOUNCE];
+  p.active_out = (uint8_t*)slots[S_OUT_ACTIVE];
+  p.specular_out = (uint8_t*)slots[S_OUT_SPECULAR];
+  p.cur_mat_out = (int*)slots[S_OUT_CUR_MAT];
+  p.idx_out = (int*)slots[S_OUT_IDX];
+  p.u_out = (float*)slots[S_OUT_U];
+  p.pos = (int*)slots[S_POS];
+  p.counts = (int*)slots[S_COUNTS];
+  p.scratch = (unsigned long long*)slots[S_SCRATCH];
   p.n = n;
-  p.n_tiles = compact_tiles(n);
-  p.scratch = static_cast<unsigned long long*>(scratch);
+  p.n_tiles = n_tiles(n);
+  if (p.scratch == nullptr || p.counts == nullptr) return (int)cudaErrorInvalidValue;
   compact_forward_kernel<<<p.n_tiles, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

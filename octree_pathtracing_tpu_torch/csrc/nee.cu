@@ -50,7 +50,14 @@
 // it adds throughput * (sun + emitters) to the radiance K4 wrote.  With a
 // gradient it writes 36 bytes per face and lane: a code (cast; the slots'
 // strict zeros), the texel each attenuating slot read, the emitter's texel
-// and material, and the geometry scale (written by nee_setup).
+// and material, and the geometry scale (written by nee_setup).  A cast
+// face's texels are a chain of dependent reads (the record, the material's
+// layer, the layer's size, the texel) for each of up to five slots, and
+// the plain version's fold gates each slot on the budget the slot before
+// left; so every slot that can attenuate is read first, each round of the
+// chain for all slots at once, and the fold runs in registers after them.
+// A face that no lane of a warp casts is skipped by the whole warp, and a
+// residual row is written as two 16-byte stores.
 //
 // nee_backward, per lane: from the radiance cotangent, the throughput's
 // and the shading point's albedo's gradients (the albedo's reach the atlas
@@ -227,12 +234,33 @@ struct Walk {  // the binary walk's first hit or the stateful walk's record, and
   const float* p_uv;
 };
 
-struct ResolveIn {
-  const float* albedo;  // (B, 4) the shading point's texel
+// nee_resolve's slot array (ops/nee.RESOLVE_SLOTS): the lane's inputs,
+// the rays' fields it reads, the walks' records, the outputs, then the two
+// row strides as integers; a null pointer is a record the walk did not
+// make, and a null residual is not wanted
+enum ResolveSlot {
+  R_ALBEDO, R_THROUGHPUT, R_RADIANCE, R_CUR_MAT, R_ON, R_MAX_T, R_SCALE, R_E_TEXEL, R_E_MAT,
+  R_HIT, R_T, R_FACE_ID, R_UV, R_LEAF_VALUE, R_COUNT, R_MATS, R_UU, R_VV, R_TS, R_P_HIT, R_P_T, R_P_MAT, R_P_UV,
+  R_OUT_RADIANCE, R_RESID, R_THROUGHPUT_STRIDE, R_RADIANCE_STRIDE, N_RESOLVE_SLOTS
+};
+
+struct ResolveParams {
+  NeeTables tb;
+  NeeFlags fl;
+  const float* albedo;  // (B, 4) the shading point's texel, 16-byte rows
   const float* throughput;
   const float* radiance;  // what K4 wrote
   const int* cur_mat;
+  const uint8_t* on;  // the rays' fields (F * B rows)
+  const float* max_t;
+  const float* scale;
+  const int* e_texel;
+  const int* e_mat;
+  Walk wk;
+  float* out_rad;
+  int* resid;  // (F * B, RESID_INTS), 16-byte aligned; null: not wanted
   long long throughput_stride, radiance_stride;
+  int n;
 };
 
 // nee_backward's slot array (ops/nee.BACKWARD_SLOTS): a null gradient is
@@ -261,14 +289,9 @@ struct BackwardParams {
   int n_emit, n, sun, em_mode, faces;
 };
 
-// ops/texture.texel_index: nearest texel with the clamp and the v-flip
-__device__ __forceinline__ int texel_of(const NeeTables& tb, int mat, float u, float v) {
-  int layer = __ldg(tb.texture_index + mat);
-  int t_h = tb.atlas_h, t_w = tb.atlas_w;
-  if (tb.sizes != nullptr) {
-    t_h = __ldg(tb.sizes + 2 * layer);
-    t_w = __ldg(tb.sizes + 2 * layer + 1);
-  }
+// ops/texture.texel_index: nearest texel with the clamp and the v-flip, in
+// a layer of t_h x t_w texels
+__device__ __forceinline__ int texel_at(const NeeTables& tb, int layer, int t_h, int t_w, float u, float v) {
   float uu = clampf(u, 0.0f, 1.0f);
   float vv = 1.0f - clampf(v, 0.0f, 1.0f);
   int ti = max((int)(uu * (float)t_w), 0);
@@ -276,6 +299,16 @@ __device__ __forceinline__ int texel_of(const NeeTables& tb, int mat, float u, f
   ti = ti > t_w - 1 ? t_w - 1 : ti;
   tj = tj > t_h - 1 ? t_h - 1 : tj;
   return (layer * tb.atlas_h + tj) * tb.atlas_w + ti;
+}
+
+__device__ __forceinline__ int texel_of(const NeeTables& tb, int mat, float u, float v) {
+  int layer = __ldg(tb.texture_index + mat);
+  int t_h = tb.atlas_h, t_w = tb.atlas_w;
+  if (tb.sizes != nullptr) {
+    t_h = __ldg(tb.sizes + 2 * layer);
+    t_w = __ldg(tb.sizes + 2 * layer + 1);
+  }
+  return texel_at(tb, layer, t_h, t_w, u, v);
 }
 
 __device__ __forceinline__ float4 texel4(const float* atlas, int texel) {
@@ -496,117 +529,230 @@ __global__ void __launch_bounds__(kThreads) nee_setup_kernel(const __grid_consta
 
 // ---- nee_resolve
 
-// One face's attenuation (ops/nee.attenuation_reference): rgb and w, and
-// the slots' texels (-1 where a slot did not attenuate) and strict zeros.
-__device__ void attenuation(const NeeTables& tb, const Walk& wk, const NeeFlags& fl, long long r, long long fb,
-                            int cur_mat, float max_t, float att[3], float* w_out, int texels[N_SLOTS],
-                            int* zeros) {
+// One texel read in rounds, so that a lane's independent reads go out
+// together: the material's layer (and, under strict IOR, its ior), the
+// layer's size, then the texel.  Nothing is read where `on` is false.
+struct TexelRead {
+  bool on;
+  int mat, layer, t_h, t_w, texel;
+  float u, v, ior;
+  float4 rgba;
+};
+
+__device__ __forceinline__ void read_layer(const NeeTables& tb, bool strict, TexelRead& x) {
+  if (!x.on) return;
+  x.layer = __ldg(tb.texture_index + x.mat);
+  if (strict) x.ior = __ldg(tb.ior + x.mat);
+}
+
+__device__ __forceinline__ void read_size(const NeeTables& tb, TexelRead& x) {
+  x.t_h = tb.atlas_h;
+  x.t_w = tb.atlas_w;
+  if (x.on && tb.sizes != nullptr) {
+    x.t_h = __ldg(tb.sizes + 2 * x.layer);
+    x.t_w = __ldg(tb.sizes + 2 * x.layer + 1);
+  }
+}
+
+__device__ __forceinline__ void read_texel(const NeeTables& tb, TexelRead& x) {
+  if (!x.on) return;
+  x.texel = texel_at(tb, x.layer, x.t_h, x.t_w, x.u, x.v);
+  x.rgba = texel_rgba(tb, x.texel);
+}
+
+// What one face of a lane reads: its ray's fields, the walk's record, and
+// the texels and table entries they name.  Slot k < K_SURF is the walk's
+// k-th surface (the binary walk's one hit in slot 0), slot K_SURF the
+// nearest primitive.
+struct FaceRead {
+  bool on;
+  float max_t, scale;
+  int e_texel, e_mat;
+  int count;  // the stateful walk's surfaces
+  float ts[K_SURF];
+  bool hit;   // the binary walk's hit and what names its material
+  float t;
+  int leaf, face;
+  float ior_cur;  // the lane's medium's ior (strict IOR only)
+  bool p_hit;
+  float p_t;
+  TexelRead s[N_SLOTS];
+  float4 e_rgba;
+  float e_emit;
+};
+
+// Every read of face f of lane i, round by round: a round's reads are
+// independent of each other, so they are in flight together (the texels
+// of every slot at once, in place of one slot's chain after another), and
+// the attenuation is then folded in registers.  A slot is read where the
+// plain version can attenuate with it, whatever the budget w: a surface
+// within the walk's count and short of max_t, the primitive's hit short of
+// max_t.  A face that no lane of the warp casts skips its reads as a
+// whole.  (Two faces' reads at once took 216 registers a thread and lost:
+// PERF.md.)
+__device__ __forceinline__ void read_face(const ResolveParams& p, bool valid, long long i, int f, int cur_mat,
+                                          FaceRead& x) {
+  const NeeTables& tb = p.tb;
+  const NeeFlags& fl = p.fl;
+  const Walk& wk = p.wk;
+  const long long n = p.n, fb = (long long)fl.faces * n, r = (long long)f * n + i;
+  const bool strict = fl.strict != 0, prim = wk.p_hit != nullptr, sun_face = fl.sun && f == 0;
+  x.on = valid && p.on[r] != 0;
+  const bool any = __any_sync(kFullMask, x.on);
+  for (int s = 0; s < N_SLOTS; ++s) {
+    x.s[s].on = false;
+    x.s[s].texel = -1;
+  }
+  x.e_texel = x.e_mat = -1;
+  if (valid && (p.resid != nullptr || (x.on && !sun_face))) {
+    x.e_texel = p.e_texel[r];  // the residual keeps them on every row
+    x.e_mat = p.e_mat[r];
+  }
+  if (!any || !x.on) return;
+  // the ray's fields, the records, the medium's ior
+  x.max_t = p.max_t[r];
+  x.scale = p.scale[r];
+  if (strict) x.ior_cur = __ldg(tb.ior + cur_mat);
+  if (fl.binary) {
+    x.hit = wk.hit[r] != 0;
+    x.t = wk.t[r];
+    x.leaf = wk.leaf_value[r];
+    if (tb.leaf_model != nullptr) x.face = wk.face_id[r];
+    x.s[0].u = wk.uv[2 * r];
+    x.s[0].v = wk.uv[2 * r + 1];
+  } else {
+    x.count = wk.count[r];
+#pragma unroll
+    for (int k = 0; k < K_SURF; ++k) {
+      x.s[k].mat = wk.mats[k * fb + r];
+      x.s[k].u = wk.uu[k * fb + r];
+      x.s[k].v = wk.vv[k * fb + r];
+      x.ts[k] = wk.ts != nullptr ? wk.ts[k * fb + r] : 0.0f;
+    }
+  }
+  if (prim) {
+    x.p_hit = wk.p_hit[r] != 0;
+    x.p_t = wk.p_t[r];
+    x.s[K_SURF].mat = wk.p_mat[r];
+    x.s[K_SURF].u = wk.p_uv[2 * r];
+    x.s[K_SURF].v = wk.p_uv[2 * r + 1];
+  }
+  // which slots attenuate (but for the budget); the binary hit's material
+  if (fl.binary) {
+    x.s[0].on = x.hit && x.t < x.max_t;
+    if (x.s[0].on) {
+      if (tb.leaf_model == nullptr) {
+        x.s[0].mat = __ldg(tb.leaf_material + min(max(x.leaf, 0), tb.n_leaf - 1));
+      } else {
+        const int model = __ldg(tb.leaf_model + min(max(x.leaf, 0), tb.n_leaf_model - 1));
+        x.s[0].mat = __ldg(tb.face_material + 6 * model + min(max(x.face, 0), 5));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K_SURF; ++k) x.s[k].on = k < x.count && (wk.ts == nullptr || x.ts[k] < x.max_t);
+  }
+  if (prim) x.s[K_SURF].on = x.p_hit && x.p_t < x.max_t;
+#pragma unroll
+  for (int s = 0; s < N_SLOTS; ++s) read_layer(tb, strict, x.s[s]);
+#pragma unroll
+  for (int s = 0; s < N_SLOTS; ++s) read_size(tb, x.s[s]);
+  // the texels, and the emitter's texel and emission
+#pragma unroll
+  for (int s = 0; s < N_SLOTS; ++s) read_texel(tb, x.s[s]);
+  if (!sun_face) {
+    x.e_rgba = texel_rgba(tb, x.e_texel);
+    x.e_emit = __ldg(tb.emittance + x.e_mat);
+  }
+}
+
+// One face's attenuation (ops/nee.attenuation_reference) from its reads,
+// folded front to back: rgb and w, and the slots' texels (-1 where a slot
+// did not attenuate) and strict zeros.
+__device__ __forceinline__ void attenuation(const NeeFlags& fl, const FaceRead& x, float att[3], float* w_out,
+                                            int texels[N_SLOTS], int* zeros) {
+  const bool strict = fl.strict != 0;
   float w = 1.0f;
   for (int c = 0; c < 3; ++c) att[c] = 1.0f;
   for (int s = 0; s < N_SLOTS; ++s) texels[s] = -1;
   int zero_bits = 0;
-  if (fl.binary) {  // the first hit: one surface, short of max_t
-    if (wk.hit[r] && wk.t[r] < max_t) {
-      int leaf = wk.leaf_value[r];
-      int mat;
-      if (tb.leaf_model == nullptr) {
-        mat = __ldg(tb.leaf_material + min(max(leaf, 0), tb.n_leaf - 1));
-      } else {
-        int face = min(max(wk.face_id[r], 0), 5);
-        int model = __ldg(tb.leaf_model + min(max(leaf, 0), tb.n_leaf_model - 1));
-        mat = __ldg(tb.face_material + 6 * model + face);
-      }
-      int texel = texel_of(tb, mat, wk.uv[2 * r], wk.uv[2 * r + 1]);
-      float4 a = texel_rgba(tb, texel);
-      float mult = 1.0f - a.w;
+  float ior_cm = x.ior_cur;  // the medium's ior: the lane's, then each attenuating surface's
+#pragma unroll
+  for (int k = 0; k < K_SURF; ++k) {
+    const TexelRead& sl = x.s[k];
+    // the binary walk's one surface takes no budget test; the records' each
+    // surface only while w > 0
+    if (!sl.on || (!fl.binary && !(w > 0.0f))) continue;
+    const float4 a = sl.rgba;
+    const float mult = 1.0f - a.w;
+    if (fl.binary) {
       att[0] = a.x * a.w + mult;
       att[1] = a.y * a.w + mult;
       att[2] = a.z * a.w + mult;
-      w = mult;
-      if (fl.strict && __ldg(tb.ior + cur_mat) != __ldg(tb.ior + mat)) {
-        w = 0.0f;
-        zero_bits |= 1;
-      }
-      texels[0] = texel;
-    }
-  } else {  // the stateful walk's records, front to back
-    int count = wk.count[r];
-    int cm = cur_mat;
-#pragma unroll
-    for (int k = 0; k < K_SURF; ++k) {
-      bool upd = k < count && w > 0.0f;
-      if (wk.ts != nullptr) upd = upd && wk.ts[k * fb + r] < max_t;
-      if (!upd) continue;
-      int mat = wk.mats[k * fb + r];
-      int texel = texel_of(tb, mat, wk.uu[k * fb + r], wk.vv[k * fb + r]);
-      float4 a = texel_rgba(tb, texel);
-      float mult = 1.0f - a.w;
+    } else {
       att[0] = att[0] * (a.x * a.w + mult);
       att[1] = att[1] * (a.y * a.w + mult);
       att[2] = att[2] * (a.z * a.w + mult);
-      if (fl.strict && __ldg(tb.ior + cm) != __ldg(tb.ior + mat)) {
-        w = 0.0f;
-        zero_bits |= 1 << k;
-      } else {
-        w = w * mult;
-      }
-      cm = mat;
-      texels[k] = texel;
     }
+    if (strict && ior_cm != sl.ior) {
+      w = 0.0f;
+      zero_bits |= 1 << k;
+    } else {
+      w = fl.binary ? mult : w * mult;
+    }
+    ior_cm = sl.ior;
+    texels[k] = sl.texel;
   }
-  if (wk.p_hit != nullptr && wk.p_hit[r] && wk.p_t[r] < max_t) {  // the nearest primitive
-    int p_mat = wk.p_mat[r];
-    int texel = texel_of(tb, p_mat, wk.p_uv[2 * r], wk.p_uv[2 * r + 1]);
-    float4 a = texel_rgba(tb, texel);
-    float mult = 1.0f - a.w;
+  const TexelRead& pr = x.s[K_SURF];
+  if (pr.on) {  // the nearest primitive
+    const float4 a = pr.rgba;
+    const float mult = 1.0f - a.w;
     att[0] = att[0] * (a.x * a.w + mult);
     att[1] = att[1] * (a.y * a.w + mult);
     att[2] = att[2] * (a.z * a.w + mult);
-    if (fl.strict && __ldg(tb.ior + cur_mat) != __ldg(tb.ior + p_mat)) {
+    if (strict && x.ior_cur != pr.ior) {
       w = 0.0f;
       zero_bits |= 1 << K_SURF;
     } else {
       w = w * mult;
     }
-    texels[K_SURF] = texel;
+    texels[K_SURF] = pr.texel;
   }
   *w_out = w;
   *zeros = zero_bits;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    nee_resolve_kernel(int n, NeeTables tb, ResolveIn in, Rays rays, Walk wk, NeeFlags fl, float* out_rad,
-                       int* resid) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float4 alb4 = reinterpret_cast<const float4*>(in.albedo)[i];
-  float alb[3] = {alb4.x, alb4.y, alb4.z};
+__global__ void __launch_bounds__(kThreads) nee_resolve_kernel(const __grid_constant__ ResolveParams p) {
+  const NeeTables& tb = p.tb;
+  const NeeFlags& fl = p.fl;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i0 - (threadIdx.x & 31) >= p.n) return;  // the whole warp lies past the batch
+  const bool valid = i0 < p.n;
+  const long long i = valid ? i0 : 0, n = p.n;
+  const float4 alb4 = reinterpret_cast<const float4*>(p.albedo)[i];
+  const float alb[3] = {alb4.x, alb4.y, alb4.z};
   float tp[3], rad[3], acc[3] = {0.0f, 0.0f, 0.0f};
   for (int c = 0; c < 3; ++c) {
-    tp[c] = in.throughput[i * in.throughput_stride + c];
-    rad[c] = in.radiance[i * in.radiance_stride + c];
+    tp[c] = p.throughput[i * p.throughput_stride + c];
+    rad[c] = p.radiance[i * p.radiance_stride + c];
   }
-  int cur_mat = in.cur_mat[i];
-  long long fb = (long long)fl.faces * n;
+  const int cur_mat = p.cur_mat[i];
   for (int f = 0; f < fl.faces; ++f) {
-    long long r = (long long)f * n + i;
-    bool on = rays.active[r] != 0;
-    bool sun_face = fl.sun && f == 0;
+    FaceRead x;
+    read_face(p, valid, i, f, cur_mat, x);
+    const bool sun_face = fl.sun && f == 0;
     float att[3], w;
     int texels[N_SLOTS], zeros = 0;
     float term[3] = {0.0f, 0.0f, 0.0f};
-    if (on) {
-      attenuation(tb, wk, fl, r, fb, cur_mat, rays.max_t[r], att, &w, texels, &zeros);
-      float scale = rays.scale[r];
+    if (x.on) {
+      attenuation(fl, x, att, &w, texels, &zeros);
       if (sun_face) {
-        float mult = scale * w;
+        float mult = x.scale * w;
         for (int c = 0; c < 3; ++c) term[c] = tp[c] * ((alb[c] * (att[c] * mult)) * __ldg(tb.sun_emittance + c));
       } else {
-        float4 ae = texel_rgba(tb, rays.e_texel[r]);
-        float e = __ldg(tb.emittance + rays.e_mat[r]);
-        float s = scale * w;
-        float a_e[3] = {ae.x, ae.y, ae.z};
-        for (int c = 0; c < 3; ++c) term[c] = ((alb[c] * ((a_e[c] * a_e[c]) * e)) * att[c]) * s;
+        float s = x.scale * w;
+        float a_e[3] = {x.e_rgba.x, x.e_rgba.y, x.e_rgba.z};
+        for (int c = 0; c < 3; ++c) term[c] = ((alb[c] * ((a_e[c] * a_e[c]) * x.e_emit)) * att[c]) * s;
       }
     } else {
       for (int s = 0; s < N_SLOTS; ++s) texels[s] = -1;
@@ -618,17 +764,17 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       for (int c = 0; c < 3; ++c) acc[c] = acc[c] + term[c];
     }
-    if (resid != nullptr) {
-      int* row = resid + ((long long)f * n + i) * RESID_INTS;
-      row[0] = (on ? CODE_ON : 0) | (zeros << ZERO_SHIFT);
-      for (int s = 0; s < N_SLOTS; ++s) row[1 + s] = texels[s];
-      row[1 + N_SLOTS] = rays.e_texel[r];
-      row[2 + N_SLOTS] = rays.e_mat[r];
+    if (p.resid != nullptr && valid) {  // the row's 32 bytes as two 16-byte stores
+      int4* row = reinterpret_cast<int4*>(p.resid + ((long long)f * n + i) * RESID_INTS);
+      static_assert(RESID_INTS == 8, "a residual row is two 16-byte stores");
+      row[0] = make_int4((x.on ? CODE_ON : 0) | (zeros << ZERO_SHIFT), texels[0], texels[1], texels[2]);
+      row[1] = make_int4(texels[3], texels[4], x.e_texel, x.e_mat);
     }
   }
+  if (!valid) return;
   if (fl.em_mode != EM_NONE)
     for (int c = 0; c < 3; ++c) rad[c] = rad[c] + tp[c] * acc[c];
-  for (int c = 0; c < 3; ++c) out_rad[3 * i + c] = rad[c];
+  for (int c = 0; c < 3; ++c) p.out_rad[3 * i + c] = rad[c];
 }
 
 // ---- nee_backward
@@ -898,11 +1044,44 @@ extern "C" int nee_setup(int n, const NeeTables* tables, const NeeFlags* flags, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int nee_resolve(int n, const NeeTables* tables, const ResolveIn* in, const Rays* rays, const Walk* walk,
-                           const NeeFlags* flags, void* out_radiance, void* resid, void* stream) {
+// `slots`: the N_RESOLVE_SLOTS words of ResolveSlot's order (pointers,
+// then the two row strides).
+extern "C" int nee_resolve(int n, const NeeTables* tables, const NeeFlags* flags, const void* const* slots,
+                           int n_slots, void* stream) {
+  if (n_slots != N_RESOLVE_SLOTS) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  nee_resolve_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      n, *tables, *in, *rays, *walk, *flags, (float*)out_radiance, (int*)resid);
+  ResolveParams p;
+  p.tb = *tables;
+  p.fl = *flags;
+  p.albedo = (const float*)slots[R_ALBEDO];
+  p.throughput = (const float*)slots[R_THROUGHPUT];
+  p.radiance = (const float*)slots[R_RADIANCE];
+  p.cur_mat = (const int*)slots[R_CUR_MAT];
+  p.on = (const uint8_t*)slots[R_ON];
+  p.max_t = (const float*)slots[R_MAX_T];
+  p.scale = (const float*)slots[R_SCALE];
+  p.e_texel = (const int*)slots[R_E_TEXEL];
+  p.e_mat = (const int*)slots[R_E_MAT];
+  p.wk.hit = (const uint8_t*)slots[R_HIT];
+  p.wk.t = (const float*)slots[R_T];
+  p.wk.face_id = (const int*)slots[R_FACE_ID];
+  p.wk.uv = (const float*)slots[R_UV];
+  p.wk.leaf_value = (const int*)slots[R_LEAF_VALUE];
+  p.wk.count = (const int*)slots[R_COUNT];
+  p.wk.mats = (const int*)slots[R_MATS];
+  p.wk.uu = (const float*)slots[R_UU];
+  p.wk.vv = (const float*)slots[R_VV];
+  p.wk.ts = (const float*)slots[R_TS];
+  p.wk.p_hit = (const uint8_t*)slots[R_P_HIT];
+  p.wk.p_t = (const float*)slots[R_P_T];
+  p.wk.p_mat = (const int*)slots[R_P_MAT];
+  p.wk.p_uv = (const float*)slots[R_P_UV];
+  p.out_rad = (float*)slots[R_OUT_RADIANCE];
+  p.resid = (int*)slots[R_RESID];
+  p.throughput_stride = (long long)(intptr_t)slots[R_THROUGHPUT_STRIDE];
+  p.radiance_stride = (long long)(intptr_t)slots[R_RADIANCE_STRIDE];
+  p.n = n;
+  nee_resolve_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -940,6 +1119,22 @@ extern "C" int nee_backward(int n, const void* const* slots, int n_slots, long l
                                               (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// `out`: nee_resolve's threads, blocks, registers per thread and resident
+// blocks per SM on the current card for `n` lanes.
+extern "C" int nee_resolve_config(int n, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, nee_resolve_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int resident = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, nee_resolve_kernel, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = kThreads;
+  out[1] = (n + kThreads - 1) / kThreads;
+  out[2] = attr.numRegs;
+  out[3] = resident;
+  return 0;
 }
 
 // `out`: nee_backward's threads, blocks, resident blocks per SM and SMs on

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -98,7 +99,7 @@ class CompactFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, throughput, radiance, call):
         st, uniforms, bounce, counts = call
-        fn = _forward_cuda if throughput.is_cuda else compact_reference
+        fn = _forward_cuda if _uses_kernels(throughput) else compact_reference
         out, u, pos = fn(st, uniforms, bounce, counts)
         outputs = tuple(out[k] for k in STATE_KEYS) + (out["idx"], u, pos)
         ctx.mark_non_differentiable(*(x for i, x in enumerate(outputs) if i not in (2, 3)))
@@ -111,14 +112,21 @@ class CompactFunction(torch.autograd.Function):
         (pos,) = ctx.saved_tensors
         need = ctx.needs_input_grad[:2]
         g = tuple(x if n else None for x, n in zip(grads[2:4], need))
-        fn = _backward_cuda if pos.is_cuda else compact_backward_reference
+        fn = _backward_cuda if _uses_kernels(pos) else compact_backward_reference
         return (*fn(pos, *g), None)
 
 
-def _check(st: dict, uniforms, bounce: int):
+def _uses_kernels(x) -> bool:
+    """Whether ``x``'s device runs the kernels of ``csrc/compact.cu`` (a
+    CUDA tensor) rather than the plain versions (a CPU tensor)."""
+    return x.is_cuda
+
+
+def _check(st: dict, uniforms, bounce: int, counts=None):
     """Raise on what neither route takes: a missing field, a wrong dtype or
-    shape, a bounce outside the block, a tensor on another device, or a
-    gradient K5 does not carry."""
+    shape, a bounce outside the block, a tensor on another device, a
+    ``counts`` that cannot take the live count, or a gradient K5 does not
+    carry.  Each refusal names its input."""
     b = st["active"].shape[0]
     for k, dt in _DTYPES.items():
         x = st.get(k)
@@ -130,17 +138,24 @@ def _check(st: dict, uniforms, bounce: int):
         if x.dtype != dt or tuple(x.shape) != shape:
             raise ValueError(f"compact: {k} must be {shape} {dt}")
         if x.device != st["active"].device:
-            raise ValueError(f"compact: every input must be on the lanes' device")
+            raise ValueError(f"compact: every input must be on the lanes' device; {k} is not")
     if uniforms.dtype != _F32 or uniforms.dim() != 3 or uniforms.shape[0] != b or uniforms.shape[2] != N_UNIFORMS:
         raise ValueError(f"compact: the uniforms must be ({b}, n_bounces, {N_UNIFORMS}) float32")
     if uniforms.device != st["active"].device:
-        raise ValueError(f"compact: every input must be on the lanes' device")
+        raise ValueError("compact: every input must be on the lanes' device; the uniforms are not")
     if not 0 <= bounce < uniforms.shape[1]:
         raise ValueError(f"compact: bounce {bounce} outside the block's {uniforms.shape[1]} bounces")
-    if torch.is_grad_enabled():
+    if counts is not None and (counts.dtype != _I32 or counts.dim() != 1 or counts.shape[0] < uniforms.shape[1]
+                               or counts.device != st["active"].device):
+        raise ValueError("compact: counts must be a (n_bounces,) int32 tensor on the lanes' device")
+    _check_grad(st, uniforms)
+
+
+def _check_grad(st: dict, uniforms):
+    if torch.is_grad_enabled() and (st["origin"].requires_grad or st["dir"].requires_grad
+                                    or uniforms.requires_grad):
         bad = [k for k in ("origin", "dir") if st[k].requires_grad] + (["uniforms"] if uniforms.requires_grad else [])
-        if bad:
-            raise ValueError(f"compact: K5 carries a gradient only for the throughput and radiance; {bad} require grad")
+        raise ValueError(f"compact: K5 carries a gradient only for the throughput and radiance; {bad} require grad")
 
 
 def compact(st: dict, uniforms, bounce: int, counts=None):
@@ -156,19 +171,21 @@ def compact(st: dict, uniforms, bounce: int, counts=None):
     taken (``compact.backward_launches``); CPU tensors run the plain
     versions.  Without a gradient to take (grad mode off, or neither the
     throughput nor the radiance requiring grad) no autograd node is made.
-    Any other device raises."""
+    Any other device raises.  On the card the inputs are checked in one
+    pass inside the forward (:func:`_forward_cuda`)."""
     dev = st["active"].device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"compact: unsupported device {dev}")
-    _check(st, uniforms, bounce)
-    if counts is not None and (counts.dtype != _I32 or counts.dim() != 1 or counts.shape[0] < uniforms.shape[1]
-                               or counts.device != dev):
-        raise ValueError("compact: counts must be a (n_bounces,) int32 tensor on the lanes' device")
+    cuda = _uses_kernels(st["active"])
+    if cuda:
+        _check_grad(st, uniforms)
+    else:
+        _check(st, uniforms, bounce, counts)
     tp, rad = st["throughput"], st["radiance"]
     if torch.is_grad_enabled() and (tp.requires_grad or rad.requires_grad):
         out = CompactFunction.apply(tp, rad, (st, uniforms, bounce, counts))
         return dict(zip(STATE_KEYS + ("idx",), out[:8])), out[8]
-    fn = _forward_cuda if dev.type == "cuda" else compact_reference
+    fn = _forward_cuda if cuda else compact_reference
     out, u, _ = fn(st, uniforms, bounce, counts)
     return out, u
 
@@ -183,12 +200,12 @@ class UnpermuteFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, radiance, idx):
         ctx.save_for_backward(idx)
-        return _unpermute_cuda(radiance, idx, True) if radiance.is_cuda else unpermute_reference(radiance, idx)
+        return _unpermute_cuda(radiance, idx, True) if _uses_kernels(radiance) else unpermute_reference(radiance, idx)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        d = _unpermute_cuda(g, idx, False) if g.is_cuda else unpermute_backward_reference(g, idx)
+        d = _unpermute_cuda(g, idx, False) if _uses_kernels(g) else unpermute_backward_reference(g, idx)
         return d, None
 
 
@@ -200,15 +217,15 @@ def unpermute(radiance, idx):
     (``unpermute.backward_launches``); CPU tensors run the plain versions.
     Any other device raises."""
     b = radiance.shape[0]
-    if radiance.dtype != _F32 or tuple(radiance.shape) != (b, 3):
+    if radiance.dtype != _F32 or radiance.shape != (b, 3):
         raise ValueError("unpermute: the radiance must be (B, 3) float32")
-    if idx.dtype != _I32 or tuple(idx.shape) != (b,) or idx.device != radiance.device:
+    if idx.dtype != _I32 or idx.shape != (b,) or idx.device != radiance.device:
         raise ValueError(f"unpermute: idx must be a ({b},) int32 tensor on the radiance's device")
     if radiance.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unpermute: unsupported device {radiance.device}")
     if torch.is_grad_enabled() and radiance.requires_grad:
         return UnpermuteFunction.apply(radiance, idx)
-    return _unpermute_cuda(radiance, idx, True) if radiance.is_cuda else unpermute_reference(radiance, idx)
+    return _unpermute_cuda(radiance, idx, True) if _uses_kernels(radiance) else unpermute_reference(radiance, idx)
 
 
 unpermute.launches = 0
@@ -217,17 +234,13 @@ unpermute.backward_launches = 0
 
 # ---- the CUDA kernels
 
-class _In(ctypes.Structure):
-    """``struct CompactIn`` of ``csrc/compact.cu``."""
-
-    _fields_ = ([(k, ctypes.c_void_p) for k in STATE_KEYS + ("idx", "uniforms")]
-                + [("u_lane_stride", ctypes.c_longlong), ("bounce", ctypes.c_int)])
-
-
-class _Out(ctypes.Structure):
-    """``struct CompactOut`` of ``csrc/compact.cu``."""
-
-    _fields_ = [(k, ctypes.c_void_p) for k in STATE_KEYS + ("idx", "u", "pos", "counts")]
+# compact_forward's slot array (``enum Slot`` of csrc/compact.cu): the
+# inputs, the outputs, the scratch, then the uniforms' lane stride and the
+# bounce as integers
+OUT_KEYS = STATE_KEYS + ("idx", "u")
+FORWARD_SLOTS = (STATE_KEYS + ("idx", "uniforms") + tuple(f"out_{k}" for k in OUT_KEYS)
+                 + ("pos", "counts", "scratch", "u_lane_stride", "bounce"))
+FORWARD_ARRAY = ctypes.c_void_p * len(FORWARD_SLOTS)
 
 
 @functools.cache
@@ -238,12 +251,13 @@ def _library():
 
     lib = load_library("compact")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.compact_tiles.argtypes = [ci]
-    lib.compact_tiles.restype = ci
-    lib.compact_forward.argtypes = [ci, ctypes.POINTER(_In), ctypes.POINTER(_Out), vp, vp]
+    lib.compact_scratch_words.argtypes = [ci]
+    lib.compact_scratch_words.restype = ci
+    lib.compact_forward_config.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.compact_forward.argtypes = [ci, vp, ci, vp]  # b, slots, slot count, stream
     lib.compact_backward.argtypes = [ci, vp, vp, vp, vp, vp, vp]
     lib.unpermute.argtypes = [ci, vp, vp, vp, ci, vp]
-    for fn in (lib.compact_forward, lib.compact_backward, lib.unpermute):
+    for fn in (lib.compact_forward_config, lib.compact_forward, lib.compact_backward, lib.unpermute):
         fn.restype = ci
     lib.compact_error_string.argtypes = [ci]
     lib.compact_error_string.restype = ctypes.c_char_p
@@ -256,89 +270,142 @@ def _launch(name: str, fn, device_index: int, *args):
         raise RuntimeError(f"{name} launch failed: {_library().compact_error_string(rc).decode()}")
 
 
+def launch_config(b: int, device=None) -> dict:
+    """How ``compact_forward`` launches on ``b`` lanes on the current card
+    (or ``device``): {"threads", "tile" (lanes per tile), "blocks",
+    "smem_bytes" (per block), "resident_blocks_per_sm", "sms",
+    "registers" (per thread)}."""
+    lib = _library()
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.compact_forward_config(b, out)
+    if rc != 0:
+        raise RuntimeError(f"compact_forward launch configuration failed: {lib.compact_error_string(rc).decode()}")
+    return dict(zip(("threads", "tile", "blocks", "smem_bytes", "resident_blocks_per_sm", "sms", "registers"), out))
+
+
 # per card: the forward's scratch buffers (control words and one status
-# word per tile), zero when allocated, the newest last; the kernel leaves a
-# buffer ready for the next call.  A buffer outgrown stays allocated: a CUDA
-# graph captured with it replays against it.
+# word per tile), zero when allocated, the newest last; the kernel leaves
+# a buffer ready for the next call.  A buffer outgrown stays allocated: a
+# CUDA graph captured with it replays against it, and plans made with it
+# keep using it.
 _SCRATCH: dict = {}
-_CTL_WORDS64 = 2
 
 
-def _scratch(dev, tiles: int):
-    """The scratch of card ``dev`` for ``tiles`` tiles: calls on one card
-    share it, and so must run on one stream, one after another.  It grows
-    outside a CUDA graph capture only (a capture would record the fill and
-    leave the buffer unset until a replay); a capture needs one eager call
-    of at least its size first."""
+def _scratch(dev, words: int):
+    """The scratch of card ``dev`` of at least ``words`` 64-bit words: calls
+    on one card share it, and so must run on one stream, one after another.
+    It grows outside a CUDA graph capture only (a capture would record the
+    fill and leave the buffer unset until a replay); a capture needs one
+    eager call of at least its size first."""
     bufs = _SCRATCH.setdefault(dev.index, [])
-    if not bufs or bufs[-1].numel() < _CTL_WORDS64 + tiles:
-        if torch.cuda.is_current_stream_capturing():
+    if not bufs or bufs[-1].numel() < words:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError("compact: the scratch must be allocated before a CUDA graph capture; run one call of "
                                "this batch size outside the capture first")
-        bufs.append(torch.zeros(_CTL_WORDS64 + max(tiles, 256), dtype=torch.int64, device=dev))
+        bufs.append(torch.zeros(max(words, 512), dtype=torch.int64, device=dev))
     return bufs[-1]
-
-
-def _dense_rows(x):
-    return x if x.is_contiguous() else x.contiguous()
 
 
 # the forward's outputs carved from one buffer: (key, row width, dtype),
 # each part starting on a 16-byte boundary.  The throughput and pos, which
 # a gradient's autograd nodes save (K4's, the next-event half's, K5's own),
 # are allocations of their own, so that saving them keeps nothing else of a
-# bounce alive until the backward.
+# bounce alive.
 _PARTS = (("origin", 3, _F32), ("dir", 3, _F32), ("radiance", 3, _F32), ("u", N_UNIFORMS, _F32),
           ("cur_mat", 1, _I32), ("idx", 1, _I32), ("active", 1, _BOOL), ("specular", 1, _BOOL))
+_DTYPE_INDEX = {_F32: 0, _I32: 1, _BOOL: 2}
+
+
+class _Plan(NamedTuple):
+    """What every forward call of one (lanes, bounces, card) shares."""
+
+    expected: tuple  # (dtype, shape) of STATE_KEYS' fields
+    u_shape: torch.Size  # the uniform block's
+    n_bytes: int  # the carved outputs' buffer
+    parts: tuple  # (key, element offset, shape, stride, dtype index) of each carved output
+    offsets: dict  # key -> byte offset of each carved output
+    scratch: torch.Tensor
+    scratch_ptr: int
 
 
 @functools.lru_cache(maxsize=64)
-def _layout(b: int) -> tuple:
-    """(bytes, ((key, byte offset, width, dtype), ...)) of the forward's outputs."""
-    parts, end = [], 0
-    for key, width, dt in _PARTS:
-        parts.append((key, end, width, dt))
+def _plan(b: int, n_bounces: int, dev) -> _Plan:
+    """The forward's plan for ``b`` lanes of a block of ``n_bounces`` bounces
+    on card ``dev``, made once: the expected input shapes, the carved
+    layout and the card's scratch."""
+    scratch = _scratch(dev, _library().compact_scratch_words(b))
+    parts, offsets, end = [], {}, 0
+    for k, width, dt in _PARTS:
+        shape, stride = ((b, width), (width, 1)) if width > 1 else ((b,), (1,))
+        parts.append((k, end // dt.itemsize, shape, stride, _DTYPE_INDEX[dt]))
+        offsets[k] = end
         end = (end + b * width * dt.itemsize + 15) // 16 * 16
-    return max(end, 16), tuple(parts)
+    expected = tuple((_DTYPES[k], torch.Size((b, 3) if k in FLOAT_KEYS else (b,))) for k in STATE_KEYS)
+    return _Plan(expected, torch.Size((b, n_bounces, N_UNIFORMS)), max(end, 16), tuple(parts), offsets, scratch,
+                 scratch.data_ptr())
+
+
+def _dense_rows(x):
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _checked_inputs(st: dict, uniforms, bounce: int, counts, plan: _Plan, dev) -> tuple:
+    """The forward's inputs checked in one pass: (the state fields in
+    ``STATE_KEYS``' order, ``idx`` or None, the uniforms), each as the
+    kernel reads it (dense; the uniforms with a dense row).  A wrong input
+    raises naming it."""
+    try:
+        ins = tuple(st[k] for k in STATE_KEYS)
+    except KeyError:
+        _check(st, uniforms, bounce, counts)  # raises naming the missing field
+    idx = st.get("idx")
+    if (tuple((x.dtype, x.shape) for x in ins) == plan.expected and uniforms.dtype == _F32
+            and uniforms.shape == plan.u_shape and uniforms.stride(2) == 1 and uniforms.stride(1) == N_UNIFORMS
+            and all(x.device == dev and x.is_contiguous() for x in ins)
+            and uniforms.device == dev and 0 <= bounce < plan.u_shape[1]
+            and (idx is None or (idx.dtype == _I32 and idx.shape == ins[4].shape and idx.device == dev
+                                 and idx.is_contiguous()))
+            and (counts is None or (counts.dtype == _I32 and counts.dim() == 1 and counts.shape[0] >= plan.u_shape[1]
+                                    and counts.device == dev))):
+        return ins, idx, uniforms
+    _check(st, uniforms, bounce, counts)  # raises naming the input at fault
+    if uniforms.stride(2) != 1 or uniforms.stride(1) != N_UNIFORMS:
+        uniforms = uniforms.contiguous()
+    return tuple(map(_dense_rows, ins)), None if idx is None else _dense_rows(idx), uniforms
 
 
 def _forward_cuda(st: dict, uniforms, bounce: int, counts):
-    """``compact_forward`` on the card: three output allocations, one
-    launch."""
+    """``compact_forward`` on the card: the plan of this batch size, the
+    inputs checked in one pass, the outputs three allocations (the carved
+    buffer, the throughput, ``pos``), one entry-point call."""
     dev = st["active"].device
     b = st["active"].shape[0]
     if b >= 2**31 - 1:
         raise ValueError("compact: too many lanes for one launch")
-    ins = {k: _dense_rows(st[k].detach()) for k in STATE_KEYS}
-    idx = st.get("idx")
-    u = uniforms.detach()
-    if u.stride(2) != 1 or u.stride(1) != N_UNIFORMS:
-        u = u.contiguous()
+    plan = _plan(b, uniforms.shape[1] if uniforms.dim() == 3 else 0, dev)
+    ins, idx, u = _checked_inputs(st, uniforms, bounce, counts, plan, dev)
     if counts is None:
-        counts = torch.empty((uniforms.shape[1],), dtype=_I32, device=dev)
-    lib = _library()
-    scratch = _scratch(dev, lib.compact_tiles(b))
-    n_bytes, parts = _layout(b)
-    buf = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
-    out = {"throughput": torch.empty((b, 3), dtype=_F32, device=dev), "pos": torch.empty((b,), dtype=_I32, device=dev)}
-    for key, off, width, dt in parts:
-        view = buf[off:off + b * width * dt.itemsize].view(dt)
-        out[key] = view.view(b, width) if width > 1 else view
-    c_in = _In(*(ins[k].data_ptr() for k in STATE_KEYS), None if idx is None else _dense_rows(idx).data_ptr(),
-               u.data_ptr(), u.stride(0), bounce)
-    c_out = _Out(*(out[k].data_ptr() for k in STATE_KEYS + ("idx", "u", "pos")), counts.data_ptr())
-    _launch("compact_forward", lib.compact_forward, dev.index, b, ctypes.byref(c_in), ctypes.byref(c_out),
-            scratch.data_ptr())
+        counts = torch.empty((plan.u_shape[1],), dtype=_I32, device=dev)
+    buf = torch.empty((plan.n_bytes,), dtype=torch.uint8, device=dev)
+    typed = (buf.view(_F32), buf.view(_I32), buf.view(_BOOL))
+    out = {k: typed[kind].as_strided(shape, stride, off) for k, off, shape, stride, kind in plan.parts}
+    out["throughput"] = tp = torch.empty((b, 3), dtype=_F32, device=dev)
+    pos = torch.empty((b,), dtype=_I32, device=dev)
+    base, offsets = buf.data_ptr(), plan.offsets
+    slots = FORWARD_ARRAY(*(x.data_ptr() for x in ins), None if idx is None else idx.data_ptr(), u.data_ptr(),
+                          *(tp.data_ptr() if k == "throughput" else base + offsets[k] for k in OUT_KEYS),
+                          pos.data_ptr(), counts.data_ptr(), plan.scratch_ptr, u.stride(0), bounce)
+    _launch("compact_forward", _library().compact_forward, dev.index, b, slots, len(FORWARD_SLOTS))
     compact.launches += 1
-    new = {k: out[k] for k in STATE_KEYS + ("idx",)}
-    return new, out["u"], out["pos"]
+    return {k: out[k] for k in STATE_KEYS + ("idx",)}, out["u"], pos
 
 
 def _backward_cuda(pos, g_throughput, g_radiance):
     """``compact_backward`` on the card: both cotangents in one launch."""
     b = pos.shape[0]
     g = [None if x is None else _dense_rows(x) for x in (g_throughput, g_radiance)]
-    if all(x is None for x in g):
+    if g[0] is None and g[1] is None:
         return None, None
     d = [None if x is None else torch.empty((b, 3), dtype=_F32, device=pos.device) for x in g]
     if b > 0:
@@ -352,7 +419,7 @@ def _unpermute_cuda(x, idx, scatter: bool):
     """The scatter ``out[idx[j]] = x[j]`` (``scatter``) or the gather
     ``out[j] = x[idx[j]]`` on the card, one launch."""
     b = x.shape[0]
-    x = _dense_rows(x.detach())
+    x = _dense_rows(x)
     out = torch.empty((b, 3), dtype=_F32, device=x.device)
     if b > 0:
         _launch("unpermute", _library().unpermute, x.device.index, b, _dense_rows(idx).data_ptr(), x.data_ptr(),

@@ -658,27 +658,6 @@ class _Flags(ctypes.Structure):
                 + [("f_sub", ctypes.c_float)])
 
 
-class _Rays(ctypes.Structure):
-    """``struct Rays`` of ``csrc/nee.cu``: :class:`NeeRays`' fields."""
-
-    _fields_ = [(f, ctypes.c_void_p) for f in NeeRays._fields]
-
-
-class _Walk(ctypes.Structure):
-    """``struct Walk`` of ``csrc/nee.cu``: the binary walk's hit or the
-    stateful walk's record, and K7's hit (null where absent)."""
-
-    _fields_ = [(f, ctypes.c_void_p) for f in ("hit", "t", "face_id", "uv", "leaf_value", "count", "mats", "uu",
-                                               "vv", "ts", "p_hit", "p_t", "p_mat", "p_uv")]
-
-
-class _ResolveIn(ctypes.Structure):
-    """``struct ResolveIn`` of ``csrc/nee.cu``."""
-
-    _fields_ = ([(f, ctypes.c_void_p) for f in ("albedo", "throughput", "radiance", "cur_mat")]
-                + [(f, ctypes.c_longlong) for f in ("throughput_stride", "radiance_stride")])
-
-
 # nee_setup's slot array (``enum SetupSlot``): the hand-off and the lane's
 # state, the uniforms' row stride, then the outputs in NeeRays' order
 SETUP_IN = ("hitpoint", "normal", "mat", "diffuse_on", "cur_mat", "u")
@@ -688,6 +667,14 @@ SETUP_ARRAY = ctypes.c_void_p * len(SETUP_SLOTS)
 BACKWARD_SLOTS = ("atlas", "emittance", "sun_emittance", "g_radiance", "albedo", "throughput", "resid", "scale",
                   "d_throughput", "d_albedo", "d_atlas", "d_emittance", "sum_atlas", "sum_emittance")
 BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
+# nee_resolve's slot array (``enum ResolveSlot``): the lane's inputs, the
+# rays' fields it reads, the walks' records (null where the walk made none),
+# the outputs, then the two row strides
+RESOLVE_IN = ("albedo", "throughput", "radiance", "cur_mat")
+WALK_FIELDS = ("hit", "t", "face_id", "uv", "leaf_value", "count", "mats", "uu", "vv", "ts")
+RESOLVE_SLOTS = (RESOLVE_IN + ("on", "max_t", "scale", "e_texel", "e_mat") + WALK_FIELDS
+                 + ("p_hit", "p_t", "p_mat", "p_uv", "out_radiance", "resid", "throughput_stride", "radiance_stride"))
+RESOLVE_ARRAY = ctypes.c_void_p * len(RESOLVE_SLOTS)
 
 
 @functools.cache
@@ -700,12 +687,12 @@ def _library():
     lib = load_library("nee", ("-fmad=false",))
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nee_setup.argtypes = [ci, vp, vp, vp, ci, vp]  # b, tables, flags, slots, slot count, stream
-    lib.nee_resolve.argtypes = [ci, ctypes.POINTER(_Tables), ctypes.POINTER(_ResolveIn), ctypes.POINTER(_Rays),
-                                ctypes.POINTER(_Walk), vp, vp, vp, vp]
+    lib.nee_resolve.argtypes = [ci, vp, vp, vp, ci, vp]  # b, tables, flags, slots, slot count, stream
     # b, slots, slot count, texels, materials, sun, emitter mode, faces, stream
     lib.nee_backward.argtypes = [ci, vp, ci, ll, ci, ci, ci, ci, vp]
     lib.nee_backward_config.argtypes = [ci, ll, ci, ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.nee_setup, lib.nee_resolve, lib.nee_backward, lib.nee_backward_config):
+    lib.nee_resolve_config.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.nee_setup, lib.nee_resolve, lib.nee_backward, lib.nee_backward_config, lib.nee_resolve_config):
         fn.restype = ci
     lib.nee_error_string.argtypes = [ci]
     lib.nee_error_string.restype = ctypes.c_char_p
@@ -901,22 +888,49 @@ def _setup_cuda(call: _Call, entry: _SceneEntry | None = None) -> NeeRays:
     return rays
 
 
+# nee_resolve's lane inputs: (dtype, width: 0 for (B,), k for (B, k) dense, -k for rows of k with any row stride)
+_RESOLVE_SPEC = ((_F32, 4), (_F32, -3), (_F32, -3), (_I32, 0))
+
+
+@functools.lru_cache(maxsize=256)
+def _expected_resolve(b: int) -> tuple:
+    """The (dtype, shape) of ``nee_resolve``'s lane inputs for ``b`` lanes."""
+    return tuple((dt, torch.Size((b,) if w == 0 else (b, abs(w)))) for dt, w in _RESOLVE_SPEC)
+
+
+def _checked_resolve_inputs(ins: tuple, b: int, dev) -> tuple:
+    """``nee_resolve``'s lane inputs (albedo, throughput, radiance, cur_mat)
+    checked in one pass (dtype, shape, the albedo's dense 16-byte rows, the
+    rows' dense last axis, the lanes' card); a row input whose last axis is
+    strided is copied dense.  A wrong input raises naming it."""
+    if (tuple((x.dtype, x.shape) for x in ins) == _expected_resolve(b)
+            and ins[0].is_contiguous() and ins[0].data_ptr() % 16 == 0 and ins[3].is_contiguous()
+            and ins[1].stride(-1) == 1 and ins[2].stride(-1) == 1 and all(x.device == dev for x in ins)):
+        return ins
+    checked = []
+    for x, (dt, w), name in zip(ins, _RESOLVE_SPEC, RESOLVE_IN):
+        y = _rows(x, b, -w, dt, name) if w < 0 else _dense(x, (b,) if w == 0 else (b, w), dt, name)
+        if y.device != dev:
+            raise ValueError("nee: every input must be on the lanes' card")
+        checked.append(y)
+    if checked[0].data_ptr() % 16:
+        raise ValueError("nee: the albedo rows must be 16-byte aligned")
+    return tuple(checked)
+
+
 def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, albedo, want_grad: bool,
                   entry: _SceneEntry | None = None):
     """``nee_resolve`` on the card over the walks' records: (radiance (B, 3),
-    :class:`NeeResidual` or None)."""
+    :class:`NeeResidual` or None).  The scene's cached entry, the inputs
+    checked in one pass, one allocation each for the radiance and the
+    residual, one entry-point call."""
     plan = call.plan
     b = throughput.shape[0]
     dev = throughput.device
     entry = _scene_entry(call.scene, plan) if entry is None else entry
-    tp = _rows(throughput, b, 3, _F32, "throughput")
-    rad = _rows(radiance, b, 3, _F32, "radiance")
-    alb = _dense(albedo, (b, 4), _F32, "albedo")
-    cur_mat = _dense(call.cur_mat, (b,), _I32, "cur_mat")
-    if entry.device != dev or any(x.device != dev for x in (tp, rad, alb, cur_mat, rays.origin)):
+    if entry.device != dev or rays.active.device != dev:
         raise ValueError("nee: every input must be on the lanes' card")
-    if alb.data_ptr() % 16:
-        raise ValueError("nee: the albedo rows must be 16-byte aligned")
+    alb, tp, rad, cur_mat = _checked_resolve_inputs((albedo, throughput, radiance, call.cur_mat), b, dev)
     out = torch.empty((b, 3), dtype=_F32, device=dev)
     resid = None
     if want_grad:
@@ -929,11 +943,12 @@ def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, 
     else:
         w_ptrs = tuple(_ptr(x) for x in (walk.hit, walk.t, walk.face_id, walk.uv, walk.leaf_value)) + (None,) * 5
     p_ptrs = (None,) * 4 if prim is None else tuple(_ptr(x) for x in prim[:4])
-    res_in = _ResolveIn(alb.data_ptr(), tp.data_ptr(), rad.data_ptr(), cur_mat.data_ptr(), tp.stride(0),
-                        rad.stride(0))
-    _launch("nee_resolve", _library().nee_resolve, dev.index, b, entry.tables_ref, ctypes.byref(res_in),
-            ctypes.byref(_Rays(*(x.data_ptr() for x in rays))), ctypes.byref(_Walk(*w_ptrs, *p_ptrs)),
-            entry.flags_ref, out.data_ptr(), _ptr(None if resid is None else resid.ints))
+    slots = RESOLVE_ARRAY(alb.data_ptr(), tp.data_ptr(), rad.data_ptr(), cur_mat.data_ptr(), rays.active.data_ptr(),
+                          rays.max_t.data_ptr(), rays.scale.data_ptr(), rays.e_texel.data_ptr(),
+                          rays.e_mat.data_ptr(), *w_ptrs, *p_ptrs, out.data_ptr(),
+                          None if resid is None else resid.ints.data_ptr(), tp.stride(0), rad.stride(0))
+    _launch("nee_resolve", _library().nee_resolve, dev.index, b, entry.tables_ref, entry.flags_ref, slots,
+            len(RESOLVE_SLOTS))
     nee.resolve_launches += 1
     return out, resid
 
@@ -1018,3 +1033,16 @@ def backward_config(b: int, atlas_shape, n_emit: int, device=None) -> dict:
     if rc != 0:
         raise RuntimeError(f"nee_backward launch configuration failed: {lib.nee_error_string(rc).decode()}")
     return dict(zip(("threads", "blocks", "resident_blocks_per_sm", "sms"), out[:4]), launch="cooperative")
+
+
+def resolve_config(b: int, device=None) -> dict:
+    """How ``nee_resolve`` launches on ``b`` lanes on the current card (or
+    ``device``): {"threads", "blocks", "registers" (per thread),
+    "resident_blocks_per_sm"}."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.nee_resolve_config(b, out)
+    if rc != 0:
+        raise RuntimeError(f"nee_resolve launch configuration failed: {lib.nee_error_string(rc).decode()}")
+    return dict(zip(("threads", "blocks", "registers", "resident_blocks_per_sm"), out))

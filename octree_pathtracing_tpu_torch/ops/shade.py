@@ -22,7 +22,8 @@ fallback from one to the other.  Where no gradient can be taken (grad mode
 off, or none of the throughput, the radiance, the atlas texels and the
 emittance requiring grad) :func:`shade` calls the forward alone, without
 an autograd node or a residual.  On the card a forward call is one
-allocation, carved into every output (:func:`_output_layout`), and one
+allocation, carved into every output (:func:`_output_layout`; with a
+gradient, what the backward saves is a second), and one
 entry-point call with the per-lane pointers in one flat array; a backward
 call is one zero-filled allocation for the atlas and emittance gradients
 and one entry-point call.
@@ -614,42 +615,50 @@ def _flags(entry: _SceneEntry, scene: Scene, is_first: bool, may_scatter: bool):
 
 @functools.lru_cache(maxsize=256)
 def _output_layout(b: int, want_grad: bool) -> tuple:
-    """(bytes, ((offset in the output's dtype, shape, stride, dtype index), ...)
-    in ``OUT_SLOTS``' order, the byte offsets): the forward's outputs carved
-    from one buffer of ``b`` lanes, each starting on a 16-byte boundary (the
-    kernel stores the albedo as 16-byte vectors).  Dtype index 0 float32,
-    1 int32, 2 bool."""
+    """((bytes of each buffer), ((offset in the output's dtype, shape,
+    stride, dtype index, byte offset, buffer), ...) in ``OUT_SLOTS``'
+    order): the forward's outputs carved from one buffer of ``b`` lanes,
+    each starting on a 16-byte boundary (the kernel stores the albedo as
+    16-byte vectors).  With a gradient, what the backward saves (the albedo
+    and the residual) is carved from a second buffer of its own, so that
+    saving it keeps nothing else of the bounce alive.  Dtype index 0
+    float32, 1 int32, 2 bool."""
     # (B, k) float32 rows, int32 columns, bool columns; the residual last
     spec = {"origin": (3, 0), "dir": (3, 0), "throughput": (3, 0), "radiance": (3, 0), "active": (1, 2),
             "specular": (1, 2), "cur_mat": (1, 1), "albedo": (4, 0), "hitpoint": (3, 0), "normal": (3, 0),
             "mat": (1, 1), "diffuse_on": (1, 2), "resid_i": (3, 1), "resid_f": (3, 0)}
     item = (4, 4, 1)
+    saved = ("albedo", "resid_i", "resid_f") if want_grad else ()
     order = sorted(OUT_SLOTS[:-2], key=lambda k: (spec[k][1] == 2, -spec[k][0])) + (
         ["resid_i", "resid_f"] if want_grad else [])
-    offsets, end = {}, 0
+    offsets, ends = {}, [0, 0]
     for k in order:
-        offsets[k] = end
-        end = (end + b * spec[k][0] * item[spec[k][1]] + 15) // 16 * 16
+        buf = int(k in saved)
+        offsets[k] = (buf, ends[buf])
+        ends[buf] = (ends[buf] + b * spec[k][0] * item[spec[k][1]] + 15) // 16 * 16
     views = []
     for k in OUT_SLOTS:
         if k not in offsets:
             views.append(None)
             continue
         width, kind = spec[k]
+        buf, off = offsets[k]
         shape, stride = ((b, width), (width, 1)) if width > 1 else ((b,), (1,))
-        views.append((offsets[k] // item[kind], shape, stride, kind, offsets[k]))
-    return max(end, 16), tuple(views)
+        views.append((off // item[kind], shape, stride, kind, off, buf))
+    sizes = (max(ends[0], 16),) + ((max(ends[1], 16),) if want_grad else ())
+    return sizes, tuple(views)
 
 
 def _carve(b: int, want_grad: bool, dev):
-    """The forward's outputs as views of one new buffer: (the tensors in
-    ``OUT_SLOTS``' order, None for an absent residual; their addresses)."""
-    n_bytes, views = _output_layout(b, want_grad)
-    buf = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
-    typed = (buf.view(torch.float32), buf.view(torch.int32), buf.view(torch.bool))
-    base = buf.data_ptr()
-    outs = [None if v is None else typed[v[3]].as_strided(v[1], v[2], v[0]) for v in views]
-    return outs, [None if v is None else base + v[4] for v in views]
+    """The forward's outputs as views of one new buffer, or two with a
+    gradient: (the tensors in ``OUT_SLOTS``' order, None for an absent
+    residual; their addresses)."""
+    sizes, views = _output_layout(b, want_grad)
+    bufs = [torch.empty(n, dtype=torch.uint8, device=dev) for n in sizes]
+    typed = [(x.view(torch.float32), x.view(torch.int32), x.view(torch.bool)) for x in bufs]
+    bases = [x.data_ptr() for x in bufs]
+    outs = [None if v is None else typed[v[5]][v[3]].as_strided(v[1], v[2], v[0]) for v in views]
+    return outs, [None if v is None else bases[v[5]] + v[4] for v in views]
 
 
 def _lane_inputs(scene: Scene, st: dict, u, res, prim) -> tuple:

@@ -16,7 +16,7 @@ of one or more checkouts of the port beside the PyTorch calls that compute
 the same functions (``torch.index_select``, ``torch.rand``), and the
 traversal kernels at the shapes the main paths give them::
 
-    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4 | --bounces | --k5 | --nee] ROOT [ROOT ...]
+    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4 | --bounces | --k5 | --nee | --train] ROOT [ROOT ...]
 
 Each ROOT is a directory holding ``octree_pathtracing_tpu_torch/`` (this
 checkout, or an older commit unpacked with ``git archive``); each is timed
@@ -64,7 +64,9 @@ forward and fwd+bwd with their device activities.  ``--k4``
 times K4's rows and the headline frames alone (an A/B of K4's design);
 ``--bounces`` the bounce loop's rows alone: K1, K4 and the next-event
 kernels per bounce, the headline frames, K5's rows; ``--k5`` K5's rows and
-the headline frame's graph replay alone (an A/B of K5's design).  The depth-9
+the headline frame's graph replay alone (an A/B of K5's design);
+``--train`` chip_smoke.py's phase-7 training commands with their peak
+device memory.  The depth-9
 octrees are cached under ``build/scenes`` of this file's checkout.  Needs
 a CUDA card.
 """
@@ -1075,7 +1077,30 @@ def _time_bounces(dev, cache_dir) -> dict:
     return out
 
 
-MODES = ("--k4", "--bounces", "--k5", "--nee")
+def _time_train(dev, cache_dir) -> dict:
+    """``--train``: chip_smoke.py's phase-7 commands, ``cli train`` on the
+    depth-9 chunk and cutout scenes (8 views at 512x512, 3 steps), each
+    with its step seconds and the peak device memory of the command."""
+    import tempfile
+
+    from octree_pathtracing_tpu_torch import cli
+
+    out = {}
+    for scene in ("chunk", "cutout"):
+        with tempfile.TemporaryDirectory() as d:
+            argv = ["train", "--scene", scene, "--depth", "9", "--views", "8", "--width", "512", "--height", "512",
+                    "--steps", "3", "--device", "cuda", "-o", os.path.join(d, "params.npz")]
+            parsed = cli.build_parser().parse_args(argv)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = parsed.fn(parsed)
+            torch.cuda.synchronize()
+            out[f"cli train {scene} 8 views 512x512"] = {"peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                                                         "step_s": list(res.step_seconds)}
+    return out
+
+
+MODES = ("--k4", "--bounces", "--k5", "--nee", "--train")
 
 
 def main(argv=None) -> int:
@@ -1095,7 +1120,8 @@ def main(argv=None) -> int:
             if args[-1] == "--nee":
                 rows = _time_nee(dev, cache_dir, world)
             else:
-                rows = {"--k4": _shade_cases, "--bounces": _time_bounces, "--k5": _time_k5}[args[-1]](dev, cache_dir)
+                rows = {"--k4": _shade_cases, "--bounces": _time_bounces, "--k5": _time_k5,
+                        "--train": _time_train}[args[-1]](dev, cache_dir)
             result = {"package": os.path.dirname(port.__file__), "card": card_line(), **rows}
         else:
             result = _time_checkout(args[3] if args[2:3] == ["--world"] else None)
@@ -1146,6 +1172,10 @@ def main(argv=None) -> int:
                           + (f"{r[name]['graph']['replay_ms']!r} ms, bit-equal {r[name]['graph']['bit_equal']}"
                              if "replay_ms" in r[name]["graph"] else r[name]["graph"]["error"])
                           for r in have if "graph" in r[name]), flush=True)
+            continue
+        if "peak_gib" in have[0][name]:  # a training command
+            print(f"{name}: " + " | ".join(f"{r['root']}: peak {r[name]['peak_gib']!r} GiB, step s "
+                                           f"{[round(t, 3) for t in r[name]['step_s']]}" for r in have), flush=True)
             continue
         if "replay_ms" in have[0][name]:  # a captured frame's replays
             print(f"{name}: " + " | ".join(

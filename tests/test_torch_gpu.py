@@ -1783,16 +1783,78 @@ def test_nee_kernels_pass_dead_lanes_through(cuda, name):
     assert torch.equal(d_rad, args[7])
 
 
+def _resolve_cases(name, dead, dev):
+    """``nee`` calls (scene, st, u, out) of ``name``: bounce 1's 65,553
+    lanes and bounce 2's whole batch with its dead lanes; or (``dead``) a
+    4,072-lane call with ~60% of its lanes dead."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    if not dead:
+        return _forward_nee_calls(name, 65553, "shuffled", dev)
+    scene, st, u, _, _ = _nee_calls(name, 4072, dev)[0]
+    res = pathtracer._trace(scene, st["origin"], st["dir"])
+    prim = pathtracer._prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
+    call = _dead((scene, st, u, res, prim, True, True), 9)
+    with torch.no_grad():
+        out = k4.shade(*call)
+    return [(scene, call[1], u, out)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("name", NEE_SCENES + ("room_k64",))
+def test_nee_resolve_is_bit_equal_to_its_plain_version(cuda, name, dead):
+    """``nee_resolve`` against ``nee_resolve_reference`` on the kernel's own
+    rays and the same walks, bit for bit on every row: the radiance and the
+    residual's ints (code, the slots' texels, the emitter's texel and
+    material); without a residual, the same radiance.  Every light-line
+    kind: cutout strict and lenient, terrain FAST and HIGH_QUALITY, config
+    3, the room under ONE / ONE_BLOCK / ALL, analytic and plant
+    HIGH_QUALITY, the world; bounce 1 and bounce 2's whole batch, and a
+    state with ~60% of its lanes dead."""
+    from octree_pathtracing_tpu_torch.utils.timing import _bits_differ
+
+    for scene, st, u, out in _resolve_cases(name, dead, cuda):
+        plan = nee_mod.nee_plan(scene)
+        c = nee_mod._Call(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
+        rays = nee_mod._setup_cuda(c)
+        walk, prim = nee_mod.nee_walks(scene, plan, rays)
+        tp, rad, alb = st["throughput"], out.state["radiance"], out.albedo
+        before = nee_mod.nee.resolve_launches
+        got, got_r = nee_mod._resolve_cuda(c, rays, walk, prim, tp, rad, alb, True)
+        want, want_r = nee_mod.nee_resolve_reference(scene, plan, rays, walk, prim, alb, tp, rad, st["cur_mat"])
+        again, none = nee_mod._resolve_cuda(c, rays, walk, prim, tp, rad, alb, False)
+        assert nee_mod.nee.resolve_launches == before + 2 and none is None
+        b = tp.shape[0]
+        d_rad = int(_bits_differ(got, want).sum())
+        d_res = int(_bits_differ(got_r.ints.reshape(plan.faces * b, -1), want_r.ints.reshape(plan.faces * b, -1)).sum())
+        print(f"nee_resolve {name}{' 60% dead' if dead else ''}: {b} lanes x {plan.faces} faces, "
+              f"{int(rays.active.sum())} cast; rows not bit-equal: radiance {d_rad}, residual {d_res}")
+        assert d_rad == 0 and d_res == 0
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
 # ---- K5: the compaction of live lanes (csrc/compact.cu)
 
-K5_SIZES = (1, 31, 255, 256, 257, 65536, 65553, 1 << 20, 1 << 21)
-K5_SHARES = ("0", "1", "0.3", "last")
+K5_SIZES = (1, 31, 255, 256, 257, 65536, 65553, "slots + 1", 1 << 20, 1 << 21)
+K5_SHARES = ("0", "1", "0.3", "first", "last")
+
+
+def _k5_slots(dev):
+    """The card's resident-thread slots of ``compact_forward``'s blocks (SMs
+    x resident blocks x threads): a batch one lane past them makes a block
+    take a second ticket."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+
+    c = k5.launch_config(1 << 20, dev)
+    return c["sms"] * c["resident_blocks_per_sm"] * c["threads"]
 
 
 def _k5_state(b, share, dev, seed=0, with_idx=True):
     g = torch.Generator().manual_seed(seed + b)
     active = {"0": torch.zeros(b, dtype=torch.bool), "1": torch.ones(b, dtype=torch.bool),
-              "0.3": torch.rand(b, generator=g) < 0.3, "last": torch.arange(b) == b - 1}[share]
+              "0.3": torch.rand(b, generator=g) < 0.3, "first": torch.arange(b) == 0,
+              "last": torch.arange(b) == b - 1}[share]
     st = dict(origin=torch.randn((b, 3), generator=g), dir=torch.randn((b, 3), generator=g),
               throughput=torch.rand((b, 3), generator=g), radiance=torch.rand((b, 3), generator=g),
               active=active, specular=torch.rand(b, generator=g) < 0.5,
@@ -1810,10 +1872,14 @@ def test_compact_kernels_match_plain_versions_bit_for_bit(cuda, b, share):
     (state, carried index, uniforms, pos, the live count), its backward and
     the unpermute and its backward against theirs, bit for bit
     (``utils.timing.check_compact``); with and without a carried index; one
-    launch a call."""
+    launch a call.  Sizes around a tile (256 lanes), past the card's
+    resident-thread slots, up to 2,097,152 lanes; no lane live, all, ~30%,
+    a single live lane first and last."""
     from octree_pathtracing_tpu_torch.ops import compact as k5
     from octree_pathtracing_tpu_torch.utils.timing import check_compact
 
+    if b == "slots + 1":
+        b = _k5_slots(cuda) + 1
     for with_idx, bounce in ((True, 3), (False, 1)):
         st, u = _k5_state(b, share, cuda, with_idx=with_idx)
         before = k5.compact.launches
@@ -1852,6 +1918,48 @@ def test_compact_replays_from_a_cuda_graph_and_reuses_its_scratch(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("share", ["0.3", "first", "last", "1"])
+def test_compact_five_calls_and_graph_replays_share_one_scratch_under_contention(cuda, share):
+    """2,097,152 lanes (8,192 tiles, more than the card holds at once, so
+    every block's look-back waits on others): five eager calls, then five
+    calls captured in one CUDA graph and replayed three times with their
+    outputs spoiled between replays, all on one scratch with no fill in
+    between; every output, pos and the live count bit-equal to the plain
+    version every time.  A single live lane first or last makes the
+    look-back carry its count across every tile, and the dead lanes' pass
+    place every other lane behind it."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+
+    b = 1 << 21
+    st, u = _k5_state(b, share, cuda, seed=7)
+    counts = torch.full((5,), -1, dtype=torch.int32, device=cuda)
+    want, want_u, want_pos = k5.compact_reference(st, u, 2)
+    n_live = int(st["active"].sum())
+
+    def same(out, u_b, pos, c):
+        return (all(torch.equal(out[k], want[k]) for k in want) and torch.equal(u_b, want_u)
+                and torch.equal(pos, want_pos) and int(c[2]) == n_live)
+
+    scratch = k5._plan(b, 5, cuda).scratch
+    for _ in range(5):
+        counts.fill_(-1)
+        assert same(*k5._forward_cuda(st, u, 2, counts), counts)
+        assert k5._plan(b, 5, cuda).scratch is scratch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [k5._forward_cuda(st, u, 2, counts) for _ in range(5)]
+    for _ in range(3):
+        counts.fill_(-1)
+        for o in outs:
+            for x in list(o[0].values()) + [o[1], o[2]]:
+                x.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(same(*o, counts) for o in outs)
+
+
+@pytest.mark.gpu
 def test_compact_refuses_a_build_and_a_launch(cuda, monkeypatch):
     from octree_pathtracing_tpu_torch.ops import compact as k5
     from octree_pathtracing_tpu_torch.utils.cuda_build import load_library
@@ -1863,7 +1971,7 @@ def test_compact_refuses_a_build_and_a_launch(cuda, monkeypatch):
         k5.compact(dict(st, throughput=st["throughput"].double()), u, 1)
     with pytest.raises(ValueError, match="device"):
         k5.compact(dict(st, cur_mat=st["cur_mat"].cpu()), u, 1)
-    refused = types.SimpleNamespace(compact_tiles=lambda n: 1, compact_forward=lambda *a: 1,
+    refused = types.SimpleNamespace(compact_scratch_words=lambda n: 4, compact_forward=lambda *a: 1,
                                     compact_backward=lambda *a: 1, unpermute=lambda *a: 1,
                                     compact_error_string=lambda rc: b"invalid argument")
     monkeypatch.setattr(k5, "_library", lambda: refused)

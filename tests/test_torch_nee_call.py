@@ -37,8 +37,10 @@ class _Recorder:
         self.setup.append((b, tables, flags, list(slots), n_slots, stream))
         return 0
 
-    def nee_resolve(self, b, tables, res_in, rays, walk, flags, out, resid, stream):
-        self.resolve.append((b, tables, flags, out, resid, stream))
+    def nee_resolve(self, b, tables, flags, slots, n_slots, stream):
+        named = dict(zip(k.RESOLVE_SLOTS, slots))
+        self.resolve.append((b, tables, flags, named["out_radiance"], named["resid"] or 0, stream, list(slots),
+                             n_slots))
         return 0
 
     def nee_backward(self, b, slots, n_slots, n_texels, n_emit, sun, em_mode, faces, stream):
@@ -360,3 +362,45 @@ def test_ray_layout_is_aligned_and_disjoint(fb):
     assert len(spans) == len(k.NeeRays._fields) - 1
     assert all(start % 16 == 0 for start, _ in spans) and spans[-1][1] <= n_bytes
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("want_grad", [False, True])
+def test_resolve_is_one_entry_point_call_on_one_allocation_each(lib, want_grad):
+    scene, st, u, out = _call(37, seed=2)
+    plan = k.nee_plan(scene)
+    entry = k._scene_entry(scene, plan)
+    c = k._Call(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
+    rays = k._setup_cuda(c, entry)
+    walk, prim = _fake_walk(scene, plan, rays)
+    wide = torch.cat([out.state["radiance"], out.state["radiance"][:, :1]], 1)[:, :3]  # rows of 4 floats
+    ops = _Ops()
+    with ops:
+        rad, resid = k._resolve_cuda(c, rays, walk, prim, st["throughput"], wide, out.albedo, want_grad, entry)
+    # the radiance, and the residual's ints with a gradient (its scale is the rays' own, viewed)
+    assert ops.count("empty") == (2 if want_grad else 1), ops.names
+    assert ops.count("zero", "fill", "copy", "clone", "contiguous") == 0, ops.names
+    assert len(lib.resolve) == 1 and rad.shape == (37, 3)
+    b, tables, flags, out_ptr, resid_ptr, stream, slots, n_slots = lib.resolve[0]
+    assert (b, n_slots, stream) == (37, len(k.RESOLVE_SLOTS), "stream")
+    assert tables is entry.tables_ref and flags is entry.flags_ref
+    named = dict(zip(k.RESOLVE_SLOTS, slots))
+    assert [named[f] for f in k.RESOLVE_IN] == [x.data_ptr() for x in (out.albedo, st["throughput"], wide,
+                                                                     st["cur_mat"])]
+    assert (named["throughput_stride"], named["radiance_stride"]) == (3, 4)  # rows read with their stride
+    assert named["on"] == rays.active.data_ptr() and named["scale"] == rays.scale.data_ptr()
+    assert all(named[f] is None for f in ("count", "mats", "uu", "vv", "ts", "p_hit"))  # the binary walk's record
+    assert named["hit"] == walk.hit.data_ptr() and out_ptr == rad.data_ptr()
+    if want_grad:
+        assert resid.ints.shape == (2, 37, k.RESID_INTS) and resid_ptr == resid.ints.data_ptr()
+        assert resid.ints.data_ptr() % 16 == 0  # written as two 16-byte stores a row
+        assert resid.scale.data_ptr() == rays.scale.data_ptr()
+    else:
+        assert resid is None and resid_ptr == 0
+    with pytest.raises(ValueError, match="albedo"):
+        k._resolve_cuda(c, rays, walk, prim, st["throughput"], wide, out.albedo[:, :3], want_grad, entry)
+    with pytest.raises(ValueError, match="16-byte"):
+        k._resolve_cuda(c, rays, walk, prim, st["throughput"], wide, torch.zeros(37 * 4 + 1)[1:].view(37, 4),
+                        want_grad, entry)
+    with pytest.raises(ValueError, match="throughput"):
+        k._resolve_cuda(c, rays, walk, prim, st["throughput"].double(), wide, out.albedo, want_grad, entry)
+    assert len(lib.resolve) == 1

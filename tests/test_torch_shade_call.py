@@ -1,8 +1,9 @@
 """Kernel K4's call path (``ops/shade.shade``) on the CPU, with the CUDA
 library replaced by a recorder, as test_torch_traversal.py does for the
 walk: one entry-point call per forward and per backward, one output
-allocation carved into every output, the residual only where a gradient
-is taken, no autograd node without one, the ``requires_grad`` refusal, and
+allocation carved into every output (with a gradient, the saved albedo and
+residual carved from a second of their own), the residual only where a
+gradient is taken, no autograd node without one, the ``requires_grad`` refusal, and
 at most one fill per backward.  The kernels themselves against their twins:
 test_torch_gpu.py.  No JAX here: the file runs in under a second a test.
 """
@@ -130,9 +131,13 @@ def test_forward_is_one_entry_point_call_on_one_allocation(lib, n, grad):
         out = k4.shade(scene, st, u, res, prim, is_first, may_scatter)
     outs = _outputs(out)
     assert len(lib.forward) == (1 if n else 0) and k4.shade.launches == before + (1 if n else 0)
-    assert ops.count("empty") == 1 and ops.count("zero", "fill", "copy", "clone") == 0, ops.names
+    grad_taken = grad not in (None, "no_grad")
+    # one buffer; with a gradient the saved albedo and residual are a second
+    assert ops.count("empty") == (2 if grad_taken else 1), ops.names
+    assert ops.count("zero", "fill", "copy", "clone") == 0, ops.names
     base = outs[0].untyped_storage().data_ptr()
-    assert all(x.untyped_storage().data_ptr() == base for x in outs)  # views of one buffer
+    assert all(x.untyped_storage().data_ptr() == base for i, x in enumerate(outs) if i != 7)  # views of one buffer
+    assert (outs[7].untyped_storage().data_ptr() != base) == grad_taken  # the albedo apart with a gradient
     assert [x.shape for x in outs] == [(n, 3)] * 4 + [(n,)] * 3 + [(n, 4), (n, 3), (n, 3), (n,), (n,)]
     assert [x.dtype for x in outs] == [torch.float32] * 4 + [torch.bool, torch.bool, torch.int32, torch.float32,
                                                              torch.float32, torch.float32, torch.int32, torch.bool]
@@ -218,9 +223,14 @@ def test_inputs_are_checked_in_one_pass_and_a_wrong_one_named(lib):
 @pytest.mark.parametrize("grad", [False, True])
 @pytest.mark.parametrize("n", [1, 7, 4072])
 def test_output_layout_is_aligned_and_disjoint(n, grad):
-    n_bytes, views = k4._output_layout(n, grad)
+    sizes, views = k4._output_layout(n, grad)
     item = (4, 4, 1)
-    spans = sorted((v[4], v[4] + int(np.prod(v[1])) * item[v[3]]) for v in views if v is not None)
-    assert len(spans) == (14 if grad else 12) and all(v is None for v in views[12:]) != grad
-    assert all(start % 16 == 0 for start, _ in spans) and spans[-1][1] <= n_bytes
-    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert len(sizes) == (2 if grad else 1) and sum(v is not None for v in views) == (14 if grad else 12)
+    assert all(v is None for v in views[12:]) != grad
+    # with a gradient the saved part (the albedo, the residual) is the second buffer, and only it
+    saved = {i for i, v in enumerate(views) if v is not None and v[5] == 1}
+    assert saved == ({7, 12, 13} if grad else set())
+    for buf, n_bytes in enumerate(sizes):
+        spans = sorted((v[4], v[4] + int(np.prod(v[1])) * item[v[3]]) for v in views if v is not None and v[5] == buf)
+        assert all(start % 16 == 0 for start, _ in spans) and spans[-1][1] <= n_bytes
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
