@@ -26,7 +26,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    report of every kernel (registers, stack frame, spills), the
    traversal's shared-memory stack, and K4's launch configuration (blocks,
    shared memory per block, resident blocks per SM, where its tables are
-   read) at the headline's 65,536 and 4,072 lanes;
+   read, registers and stack frame) at the headline's 65,536 and 4,072
+   lanes, for both variants of its forward (the terrain's, and the
+   analytic scene's with K7's scan folded in), and ``nee_setup``'s
+   registers with and without the scan;
 2. every kernel against its plain-torch twin on the card, timed beside its
    bound twice, by call (CUDA events around back-to-back calls: what an
    eager caller pays, host path included) and on the device alone (the same
@@ -66,12 +69,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
      ``bvh_intersect_quads`` call through the entry point.
    - K4's forward and backward on the lanes of each bounce of one headline
      frame (the 65,536 primaries, then bounces 2-5's whole batches, their
-     live lanes first and their dead lanes passed through):
+     live lanes first and their dead lanes passed through; the backward of
+     bounces 2-5 also as the main path calls it, storing through the
+     compaction's ``src``, bit-equal to its stores in place moved back):
      every output and the residual within rtol 1e-5 / atol 1e-6 of the
      twin on all but 0.1% of the lanes (the lanes not bit-equal counted
      field by field), the backward (on the kernel's forward outputs) within
      rtol 1e-5 / atol 1e-7 of the backward twin; by call and on the device,
-     each row with the variant its launch took.
+     each row with the variant its launch took, the backward through
+     ``src`` with its own bound.
+   - K4's forward with K7's scan folded in on the lanes of each bounce of
+     one frame of the depth-9 analytic scene (IMPORTANCE, 65,536 lanes):
+     against its twin (which scans with K7's plain version) under K4's
+     gate, and bit for bit against K4 fed by the standalone K7; by call and
+     on the device beside its bound, its twin and that route's times.
    - K4's next-event half on the bounce-1 lanes of the NEE, cutout and
      config-3 lines (the world's in phase 8), ``utils/timing.check_nee``:
      ``nee_setup`` against its plain version on every ray field,
@@ -79,7 +90,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      but 0.1% of the rows and within rtol 1e-5 / atol 1e-6 there;
      ``nee_backward`` on the cotangent the frame's backward hands the
      bounce, within rtol 1e-5 / atol 1e-7; by call and on the device,
-     beside the plain versions and the bound (``nee_bounds``).
+     beside the plain versions and the bound (``nee_bounds``); the same on
+     the analytic HIGH_QUALITY line, where ``nee_setup`` scans each cast
+     ray (K7's scan folded in): its primitive slots bit-equal to the
+     standalone K7 on every cast row and within K7's gate of K7's plain
+     version, timed beside ``nee_setup`` without the scan and K7 over its
+     rays.
    - K5, ``utils/timing.check_compact``: ``compact_forward`` against
      ``compact_reference`` on every output (the state, the carried index,
      the bounce's uniforms, ``pos``, the live count), ``compact_backward``,
@@ -134,10 +150,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    frame reads the card from the host; then the headline forward frame
    captured in a CUDA graph and replayed, bit-equal to the eager frame,
    its replay ms (the frame's device floor) beside phase 5's eager ms; and
-   config 3's fwd+bwd frame (``nee_backward``'s cooperative launch on every
-   bounce) captured whole and replayed with its outputs spoiled: the
-   radiance bit-equal to the eager frame's, the gradients within rtol 1e-5
-   / atol 1e-7, its replay ms beside the eager step's;
+   the headline's and config 3's fwd+bwd frames (``nee_backward``'s
+   cooperative launch on every bounce of config 3) captured whole and
+   replayed with their outputs spoiled: the radiance bit-equal to the eager
+   frame's, the gradients within rtol 1e-5 / atol 1e-7, the replay ms
+   beside the eager step's; the headline forward and fwd+bwd against the
+   route before the folds (``utils/timing.unfolded``);
 6b. bench.py's NEE line (terrain, HIGH_QUALITY: the binary shadow walk), its
    cutout line (cutout, HIGH_QUALITY: K3s) and BASELINE's config 3 (terrain
    with its glowstone emitters, HIGH_QUALITY + ``EmitterSampling.ONE``),
@@ -149,10 +167,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
 6c. the block-model and primitive lines at phase 5's shape: the depth-9
    plant field under its HIGH_QUALITY sun (K2q's mode 1 for the bounces, its
    mode 3 for the sun walks) and the depth-9 analytic scene under
-   IMPORTANCE and HIGH_QUALITY (K1, K7 per bounce and per shadow ray),
-   forward and fwd+bwd, timed as phases 5 and 6, with their launches as
-   phase 6b's; K2q and K7 must have been launched, the next-event kernels
-   on the HIGH_QUALITY lines, and no twin run;
+   IMPORTANCE and HIGH_QUALITY (K1; K7's scan inside K4's forward for each
+   bounce and inside ``nee_setup`` for each shadow ray), forward and
+   fwd+bwd, timed as phases 5 and 6, with their launches as phase 6b's and
+   the analytic lines' forward frames replayed from CUDA graphs; K2q and
+   K4's scanning variant must have been launched, the next-event kernels
+   on the HIGH_QUALITY lines, and no twin run.  Every line of phases 6b,
+   6c and 8d is also run through the route before the folds
+   (``utils/timing.unfolded``): the forward radiance and the fwd+bwd loss
+   bit for bit, the gradients within rtol 1e-5 / atol 1e-7 with the
+   elements not bit-equal counted;
 7. the training entry point: ``cli train`` (``inverse_render``, soft weight
    0.25) with the JAX CLI's defaults of 8 views at 512x512 for 3 steps, on
    ``--scene chunk --depth 9`` (K1, K3r, P2) and on ``--scene cutout
@@ -184,8 +208,21 @@ run a twin (the twins' entry points are counted, K4's, the next-event
 half's and K5's too); every light-sampling path must have launched ``nee_setup``
 and ``nee_resolve``, and ``nee_backward`` where a gradient is taken; the
 Renderer and every line of phases 5, 6, 6a, 6b, 6c and 8d K5's forward and
-unpermute, and with a gradient their backwards; each line prints its
-kernels, fills and copies per frame.  The
+unpermute, and with a gradient the unpermute's backward and K4's backward
+storing through the compaction's ``src`` (``nee_backward`` too on a light
+line); every path on a scene with primitives K4's forward with K7's scan
+(and ``nee_setup`` with it where the scene samples light).  No main path
+may launch K7 (``prims_intersect``) or ``compact_backward``: their work is
+folded into the kernels that read their results, and phase 2 alone holds
+them against their plain versions.  Each line prints its kernels, fills
+and copies per frame (torch.profiler), held against the wrappers' own
+counts over the same call: each session counts the second of two calls
+(a session can drop the first activities after it starts), a session that
+shows another number of the port's own kernels (by name,
+``utils/timing.kernel_names``) than the wrappers launched dropped some, so
+sessions go on until one shows them all, and a count that no session
+completes is not printed; the headline's lines name PyTorch's kernels
+beside them.  The
 script names only the port; jax and the JAX package are blocked before
 anything is imported.
 
@@ -206,6 +243,7 @@ import statistics
 import sys
 import threading
 import time
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -273,6 +311,8 @@ OPS_SHADE_BWD = 40
 # emitter table, once each (nee_bounds)
 NEE_SETUP_LANE_BYTES = 12 + 12 + 1 + 4
 NEE_RAY_BYTES = 12 + 12 + 4 + 4 + 1 + 4 + 4 + 4
+# with K7's scan folded in, per row its primitive slots: hit, t, material, uv
+NEE_PRIM_SLOT_BYTES = 1 + 4 + 4 + 8
 EMITTER_ROW_BYTES = 20
 # nee_resolve, per lane: albedo, throughput, radiance and medium in, the
 # radiance out; per face its active flag, per cast face max_t and scale (an
@@ -319,11 +359,17 @@ KERNELS = {
                       "octree_pathtracing_tpu/ops/bvh.py:99"),
     "shade": ("octree_pathtracing_tpu_torch/csrc/shade.cu",
               "octree_pathtracing_tpu/render/pathtracer.py:1294"),
+    # K4's forward and nee_setup with K7's scan folded in (their variants on
+    # a scene with primitives): K7's work on the main paths
+    "shade (K7 scan)": ("octree_pathtracing_tpu_torch/csrc/shade.cu",
+                        "octree_pathtracing_tpu/models/prims.py:71"),
     "shade_backward": ("octree_pathtracing_tpu_torch/csrc/shade.cu",
                        "octree_pathtracing_tpu/render/pathtracer.py:804"),
     # K4's next-event half, K6's pick (models/emitters.py:161, :201, :270) inside nee_setup
     "nee_setup": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
                   "octree_pathtracing_tpu/render/pathtracer.py:1361"),
+    "nee_setup (K7 scan)": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
+                            "octree_pathtracing_tpu/models/prims.py:71"),
     "nee_resolve": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
                     "octree_pathtracing_tpu/render/pathtracer.py:1390"),
     "nee_backward": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
@@ -340,6 +386,9 @@ KERNELS = {
                            "octree_pathtracing_tpu/render/pathtracer.py:1016"),
 }
 K5_KERNELS = ("compact_forward", "compact_backward", "unpermute", "unpermute_backward")
+# what a fwd+bwd main path launches of K5 (compact_backward's work is in
+# the stores of K4's backward and nee_backward)
+K5_PATH = ("compact_forward", "unpermute", "unpermute_backward", "shade_backward (src stores)")
 # K5 per lane: the state's rows (origin, dir, throughput, radiance), flags
 # (active, specular), medium and carried index, read once and written once;
 # pos written; the bounce's 21 uniform words read and written
@@ -614,6 +663,9 @@ def shade_bound(call, out, resid, grad: bool):
     lanes = int(st["throughput"].shape[0])
     per_lane = SHADE_IN_BYTES + SHADE_OUT_BYTES + (SHADE_RESID_BYTES if grad else 0)
     per_lane += (SHADE_QUAD_BYTES if scene.has_quad_models else 0) + (SHADE_PRIM_BYTES if call[4] is not None else 0)
+    # K7's scan folded in (primitives and no K7 hit given): the tables once,
+    # the scan's arithmetic on each live lane, and no K7 hit read
+    scan = scene.prims is not None and call[4] is None
     texels, mats, code = resid.ints.unbind(-1)
     m, ml = scene.materials, mats.long()
     scat = out.state["active"]
@@ -637,10 +689,13 @@ def shade_bound(call, out, resid, grad: bool):
     importance = OPS_SHADE_IMPORTANCE if scene.sun_sampling.importance_sampling else 0
     n_ops = (lanes * OPS_SHADE_LANE + miss * OPS_SHADE_SKY + diffuse * (OPS_SHADE_DIFFUSE + importance)
              + specular * OPS_SHADE_SPECULAR)
+    if scan:
+        n_bytes += prim_table_bytes(scene.prims)
+        n_ops += int(st["active"].sum()) * prim_scan_ops(scene.prims)
     return bound(n_bytes, n_ops) + (u_words,)
 
 
-def shade_backward_bound(args):
+def shade_backward_bound(args, src=None):
     """K4's backward bound on one call's arguments (those of
     ``ops/shade._backward_cuda``), by the pointers the call passes and the
     lanes that need them: every lane's residual words; the albedo and the
@@ -648,7 +703,9 @@ def shade_backward_bound(args):
     emitting lanes; each cotangent given; the diffuse weight of a diffuse
     lane and the sky colour of a miss; the throughput gradient out where
     it is wanted; the emittance of the emitting lanes' materials; and the
-    atlas and emittance gradients, dense outputs, written once."""
+    atlas and emittance gradients, dense outputs, written once.  ``src``
+    (the main path's call after a compaction): its 4 B a lane, and the
+    radiance cotangent read on every lane and written back at ``src``."""
     albedo, throughput, resid, emittance, atlas_shape, g_tp, g_rad, g_alb, need = args
     lanes = int(resid.ints.shape[0])
     _, mats, code = resid.ints.unbind(-1)
@@ -658,7 +715,11 @@ def shade_backward_bound(args):
     n_bytes += (lanes if g_tp is not None else n_emit if g_rad is not None else 0) * (16 + 12)
     if g_tp is not None:
         n_bytes += lanes * 12 + n_diff * 4
-    if g_rad is not None:  # read where it reaches the throughput's gradient or the emission
+    if src is not None:
+        n_bytes += lanes * 4
+    if g_rad is not None and src is not None:  # read on every lane, moved to its row
+        n_bytes += lanes * 24 + (n_miss * 12 if need[0] else 0) + int(mats[emit_on].unique().numel()) * 4
+    elif g_rad is not None:  # read where it reaches the throughput's gradient or the emission
         n_bytes += (int((miss | emit_on).sum()) if need[0] else n_emit) * 12 + (n_miss * 12 if need[0] else 0)
         n_bytes += int(mats[emit_on].unique().numel()) * 4
     if g_alb is not None:
@@ -672,13 +733,20 @@ def shade_backward_bound(args):
     return bound(n_bytes, lanes * OPS_SHADE_BWD)
 
 
+def prim_table_bytes(prims) -> int:
+    """K7's tables: a sphere's 5 words, a quad's row."""
+    return prims.n_spheres * 20 + (0 if prims.quads is None else prims.quads.count) * QUAD_ROW_BYTES
+
+
+def prim_scan_ops(prims) -> int:
+    """K7's arithmetic on one ray: every sphere and quad test."""
+    return prims.n_spheres * OPS_PER_SPHERE + (0 if prims.quads is None else prims.quads.count) * OPS_PER_PRIM_QUAD
+
+
 def prim_bound(prims, lanes: int):
     """K7's bound: each ray in and out once, the tables once, against the
     arithmetic of every sphere and quad test."""
-    n_quads = 0 if prims.quads is None else prims.quads.count
-    table_bytes = prims.n_spheres * 20 + n_quads * QUAD_ROW_BYTES
-    return bound(lanes * PRIM_RAY_BYTES + table_bytes,
-                 lanes * (prims.n_spheres * OPS_PER_SPHERE + n_quads * OPS_PER_PRIM_QUAD))
+    return bound(lanes * PRIM_RAY_BYTES + prim_table_bytes(prims), lanes * prim_scan_ops(prims))
 
 
 def nee_bounds(chk) -> dict:
@@ -719,10 +787,13 @@ def nee_bounds(chk) -> dict:
             cell = torch.clamp((p / em.cell_size).to(torch.int32), 0, g - 1)
             rows = ((cell[:, 0] * g + cell[:, 1]) * g + cell[:, 2]).unique().numel()
             grid_bytes += int(rows) * em.grid_idx.shape[1] * 8
+    # K7's scan folded in: the tables once, the scan of each cast ray, its
+    # slots written on every row (a miss where not cast)
+    scan = getattr(rays, "p_hit", None) is not None
     setup = bound(b * NEE_SETUP_LANE_BYTES + (4 * b if plan.sun else 0) + 4 * u_words + fb * NEE_RAY_BYTES
-                  + grid_bytes,
+                  + grid_bytes + ((fb * NEE_PRIM_SLOT_BYTES + prim_table_bytes(scene.prims)) if scan else 0),
                   b * ((OPS_NEE_SUN if plan.sun else 0) + (OPS_NEE_PICK if plan.emitters == "one" else 0))
-                  + (fb - (b if plan.sun else 0)) * OPS_NEE_FACE)
+                  + (fb - (b if plan.sun else 0)) * OPS_NEE_FACE + (n_cast * prim_scan_ops(scene.prims) if scan else 0))
     # nee_resolve: the records its cast faces read
     slots = ints[:, 1:1 + k.N_SLOTS]
     used = slots >= 0
@@ -828,11 +899,13 @@ def main() -> int:
         host_ms,
         nee_calls,
         nonzero_route,
+        kernel_names,
         profile_launches,
         replay_ms,
         shade_calls,
         shade_gradients,
         tiled_compaction,
+        unfolded,
     )
 
     # each kernel's launch count, as its wrapper keeps it (K2q's three modes
@@ -854,7 +927,20 @@ def main() -> int:
         "compact_backward": (compact_mod.compact, "backward_launches"),
         "unpermute": (compact_mod.unpermute, "launches"),
         "unpermute_backward": (compact_mod.unpermute, "backward_launches"),
+        # the folds: of the launches above, K4's forward and nee_setup with
+        # K7's scan inside, K4's backward and nee_backward storing through a
+        # compaction's src (compact_backward's work)
+        "shade (K7 scan)": (shade_mod.shade, "scan_launches"),
+        "nee_setup (K7 scan)": (nee_mod.nee, "scan_setup_launches"),
+        "shade_backward (src stores)": (shade_mod.shade, "src_backward_launches"),
+        "nee_backward (src stores)": (nee_mod.nee, "src_backward_launches"),
     }
+    # folded into the kernels that read their results: no main path launches them
+    FOLDED = ("prims_intersect", "compact_backward")
+    PORT_KERNELS = kernel_names()  # the port's own kernels by name, found among a session's activities
+    # the counters of launches already counted under another name (a fold's variant of a kernel)
+    SUBSET_COUNTERS = ("shade (K7 scan)", "nee_setup (K7 scan)", "shade_backward (src stores)",
+                       "nee_backward (src stores)")
     # the twins' own entry points, counted so that a main path can show it ran none
     twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0, "K4 backward twin": 0,
                   "nee_setup twin": 0, "nee_resolve twin": 0, "nee_backward twin": 0, "K5 twin": 0,
@@ -909,12 +995,18 @@ def main() -> int:
         for name in twin_calls:
             twin_calls[name] = 0
 
+    def twin_backward(*a, src=None):
+        """K4's backward twin; after a compaction each row's gradients moved
+        to the row it came from, as the kernel stores them."""
+        d = shade_mod.shade_backward_reference(*a)
+        return d if src is None else (*compact_mod.store_at_src_reference(src, *d[:2]), *d[2:])
+
     @contextlib.contextmanager
     def k4_twins():
         """K4's kernels replaced by its twins, on the card: the eager shading
         that the main paths ran before K4 had kernels."""
         with mock.patch.object(shade_mod, "_forward_cuda", lambda call, want_grad: shade_mod.shade_reference(*call)), \
-                mock.patch.object(shade_mod, "_backward_cuda", lambda *a: shade_mod.shade_backward_reference(*a)):
+                mock.patch.object(shade_mod, "_backward_cuda", twin_backward):
             yield
 
     @contextlib.contextmanager
@@ -935,7 +1027,7 @@ def main() -> int:
                 mock.patch.object(nee_mod, "traverse_alpha", traverse_alpha_reference), \
                 mock.patch.object(nee_mod, "traverse_shadow", traverse_shadow_reference), \
                 mock.patch.object(nee_mod, "intersect_prims", intersect_prims_reference), \
-                mock.patch.object(pathtracer, "compact", k5_plain), \
+                mock.patch.object(pathtracer, "compact_for_bounce", k5_plain), \
                 mock.patch.object(pathtracer, "unpermute", real_k5["unpermute_reference"]):
             yield
 
@@ -951,6 +1043,36 @@ def main() -> int:
                                      emitter_sampling)
     main_path_launches = dict.fromkeys(counters, 0)
 
+    def wrapper_kernels(fn) -> int:
+        """The kernels the wrappers launch over one call of ``fn``: their
+        counts' growth (each launch is one kernel)."""
+        def total():
+            return sum(getattr(f, a) for name, (f, a) in counters.items() if name not in SUBSET_COUNTERS)
+
+        before = total()
+        fn()
+        return total() - before
+
+    def counted_launches(fn, others: bool = False):
+        """The device activities torch.profiler records over one call of
+        ``fn`` (which synchronizes; the second of two calls in each session,
+        ``utils/timing.profiled_names``), held against the wrappers' counts
+        over one call: a session that shows another number of the port's own
+        kernels than the wrappers launched dropped some, so sessions go on
+        until one shows them all, and the fullest of those counts; where
+        none does after 12, no count is given.  ``others``: with the names
+        of the kernels that are not the port's (PyTorch's own)."""
+        n = wrapper_kernels(fn)
+        got = profile_launches(fn, ours=PORT_KERNELS, expect_ours=n)
+        names = got.pop("others")
+        if got.pop("ours") != n:
+            return (f"not counted: none of {got['sessions']} profiler sessions showed the {n} kernels the wrappers "
+                    f"launched")
+        got["port_kernels"] = n
+        if others:
+            got["other_kernels"] = dict(Counter(x.split("(")[0][-60:] for x in names))
+        return got
+
     def read_counts(path: str, required):
         counts = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
         for name, n in counts.items():
@@ -959,6 +1081,9 @@ def main() -> int:
         missing = [name for name in required if counts[name] <= 0]
         if missing:
             raise AssertionError(f"{path} never launched {missing}")
+        folded = [name for name in FOLDED if counts[name]]
+        if folded:
+            raise AssertionError(f"{path} launched {folded}, which the main paths run inside other kernels")
         if any(twin_calls.values()):
             raise AssertionError(f"{path} ran a twin on the card: {twin_calls}")
 
@@ -1036,13 +1161,22 @@ def main() -> int:
     p2_grid = prandom._library().philox_resident_blocks()
     log(f"  P2's grid: {p2_grid} blocks of 256 threads (SMs x resident blocks)")
     k4_probe = minecraft_chunk_scene(depth=3)[0].to(dev)  # the terrain's tables: 6 materials, 6 atlas layers
-    for lanes in (WIDTH * HEIGHT, 4072):
-        cfg = shade_mod.launch_configs(k4_probe, lanes)
-        for name, c in cfg.items():
-            log(f"  K4 {name} on {lanes} terrain lanes: {c['blocks']} blocks of {c['threads']} threads, "
-                f"{c['smem_bytes']} bytes of shared memory per block, {c['resident_blocks_per_sm']} resident "
-                f"blocks per SM on {c['sms']} SMs; "
-                + (f"tables read from {c['tables']}" if name == "forward" else f"sums {c['sums']}"))
+    k4_scan_probe = analytic_sphere_scene(depth=3)[0].to(dev)  # a sphere and a quad: K4's variant with K7's scan
+    for probe, what in ((k4_probe, "terrain"), (k4_scan_probe, "analytic")):
+        for lanes in (WIDTH * HEIGHT, 4072):
+            cfg = shade_mod.launch_configs(probe, lanes)
+            for name, c in cfg.items():
+                if what == "analytic" and name == "backward":
+                    continue
+                log(f"  K4 {name}{' (' + c['variant'] + ' variant)' if name == 'forward' else ''} on {lanes} {what} "
+                    f"lanes: {c['blocks']} blocks of {c['threads']} threads, {c['smem_bytes']} bytes of shared "
+                    f"memory per block, {c['resident_blocks_per_sm']} resident blocks per SM on {c['sms']} SMs, "
+                    f"{c['registers']} registers, {c['stack_bytes']}-byte stack frame; "
+                    + (f"tables read from {c['tables']}" if name == "forward" else f"sums {c['sums']}"))
+    c = nee_mod.setup_attributes(dev)
+    log(f"  nee_setup: {c['plain']['registers']} registers, {c['plain']['stack_bytes']}-byte stack frame; its "
+        f"variant with K7's scan of each cast ray {c['scan']['registers']} registers, {c['scan']['stack_bytes']}-byte "
+        f"stack frame")
     for lanes in (WIDTH * HEIGHT, 8 * 512 * 512):
         c = nee_mod.backward_config(lanes, tuple(k4_probe.atlas.shape), k4_probe.materials.emittance.numel(), dev)
         log(f"  nee_backward on {lanes} terrain lanes: a {c['launch']} launch of {c['blocks']} blocks of "
@@ -1163,6 +1297,18 @@ def main() -> int:
         f_bound = shade_bound(call, k_out, k_res, grad=False)
         b_t = both(lambda: shade_mod._backward_cuda(*bwd_args))
         b_bound = shade_backward_bound(bwd_args)
+        # the main path's backward after a compaction stores through its src
+        src_k = grad_args[9] if len(grad_args) > 9 else None
+        b_src = None
+        if src_k is not None:
+            d_direct = shade_mod._backward_cuda(*bwd_args)
+            d_src = shade_mod._backward_cuda(*bwd_args, src=src_k)
+            moved = src_k.long()
+            if not (torch.equal(d_src[0][moved], d_direct[0])
+                    and (cot[1] is None or torch.equal(d_src[1][moved], cot[1]))):
+                raise AssertionError(f"K4's backward through src disagrees with its stores in place on bounce {k}")
+            b_src = dict(both(lambda: shade_mod._backward_cuda(*bwd_args, src=src_k)),
+                         bound=shade_backward_bound(bwd_args, src_k))
         cfg = shade_mod.launch_configs(sc_k, lanes)
         variants = {"shade": f"tables read from {cfg['forward']['tables']}, {cfg['forward']['blocks']} blocks of "
                              f"{cfg['forward']['threads']}",
@@ -1176,13 +1322,20 @@ def main() -> int:
                                        device_ms=b_t["device_ms"],
                                        plain_ms=call_ms(lambda: real_shade_bwd_twin(*bwd_args), 5),
                                        bound_ms=b_bound[0], bound_by=b_bound[1],
-                                       cotangents=[g is not None for g in cot], variant=variants["shade_backward"])}
+                                       cotangents=[g is not None for g in cot], variant=variants["shade_backward"],
+                                       **({} if b_src is None else dict(src_ms=b_src["call_ms"],
+                                                                        src_device_ms=b_src["device_ms"],
+                                                                        src_bound_ms=b_src["bound"][0],
+                                                                        src_bound_by=b_src["bound"][1])))}
         for name, row in rows.items():
             k4_rows[name][f"bounce {k}"] = row
             log(f"  {name} call {row['ms']!r} ms, device {row['device_ms']!r} ms "
                 f"({(f_t if name == 'shade' else b_t)['device_by']}), twin {row['plain_ms']!r} ms, bound "
                 f"{row['bound_ms']!r} ms ({row['bound_by']}) on the {lanes} lanes of headline bounce {k}; "
-                f"variant: {row['variant']} [{card}]")
+                f"variant: {row['variant']}"
+                + (f"; storing through the compaction's src (the main path's call): call {row['src_ms']!r} ms, "
+                   f"device {row['src_device_ms']!r} ms, bound {row['src_bound_ms']!r} ms ({row['src_bound_by']})"
+                   if "src_ms" in row else "") + f" [{card}]")
     for name, rows in k4_rows.items():  # the row of bounce 1 (the 256^2 primaries), the others beside it
         results[name] = dict(rows["bounce 1"], max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                              headline_bounces={b: r for b, r in rows.items() if b != "bounce 1"})
@@ -1196,14 +1349,14 @@ def main() -> int:
     # index_select per field; nonzero, gathers and index_puts, the main
     # path's route before the kernel)
     def recorded_compactions(fn):
-        calls, real = [], pathtracer.compact
+        calls, real = [], pathtracer.compact_for_bounce
 
         def rec(st, uu, bounce, counts):
             calls.append(({k: v.detach().clone() for k, v in st.items()}, uu, bounce,
                           None if counts is None else counts.clone()))
             return real(st, uu, bounce, counts)
 
-        with mock.patch.object(pathtracer, "compact", rec), torch.no_grad():
+        with mock.patch.object(pathtracer, "compact_for_bounce", rec), torch.no_grad():
             fn()
         return calls
 
@@ -1295,8 +1448,13 @@ def main() -> int:
         args = chk["args"]
         c = args["setup"][0]
         lanes, cast = int(c.cur_mat.shape[0]), int(chk["rays"].active.sum())
-        fns = {"nee_setup": (lambda: nee_mod._setup_cuda(c),
-                             lambda: real_nee["nee_setup"](c.scene, c.plan, *c[2:])),
+        scan = getattr(chk["rays"], "p_hit", None) is not None
+
+        def plain_setup():  # with K7's plain version over the rays where nee_setup scans them
+            rays = real_nee["nee_setup"](c.scene, c.plan, *c[2:])
+            return (rays, real_prims_twin(sc.prims, rays.origin, rays.dir, 1024.0)) if scan else rays
+
+        fns = {"nee_setup": (lambda: nee_mod._setup_cuda(c), plain_setup),
                "nee_resolve": (lambda: nee_mod._resolve_cuda(*args["resolve"]),
                                lambda: real_nee["nee_resolve"](c.scene, c.plan, *args["resolve"][1:4],
                                                                args["resolve"][6], args["resolve"][4],
@@ -1305,6 +1463,28 @@ def main() -> int:
                                 lambda: real_nee["nee_backward"](*args["backward"]))}
         errs = {"nee_setup": chk["setup"]["max_abs_err"], "nee_resolve": chk["resolve"]["max_abs_err"],
                 "nee_backward": chk["backward_err"]}
+        extra = {}
+        if scan:  # K7's slots against K7's plain version on every cast row (K7's own gate)
+            rays = chk["rays"]
+            on = rays.active
+            want = real_prims_twin(sc.prims, rays.origin, rays.dir, 1024.0)
+            unequal = {f: int((a[on] != w[on]).sum()) for f, a, w in zip(("hit", "t", "mat"), rays.prim[:3], want[:3])}
+            hit = on & want[0]
+            uv_err = float((rays.p_uv[hit] - want[3][hit]).abs().max()) if bool(hit.any()) else 0.0
+            log(f"  nee_setup's primitive slots on the {line} line's {int(on.sum())} cast rows: {int(hit.sum())} hits; "
+                f"against K7's plain version not bit-equal {unequal}, uv max abs diff {uv_err!r}; bit-equal to the "
+                f"standalone K7 on {chk['setup']['prim_rows']} rows")
+            if any(unequal.values()) or not uv_err <= 1e-6:
+                raise AssertionError(f"nee_setup's primitive slots disagree with K7's plain version on the {line} line")
+            errs["nee_setup"] = max(errs["nee_setup"], uv_err)
+            entry = nee_mod._scene_entry(c.scene, c.plan)._replace(prims=False)
+
+            def setup_then_k7():  # the route before the fold: nee_setup without the scan, K7 over its rays
+                rays = nee_mod._setup_cuda(c, entry)
+                return intersect_prims(sc.prims, rays.origin, rays.dir, 1024.0)
+
+            t = both(setup_then_k7)
+            extra = dict(unfolded_ms=t["call_ms"], unfolded_device_ms=t["device_ms"])
         gates = {"nee_setup": chk["setup"], "nee_resolve": chk["resolve"], "nee_backward": None}
         log(f"  next-event kernels, the {line} line's bounce 1: {lanes} lanes x {c.plan.faces} faces, {cast} cast; "
             f"rows not bit-equal: setup {chk['setup']['differ']}, resolve {chk['resolve']['differ']}, residual "
@@ -1317,7 +1497,7 @@ def main() -> int:
                     raise AssertionError(f"nee_backward left its scratch nonzero on the {line} line")
             row = dict(lanes=lanes, faces=c.plan.faces, cast=cast, max_abs_err=errs[name], ms=t["call_ms"],
                        device_ms=t["device_ms"], plain_ms=call_ms(plain, 5), bound_ms=bounds[name][0],
-                       bound_by=bounds[name][1], library_ms=None)
+                       bound_by=bounds[name][1], library_ms=None, **(extra if name == "nee_setup" else {}))
             if name == "nee_resolve":
                 rc = nee_mod.resolve_config(lanes, dev)
                 row["variant"] = (f"{rc['blocks']} blocks of {rc['threads']} threads, a face's reads before its fold, "
@@ -1327,7 +1507,9 @@ def main() -> int:
             nee_rows[name][line] = row
             log(f"  {name} call {row['ms']!r} ms, device {row['device_ms']!r} ms ({t['device_by']}), plain "
                 f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms ({row['bound_by']}) on the {line} line's "
-                f"bounce-1 lanes" + (f"; variant: {row['variant']}" if "variant" in row else "") + f" [{card}]")
+                f"bounce-1 lanes" + (f"; variant: {row['variant']}" if "variant" in row else "")
+                + (f"; nee_setup without the scan + K7 over its rays: call {row['unfolded_ms']!r} ms, device "
+                   f"{row['unfolded_device_ms']!r} ms" if "unfolded_ms" in row else "") + f" [{card}]")
 
     def nee_results():
         """The next-event kernels' rows: the NEE line's, the other lines beside it."""
@@ -1650,6 +1832,56 @@ def main() -> int:
     log(f"  K7 call {k7t['call_ms']!r} ms, device {k7t['device_ms']!r} ms ({k7t['device_by']}); twin "
         f"{results['prims_intersect']['plain_ms']!r} ms; bound {k7_bound[0]!r} ms ({k7_bound[1]}) on the "
         f"{WIDTH}x{HEIGHT} analytic primaries [{card}]")
+    # K4's forward with K7's scan folded in, on the analytic line's bounces
+    # (IMPORTANCE; the whole batch, K5's live lanes first after the first):
+    # against its twin (which scans with K7's plain version) under K4's gate,
+    # and bit for bit against K4 fed by the standalone K7 (a dead lane's hit
+    # masked to a miss, as the scan skips it); timed beside that route
+    ana_imp = dataclasses.replace(ana, sun_sampling=SunSampling.importance())
+    ana_u = pathtracer.draw_uniforms(1, 0, WIDTH * HEIGHT, N_BOUNCES, dev)
+    scan_grads = shade_gradients(pathtracer, ana_imp, po, pd, ana_u)
+    scan_rows = {}
+    for k, (rec, grad_args) in enumerate(zip(shade_calls(pathtracer, ana_imp, po, pd, ana_u), scan_grads), start=1):
+        sc_k, st_k, u_k, res_k, is_first, may_scatter = rec
+        call = (sc_k, st_k, u_k, res_k, None, is_first, may_scatter)
+        lanes, live_k = int(st_k["throughput"].shape[0]), int(st_k["active"].sum())
+        if shade_mod.launch_configs(sc_k, lanes)["forward"]["variant"] != "scan":
+            raise AssertionError("K4 did not take its variant with K7's scan on the analytic scene")
+        chk = check_shade(call, grad_args[5:8], grad_args[8], f"analytic bounce {k}, K7's scan folded in")
+        hit7 = pathtracer._prim_hit(sc_k, st_k["origin"], st_k["dir"])
+        fed_call = (sc_k, st_k, u_k, res_k, (hit7[0] & st_k["active"], *hit7[1:]), is_first, may_scatter)
+        fed, fed_res = shade_mod._forward_cuda(shade_mod._Call(*fed_call), True)
+        pairs = [(f, chk["out"].state[f], fed.state[f]) for f in shade_mod.STATE_KEYS]
+        pairs += [(f, getattr(chk["out"], f), getattr(fed, f)) for f in ("albedo", "hitpoint", "normal", "mat",
+                                                                          "diffuse_on")]
+        pairs += [("residual ints", chk["resid"].ints, fed_res.ints), ("residual floats", chk["resid"].floats,
+                                                                         fed_res.floats)]
+        unequal = {f: int((a.view(torch.uint8) != b.view(torch.uint8)).sum()) for f, a, b in pairs}
+        if any(unequal.values()):
+            raise AssertionError(f"K4 with K7's scan differs from K4 fed by K7 on analytic bounce {k}: {unequal}")
+        f_t = both(lambda: shade_mod.shade(*call))
+        fed_t = both(lambda: shade_mod.shade(*call[:4], pathtracer._prim_hit(sc_k, st_k["origin"], st_k["dir"]),
+                                             *call[5:]))
+        f_bound = shade_bound(call, chk["out"], chk["resid"], grad=False)
+        scan_rows[f"bounce {k}"] = dict(
+            lanes=lanes, live=live_k, max_abs_err=chk["forward_err"], ms=f_t["call_ms"], device_ms=f_t["device_ms"],
+            plain_ms=call_ms(lambda: real_shade_twin(*call), 5), bound_ms=f_bound[0], bound_by=f_bound[1],
+            library_ms=None, unfolded_ms=fed_t["call_ms"], unfolded_device_ms=fed_t["device_ms"])
+        row = scan_rows[f"bounce {k}"]
+        log(f"  K4 with K7's scan, analytic bounce {k}: {lanes} lanes, {live_k} live; against its twin: lanes not "
+            f"bit-equal per field {chk['differ']}, outside rtol 1e-5 / atol 1e-6 {chk['outside']}, max abs err "
+            f"{chk['forward_err']!r}; bit-equal to K4 fed by the standalone K7; call {row['ms']!r} ms, device "
+            f"{row['device_ms']!r} ms ({f_t['device_by']}), twin {row['plain_ms']!r} ms, bound {row['bound_ms']!r} "
+            f"ms ({row['bound_by']}); K7 + K4 fed by it: call {row['unfolded_ms']!r} ms, device "
+            f"{row['unfolded_device_ms']!r} ms [{card}]")
+    results["shade (K7 scan)"] = dict(scan_rows["bounce 1"], max_abs_err=max(r["max_abs_err"] for r in scan_rows.values()),
+                                      analytic_bounces={b: r for b, r in scan_rows.items() if b != "bounce 1"})
+    del scan_grads
+    # nee_setup with K7's scan folded in, on the analytic HIGH_QUALITY line's bounce 1
+    nee_phase2("analytic_hq", high_quality(ana), ana_cam, ana_u)
+    nee_results()
+    results["nee_setup (K7 scan)"] = dict(nee_rows["nee_setup"]["analytic_hq"])
+    del ana_u
     # K8 on the depth-9 plant field's quad soup, against the plant primaries
     bvh_info = child_result("bvh")
     with np.load(bvh_path) as z:
@@ -1822,9 +2054,9 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
 
-        kernel = profile_launches(synced)
+        kernel = counted_launches(synced, others=True)
         with k4_twins():
-            twin = profile_launches(synced)
+            twin = counted_launches(synced)
         return kernel, twin
 
     k_launch, t_launch = frame_launches(lambda: trace_paths(scene, fo, fd, fu))
@@ -1851,7 +2083,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if i:  # the first run is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
-    read_counts("the fwd+bwd step", ("esvo_traverse", "shade", "shade_backward") + K5_KERNELS)
+    read_counts("the fwd+bwd step", ("esvo_traverse", "shade", "shade_backward") + K5_PATH)
     fwdbwd_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated(dev)
     if not (bool(torch.isfinite(g_atlas).all()) and bool(torch.isfinite(g_emit).all())
@@ -1884,10 +2116,38 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
 
-        kernel = profile_launches(synced)
+        kernel = counted_launches(synced)
         with nee_plain():
-            plain = profile_launches(synced)
+            plain = counted_launches(synced)
         return kernel, plain
+
+    def against_unfolded(label, step, fn):
+        """``fn()`` (a line's forward frame or fwd+bwd step) against the same
+        through the route before the folds (``utils/timing.unfolded``: K7
+        launched and handed to K4 and to the walks, the compaction an
+        autograd node with ``compact_backward``): the radiance (the loss)
+        bit for bit, the gradients within rtol 1e-5 / atol 1e-7 (K4's
+        backward adds them with float atomics) with the elements that are not
+        bit-equal counted."""
+        got = fn()
+        with unfolded(pathtracer):
+            want = fn()
+        if step == "forward":
+            if not torch.equal(got, want):
+                raise AssertionError(f"the {label} forward frame differs from the frame before the folds")
+            log(f"  {label} forward: radiance bit-equal to the route before the folds")
+            return
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"the {label} fwd+bwd loss differs from the route before the folds")
+        again = fn()  # the same route twice: what the float atomics' order alone moves
+        differ = {}
+        for g_name, g, wg, ag in zip(("atlas", "emittance"), got[1:], want[1:], again[1:]):
+            torch.testing.assert_close(g, wg, rtol=1e-5, atol=1e-7,
+                                       msg=lambda m, g_name=g_name: f"{label} {g_name} against the unfolded route: {m}")
+            differ[g_name] = (f"{int((g != wg).sum())} of {g.numel()} elements not bit-equal, max abs diff "
+                              f"{float((g - wg).abs().max())!r} (two runs of the folded route: "
+                              f"{int((g != ag).sum())} not bit-equal)")
+        log(f"  {label} fwd+bwd against the route before the folds: the loss bit-equal; gradients {differ}")
 
     def time_line(label, sc, lo, ld, required, what):
         """One line at phase 5's shape, forward and fwd+bwd: median of 5 after
@@ -1896,13 +2156,16 @@ def main() -> int:
         samples light, whose launches per frame are then also counted through
         the kernels and through their plain version)."""
         light = nee_mod.nee_plan(sc) is not None
+        prims = sc.prims is not None
         _, live = trace_paths_census(sc, lo, ld, fu)
         rays_live = int(live.sum())
         for step, fn in (("forward", lambda: trace_paths(sc, lo, ld, fu)),
                          ("fwd+bwd", lambda: fwdbwd(sc, lo, ld, fu))):
             need = required + ("shade", "compact_forward", "unpermute") + (("nee_setup", "nee_resolve") if light else ())
-            if step == "fwd+bwd":
-                need += ("shade_backward", "compact_backward", "unpermute_backward") + (("nee_backward",) if light else ())
+            need += (("shade (K7 scan)",) + (("nee_setup (K7 scan)",) if light else ())) if prims else ()
+            if step == "fwd+bwd":  # compact_backward's work in the stores of K4's backward and nee_backward
+                need += (("shade_backward", "shade_backward (src stores)", "unpermute_backward")
+                         + (("nee_backward", "nee_backward (src stores)") if light else ()))
             reset_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             times = []
@@ -1929,7 +2192,19 @@ def main() -> int:
                     f"kernels, {p_launch} through their plain version [{card}]")
             else:
                 log(f"  launches per {label} {step} frame (torch.profiler): "
-                    f"{profile_launches(lambda: (fn(), torch.cuda.synchronize()))} [{card}]")
+                    f"{counted_launches(lambda: (fn(), torch.cuda.synchronize()))} [{card}]")
+            against_unfolded(label, step, fn)
+            if prims and step == "forward":  # the scanning K4's frame: its device floor
+                eager_f = fn()
+                graph_f, replayed_f = capture_frame(fn)
+                replayed_f.view(torch.uint8).fill_(0xFF)
+                runs = replay_ms(graph_f)
+                torch.cuda.synchronize()
+                if not torch.equal(replayed_f, eager_f):
+                    raise AssertionError(f"the replayed {label} forward frame is not bit-equal to the eager frame")
+                log(f"  {label} forward frame replayed from a CUDA graph: median {statistics.median(runs)!r} ms "
+                    f"({[round(t, 4) for t in runs]}); bit-equal to the eager frame [{card}]")
+                del graph_f, replayed_f, eager_f
 
     # ---- 6a. no host read in a frame, and the forward frame as a CUDA graph
     log(f"phase 6a frames without a host read; the headline forward frame as a CUDA graph [{card}]")
@@ -1944,7 +2219,7 @@ def main() -> int:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         read_counts(f"the {label} frame, forward and fwd+bwd, under set_sync_debug_mode('error')",
-                    ("esvo_traverse", "shade", "shade_backward") + K5_KERNELS)
+                    ("esvo_traverse", "shade", "shade_backward") + K5_PATH)
         log(f"  {label}: forward and fwd+bwd ran with the sync debug mode at 'error': no host read")
     eager = trace_paths(scene, fo, fd, fu)
     reset_counts()
@@ -1961,52 +2236,60 @@ def main() -> int:
         f"{graph_ms / frame_ms:.3f} of the eager frame; the replay bit-equal to the eager frame [{card}]")
     del graph, replayed, eager
 
-    # config 3's fwd+bwd frame (the sun and one-emitter NEE, nee_backward's
-    # cooperative launch on every bounce) captured whole and replayed
-    c3 = high_quality(scene, "one")
-    c3_p = {"atlas": c3.atlas.detach().clone().requires_grad_(True),
-            "emittance": c3.materials.emittance.detach().clone().requires_grad_(True)}
+    # the headline's and config 3's fwd+bwd frames (config 3: the sun and
+    # one-emitter NEE, nee_backward's cooperative launch on every bounce)
+    # captured whole and replayed; each line's K4 and nee_backward store
+    # compact_backward's work through src
+    def fwd_bwd_replay(label, sc, required):
+        p_ = {"atlas": sc.atlas.detach().clone().requires_grad_(True),
+              "emittance": sc.materials.emittance.detach().clone().requires_grad_(True)}
 
-    def c3_step():
-        rad = trace_paths(apply_params(c3, c3_p), fo, fd, fu)
-        rad.mean().backward()
-        return rad
+        def step():
+            rad = trace_paths(apply_params(sc, p_), fo, fd, fu)
+            rad.mean().backward()
+            return rad
 
-    c3_eager = c3_step().detach().clone()
-    c3_grads = {k: v.grad.clone() for k, v in c3_p.items()}
-    fwdbwd_ms = statistics.median(host_ms(lambda: fwdbwd(c3, fo, fd, fu)))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the default stream, as capture asks
-        for v in c3_p.values():
+        eager_r = step().detach().clone()
+        grads = {k: v.grad.clone() for k, v in p_.items()}
+        eager_ms = statistics.median(host_ms(lambda: fwdbwd(sc, fo, fd, fu)))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the default stream, as capture asks
+            for v in p_.values():
+                v.grad = None
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        for v in p_.values():
             v.grad = None
-        c3_step()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    for v in c3_p.values():
-        v.grad = None
-    reset_counts()
-    c3_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(c3_graph):
-        c3_rad = c3_step()
-    read_counts("the captured config-3 fwd+bwd frame", ("esvo_traverse", "shade", "shade_backward") + NEE_KERNELS
-                + K5_KERNELS)
-    c3_rad.detach().fill_(float("nan"))  # spoiled: the replays must write them again
-    for v in c3_p.values():
-        v.grad.fill_(float("nan"))
-    c3_runs = replay_ms(c3_graph)
-    torch.cuda.synchronize()
-    if not torch.equal(c3_rad.detach(), c3_eager):
-        raise AssertionError("the replayed config-3 fwd+bwd frame's radiance is not bit-equal to the eager frame's")
-    for k, v in c3_p.items():
-        torch.testing.assert_close(v.grad, c3_grads[k], rtol=1e-5, atol=1e-7,
-                                   msg=lambda m, k=k: f"the replayed config-3 fwd+bwd frame's {k} gradient: {m}")
-    c3_ms = statistics.median(c3_runs)
-    log(f"  config 3's fwd+bwd frame replayed from a CUDA graph: median {c3_ms!r} ms "
-        f"({[round(t, 4) for t in c3_runs]}) beside {fwdbwd_ms!r} ms eager: the device busy "
-        f"{c3_ms / fwdbwd_ms:.3f} of the eager step; the radiance bit-equal to the eager frame's, the gradients "
-        f"within rtol 1e-5 / atol 1e-7 [{card}]")
-    del c3_graph, c3_rad, c3_p, c3_grads, c3_eager
+        reset_counts()
+        graph_b = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph_b):
+            rad_b = step()
+        read_counts(f"the captured {label} fwd+bwd frame", required)
+        rad_b.detach().fill_(float("nan"))  # spoiled: the replays must write them again
+        for v in p_.values():
+            v.grad.fill_(float("nan"))
+        runs = replay_ms(graph_b)
+        torch.cuda.synchronize()
+        if not torch.equal(rad_b.detach(), eager_r):
+            raise AssertionError(f"the replayed {label} fwd+bwd frame's radiance is not bit-equal to the eager frame's")
+        for k, v in p_.items():
+            torch.testing.assert_close(v.grad, grads[k], rtol=1e-5, atol=1e-7,
+                                       msg=lambda m, k=k: f"the replayed {label} fwd+bwd frame's {k} gradient: {m}")
+        ms = statistics.median(runs)
+        log(f"  {label}'s fwd+bwd frame replayed from a CUDA graph: median {ms!r} ms "
+            f"({[round(t, 4) for t in runs]}) beside {eager_ms!r} ms eager: the device busy "
+            f"{ms / eager_ms:.3f} of the eager step; the radiance bit-equal to the eager frame's, the gradients "
+            f"within rtol 1e-5 / atol 1e-7 [{card}]")
+
+    fwd_bwd_replay("the headline", scene, ("esvo_traverse", "shade", "shade_backward", "shade_backward (src stores)",
+                                           "compact_forward", "unpermute", "unpermute_backward"))
+    fwd_bwd_replay("config 3", high_quality(scene, "one"),
+                   ("esvo_traverse", "shade", "shade_backward", "shade_backward (src stores)",
+                    "nee_backward (src stores)", "compact_forward", "unpermute", "unpermute_backward") + NEE_KERNELS)
+    against_unfolded("headline", "forward", lambda: trace_paths(scene, fo, fd, fu))
+    against_unfolded("headline", "fwd+bwd", lambda: fwdbwd(scene, fo, fd, fu))
 
     # ---- 6b. bench.py's NEE and cutout lines and BASELINE's config 3
     log(f"phase 6b light sampling at bench.py's shapes [{card}]: emitters E = "
@@ -2037,8 +2320,8 @@ def main() -> int:
         lo, ld = pixel_grid_rays(camera, WIDTH, HEIGHT)
         if which == "plant":
             required = ("esvo_traverse_models (mode 1)", "esvo_traverse_models (mode 3)")
-        else:
-            required = ("esvo_traverse", "prims_intersect")
+        else:  # K7's scan inside K4's forward (and nee_setup on the HIGH_QUALITY line): no K7 launch
+            required = ("esvo_traverse",)
         time_line(name, sc, lo, ld, required, f"{which} {sun.upper()} depth {DEPTH}")
 
     # ---- 7. the training entry point

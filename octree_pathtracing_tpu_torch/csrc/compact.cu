@@ -19,6 +19,11 @@
 // and row pos[i] of the (B, 21) uniform block of the bounce is row idx[i]
 // of the frame's (B, n_bounces, 21) block at the bounce.  pos is kept for
 // the backward, and the live count goes to counts[bounce], on the device.
+// Where the caller asks for it, src, the inverse of pos (src[pos[i]] = i),
+// is written too: the bounce loop hands it to K4's backward and
+// nee_backward, which store each lane's gradients at the row the lane came
+// from, so that no frame launches compact_backward (ops/compact
+// `compact_for_bounce`).
 //
 // One launch, a single-pass scan with decoupled look-back (Merrill and
 // Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
@@ -45,7 +50,8 @@
 //
 // compact_backward: d_in[i] = d_out[pos[i]] for the throughput and the
 // radiance (the only state fields that carry a gradient), a permutation:
-// no atomics, bit-exact.
+// no atomics, bit-exact.  A direct caller of ops/compact.compact runs it;
+// the bounce loop's frames do not (see src above).
 //
 // unpermute_forward: out[idx[j]] = radiance[j]; unpermute_backward:
 // d[j] = g[idx[j]].  idx is a permutation of 0..B-1 (compact_forward's
@@ -53,7 +59,8 @@
 //
 // What bounds them: bytes.  The forward moves 288 bytes a lane (each state
 // row read once and written once, the 84-byte uniform row read and written,
-// 4 bytes of pos); there is no arithmetic to speak of.  At the headline's
+// 4 bytes of pos; 4 more of src where it is asked for); there is no
+// arithmetic to speak of.  At the headline's
 // 65,536 lanes the time is the latency of the kernel's dependent steps; at
 // 2 M lanes it is device memory's rate.  So a tile is 256 lanes, one per
 // thread (tiles of 1,024 and 512 lanes measured 2.0x and 1.3x slower at
@@ -99,7 +106,7 @@ constexpr int CTL_TICKET = 0, CTL_DONE = 1, CTL_EPOCH = 2, CTL_WORDS64 = 2;
 enum Slot {
   S_ORIGIN, S_DIR, S_THROUGHPUT, S_RADIANCE, S_ACTIVE, S_SPECULAR, S_CUR_MAT, S_IDX, S_UNIFORMS,
   S_OUT_ORIGIN, S_OUT_DIR, S_OUT_THROUGHPUT, S_OUT_RADIANCE, S_OUT_ACTIVE, S_OUT_SPECULAR, S_OUT_CUR_MAT,
-  S_OUT_IDX, S_OUT_U, S_POS, S_COUNTS, S_SCRATCH, S_U_LANE_STRIDE, S_BOUNCE, N_SLOTS
+  S_OUT_IDX, S_OUT_U, S_POS, S_SRC, S_COUNTS, S_SCRATCH, S_U_LANE_STRIDE, S_BOUNCE, N_SLOTS
 };
 
 struct Params {
@@ -118,6 +125,7 @@ struct Params {
   int* idx_out;
   float* u_out;  // (B, N_U)
   int* pos;
+  int* src;  // pos's inverse, row pos[i] came from lane i; null: not wanted
   int* counts;  // counts[bounce] takes the live count
   unsigned long long* scratch;
   int n, n_tiles;
@@ -252,8 +260,8 @@ __device__ __forceinline__ void load_lane(const Params& p, long long i, LaneRow&
   r.src = p.idx != nullptr ? __ldg(p.idx + i) : (int)i;
 }
 
-// Writes lane i's row at `dst` and its pos, and puts its original index at
-// `slot` of the run's list.
+// Writes lane i's row at `dst`, its pos and (where wanted) src[dst] = i,
+// and puts its original index at `slot` of the run's list.
 __device__ __forceinline__ void store_lane(const Params& p, long long i, int dst, int slot, const LaneRow& r,
                                            int* s_src) {
 #pragma unroll
@@ -265,6 +273,7 @@ __device__ __forceinline__ void store_lane(const Params& p, long long i, int dst
   p.cur_mat_out[dst] = r.cur_mat;
   p.idx_out[dst] = r.src;
   p.pos[i] = dst;
+  if (p.src != nullptr) p.src[dst] = (int)i;
   s_src[slot] = r.src;
 }
 
@@ -456,6 +465,7 @@ extern "C" int compact_forward(int n, const void* const* slots, int n_slots, voi
   p.idx_out = (int*)slots[S_OUT_IDX];
   p.u_out = (float*)slots[S_OUT_U];
   p.pos = (int*)slots[S_POS];
+  p.src = (int*)slots[S_SRC];
   p.counts = (int*)slots[S_COUNTS];
   p.scratch = (unsigned long long*)slots[S_SCRATCH];
   p.n = n;

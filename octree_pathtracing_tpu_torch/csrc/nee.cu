@@ -39,9 +39,16 @@
 // staged through shared memory and written as the warp's consecutive
 // words (no faster than each lane's own stores).
 //
+// On a scene with analytic primitives, nee_setup also scans each cast
+// ray it writes against them (K7's scan, prims.cuh, folded in; the
+// kScan variant) and writes the hit beside the ray: what a K7 launch over
+// every ray wrote before, for the cast rays only, a miss beside a ray not
+// cast (nee_resolve reads no primitive slot of one).  Built with
+// -fmad=false as prims.cu is, the slots equal K7's bit for bit.
+//
 // The walks between the two are the existing kernels, one call each for
 // all faces: K1 / K2 on shadow_binary scenes, K3s (mode 3 of traversal.cu,
-// with K2q's model variant) otherwise, K7 for the primitives.
+// with K2q's model variant) otherwise.
 //
 // nee_resolve, per lane and face: the attenuation from the walk's records
 // (up to K_SURFACES texels under the alpha budget w, the strict-IOR zero,
@@ -61,9 +68,10 @@
 //
 // nee_backward, per lane: from the radiance cotangent, the throughput's
 // and the shading point's albedo's gradients (the albedo's reach the atlas
-// through K4's backward); the blockers' rgba and the emitter's rgb are
-// summed into the atlas gradient, the emitter's emission into the
-// emittance's.  It re-reads the texels the residual names and walks
+// through K4's backward; after a compaction the throughput's is stored at
+// row src[i], compact_backward's gather folded into the store); the
+// blockers' rgba and the emitter's rgb are summed into the atlas gradient,
+// the emitter's emission into the emittance's.  It re-reads the texels the residual names and walks
 // nothing again.  The two sums are float64: under ALL a bounce adds 3 E
 // terms per lane, ~10^7 onto one material, and a float32 sum in the
 // schedule's order drifts from any other order by ~1e-4 relative; in
@@ -105,6 +113,7 @@
 
 #include <mutex>
 
+#include "prims.cuh"
 #include "torch_rounding.cuh"
 
 #define EPS_F 5e-8f                          // Ray::EPSILON
@@ -178,6 +187,8 @@ struct NeeTables {
   float inv_one_m_lam;  // 1 / (1 - lam)
   float one_m_lam;      // 1 - lam
   float lam_over_e;     // lam / E
+  PrimTables prims;     // the scene's analytic primitives (counts 0 without them)
+  float prim_t_max;     // the scan's t_max (models/scene.MAX_DIST)
 };
 
 struct NeeFlags {
@@ -189,7 +200,9 @@ struct NeeFlags {
 // state, the uniforms' row stride, then the outputs (ops/nee.NeeRays)
 enum SetupSlot {
   S_HITPOINT, S_NORMAL, S_MAT, S_DIFFUSE_ON, S_CUR_MAT, S_U, S_U_STRIDE,
-  S_ORIGIN, S_DIR, S_MAX_T, S_SCALE, S_ACTIVE, S_OUT_CUR_MAT, S_E_TEXEL, S_E_MAT, N_SETUP_SLOTS
+  S_ORIGIN, S_DIR, S_MAX_T, S_SCALE, S_ACTIVE, S_OUT_CUR_MAT, S_E_TEXEL, S_E_MAT,
+  S_P_HIT, S_P_T, S_P_MAT, S_P_UV,  // K7's hit of each ray: null without primitives
+  N_SETUP_SLOTS
 };
 
 struct Rays {  // ops/nee.NeeRays, (F * B) rows
@@ -201,6 +214,10 @@ struct Rays {  // ops/nee.NeeRays, (F * B) rows
   int* cur_mat;
   int* e_texel;
   int* e_mat;
+  uint8_t* p_hit;  // the nearest primitive of a cast ray (a miss on a ray not cast)
+  float* p_t;
+  int* p_mat;
+  float* p_uv;
 };
 
 struct SetupParams {
@@ -267,7 +284,9 @@ struct ResolveParams {
 // not wanted, and neither is its scratch
 enum BackwardSlot {
   B_ATLAS, B_EMITTANCE, B_SUN_EMITTANCE, B_G_RADIANCE, B_ALBEDO, B_THROUGHPUT, B_RESID, B_SCALE,
-  B_D_THROUGHPUT, B_D_ALBEDO, B_D_ATLAS, B_D_EMITTANCE, B_SUM_ATLAS, B_SUM_EMITTANCE, N_BACKWARD_SLOTS
+  B_D_THROUGHPUT, B_D_ALBEDO, B_D_ATLAS, B_D_EMITTANCE, B_SUM_ATLAS, B_SUM_EMITTANCE,
+  B_SRC,  // after a compaction: lane i's throughput gradient goes to row src[i]; null: to row i
+  N_BACKWARD_SLOTS
 };
 
 struct BackwardParams {
@@ -285,6 +304,7 @@ struct BackwardParams {
   float* d_emit;   // (M,)
   double* sum_atlas;  // the per-card scratch: zero on entry, zero again on exit
   double* sum_emit;
+  const int* src;     // null: the throughput gradient of lane i goes to row i
   long long n_texels;
   int n_emit, n, sun, em_mode, faces;
 };
@@ -327,11 +347,25 @@ struct Lane {
   bool valid;
 };
 
+// Writes row f * B + i; kScan: with K7's scan of the ray where it is cast
+// (what the walks' K7 launch wrote before it was folded in here), a miss
+// where it is not (nee_resolve reads no primitive slot of a ray not cast).
+template <bool kScan>
 __device__ __forceinline__ void put_ray(const SetupParams& p, const Lane& ln, long long f, const float o[3],
                                         const float d[3], float max_t, float scale, bool on, int cm, int e_texel,
                                         int e_mat) {
   if (!ln.valid) return;
   const long long r = f * p.n + ln.i;
+  if (kScan) {
+    PrimHit h;
+    if (on) prim_scan(p.tb.prims, o, d, p.tb.prim_t_max, h);
+    else prim_miss(h);
+    p.out.p_hit[r] = h.t != __int_as_float(0x7f800000);
+    p.out.p_t[r] = h.t;
+    p.out.p_mat[r] = h.mat;
+    p.out.p_uv[2 * r] = h.u;
+    p.out.p_uv[2 * r + 1] = h.v;
+  }
   for (int c = 0; c < 3; ++c) p.out.origin[3 * r + c] = o[c];
   for (int c = 0; c < 3; ++c) p.out.dir[3 * r + c] = d[c];
   p.out.max_t[r] = max_t;
@@ -344,6 +378,7 @@ __device__ __forceinline__ void put_ray(const SetupParams& p, const Lane& ln, lo
 
 // ops/nee.nee_setup_reference's emitter face: the shadow ray from the
 // (masked) shading point p toward the point q of outward normal ne
+template <bool kScan>
 __device__ void emitter_face(const SetupParams& p, const Lane& ln, long long f, const float pt[3], const float n[3],
                              bool don, int cm, const float q[3], const float ne[3], int mat_e, float eu, float ev,
                              float inv_pdf) {
@@ -356,7 +391,7 @@ __device__ void emitter_face(const SetupParams& p, const Lane& ln, long long f, 
   bool on = don && cos_s > 0.0f && cos_e > 0.0f;
   float geom = ((cos_s * cos_e) / clamp_min(dist * dist, EPS_F)) * INV_PI_F;
   for (int c = 0; c < 3; ++c) o[c] = pt[c] + wi[c] * OFFSET_F;
-  put_ray(p, ln, f, o, wi, dist * MAX_T_FRAC, geom * inv_pdf, on, cm, texel_of(p.tb, mat_e, eu, ev), mat_e);
+  put_ray<kScan>(p, ln, f, o, wi, dist * MAX_T_FRAC, geom * inv_pdf, on, cm, texel_of(p.tb, mat_e, eu, ev), mat_e);
 }
 
 // One row's pass, left to right: the CDF fold, the first entry it reaches
@@ -423,6 +458,9 @@ __device__ int spatial_pick(const NeeTables& tb, bool valid, const float pc[3], 
   return idx;
 }
 
+// kScan: the variant with K7's scan of each cast ray folded in (a scene
+// with primitives).
+template <bool kScan>
 __global__ void __launch_bounds__(kThreads) nee_setup_kernel(const __grid_constant__ SetupParams p) {
   const NeeTables& tb = p.tb;
   const NeeFlags& fl = p.fl;
@@ -458,7 +496,7 @@ __global__ void __launch_bounds__(kThreads) nee_setup_kernel(const __grid_consta
       o[c] = so + sd[c] * OFFSET_F;
     }
     float lum = fl.sun_luminosity ? 1.0f / __ldg(tb.luminosity) : 1.0f;
-    put_ray(p, ln, 0, o, sd, __int_as_float(0x7f800000), fabsf(cos_sun) * lum, on, cm, -1, -1);
+    put_ray<kScan>(p, ln, 0, o, sd, __int_as_float(0x7f800000), fabsf(cos_sun) * lum, on, cm, -1, -1);
     f = 1;
   }
   if (fl.em_mode == EM_NONE) return;
@@ -496,7 +534,7 @@ __global__ void __launch_bounds__(kThreads) nee_setup_kernel(const __grid_consta
       ne[c] = rel == 0 ? 2.0f * hi - 1.0f : 0.0f;
     }
     float inv_pdf = (((pick_inv * size) * size) * total) / w_a;
-    emitter_face(p, ln, f, pt, nrm, don, cm, q, ne, mat_e, a, u2, inv_pdf);
+    emitter_face<kScan>(p, ln, f, pt, nrm, don, cm, q, ne, mat_e, a, u2, inv_pdf);
     return;
   }
   // ONE_BLOCK: one uniformly picked emitter; ALL: every emitter.  Each sums
@@ -522,7 +560,7 @@ __global__ void __launch_bounds__(kThreads) nee_setup_kernel(const __grid_consta
         q[c] = pos[c] + coord;
         ne[c] = rel == 0 ? 2.0f * hi - 1.0f : 0.0f;
       }
-      emitter_face(p, ln, f, pt, nrm, don, cm, q, ne, mat_e, u1, u2, inv_pdf);
+      emitter_face<kScan>(p, ln, f, pt, nrm, don, cm, q, ne, mat_e, u1, u2, inv_pdf);
     }
   }
 }
@@ -918,8 +956,10 @@ __device__ void backward_lane(const BackwardParams& p, long long i, bool valid, 
   if (!valid) return;
   if (p.em_mode != EM_NONE)
     for (int c = 0; c < 3; ++c) dt[c] = dt[c] + g[c] * acc[c];
-  if (p.d_tp != nullptr)
-    for (int c = 0; c < 3; ++c) p.d_tp[3 * i + c] = dt[c];
+  if (p.d_tp != nullptr) {  // after a compaction, to the row the lane came from
+    const long long o = p.src != nullptr ? (long long)__ldg(p.src + i) : i;
+    for (int c = 0; c < 3; ++c) p.d_tp[3 * o + c] = dt[c];
+  }
   if (p.d_alb != nullptr)
     reinterpret_cast<float4*>(p.d_alb)[i] = make_float4(da[0], da[1], da[2], 0.0f);
 }
@@ -1039,8 +1079,20 @@ extern "C" int nee_setup(int n, const NeeTables* tables, const NeeFlags* flags, 
   p.out.cur_mat = (int*)slots[S_OUT_CUR_MAT];
   p.out.e_texel = (int*)slots[S_E_TEXEL];
   p.out.e_mat = (int*)slots[S_E_MAT];
+  p.out.p_hit = (uint8_t*)slots[S_P_HIT];
+  p.out.p_t = (float*)slots[S_P_T];
+  p.out.p_mat = (int*)slots[S_P_MAT];
+  p.out.p_uv = (float*)slots[S_P_UV];
   p.n = n;
-  nee_setup_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(p);
+  const bool scan = p.out.p_hit != nullptr;
+  if (scan && (p.out.p_t == nullptr || p.out.p_mat == nullptr || p.out.p_uv == nullptr ||
+               prim_count(p.tb.prims) == 0))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  if (scan)
+    nee_setup_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  else
+    nee_setup_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1105,6 +1157,7 @@ extern "C" int nee_backward(int n, const void* const* slots, int n_slots, long l
   p.d_emit = (float*)slots[B_D_EMITTANCE];
   p.sum_atlas = p.d_atlas == nullptr ? nullptr : (double*)slots[B_SUM_ATLAS];
   p.sum_emit = p.d_emit == nullptr ? nullptr : (double*)slots[B_SUM_EMITTANCE];
+  p.src = (const int*)slots[B_SRC];
   p.n_texels = n_texels;
   p.n_emit = n_emit;
   p.n = n;
@@ -1119,6 +1172,21 @@ extern "C" int nee_backward(int n, const void* const* slots, int n_slots, long l
                                               (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// `out`: the registers per thread and the stack frame bytes of nee_setup
+// without and with K7's scan folded in (four words).
+extern "C" int nee_setup_attributes(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, nee_setup_kernel<false>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  e = cudaFuncGetAttributes(&attr, nee_setup_kernel<true>);
+  if (e != cudaSuccess) return (int)e;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  return 0;
 }
 
 // `out`: nee_resolve's threads, blocks, registers per thread and resident

@@ -1,5 +1,6 @@
 // The quad table and `Quad::hit`, shared by the quad-model accept of
-// traversal.cu (K2q) and the primitive scan of prims.cu (K7).
+// traversal.cu (K2q) and the primitive scan of prims.cuh (K7, and its
+// copies folded into K4's forward and nee_setup).
 //
 // The arithmetic is ops/geometry.py `quad_hit` operation for operation.
 // Where the JAX package's CPU path fuses a multiply into an add (a dot

@@ -15,7 +15,8 @@
 //
 // The forward, per lane: the hit's material, uv, normal and t (the leaf's
 // material, a block model's face material, a quad model's quad from
-// K2q's mode 1, or K7's primitive where it is nearer); the material row and
+// K2q's mode 1, or the nearest analytic primitive where it is nearer); the
+// material row and
 // the nearest texel (clamp, v-flip, per-layer sizes); on a miss the sky and
 // the sun disk; on a hit that may scatter one lobe (metal, specular,
 // diffuse with the sun-importance warp: the cap, its 8-step remap, the
@@ -26,10 +27,28 @@
 // 24-byte residual (the texel's index, the material, a lane code, and the
 // sky colour or the diffuse weight).
 //
+// The primitive: a scene with analytic primitives takes the forward's
+// variant with K7's scan folded in (prims.cuh; kScan), which scans the
+// lane's own ray (a dead lane sees none, as the traversal gives it no hit)
+// in place of reading the hit that a K7 launch wrote: K7's launch leaves
+// the bounce, and its 29 bytes a lane no longer go through device memory.
+// The scan runs before the block's barrier, its few table words through
+// __ldg, so that its arithmetic overlaps the lane's other loads and the
+// staging of the tables; scanning after the barrier from a copy staged in
+// shared memory measured 0.002 ms slower a bounce on the analytic scene
+// (PERF.md §6).  Both build with -fmad=false, so the scan equals K7's bit
+// for bit.  A caller that hands it K7's hit gets the variant without the
+// scan, which is also every scene's without primitives: the kernel as it
+// was before the fold.
+//
 // The backward, per lane: the gradients of the incoming throughput and of
 // the albedo from the cotangents of the new throughput, the new radiance
 // and the hand-off albedo; the albedo gradient goes to the texel the lane
-// read, the emission gradient to its material's emittance.
+// read, the emission gradient to its material's emittance.  After a
+// compaction (K5) the throughput's gradient and the radiance's
+// pass-through are stored at row src[i], the row the lane held before it:
+// compact_backward's gather, folded into these stores (every row is
+// written, so nothing is filled).
 //
 // What bounds them: bytes.  Per lane the forward reads about 170 bytes (the
 // state, 21 uniforms, the hit) and a texel and a material row from tables
@@ -95,6 +114,7 @@
 
 #include <mutex>
 
+#include "prims.cuh"
 #include "torch_rounding.cuh"
 
 #define EPS_F 5e-8f        // Ray::EPSILON
@@ -169,10 +189,13 @@ struct ShadeTables {
   const int* sizes;    // (T, 2) per-layer (h, w), or null for a uniform atlas
   int n_layers, atlas_h, atlas_w;
   SunParams sun;
+  PrimTables prims;  // the scene's analytic primitives (counts 0 without them)
+  float prim_t_max;  // the scan's t_max (models/scene.MAX_DIST)
 };
 
 struct ShadeFlags {
   int is_first, may_scatter, importance, diffuse_sun, draw_texture, emission;
+  int scan;  // the forward scans the primitives itself (K7 folded in), reading no S_P_* slot
 };
 
 // The per-lane pointers of one forward call, in the order of the flat slot
@@ -193,7 +216,9 @@ enum LaneSlot {
 // the backward's slots (ops/shade.py BACKWARD_SLOTS)
 enum BackwardSlot {
   B_G_THROUGHPUT, B_G_RADIANCE, B_G_ALBEDO, B_ALBEDO, B_THROUGHPUT, B_RESID_I, B_RESID_F, B_EMITTANCE,
-  B_D_THROUGHPUT, B_D_ATLAS, B_D_EMITTANCE, N_BACKWARD_SLOTS
+  B_D_THROUGHPUT, B_D_ATLAS, B_D_EMITTANCE,
+  B_SRC, B_D_RADIANCE,  // after a compaction: row i's gradients go to lane src[i]; null: to row i
+  N_BACKWARD_SLOTS
 };
 
 struct ForwardParams {
@@ -220,6 +245,8 @@ struct BackwardParams {
   float* d_tp;
   float* d_atlas;
   float* d_emit;
+  const int* src;  // null: the gradients of row i go to row i
+  float* d_rad;    // the radiance cotangent moved to src (null: not wanted, or no src)
   int n;
 };
 
@@ -553,9 +580,11 @@ __device__ __forceinline__ void store3(void* out, long long i, float v0, float v
   t[2] = v2;
 }
 
-// Shades lane `i` from what load_lane read.
-__device__ void shade_lane(const ForwardParams& p, const Tables& tab, const SunShared& sun, long long i,
-                           const LaneIn& L) {
+// Shades lane `i` from what load_lane read.  kScan: with the nearest
+// primitive `scanned` of the lane's ray, in place of reading K7's hit.
+template <bool kScan>
+__device__ void shade_lane(const ForwardParams& p, const Tables& tab, const PrimHit& scanned, const SunShared& sun,
+                           long long i, const LaneIn& L) {
   const ShadeTables& tb = p.tb;
   const ShadeFlags& fl = p.fl;
   float o[3], d[3], tp[3], rad[3];
@@ -567,7 +596,10 @@ __device__ void shade_lane(const ForwardParams& p, const Tables& tab, const SunS
   }
   bool specular = L.specular;
   int cur_mat = L.cur_mat;
-  const bool any_hit = L.oct_hit || L.p_hit;
+  bool p_hit = L.p_hit;
+  const PrimHit& ph = scanned;
+  if (kScan) p_hit = ph.t != __int_as_float(0x7f800000);
+  const bool any_hit = L.oct_hit || p_hit;
   const bool miss = L.active && !any_hit;
   const bool can_scatter = fl.may_scatter && L.active && any_hit;
   const float* u = L.u;
@@ -600,15 +632,22 @@ __device__ void shade_lane(const ForwardParams& p, const Tables& tab, const SunS
       t_hit = static_cast<const float*>(p.in[S_Q_T])[i];
     }
   }
-  if (L.p_hit) {
-    float p_t = static_cast<const float*>(p.in[S_P_T])[i];
+  if (p_hit) {
+    float p_t = kScan ? ph.t : static_cast<const float*>(p.in[S_P_T])[i];
     if (p_t < (L.oct_hit ? t_hit : __int_as_float(0x7f800000))) {
-      const float* p_uv = static_cast<const float*>(p.in[S_P_UV]);
-      const float* p_normal = static_cast<const float*>(p.in[S_P_NORMAL]);
-      mat = static_cast<const int*>(p.in[S_P_MAT])[i];
-      huv[0] = p_uv[2 * i];
-      huv[1] = p_uv[2 * i + 1];
-      for (int c = 0; c < 3; ++c) nrm[c] = p_normal[3 * i + c];
+      if (kScan) {
+        mat = ph.mat;
+        huv[0] = ph.u;
+        huv[1] = ph.v;
+        for (int c = 0; c < 3; ++c) nrm[c] = ph.n[c];
+      } else {
+        const float* p_uv = static_cast<const float*>(p.in[S_P_UV]);
+        const float* p_normal = static_cast<const float*>(p.in[S_P_NORMAL]);
+        mat = static_cast<const int*>(p.in[S_P_MAT])[i];
+        huv[0] = p_uv[2 * i];
+        huv[1] = p_uv[2 * i + 1];
+        for (int c = 0; c < 3; ++c) nrm[c] = p_normal[3 * i + c];
+      }
       t_hit = p_t;
     }
   }
@@ -721,6 +760,10 @@ __device__ void shade_lane(const ForwardParams& p, const Tables& tab, const SunS
   static_cast<uint8_t*>(out[S_OUT_DIFFUSE_ON - S_OUT_ORIGIN])[i] = can_scatter && do_diff;
 }
 
+// kScan: the variant with K7's scan folded in (a scene with primitives);
+// without it, the kernel of a scene with none, or of a caller that hands it
+// K7's hit.
+template <bool kScan>
 __global__ void __launch_bounds__(kThreads) shade_forward_kernel(const __grid_constant__ ForwardParams p) {
   extern __shared__ __align__(16) float smem[];
   const int nt = blockDim.x, tid = threadIdx.x;
@@ -735,13 +778,21 @@ __global__ void __launch_bounds__(kThreads) shade_forward_kernel(const __grid_co
     const bool live = i < p.n;
     LaneIn L;
     if (live) load_lane(p, i, L);
+    // the scan of a live lane's ray, before the barrier: its arithmetic
+    // beside the lane's other loads and the staging of the tables (a dead
+    // lane sees no primitive, as the traversal gives it no hit)
+    PrimHit ph;
+    if (kScan) {
+      if (live && L.active) prim_scan(p.tb.prims, L.o, L.d, p.tb.prim_t_max, ph);
+      else prim_miss(ph);
+    }
     if (first) {  // the sun and the tables, while the lane's own loads are in flight
       if (tid == nt - 1) load_sun(p.tb.sun, sun);
       if (p.tables_smem) stage_tables(p.tb, staged, tid, nt);
       __syncthreads();
       first = false;
     }
-    if (live) shade_lane(p, tab, sun, i, L);
+    if (live) shade_lane<kScan>(p, tab, ph, sun, i, L);
   }
 }
 
@@ -793,8 +844,12 @@ __device__ void backward_lane(const BackwardParams& p, long long i, float da[4],
       }
     }
   }
+  // after a compaction the lane's gradients go to the row it came from
+  const long long o = p.src != nullptr ? (long long)__ldg(p.src + i) : i;
   if (p.d_tp != nullptr)
-    for (int c = 0; c < 3; ++c) p.d_tp[3 * i + c] = dt[c];
+    for (int c = 0; c < 3; ++c) p.d_tp[3 * o + c] = dt[c];
+  if (p.d_rad != nullptr)
+    for (int c = 0; c < 3; ++c) p.d_rad[3 * o + c] = p.g_rad[3 * i + c];
 }
 
 // The warp's lanes that hold one key (>= 0), summed by the first of them
@@ -864,9 +919,10 @@ static int card_sms(int* sms) {
 
 // resident blocks per SM of a kernel at (threads, dynamic shared memory),
 // asked of the runtime once per device and shape
-static int resident_blocks(bool backward, int threads, int smem, int* out) {
+// (kernel: 0 the forward, 1 its scan variant, 2 the backward)
+static int resident_blocks(int kernel, int threads, int smem, int* out) {
   struct Entry {
-    int dev, backward, threads, smem, blocks;
+    int dev, kernel, threads, smem, blocks;
   };
   constexpr int kEntries = 64;
   static Entry cache[kEntries];
@@ -877,29 +933,31 @@ static int resident_blocks(bool backward, int threads, int smem, int* out) {
   if (e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> lock(mu);
   for (int k = 0; k < (n_cache < kEntries ? n_cache : kEntries); ++k)
-    if (cache[k].dev == dev && cache[k].backward == backward && cache[k].threads == threads &&
+    if (cache[k].dev == dev && cache[k].kernel == kernel && cache[k].threads == threads &&
         cache[k].smem == smem) {
       *out = cache[k].blocks;
       return 0;
     }
   int blocks = 0;
-  if (backward)
+  if (kernel == 2)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, shade_backward_kernel, threads, smem);
+  else if (kernel == 1)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, shade_forward_kernel<true>, threads, smem);
   else
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, shade_forward_kernel, threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, shade_forward_kernel<false>, threads, smem);
   if (e != cudaSuccess) return (int)e;
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  cache[n_cache % kEntries] = Entry{dev, backward, threads, smem, blocks};
+  cache[n_cache % kEntries] = Entry{dev, kernel, threads, smem, blocks};
   ++n_cache;
   *out = blocks;
   return 0;
 }
 
 // blocks: one per `threads` lanes, at most SMs x resident blocks
-static int grid_config(bool backward, int n, int threads, int smem, LaunchConfig* cfg) {
+static int grid_config(int kernel, int n, int threads, int smem, LaunchConfig* cfg) {
   int rc = card_sms(&cfg->sms);
   if (rc != 0) return rc;
-  rc = resident_blocks(backward, threads, smem, &cfg->resident);
+  rc = resident_blocks(kernel, threads, smem, &cfg->resident);
   if (rc != 0) return rc;
   cfg->threads = threads;
   cfg->smem = smem;
@@ -909,9 +967,9 @@ static int grid_config(bool backward, int n, int threads, int smem, LaunchConfig
   return 0;
 }
 
-static int forward_config(int n, const ShadeTables& tb, LaunchConfig* cfg) {
+static int forward_config(int n, const ShadeTables& tb, bool scan, LaunchConfig* cfg) {
   cfg->tables_smem = table_words(tb) * 4 <= K4_TABLE_SMEM_BUDGET;
-  return grid_config(false, n, kThreads, (kSunWords + (cfg->tables_smem ? table_words(tb) : 0)) * 4, cfg);
+  return grid_config(scan ? 1 : 0, n, kThreads, (kSunWords + (cfg->tables_smem ? table_words(tb) : 0)) * 4, cfg);
 }
 
 static void config_out(const LaunchConfig& c, int* out) {
@@ -934,22 +992,36 @@ extern "C" int shade_forward(int n, const ShadeTables* tables, const ShadeFlags*
   p.u_stride = (long long)(intptr_t)slots[S_U_STRIDE];
   for (int k = S_OUT_ORIGIN; k < N_LANE_SLOTS; ++k) p.out[k - S_OUT_ORIGIN] = const_cast<void*>(slots[k]);
   p.n = n;
+  const bool scan = p.fl.scan != 0;
+  if (scan && prim_count(p.tb.prims) == 0) return (int)cudaErrorInvalidValue;
   LaunchConfig cfg;
-  int rc = forward_config(n, p.tb, &cfg);
+  int rc = forward_config(n, p.tb, scan, &cfg);
   if (rc != 0) return rc;
   p.tables_smem = cfg.tables_smem;
   p.table_words = cfg.tables_smem ? table_words(p.tb) : 0;
-  shade_forward_kernel<<<cfg.blocks, cfg.threads, cfg.smem, (cudaStream_t)stream>>>(p);
+  if (scan)
+    shade_forward_kernel<true><<<cfg.blocks, cfg.threads, cfg.smem, (cudaStream_t)stream>>>(p);
+  else
+    shade_forward_kernel<false><<<cfg.blocks, cfg.threads, cfg.smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // `out`: threads, blocks, dynamic shared memory bytes per block, resident
-// blocks per SM, SMs, the tables staged in shared memory.
-extern "C" int shade_forward_config(int n, const ShadeTables* tables, int* out) {
+// blocks per SM, SMs, the tables staged in shared memory; then the
+// registers per thread and the stack frame bytes of the variant (scan: the
+// one with K7's scan folded in).
+extern "C" int shade_forward_config(int n, const ShadeTables* tables, int scan, int* out) {
   LaunchConfig cfg;
-  int rc = forward_config(n, *tables, &cfg);
-  if (rc == 0) config_out(cfg, out);
-  return rc;
+  int rc = forward_config(n, *tables, scan != 0, &cfg);
+  if (rc != 0) return rc;
+  config_out(cfg, out);
+  cudaFuncAttributes attr;
+  cudaError_t e = scan ? cudaFuncGetAttributes(&attr, shade_forward_kernel<true>)
+                       : cudaFuncGetAttributes(&attr, shade_forward_kernel<false>);
+  if (e != cudaSuccess) return (int)e;
+  out[6] = attr.numRegs;
+  out[7] = (int)attr.localSizeBytes;
+  return 0;
 }
 
 // `slots`: the N_BACKWARD_SLOTS pointers of BackwardSlot's order.  The
@@ -969,21 +1041,30 @@ extern "C" int shade_backward(int n, const void* const* slots, int n_slots, void
   p.d_tp = (float*)slots[B_D_THROUGHPUT];
   p.d_atlas = (float*)slots[B_D_ATLAS];
   p.d_emit = (float*)slots[B_D_EMITTANCE];
+  p.src = (const int*)slots[B_SRC];
+  p.d_rad = (float*)slots[B_D_RADIANCE];
+  if (p.d_rad != nullptr && (p.src == nullptr || p.g_rad == nullptr)) return (int)cudaErrorInvalidValue;
   p.n = n;
   LaunchConfig cfg;
-  int rc = grid_config(true, n, kBwdThreads, 0, &cfg);
+  int rc = grid_config(2, n, kBwdThreads, 0, &cfg);
   if (rc != 0) return rc;
   shade_backward_kernel<<<cfg.blocks, cfg.threads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// `out` as shade_forward_config's (its last word 0).
+// `out` as shade_forward_config's (its sixth word 0).
 extern "C" int shade_backward_config(int n, int* out) {
   LaunchConfig cfg;
   cfg.tables_smem = 0;
-  int rc = grid_config(true, n, kBwdThreads, 0, &cfg);
-  if (rc == 0) config_out(cfg, out);
-  return rc;
+  int rc = grid_config(2, n, kBwdThreads, 0, &cfg);
+  if (rc != 0) return rc;
+  config_out(cfg, out);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, shade_backward_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[6] = attr.numRegs;
+  out[7] = (int)attr.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* shade_error_string(int code) {

@@ -3,10 +3,14 @@ of ``models/prims.py``).
 
 A scene may hold a handful of them beside the octree; every ray is tested
 against all of them and the nearer of the octree hit and the primitive hit
-wins (``render/pathtracer._shade``).  :func:`intersect_prims` launches
-kernel K7 (``csrc/prims.cu``) for CUDA tensors and runs its plain-torch twin
+wins (``ops/shade.shade``).  :func:`intersect_prims` launches kernel K7
+(``csrc/prims.cu``) for CUDA tensors and runs its plain-torch twin
 :func:`intersect_prims_reference` for CPU tensors; there is no fallback from
-one to the other.
+one to the other.  On the card the main paths scan the primitives inside
+K4's forward and ``nee_setup`` (``csrc/prims.cuh``, folded into
+``csrc/shade.cu`` and ``csrc/nee.cu``), which read the tables
+:func:`prim_tables` packs; :func:`intersect_prims` stays the entry point of
+a single walk.
 """
 
 from __future__ import annotations
@@ -110,7 +114,47 @@ class _SphereTable(ctypes.Structure):
 
 
 class _PrimTables(ctypes.Structure):
+    """``struct PrimTables`` of ``csrc/prims.cuh``."""
+
     _fields_ = [("spheres", _SphereTable), ("quads", QuadTable)]
+
+
+def prim_tensors(prims: Primitives | None) -> tuple:
+    """Every table tensor of ``prims`` that the scan reads, in a fixed order
+    (spheres, then the quads' fields; None where there are none): what a
+    scene's cached tables are keyed by."""
+    if prims is None:
+        return (None,) * (3 + len(QuadSoA._fields))
+    quads = tuple(prims.quads) if prims.quads is not None else (None,) * len(QuadSoA._fields)
+    return (prims.sphere_center, prims.sphere_radius, prims.sphere_mat) + quads
+
+
+def check_tables(prims: Primitives, dev, who: str):
+    """Raise (naming ``who``) where a table of ``prims`` is not what the scan
+    reads: float32 / int32, contiguous, on card ``dev``."""
+    tabs = [x for x in prim_tensors(prims) if x is not None]
+    if not all(x.is_contiguous() and x.device == dev for x in tabs):
+        raise ValueError(f"{who}: the primitive tables must be contiguous and on the lanes' card")
+    if (prims.sphere_center.dtype != torch.float32 or prims.sphere_radius.dtype != torch.float32
+            or prims.sphere_mat.dtype != torch.int32):
+        raise ValueError(f"{who}: sphere tables must be float32 / int32")
+    if prims.quads is not None and prims.quads.material_id.dtype != torch.int32:
+        raise ValueError(f"{who}: quad materials must be int32")
+
+
+def prim_tables(prims: Primitives | None) -> _PrimTables:
+    """``prims``' tables as ``struct PrimTables`` (counts 0 where None)."""
+    if prims is None:
+        return _PrimTables(_SphereTable(None, None, None, 0), QuadTable.of(None))
+    return _PrimTables(_SphereTable(prims.sphere_center.data_ptr(), prims.sphere_radius.data_ptr(),
+                                    prims.sphere_mat.data_ptr(), prims.n_spheres), QuadTable.of(prims.quads))
+
+
+def prim_count(prims: Primitives | None) -> int:
+    """The spheres and quads of ``prims`` (0 where None)."""
+    if prims is None:
+        return 0
+    return prims.n_spheres + (0 if prims.quads is None else prims.quads.count)
 
 
 @functools.cache
@@ -131,24 +175,17 @@ def _library():
 
 def _check_cuda(prims: Primitives, origins, dirs):
     b = origins.shape[0]
-    dev = origins.device
-    tabs = [prims.sphere_center, prims.sphere_radius, prims.sphere_mat]
-    if prims.quads is not None:
-        tabs += list(prims.quads)
     checks = [
         (origins.dtype == torch.float32 and origins.shape == (b, 3), "origins must be (B, 3) float32"),
         (dirs.dtype == torch.float32 and dirs.shape == (b, 3), "dirs must be (B, 3) float32"),
-        (all(x.is_contiguous() and x.device == dev for x in [origins, dirs] + tabs),
-         "rays and tables must be contiguous and on one device"),
-        (prims.sphere_center.dtype == torch.float32 and prims.sphere_radius.dtype == torch.float32
-         and prims.sphere_mat.dtype == torch.int32, "sphere tables must be float32 / int32"),
-        (prims.quads is None or prims.quads.material_id.dtype == torch.int32,
-         "quad materials must be int32"),
+        (origins.is_contiguous() and dirs.is_contiguous() and dirs.device == origins.device,
+         "rays must be contiguous and on one device"),
         (b < 2**31, "too many rays for one launch"),
     ]
     for ok, msg in checks:
         if not ok:
             raise ValueError(f"intersect_prims: {msg}")
+    check_tables(prims, origins.device, "intersect_prims")
 
 
 def _intersect_cuda(prims: Primitives, origins, dirs, t_max):
@@ -161,11 +198,7 @@ def _intersect_cuda(prims: Primitives, origins, dirs, t_max):
     normal = origins.new_empty((b, 3))
     if b == 0:  # an empty batch launches nothing
         return hit, t, mat, uv, normal
-    tables = _PrimTables(
-        _SphereTable(prims.sphere_center.data_ptr(), prims.sphere_radius.data_ptr(),
-                     prims.sphere_mat.data_ptr(), prims.n_spheres),
-        QuadTable.of(prims.quads),
-    )
+    tables = prim_tables(prims)
     lib = _library()
     rc = on_current_stream(lib.prims_intersect, origins.get_device(), origins.data_ptr(), dirs.data_ptr(),
                            b, float(t_max), ctypes.byref(tables), hit.data_ptr(), t.data_ptr(),

@@ -15,6 +15,18 @@ no call reads the card from the host: the live count goes to slot
 radiance carry gradient; the backward moves each cotangent row back
 through ``pos``.
 
+The bounce loop calls :func:`compact_for_bounce`, which folds that
+backward into the stores of the next bounce's backwards: the compaction
+makes no autograd node, the kernel also writes ``src``, the inverse of
+``pos`` (row ``j`` came from lane ``src[j]``), and K4
+(``ops/shade.shade``) and the next-event half (``ops/nee.nee``) take the
+throughput and the radiance from before the compaction as their
+differentiable inputs (:class:`Lanes`): K4's backward and ``nee_backward``
+store each row's gradients at row ``src[j]``, on the card in their kernels
+and on the CPU through :func:`store_at_src_reference`.  So no frame
+launches ``compact_backward``; :func:`compact` keeps it for a direct
+caller.
+
 :func:`compact` and :func:`unpermute` launch the kernels of
 ``csrc/compact.cu`` on CUDA tensors and run the plain versions
 (:func:`compact_reference`, :func:`unpermute_reference` and their
@@ -42,13 +54,14 @@ _DTYPES = dict.fromkeys(FLOAT_KEYS, _F32) | {"active": _BOOL, "specular": _BOOL,
 
 # ---- the plain versions
 
-def compact_reference(st: dict, uniforms, bounce: int, counts=None):
+def compact_reference(st: dict, uniforms, bounce: int, counts=None, with_src: bool = False):
     """Plain version of ``compact_forward`` (any device): ``st`` holds
     ``STATE_KEYS`` and ``idx`` ((B,) int32, or None for the identity);
     ``uniforms`` is the frame's (B, n_bounces, N_UNIFORMS) block.  Returns
     (the new state with ``idx``, the bounce's (B, N_UNIFORMS) uniforms,
-    ``pos`` (B,) int32); writes the live count to ``counts[bounce]`` where
-    ``counts`` is given."""
+    ``pos`` (B,) int32), and ``src`` (B,) int32 last where ``with_src``;
+    writes the live count to ``counts[bounce]`` where ``counts`` is
+    given."""
     active = st["active"]
     b = active.shape[0]
     # JAX's destination of each lane: the live lanes first in their order, then the dead ones
@@ -64,7 +77,8 @@ def compact_reference(st: dict, uniforms, bounce: int, counts=None):
     out["idx"] = idx[perm]
     if counts is not None:
         counts[bounce] = total
-    return out, uniforms[out["idx"].long(), bounce], pos
+    u = uniforms[out["idx"].long(), bounce]
+    return (out, u, pos, perm.to(torch.int32)) if with_src else (out, u, pos)
 
 
 def compact_backward_reference(pos, g_throughput, g_radiance):
@@ -73,6 +87,16 @@ def compact_backward_reference(pos, g_throughput, g_radiance):
     ``d[i] = g[pos[i]]`` (None stays None)."""
     p = pos.long()
     return tuple(None if g is None else g[p] for g in (g_throughput, g_radiance))
+
+
+def store_at_src_reference(src, *grads):
+    """Plain version of the stores through ``src`` that K4's backward and
+    ``nee_backward`` make after a :func:`compact_for_bounce` compaction:
+    each row's gradient back at the lane it came from, ``d[src[j]] = g[j]``
+    (None stays None); the same rows as :func:`compact_backward_reference`
+    gathers through ``pos``."""
+    s = src.long()
+    return tuple(None if g is None else torch.empty_like(g).index_copy_(0, s, g) for g in grads)
 
 
 def unpermute_reference(radiance, idx):
@@ -84,6 +108,17 @@ def unpermute_reference(radiance, idx):
 def unpermute_backward_reference(g, idx):
     """Plain version of ``unpermute``'s backward: ``d[j] = g[idx[j]]``."""
     return g[idx.long()]
+
+
+class Lanes(NamedTuple):
+    """What a bounce after a :func:`compact_for_bounce` compaction
+    differentiates: the throughput and the radiance as they were before it
+    (the gradient's inputs; the compacted rows are the data the kernels
+    read), and ``src``: row ``j`` came from lane ``src[j]``."""
+
+    throughput: torch.Tensor
+    radiance: torch.Tensor
+    src: torch.Tensor
 
 
 # ---- the autograd functions and the wrappers
@@ -194,6 +229,33 @@ compact.launches = 0
 compact.backward_launches = 0
 
 
+def compact_for_bounce(st: dict, uniforms, bounce: int, counts=None):
+    """:func:`compact` as the bounce loop calls it, with its backward folded
+    into the next bounce's (see the module's text): the same arguments and
+    the same (state, uniforms) out, bit for bit.  Where a gradient is
+    carried (grad mode on and the throughput or the radiance requiring
+    grad) the compaction makes no autograd node; the state's rows are data,
+    and the state gains ``lanes``, a :class:`Lanes` of the incoming
+    throughput and radiance with ``src`` (on the card from the same
+    ``compact_forward`` launch).  Otherwise it is :func:`compact`."""
+    tp, rad = st["throughput"], st["radiance"]
+    if not (torch.is_grad_enabled() and (tp.requires_grad or rad.requires_grad)):
+        return compact(st, uniforms, bounce, counts)
+    dev = st["active"].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"compact: unsupported device {dev}")
+    if _uses_kernels(st["active"]):
+        _check_grad(st, uniforms)
+        fn = _forward_cuda
+    else:
+        _check(st, uniforms, bounce, counts)
+        fn = compact_reference
+    with torch.no_grad():
+        out, u, _, src = fn(st, uniforms, bounce, counts, with_src=True)
+    out["lanes"] = Lanes(tp, rad, src)
+    return out, u
+
+
 class UnpermuteFunction(torch.autograd.Function):
     """The final scatter as an autograd function of the radiance."""
 
@@ -239,7 +301,7 @@ unpermute.backward_launches = 0
 # bounce as integers
 OUT_KEYS = STATE_KEYS + ("idx", "u")
 FORWARD_SLOTS = (STATE_KEYS + ("idx", "uniforms") + tuple(f"out_{k}" for k in OUT_KEYS)
-                 + ("pos", "counts", "scratch", "u_lane_stride", "bounce"))
+                 + ("pos", "src", "counts", "scratch", "u_lane_stride", "bounce"))
 FORWARD_ARRAY = ctypes.c_void_p * len(FORWARD_SLOTS)
 
 
@@ -308,10 +370,10 @@ def _scratch(dev, words: int):
 
 
 # the forward's outputs carved from one buffer: (key, row width, dtype),
-# each part starting on a 16-byte boundary.  The throughput and pos, which
-# a gradient's autograd nodes save (K4's, the next-event half's, K5's own),
-# are allocations of their own, so that saving them keeps nothing else of a
-# bounce alive.
+# each part starting on a 16-byte boundary.  The throughput, pos and src,
+# which a gradient's autograd nodes save (K4's, the next-event half's, K5's
+# own), are allocations of their own, so that saving them keeps nothing
+# else of a bounce alive.
 _PARTS = (("origin", 3, _F32), ("dir", 3, _F32), ("radiance", 3, _F32), ("u", N_UNIFORMS, _F32),
           ("cur_mat", 1, _I32), ("idx", 1, _I32), ("active", 1, _BOOL), ("specular", 1, _BOOL))
 _DTYPE_INDEX = {_F32: 0, _I32: 1, _BOOL: 2}
@@ -375,10 +437,12 @@ def _checked_inputs(st: dict, uniforms, bounce: int, counts, plan: _Plan, dev) -
     return tuple(map(_dense_rows, ins)), None if idx is None else _dense_rows(idx), uniforms
 
 
-def _forward_cuda(st: dict, uniforms, bounce: int, counts):
+def _forward_cuda(st: dict, uniforms, bounce: int, counts, with_src: bool = False):
     """``compact_forward`` on the card: the plan of this batch size, the
     inputs checked in one pass, the outputs three allocations (the carved
-    buffer, the throughput, ``pos``), one entry-point call."""
+    buffer, the throughput, ``pos``; ``src`` a fourth where ``with_src``),
+    one entry-point call.  Returns (state, uniforms, pos), and src last
+    where ``with_src``."""
     dev = st["active"].device
     b = st["active"].shape[0]
     if b >= 2**31 - 1:
@@ -392,13 +456,16 @@ def _forward_cuda(st: dict, uniforms, bounce: int, counts):
     out = {k: typed[kind].as_strided(shape, stride, off) for k, off, shape, stride, kind in plan.parts}
     out["throughput"] = tp = torch.empty((b, 3), dtype=_F32, device=dev)
     pos = torch.empty((b,), dtype=_I32, device=dev)
+    src = torch.empty((b,), dtype=_I32, device=dev) if with_src else None
     base, offsets = buf.data_ptr(), plan.offsets
     slots = FORWARD_ARRAY(*(x.data_ptr() for x in ins), None if idx is None else idx.data_ptr(), u.data_ptr(),
                           *(tp.data_ptr() if k == "throughput" else base + offsets[k] for k in OUT_KEYS),
-                          pos.data_ptr(), counts.data_ptr(), plan.scratch_ptr, u.stride(0), bounce)
+                          pos.data_ptr(), None if src is None else src.data_ptr(), counts.data_ptr(),
+                          plan.scratch_ptr, u.stride(0), bounce)
     _launch("compact_forward", _library().compact_forward, dev.index, b, slots, len(FORWARD_SLOTS))
     compact.launches += 1
-    return {k: out[k] for k in STATE_KEYS + ("idx",)}, out["u"], pos
+    new = {k: out[k] for k in STATE_KEYS + ("idx",)}
+    return (new, out["u"], pos, src) if with_src else (new, out["u"], pos)
 
 
 def _backward_cuda(pos, g_throughput, g_radiance):

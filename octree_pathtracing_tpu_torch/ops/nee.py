@@ -16,10 +16,12 @@ steps, in this order:
    (``ops/shade.Shaded``) and the uniforms, every face's shadow ray (the
    walk's origin and direction, whether it is cast, ``max_t``) and what the
    resolve reads of it (a geometry scale, the emitter's texel and
-   material), face-major: ray ``f * B + i`` is lane ``i``'s face ``f``;
+   material), face-major: ray ``f * B + i`` is lane ``i``'s face ``f``; on
+   the card, in a scene with primitives, the kernel also scans each cast
+   ray against them (K7 folded in) and writes its hit beside the ray;
 2. :func:`nee_walks`: the bounce's shadow walks, all faces in one call of
    the existing kernels (K1 / K2 on ``shadow_binary`` scenes, K3s
-   otherwise, K7 for primitives);
+   otherwise; K7 for primitives where ``nee_setup`` did not scan them);
 3. :func:`nee_resolve_reference` (kernel ``nee_resolve``): per face the
    attenuation recomputed from the walk's records (up to ``K_SURFACES``
    texels, then the nearest primitive), the sun term or the emitter's
@@ -35,7 +37,10 @@ detached, as in JAX.
 
 :func:`nee` runs the three kernels of ``csrc/nee.cu`` and the walks on
 CUDA tensors through :class:`NeeFunction`, and the plain versions on CPU
-tensors; there is no fallback from one to the other.
+tensors; there is no fallback from one to the other.  After a compaction
+(the state's ``lanes``, ``ops/compact.Lanes``) the differentiable
+throughput is the one from before it, and the backward stores each lane's
+throughput gradient at the row it came from (``lanes.src``).
 """
 
 from __future__ import annotations
@@ -52,9 +57,11 @@ import torch
 from ..models.emitters import ALL_MAX_EMITTERS, sample_emitter_point, toward_face_sample
 from ..models.materials import FLAG_SUBSURFACE_SCATTER
 from ..models.prims import intersect_prims
+from ..models import prims as k7
 from ..models.scene import MAX_DIST, EmitterSampling, Scene
 from ..models.sun import random_sun_direction
 from ..utils.cuda_build import on_current_stream
+from . import compact as k5
 from . import shade as k4
 from .shade import _atlas_data, _ptr, resolve_hit
 from .shading import EPSILON, N_UNIFORMS, OFFSET, U_EM1, U_EM2, U_EM_PICK, U_SUBSURFACE, U_SUN1, U_SUN2
@@ -116,6 +123,18 @@ class NeeRays(NamedTuple):
     cur_mat: torch.Tensor  # (F*B,) int32 the lane's medium, the walk's input
     e_texel: torch.Tensor  # (F*B,) int32 the emitter point's texel (-1 on the sun face)
     e_mat: torch.Tensor  # (F*B,) int32 the emitter's material (-1 on the sun face)
+    # K7's hit of each cast ray (a miss on a ray not cast), where the kernel
+    # scanned the scene's primitives; None otherwise
+    p_hit: torch.Tensor | None = None  # (F*B,) bool
+    p_t: torch.Tensor | None = None  # (F*B,)
+    p_mat: torch.Tensor | None = None  # (F*B,) int32
+    p_uv: torch.Tensor | None = None  # (F*B, 2)
+
+    @property
+    def prim(self):
+        """(hit, t, mat, uv, None) of the scan ``nee_setup`` folded in, or
+        None."""
+        return None if self.p_hit is None else (self.p_hit, self.p_t, self.p_mat, self.p_uv, None)
 
 
 class NeeResidual(NamedTuple):
@@ -196,7 +215,9 @@ def nee_setup_reference(scene: Scene, plan: NeePlan, cur_mat, u, hitpoint, norma
 
 def nee_walks(scene: Scene, plan: NeePlan, rays: NeeRays):
     """The shadow walks of every face of a bounce in one call each, detached:
-    (the walk's record, K7's hit or None).  On ``shadow_binary`` scenes
+    (the walk's record, K7's hit or None).  K7's hit is the one ``nee_setup``
+    wrote beside the rays where it scanned them, else one K7 call over
+    every ray (``models/prims.intersect_prims``).  On ``shadow_binary`` scenes
     (every texel alpha exactly 1, no quad models) the first surface always
     spends the whole budget, so a first-hit walk (K1 / K2, a ``HitResult``)
     stands for the stateful one; otherwise K3s records each surface
@@ -211,7 +232,9 @@ def nee_walks(scene: Scene, plan: NeePlan, rays: NeeRays):
         walk = traverse(*head, MAX_DIST, rays.active)
     else:
         walk = traverse_alpha(*head, accept_tables(scene), MAX_DIST, rays.active)
-    prim = intersect_prims(scene.prims, rays.origin, rays.dir, MAX_DIST) if scene.prims is not None else None
+    prim = rays.prim
+    if prim is None and scene.prims is not None:
+        prim = intersect_prims(scene.prims, rays.origin, rays.dir, MAX_DIST)
     return walk, prim
 
 
@@ -349,7 +372,7 @@ def _nee_terms(scene: Scene, plan: NeePlan, rays: NeeRays, walk, prim, albedo, c
     for f in range(plan.faces):
         sl = slice(f * b, (f + 1) * b)
         on, scale = rays.active[sl], rays.scale[sl]
-        face_prim = None if prim is None else tuple(x[sl] for x in prim)
+        face_prim = None if prim is None else tuple(None if x is None else x[sl] for x in prim)
         att, texels, zeros = attenuation_reference(scene, _face(walk, sl), face_prim, cur_mat, rays.max_t[sl])
         if plan.sun and f == 0:
             mult = scale * att[:, 3]
@@ -392,14 +415,18 @@ def nee_reference(scene: Scene, st: dict, u, out):
     """The next-event half of one bounce through the plain versions (the
     walks through their wrappers): K4's hand-off ``out`` (``Shaded``) and
     the incoming state ``st`` in, (radiance (B, 3), :class:`NeeResidual`)
-    out; differentiable by autograd like the eager code it is."""
+    out; differentiable by autograd like the eager code it is (after a
+    compaction, ``st["lanes"]``, the throughput rows are gathered from the
+    throughput before it, so that its gradient reaches that)."""
     plan = nee_plan(scene)
     if plan is None:
         return out.state["radiance"], None
     rays = nee_setup_reference(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
     walk, prim = nee_walks(scene, plan, rays)
-    return nee_resolve_reference(scene, plan, rays, walk, prim, out.albedo, st["throughput"],
-                                 out.state["radiance"], st["cur_mat"])
+    tp, lanes = st["throughput"], st.get("lanes")
+    if lanes is not None:  # row j came from lane src[j]: the same rows, differentiable in the lanes' throughput
+        tp = lanes.throughput[lanes.src.long()]
+    return nee_resolve_reference(scene, plan, rays, walk, prim, out.albedo, tp, out.state["radiance"], st["cur_mat"])
 
 
 def _sum3(x):
@@ -509,23 +536,29 @@ class NeeFunction(torch.autograd.Function):
     call in ``call`` (and, on the card, the scene's cached ``entry``);
     returns the new radiance (B, 3).  CUDA tensors run the kernels of
     ``csrc/nee.cu`` and the walks' kernels, CPU tensors the plain
-    versions."""
+    versions.  ``lanes`` (after a compaction): (the compacted throughput
+    rows the kernels read, ``ops/compact.Lanes``); the throughput given is
+    then the one from before the compaction, and the backward moves its
+    gradient back through it."""
 
     @staticmethod
-    def forward(ctx, throughput, radiance, albedo, atlas, emittance, call: _Call, entry=None):
+    def forward(ctx, throughput, radiance, albedo, atlas, emittance, call: _Call, entry=None, lanes=None):
         want_grad = any(ctx.needs_input_grad[:5])
-        if _uses_kernels(throughput):
-            out, resid = _forward_cuda(call, throughput, radiance, albedo, want_grad, entry)
+        cuda = _uses_kernels(throughput)
+        rows = throughput if lanes is None else lanes[0]
+        if cuda:
+            out, resid = _forward_cuda(call, rows, radiance, albedo, want_grad, entry)
         else:
             c = call
             rays = nee_setup_reference(c.scene, c.plan, c.cur_mat, c.u, c.hitpoint, c.normal, c.mat, c.diffuse_on)
             walk, prim = nee_walks(c.scene, c.plan, rays)
-            out, resid = nee_resolve_reference(c.scene, c.plan, rays, walk, prim, albedo, throughput, radiance,
+            out, resid = nee_resolve_reference(c.scene, c.plan, rays, walk, prim, albedo, rows, radiance,
                                                c.cur_mat, want_grad)
         ctx.set_materialize_grads(False)
         if want_grad:
-            ctx.save_for_backward(albedo, throughput, resid.ints, resid.scale, atlas, emittance,
-                                  call.scene.sun.emittance)
+            moved = () if lanes is None else (lanes[1].src,)
+            ctx.save_for_backward(albedo, rows, resid.ints, resid.scale, atlas, emittance, call.scene.sun.emittance,
+                                  *moved)
             ctx.plan = call.plan
         return out
 
@@ -533,12 +566,17 @@ class NeeFunction(torch.autograd.Function):
     def backward(ctx, g_radiance):
         need = ctx.needs_input_grad[:5]
         if g_radiance is None:
-            return (None,) * 7
-        albedo, throughput, ints, scale, atlas, emittance, sun_emittance = ctx.saved_tensors
+            return (None,) * 8
+        albedo, throughput, ints, scale, atlas, emittance, sun_emittance, *moved = ctx.saved_tensors
         args = (albedo, throughput, NeeResidual(ints, scale), atlas, emittance, sun_emittance, ctx.plan,
                 g_radiance, need)
-        d = _backward_cuda(*args) if _uses_kernels(albedo) else nee_backward_reference(*args)
-        return (*d, None, None)
+        if _uses_kernels(albedo):
+            d = _backward_cuda(*args, src=moved[0]) if moved else _backward_cuda(*args)
+        else:
+            d = nee_backward_reference(*args)
+            if moved:  # each row's gradient back at the lane it came from, as the kernel stores it
+                d = (*k5.store_at_src_reference(moved[0], d[0]), *d[1:])
+        return (*d, None, None, None)
 
 
 def _uses_kernels(x) -> bool:
@@ -592,21 +630,27 @@ def _check_no_other_grad(no_grad: tuple, u, out):
                      f"and emittance; {bad} require grad")
 
 
-def nee(scene: Scene, st: dict, u, out):
+def nee(scene: Scene, st: dict, u, out, prim_slots: bool = True):
     """The next-event half of one bounce (see the module's text): the new
-    radiance (B, 3) from the incoming state ``st``, the uniforms ``u`` and
-    K4's hand-off ``out`` (``ops/shade.Shaded``); K4's radiance where the
-    scene samples no light (one cached lookup of its plan).  CUDA tensors
-    launch ``nee_setup`` and ``nee_resolve`` (counted in
-    ``nee.setup_launches`` and ``nee.resolve_launches``) around the walks,
-    and ``nee_backward`` when the gradient is taken
-    (``nee.backward_launches``); CPU tensors run the plain versions.  Where
-    a gradient may be taken (grad mode on and one of the throughput, the
-    radiance, the albedo, the atlas texels and the emittance requiring
-    grad) the call goes through :class:`NeeFunction`; otherwise the CUDA
-    route launches the forward alone, with no autograd node and no
-    residual.  Any other device raises, and so does a tensor other than the
-    five differentiated that requires grad."""
+    radiance (B, 3) from the incoming state ``st`` (with ``lanes`` after a
+    compaction: the differentiable throughput is then ``lanes.throughput``),
+    the uniforms ``u`` and K4's hand-off ``out`` (``ops/shade.Shaded``); K4's
+    radiance where the scene samples no light (one cached lookup of its
+    plan).  CUDA tensors launch ``nee_setup`` and ``nee_resolve`` (counted
+    in ``nee.setup_launches`` and ``nee.resolve_launches``; in
+    ``nee.scan_setup_launches`` too where ``nee_setup`` scans the
+    primitives) around the walks, and ``nee_backward`` when the gradient is
+    taken (``nee.backward_launches``; ``nee.src_backward_launches`` where it
+    stores through a compaction's ``src``); CPU tensors run the plain
+    versions.  Where a gradient may be taken (grad mode on and one of the
+    throughput, the radiance, the albedo, the atlas texels and the
+    emittance requiring grad) the call goes through :class:`NeeFunction`;
+    otherwise the CUDA route launches the forward alone, with no autograd
+    node and no residual.  Any other device raises, and so does a tensor other than the
+    five differentiated that requires grad.  ``prim_slots=False`` (on the
+    card, a scene with primitives): ``nee_setup`` writes no primitive slots
+    and the walks launch K7 over every shadow ray, the route before K7 was
+    folded into ``nee_setup``, kept to compare the two."""
     plan = _scene_plan(scene)
     if plan is None:
         return out.state["radiance"]
@@ -616,19 +660,26 @@ def nee(scene: Scene, st: dict, u, out):
         raise ValueError(f"nee: unsupported device {dev}")
     cuda = _uses_kernels(tp)
     entry = _scene_entry(scene, plan) if cuda else None
+    if entry is not None and not prim_slots:
+        entry = entry._replace(prims=False)
     _check_no_other_grad(_scene_no_grad(scene) if entry is None else entry.no_grad, u, out)
     call = _Call(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
     rad, albedo = out.state["radiance"], out.albedo
     atlas, emittance = _atlas_data(scene.atlas), scene.materials.emittance
-    if not cuda or (torch.is_grad_enabled() and (tp.requires_grad or rad.requires_grad or albedo.requires_grad
+    lanes = st.get("lanes")
+    tp_in = tp if lanes is None else lanes.throughput
+    if not cuda or (torch.is_grad_enabled() and (tp_in.requires_grad or rad.requires_grad or albedo.requires_grad
                                                  or atlas.requires_grad or emittance.requires_grad)):
-        return NeeFunction.apply(tp, rad, albedo, atlas, emittance, call, entry)
+        return NeeFunction.apply(tp_in, rad, albedo, atlas, emittance, call, entry,
+                                 None if lanes is None else (tp, lanes))
     return _forward_cuda(call, tp, rad, albedo, False, entry)[0]
 
 
 nee.setup_launches = 0
 nee.resolve_launches = 0
 nee.backward_launches = 0
+nee.scan_setup_launches = 0  # of nee.setup_launches: the variant with K7's scan folded in
+nee.src_backward_launches = 0  # of nee.backward_launches: storing through a compaction's src
 
 
 # ---- the CUDA kernels
@@ -648,7 +699,8 @@ class _Tables(ctypes.Structure):
                                                   "e_pos", "e_size", "e_mat", "grid_idx", "grid_w")]
                 + [(f, ctypes.c_int) for f in ("n_emit", "grid_k", "grid_side", "grid_vec")]
                 + [(f, ctypes.c_float) for f in ("cell_offset", "inv_cell", "lam", "inv_lam", "inv_one_m_lam",
-                                                 "one_m_lam", "lam_over_e")])
+                                                 "one_m_lam", "lam_over_e")]
+                + [("prims", k7._PrimTables), ("prim_t_max", ctypes.c_float)])
 
 
 class _Flags(ctypes.Structure):
@@ -665,7 +717,7 @@ SETUP_SLOTS = SETUP_IN + ("u_stride",) + NeeRays._fields
 SETUP_ARRAY = ctypes.c_void_p * len(SETUP_SLOTS)
 # nee_backward's slot array (``enum BackwardSlot``)
 BACKWARD_SLOTS = ("atlas", "emittance", "sun_emittance", "g_radiance", "albedo", "throughput", "resid", "scale",
-                  "d_throughput", "d_albedo", "d_atlas", "d_emittance", "sum_atlas", "sum_emittance")
+                  "d_throughput", "d_albedo", "d_atlas", "d_emittance", "sum_atlas", "sum_emittance", "src")
 BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
 # nee_resolve's slot array (``enum ResolveSlot``): the lane's inputs, the
 # rays' fields it reads, the walks' records (null where the walk made none),
@@ -692,7 +744,9 @@ def _library():
     lib.nee_backward.argtypes = [ci, vp, ci, ll, ci, ci, ci, ci, vp]
     lib.nee_backward_config.argtypes = [ci, ll, ci, ctypes.POINTER(ctypes.c_int)]
     lib.nee_resolve_config.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.nee_setup, lib.nee_resolve, lib.nee_backward, lib.nee_backward_config, lib.nee_resolve_config):
+    lib.nee_setup_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.nee_setup, lib.nee_resolve, lib.nee_backward, lib.nee_backward_config, lib.nee_resolve_config,
+               lib.nee_setup_attributes):
         fn.restype = ci
     lib.nee_error_string.argtypes = [ci]
     lib.nee_error_string.restype = ctypes.c_char_p
@@ -711,6 +765,7 @@ class _SceneEntry(NamedTuple):
     flags: _Flags
     flags_ref: object  # ctypes.byref(flags)
     no_grad: tuple  # (name, tensor) of the tables read but not differentiated
+    prims: bool  # the scene has primitives: nee_setup scans each cast ray
 
 
 # the newest scenes' entries, the newest last
@@ -723,7 +778,8 @@ def _table_tensors(scene: Scene) -> tuple:
     return (_atlas_data(atlas), atlas.sizes if isinstance(atlas, Atlas) else None, m.ior, m.emittance, m.flags,
             m.texture_index, scene.leaf_material, None if mod is None else mod.leaf_model,
             None if mod is None else mod.face_material, sun.su, sun.sv, sun.sw, sun.radius_cos, sun.emittance,
-            sun.luminosity, *((None,) * 5 if em is None else (em.pos, em.size, em.mat, em.grid_idx, em.grid_w)))
+            sun.luminosity, *((None,) * 5 if em is None else (em.pos, em.size, em.mat, em.grid_idx, em.grid_w)),
+            *k7.prim_tensors(scene.prims))
 
 
 def _settings(scene: Scene, plan: NeePlan) -> tuple:
@@ -788,17 +844,19 @@ def _scene_entry(scene: Scene, plan: NeePlan) -> _SceneEntry:
     dev = data.device
     if any(x is not None and x.device != dev for x in key):
         raise ValueError("nee: every input must be on the lanes' card")
+    if scene.prims is not None:
+        k7.check_tables(scene.prims, dev, "nee")
     tables = _Tables(
         ior.data_ptr(), emit.data_ptr(), flags.data_ptr(), tex.data_ptr(), data.data_ptr(), _ptr(sizes),
         data.shape[1], data.shape[2], leaf_material.data_ptr(), leaf_material.shape[0], _ptr(leaf_model),
         0 if leaf_model is None else leaf_model.shape[0], _ptr(face_material),
-        *(x.data_ptr() for x in key[9:15]), *(_ptr(x) for x in key[15:]), e_cnt, grid_k, grid_side, grid_vec,
-        *(float(c) for c in consts))
+        *(x.data_ptr() for x in key[9:15]), *(_ptr(x) for x in key[15:20]), e_cnt, grid_k, grid_side, grid_vec,
+        *(float(c) for c in consts), k7.prim_tables(scene.prims), MAX_DIST)
     strat = scene.sun_sampling
     fl = _Flags(int(plan.sun), EM_MODES.get(plan.emitters, 0), plan.faces, int(strat.strict_direct_light),
                 int(strat.sun_luminosity), int(scene.shadow_binary), float(np.float32(scene.f_sub_surface)))
     entry = _SceneEntry(key, settings, dev, tables, ctypes.byref(tables), fl, ctypes.byref(fl),
-                        _scene_no_grad(scene))
+                        _scene_no_grad(scene), k7.prim_count(scene.prims) > 0)
     _TABLE_CACHE.append(entry)
     del _TABLE_CACHE[:-_TABLE_CACHE_SIZE]
     return entry
@@ -814,10 +872,12 @@ _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 # nee_setup's inputs: (dtype, width: 0 for (B,), k for (B, k) dense, -k for rows of k with any row stride)
 _SETUP_SPEC = ((_F32, 3), (_F32, 3), (_I32, 0), (_BOOL, 0), (_I32, 0), (_F32, -N_UNIFORMS))
 # NeeRays' fields carved from one buffer (width, dtype), each on a 16-byte
-# boundary; ``scale``, which the backward saves, is an allocation of its
-# own, so that saving it keeps nothing else of a bounce alive
+# boundary, K7's hit of each ray last where the scene has primitives;
+# ``scale``, which the backward saves, is an allocation of its own, so that
+# saving it keeps nothing else of a bounce alive
 _RAY_PARTS = (("origin", 3, _F32), ("dir", 3, _F32), ("max_t", 1, _F32), ("cur_mat", 1, _I32),
               ("e_texel", 1, _I32), ("e_mat", 1, _I32), ("active", 1, _BOOL))
+_PRIM_PARTS = (("p_t", 1, _F32), ("p_uv", 2, _F32), ("p_mat", 1, _I32), ("p_hit", 1, _BOOL))
 _DTYPE_INDEX = {_F32: 0, _I32: 1, _BOOL: 2}
 
 
@@ -828,11 +888,12 @@ def _expected_setup(b: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=256)
-def _ray_layout(fb: int) -> tuple:
+def _ray_layout(fb: int, prims: bool = False) -> tuple:
     """(bytes, {field: (element offset in its dtype, shape, stride, dtype
-    index, byte offset)}) of NeeRays' carved fields for ``fb`` rays."""
+    index, byte offset)}) of NeeRays' carved fields for ``fb`` rays, with
+    K7's hit where ``prims``."""
     parts, end = {}, 0
-    for name, width, dt in _RAY_PARTS:
+    for name, width, dt in _RAY_PARTS + (_PRIM_PARTS if prims else ()):
         shape, stride = ((fb, width), (width, 1)) if width > 1 else ((fb,), (1,))
         parts[name] = (end // dt.itemsize, shape, stride, _DTYPE_INDEX[dt], end)
         end = (end + fb * width * dt.itemsize + 15) // 16 * 16
@@ -860,7 +921,8 @@ def _checked_setup_inputs(call: _Call, b: int, dev) -> tuple:
 
 def _setup_cuda(call: _Call, entry: _SceneEntry | None = None) -> NeeRays:
     """``nee_setup`` on the card: the scene's cached entry (looked up where
-    not given), the inputs checked in one pass, the rays one allocation and
+    not given), the inputs checked in one pass, the rays one allocation
+    (with K7's hit of each ray where the scene has primitives) and
     ``scale`` another, one entry-point call."""
     b = call.cur_mat.shape[0]
     fb = call.plan.faces * b
@@ -871,20 +933,22 @@ def _setup_cuda(call: _Call, entry: _SceneEntry | None = None) -> NeeRays:
     if entry.device != dev:
         raise ValueError("nee: every input must be on the lanes' card")
     ins = _checked_setup_inputs(call, b, dev)
-    n_bytes, parts = _ray_layout(fb)
+    n_bytes, parts = _ray_layout(fb, entry.prims)
     buf = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
     scale = torch.empty((fb,), dtype=_F32, device=dev)
     typed = (buf.view(_F32), buf.view(_I32), buf.view(_BOOL))
     rays = NeeRays._make(scale if f == "scale" else typed[parts[f][3]].as_strided(*parts[f][1:3], parts[f][0])
-                         for f in NeeRays._fields)
+                         if f in parts else None for f in NeeRays._fields)
     if b == 0:  # an empty batch launches nothing
         return rays
     base = buf.data_ptr()
     slots = SETUP_ARRAY(*(x.data_ptr() for x in ins), ins[5].stride(0),
-                        *(scale.data_ptr() if f == "scale" else base + parts[f][4] for f in NeeRays._fields))
+                        *(scale.data_ptr() if f == "scale" else base + parts[f][4] if f in parts else None
+                          for f in NeeRays._fields))
     _launch("nee_setup", _library().nee_setup, dev.index, b, entry.tables_ref, entry.flags_ref, slots,
             len(SETUP_SLOTS))
     nee.setup_launches += 1
+    nee.scan_setup_launches += entry.prims
     return rays
 
 
@@ -985,11 +1049,13 @@ def _scratch(dev, words: int):
 
 
 def _backward_cuda(albedo, throughput, resid: NeeResidual, atlas, emittance, sun_emittance, plan: NeePlan,
-                   g_radiance, need):
+                   g_radiance, need, src=None):
     """``nee_backward`` on the card: one launch that sums the atlas and
     emittance gradients in the card's float64 scratch and writes them
     dense in float32 (no fill, no conversion); the lane gradients one
-    allocation, the table gradients another."""
+    allocation, the table gradients another.  ``src`` ((B,) int32, after a
+    compaction): the throughput's gradient of lane ``i`` is stored at row
+    ``src[i]``, the rows from before the compaction (every row written)."""
     b = albedo.shape[0]
     dev = albedo.device
     g = _dense(g_radiance if g_radiance.is_contiguous() else g_radiance.contiguous(), (b, 3), _F32,
@@ -1013,10 +1079,11 @@ def _backward_cuda(albedo, throughput, resid: NeeResidual, atlas, emittance, sun
     if any(need[i] for i in (0, 2, 3, 4)) and (b > 0 or d_atlas is not None or d_emit is not None):
         slots = BACKWARD_ARRAY(atlas.data_ptr(), emittance.data_ptr(), sun_emittance.data_ptr(), g.data_ptr(),
                                albedo.data_ptr(), tp.data_ptr(), resid.ints.data_ptr(), resid.scale.data_ptr(),
-                               _ptr(d_tp), _ptr(d_alb), _ptr(d_atlas), _ptr(d_emit), *sums)
+                               _ptr(d_tp), _ptr(d_alb), _ptr(d_atlas), _ptr(d_emit), *sums, _ptr(src))
         _launch("nee_backward", _library().nee_backward, dev.index, b, slots, len(BACKWARD_SLOTS), n_atlas // 4,
                 n_emit, int(plan.sun), EM_MODES.get(plan.emitters, 0), plan.faces)
         nee.backward_launches += 1
+        nee.src_backward_launches += src is not None
     return d_tp, (g_radiance if need[1] else None), d_alb, d_atlas, d_emit
 
 
@@ -1033,6 +1100,19 @@ def backward_config(b: int, atlas_shape, n_emit: int, device=None) -> dict:
     if rc != 0:
         raise RuntimeError(f"nee_backward launch configuration failed: {lib.nee_error_string(rc).decode()}")
     return dict(zip(("threads", "blocks", "resident_blocks_per_sm", "sms"), out[:4]), launch="cooperative")
+
+
+def setup_attributes(device=None) -> dict:
+    """``nee_setup``'s registers per thread and stack frame bytes on the
+    current card (or ``device``), without and with K7's scan folded in:
+    {"plain": {"registers", "stack_bytes"}, "scan": {...}}."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.nee_setup_attributes(out)
+    if rc != 0:
+        raise RuntimeError(f"nee_setup attributes failed: {lib.nee_error_string(rc).decode()}")
+    return {"plain": {"registers": out[0], "stack_bytes": out[1]}, "scan": {"registers": out[2], "stack_bytes": out[3]}}
 
 
 def resolve_config(b: int, device=None) -> dict:

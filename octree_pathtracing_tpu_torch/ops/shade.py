@@ -5,8 +5,10 @@ without its next-event estimates, ``lobe_scatter`` and ``sky_radiance``,
 
 Per lane: the hit's material, uv, normal and t (the leaf's material, a
 block model's face material, a quad model's quad, or the nearer analytic
-primitive), the material row and the nearest texel, the sky and sun on a
-miss, one lobe's scatter (metal, specular, diffuse with the sun-importance
+primitive: K7's hit where the caller gives one, else, on a scene with
+primitives, the forward's own scan of the lane's ray, K7 folded into the
+kernel; a dead lane sees none), the material row and the nearest texel,
+the sky and sun on a miss, one lobe's scatter (metal, specular, diffuse with the sun-importance
 warp, refraction with Fresnel and total internal reflection, or
 transmission), emission, and the masked update of the seven state fields.
 Besides the new state it hands the next-event code the lane's albedo, hit
@@ -28,6 +30,12 @@ entry-point call with the per-lane pointers in one flat array; a backward
 call is one zero-filled allocation for the atlas and emittance gradients
 and one entry-point call.
 
+After a compaction (``ops/compact.compact_for_bounce``) the state carries
+``lanes``: the differentiable throughput and radiance are then the ones
+from before the compaction, and the backward stores each row's gradients
+at the row it came from (``lanes.src``), so the compaction's own backward
+never runs.
+
 The forward leaves a residual for the backward (24 bytes per lane): the
 linear index of the texel read, the hit material and a lane code (miss,
 emission on, the lobe that multiplied the throughput), and three floats
@@ -43,10 +51,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..models import prims as k7
 from ..models.materials import FLAG_REFRACTIVE, gather_rows
-from ..models.scene import EmitterSampling, Scene, face_normals
+from ..models.scene import MAX_DIST, EmitterSampling, Scene, face_normals
 from ..models.sun import add_sun_color, add_sun_color_diffuse, sky_color
 from ..utils.cuda_build import on_current_stream
+from . import compact as k5
 from .geometry import fma
 from .shading import (
     EPSILON,
@@ -219,13 +229,26 @@ def lobe_scatter(scene: Scene, u, d_in, n, albedo, mrow, cur_mat, is_first: bool
     )
 
 
+def scan_prims_reference(scene: Scene, st: dict):
+    """Plain version of the primitive scan folded into the forward kernel:
+    K7's twin (``models/prims.intersect_prims_reference``) on the lanes'
+    rays, detached, a dead lane seeing no primitive (as the traversal gives
+    it no hit).  Returns (hit, t, mat, uv, normal)."""
+    hit, t, mat, uv, n = k7.intersect_prims_reference(scene.prims, st["origin"].detach(), st["dir"].detach(),
+                                                      MAX_DIST)
+    return hit & st["active"], t, mat, uv, n
+
+
 def shade_reference(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool):
     """Plain-torch twin of the forward kernel (any device): the base shading
     of one bounce.  ``st`` holds ``STATE_KEYS``; ``u`` is (B, N_UNIFORMS);
     ``res`` the traversal's ``HitResult`` (with ``quad`` on a scene with
-    quad models); ``prim`` K7's (hit, t, mat, uv, normal) or None.
+    quad models); ``prim`` K7's (hit, t, mat, uv, normal), or None: on a
+    scene with primitives, :func:`scan_prims_reference` of the lanes.
 
     Returns (:class:`Shaded`, :class:`ShadeResidual`)."""
+    if prim is None and scene.prims is not None:
+        prim = scan_prims_reference(scene, st)
     active = st["active"]
     any_hit = res.hit if prim is None else res.hit | prim[0]
     miss = active & ~any_hit
@@ -346,12 +369,17 @@ class ShadeFunction(torch.autograd.Function):
     seven fields (``STATE_KEYS``' order) and the hand-off (albedo, hit
     point, normal, material, diffuse mask); only the throughput, the
     radiance and the albedo are differentiable.  CUDA tensors run the
-    kernels of ``csrc/shade.cu``, CPU tensors the twins."""
+    kernels of ``csrc/shade.cu``, CPU tensors the twins.  Where the state
+    carries ``lanes`` (``ops/compact.Lanes``) the throughput and the
+    radiance given are those from before the compaction, the kernels read
+    the state's compacted rows, and the backward stores each row's
+    gradients at the lane it came from (``lanes.src``)."""
 
     @staticmethod
     def forward(ctx, throughput, radiance, atlas, emittance, call: _Call):
         want_grad = any(ctx.needs_input_grad[:4])
-        if _uses_kernels(throughput):
+        cuda = _uses_kernels(throughput)
+        if cuda:
             out, resid = _forward_cuda(call, want_grad)
         else:
             out, resid = shade_reference(*call)
@@ -359,21 +387,26 @@ class ShadeFunction(torch.autograd.Function):
         ctx.mark_non_differentiable(*(x for i, x in enumerate(outputs) if i not in (2, 3, 7)))
         ctx.set_materialize_grads(False)
         if want_grad:
-            ctx.save_for_backward(out.albedo, throughput, resid.ints, resid.floats, emittance)
+            lanes = call.st.get("lanes")
+            moved = () if lanes is None else (lanes.src,)
+            # the rows the kernel read: the compacted ones where the state was compacted
+            ctx.save_for_backward(out.albedo, call.st["throughput"], resid.ints, resid.floats, emittance, *moved)
             ctx.atlas_shape = tuple(atlas.shape)
         return outputs
 
     @staticmethod
     def backward(ctx, *grads):
-        albedo, throughput, ints, floats, emittance = ctx.saved_tensors
+        albedo, throughput, ints, floats, emittance, *moved = ctx.saved_tensors
         g_tp, g_rad, g_alb = grads[2], grads[3], grads[7]
         need = ctx.needs_input_grad[:4]
         resid = ShadeResidual(ints, floats)
+        args = (albedo, throughput, resid, emittance, ctx.atlas_shape, g_tp, g_rad, g_alb, need)
         if _uses_kernels(albedo):
-            d = _backward_cuda(albedo, throughput, resid, emittance, ctx.atlas_shape, g_tp, g_rad, g_alb, need)
+            d = _backward_cuda(*args, src=moved[0]) if moved else _backward_cuda(*args)
         else:
-            d = shade_backward_reference(albedo, throughput, resid, emittance, ctx.atlas_shape,
-                                         g_tp, g_rad, g_alb, need)
+            d = shade_backward_reference(*args)
+            if moved:  # each row's gradients back at the lane it came from, as the kernel stores them
+                d = (*k5.store_at_src_reference(moved[0], d[0], d[1]), *d[2:])
         return (*d, None)
 
 
@@ -417,12 +450,18 @@ def _check_no_other_grad(scene: Scene, st: dict, u, res, prim):
 
 def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool) -> Shaded:
     """One bounce's base shading (see the module's text).  CUDA tensors
-    launch the forward kernel, counted in ``shade.launches``, and the
+    launch the forward kernel, counted in ``shade.launches`` (and in
+    ``shade.scan_launches`` where it scans the primitives), and the
     backward kernel when the gradient is taken, counted in
-    ``shade.backward_launches``; CPU tensors run :func:`shade_reference`
-    and :func:`shade_backward_reference`.  Where a gradient may be taken
-    (grad mode on and one of the throughput, the radiance, the atlas
-    texels and the emittance requiring grad) the call goes through
+    ``shade.backward_launches`` (and in ``shade.src_backward_launches``
+    where it stores through a compaction's ``src``); CPU tensors run
+    :func:`shade_reference` and :func:`shade_backward_reference`.  ``prim``: K7's hit, or None: on
+    a scene with primitives the forward scans them itself (on the card the
+    kernel's variant with K7 folded in, on the CPU
+    :func:`scan_prims_reference`).  Where a gradient may be taken (grad
+    mode on and one of the throughput, the radiance, the atlas texels and
+    the emittance requiring grad; the throughput and the radiance of
+    ``st["lanes"]`` where the state carries it) the call goes through
     :class:`ShadeFunction`; otherwise it launches the forward alone, with
     no autograd node and no residual.  Both give the same outputs bit for
     bit.  Any other device raises, and so does a tensor other than those
@@ -434,8 +473,10 @@ def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: boo
     if torch.is_grad_enabled():
         atlas, emittance = _atlas_data(scene.atlas), scene.materials.emittance
         _check_no_other_grad(scene, st, u, res, prim)
-        if tp.requires_grad or st["radiance"].requires_grad or atlas.requires_grad or emittance.requires_grad:
-            out = ShadeFunction.apply(tp, st["radiance"], atlas, emittance,
+        lanes = st.get("lanes")
+        tp_in, rad_in = (tp, st["radiance"]) if lanes is None else (lanes.throughput, lanes.radiance)
+        if tp_in.requires_grad or rad_in.requires_grad or atlas.requires_grad or emittance.requires_grad:
+            out = ShadeFunction.apply(tp_in, rad_in, atlas, emittance,
                                       _Call(scene, st, u, res, prim, bool(is_first), bool(may_scatter)))
             return Shaded(dict(zip(STATE_KEYS, out[:7])), *out[7:])
     if _uses_kernels(tp):
@@ -445,6 +486,8 @@ def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: boo
 
 shade.launches = 0
 shade.backward_launches = 0
+shade.scan_launches = 0  # of shade.launches: the variant with K7's scan folded in
+shade.src_backward_launches = 0  # of shade.backward_launches: storing through a compaction's src
 
 
 # ---- the CUDA kernels
@@ -467,14 +510,14 @@ class _Tables(ctypes.Structure):
                 ("texture_index", ctypes.c_void_p), ("n_mat", ctypes.c_int),
                 ("atlas", ctypes.c_void_p), ("sizes", ctypes.c_void_p),
                 ("n_layers", ctypes.c_int), ("atlas_h", ctypes.c_int), ("atlas_w", ctypes.c_int),
-                ("sun", _SunParams)]
+                ("sun", _SunParams), ("prims", k7._PrimTables), ("prim_t_max", ctypes.c_float)]
 
 
 class _Flags(ctypes.Structure):
     """``struct ShadeFlags`` of ``csrc/shade.cu``."""
 
     _fields_ = [(f, ctypes.c_int) for f in ("is_first", "may_scatter", "importance", "diffuse_sun",
-                                            "draw_texture", "emission")]
+                                            "draw_texture", "emission", "scan")]
 
 
 # The forward's flat slot array (``enum LaneSlot`` of ``csrc/shade.cu``):
@@ -488,7 +531,7 @@ OUT_SLOTS = STATE_KEYS + ("albedo", "hitpoint", "normal", "mat", "diffuse_on", "
 N_LANE_SLOTS = len(IN_SLOTS) + len(STRIDE_SLOTS) + len(OUT_SLOTS)
 # the backward's slot array (``enum BackwardSlot``)
 BACKWARD_SLOTS = ("g_throughput", "g_radiance", "g_albedo", "albedo", "throughput", "resid_i", "resid_f",
-                  "emittance", "d_throughput", "d_atlas", "d_emittance")
+                  "emittance", "d_throughput", "d_atlas", "d_emittance", "src", "d_radiance")
 LANE_ARRAY = ctypes.c_void_p * N_LANE_SLOTS
 BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
 
@@ -504,7 +547,7 @@ def _library():
     vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.shade_forward.argtypes = [ci, vp, vp, vp, ci, vp]  # b, tables, flags, slots, slot count, stream
     lib.shade_forward.restype = ci
-    lib.shade_forward_config.argtypes = [ci, ctypes.POINTER(_Tables), pi]
+    lib.shade_forward_config.argtypes = [ci, ctypes.POINTER(_Tables), ci, pi]
     lib.shade_forward_config.restype = ci
     lib.shade_backward.argtypes = [ci, vp, ci, vp]  # b, slots, slot count, stream
     lib.shade_backward.restype = ci
@@ -541,7 +584,8 @@ class _SceneEntry(NamedTuple):
     device: torch.device
     tables: _Tables
     tables_ref: object  # ctypes.byref(tables)
-    flags: dict  # (is_first, may_scatter, importance, diffuse_sun, draw_texture, emission) -> byref(_Flags)
+    flags: dict  # (is_first, may_scatter, importance, diffuse_sun, draw_texture, emission, scan) -> byref(_Flags)
+    prims: bool  # the scene has primitives: a call given no K7 hit scans them
 
 
 # the newest scenes' entries, the newest last
@@ -557,7 +601,8 @@ def _table_tensors(scene: Scene) -> tuple:
             None if mod is None else mod.leaf_model, None if mod is None else mod.face_material,
             m.ior, m.specular, m.emittance, m.roughness, m.metalness, m.flags, m.texture_index,
             sun.azimuth, sun.altitude, sun.radius, sun.color, sun.luminosity, sun.importance_sample_chance,
-            sun.importance_sample_radius, sun.sw, sun.su, sun.sv, sun.apparent_texture_brightness)
+            sun.importance_sample_radius, sun.sw, sun.su, sun.sv, sun.apparent_texture_brightness,
+            *k7.prim_tensors(scene.prims))
 
 
 def _scene_entry(scene: Scene) -> _SceneEntry:
@@ -590,23 +635,27 @@ def _scene_entry(scene: Scene) -> _SceneEntry:
     dev = data.device
     if any(x is not None and x.device != dev for x in key):
         raise ValueError("shade: every input must be on the lanes' card")
+    if scene.prims is not None:
+        k7.check_tables(scene.prims, dev, "shade")
+    sun_end = 5 + len(MATERIAL_FIELDS) + len(SUN_FIELDS)
     tables = _Tables(
         leaf_material.data_ptr(), leaf_material.shape[0],
         _ptr(leaf_model), 0 if leaf_model is None else leaf_model.shape[0], _ptr(face_material),
         *(x.data_ptr() for x in cols), n_mat, data.data_ptr(), _ptr(sizes), data.shape[0], data.shape[1],
-        data.shape[2], _SunParams(*(x.data_ptr() for x in key[5 + len(MATERIAL_FIELDS):])),
+        data.shape[2], _SunParams(*(x.data_ptr() for x in key[5 + len(MATERIAL_FIELDS):sun_end])),
+        k7.prim_tables(scene.prims), MAX_DIST,
     )
-    entry = _SceneEntry(key, dev, tables, ctypes.byref(tables), {})
+    entry = _SceneEntry(key, dev, tables, ctypes.byref(tables), {}, k7.prim_count(scene.prims) > 0)
     _TABLE_CACHE.append(entry)
     del _TABLE_CACHE[:-_TABLE_CACHE_SIZE]
     return entry
 
 
-def _flags(entry: _SceneEntry, scene: Scene, is_first: bool, may_scatter: bool):
+def _flags(entry: _SceneEntry, scene: Scene, is_first: bool, may_scatter: bool, scan: bool):
     """``byref`` of the call's :class:`_Flags`, cached in the scene's entry."""
     strat = scene.sun_sampling
     key = (is_first, may_scatter, strat.importance_sampling, strat.diffuse_sun, scene.sun.draw_texture,
-           emission_counts(scene, is_first))
+           emission_counts(scene, is_first), scan)
     ref = entry.flags.get(key)
     if ref is None:
         ref = entry.flags[key] = ctypes.byref(_Flags(*(int(x) for x in key)))
@@ -715,8 +764,9 @@ def _checked_inputs(ins: tuple, b: int, dev):
 
 def _forward_cuda(call, want_grad: bool):
     """The forward kernel on ``call`` (``_Call``'s fields): one output
-    allocation, one entry-point call.  Returns (:class:`Shaded`,
-    :class:`ShadeResidual` or None)."""
+    allocation, one entry-point call; the variant with K7's scan folded in
+    where the scene has primitives and the call gives no K7 hit.  Returns
+    (:class:`Shaded`, :class:`ShadeResidual` or None)."""
     scene, st, u, res, prim, is_first, may_scatter = call
     tp = st["throughput"]
     b = tp.shape[0]
@@ -735,24 +785,33 @@ def _forward_cuda(call, want_grad: bool):
     slots = LANE_ARRAY(*(None if x is None else x.data_ptr() for x in ins),
                        *(ins[k].stride(0) for k in (0, 1, 2, 3, 7)), *out_ptrs)
     lib = _library()
+    scan = prim is None and entry.prims
     rc = on_current_stream(lib.shade_forward, dev.index, b, entry.tables_ref,
-                           _flags(entry, scene, is_first, may_scatter), slots, N_LANE_SLOTS)
+                           _flags(entry, scene, is_first, may_scatter, scan), slots, N_LANE_SLOTS)
     if rc != 0:
         raise RuntimeError(f"shade_forward launch failed: {lib.shade_error_string(rc).decode()}")
     shade.launches += 1
+    shade.scan_launches += scan
     return out, resid
 
 
 def _backward_cuda(albedo, throughput, resid: ShadeResidual, emittance, atlas_shape,
-                   g_throughput, g_radiance, g_albedo, need):
+                   g_throughput, g_radiance, g_albedo, need, src=None):
     """The backward kernel: the atlas and emittance gradients carved from
-    one zero-filled allocation (one fill), one entry-point call."""
+    one zero-filled allocation (one fill), one entry-point call.  ``src``
+    ((B,) int32, after a compaction): the throughput's gradient and the
+    radiance's pass-through are stored at row ``src[i]``, the rows from
+    before the compaction (every row written, so no fill)."""
     b = albedo.shape[0]
     dev = albedo.device
     g_tp, g_rad, g_alb = (None if g is None else _dense(g.contiguous(), (b, k), torch.float32, f"the {name} cotangent")
                           for g, k, name in ((g_throughput, 3, "throughput"), (g_radiance, 3, "radiance"),
                                              (g_albedo, 4, "albedo")))
     d_tp = torch.empty((b, 3), dtype=torch.float32, device=dev) if need[0] else None
+    # the radiance's pass-through: the cotangent itself, or moved to src's rows by the kernel
+    d_rad = g_radiance if need[1] else None
+    if src is not None and d_rad is not None:
+        d_rad = torch.empty((b, 3), dtype=torch.float32, device=dev)
     d_atlas = d_emit = None
     if need[2] or need[3]:
         t, h, w = atlas_shape[:3]
@@ -762,33 +821,40 @@ def _backward_cuda(albedo, throughput, resid: ShadeResidual, emittance, atlas_sh
             d_atlas = zeros.as_strided(atlas_shape, (h * w * 4, w * 4, 4, 1))
         if need[3]:
             d_emit = zeros.as_strided(emittance.shape, (1,), n_atlas)
-    if b > 0 and (need[0] or need[2] or need[3]):
+    moves_rad = src is not None and d_rad is not None
+    if b > 0 and (need[0] or need[2] or need[3] or moves_rad):
         lib = _library()
         tp = throughput.contiguous()
         slots = BACKWARD_ARRAY(_ptr(g_tp), _ptr(g_rad), _ptr(g_alb), albedo.data_ptr(), tp.data_ptr(),
                                resid.ints.data_ptr(), resid.floats.data_ptr(), emittance.data_ptr(), _ptr(d_tp),
-                               _ptr(d_atlas), _ptr(d_emit))
+                               _ptr(d_atlas), _ptr(d_emit), _ptr(src), _ptr(d_rad) if moves_rad else None)
         rc = on_current_stream(lib.shade_backward, dev.index, b, slots, len(BACKWARD_SLOTS))
         if rc != 0:
             raise RuntimeError(f"shade_backward launch failed: {lib.shade_error_string(rc).decode()}")
         shade.backward_launches += 1
-    return d_tp, (g_radiance if need[1] else None), d_atlas, d_emit
+        shade.src_backward_launches += src is not None
+    return d_tp, d_rad, d_atlas, d_emit
 
 
 def launch_configs(scene: Scene, b: int) -> dict:
     """How K4's kernels launch on ``b`` lanes of ``scene`` (on the current
     card): {"forward": {...}, "backward": {...}}, each with threads, blocks,
-    dynamic shared memory bytes per block, resident blocks per SM and SMs;
-    the forward's with where its tables are read (shared memory, or global
-    memory through __ldg above ``csrc/shade.cu``'s K4_TABLE_SMEM_BUDGET),
-    the backward's with how it sums (warp-combined atomics)."""
+    dynamic shared memory bytes per block, resident blocks per SM, SMs,
+    registers per thread and stack frame bytes; the forward's with the
+    variant the scene's bounces take ("scan": K7's scan folded in, on a
+    scene with primitives; else "plain") and where its tables are read
+    (shared memory, or global memory through __ldg above
+    ``csrc/shade.cu``'s K4_TABLE_SMEM_BUDGET), the backward's with how it
+    sums (warp-combined atomics)."""
     entry = _scene_entry(scene)
     lib = _library()
     keys = ("threads", "blocks", "smem_bytes", "resident_blocks_per_sm", "sms")
-    fwd, bwd = (ctypes.c_int * 6)(), (ctypes.c_int * 6)()
+    fwd, bwd = (ctypes.c_int * 8)(), (ctypes.c_int * 8)()
     with torch.cuda.device(entry.device):
-        for rc in (lib.shade_forward_config(b, ctypes.byref(entry.tables), fwd), lib.shade_backward_config(b, bwd)):
+        for rc in (lib.shade_forward_config(b, ctypes.byref(entry.tables), int(entry.prims), fwd),
+                   lib.shade_backward_config(b, bwd)):
             if rc != 0:
                 raise RuntimeError(f"shade launch configuration failed: {lib.shade_error_string(rc).decode()}")
-    return {"forward": dict(zip(keys, fwd[:5]), tables="shared memory" if fwd[5] else "__ldg"),
-            "backward": dict(zip(keys, bwd[:5]), sums="warp-combined")}
+    return {"forward": dict(zip(keys, fwd[:5]), tables="shared memory" if fwd[5] else "__ldg",
+                            variant="scan" if entry.prims else "plain", registers=fwd[6], stack_bytes=fwd[7]),
+            "backward": dict(zip(keys, bwd[:5]), sums="warp-combined", registers=bwd[6], stack_bytes=bwd[7])}

@@ -13,14 +13,18 @@ helpers) stay here for callers of a single walk.  The recursion is an iterative
 bounce loop over a structure-of-arrays lane batch.  The bounce axis of the
 uniform block ``(B, n_bounces, 21)`` sets the depth cap.
 
-Before every bounce after the first, kernel K5 (``ops/compact.compact``)
-stably partitions the lane state, the live lanes first, carrying each
-lane's original index and gathering the bounce's uniforms through it, as
-the JAX package's ``_sort_state_by_active`` does; every bounce then runs
-over all B lanes, a dead lane fetching nothing in the traversal and
-leaving its state as it is in the shading, and one scatter
-(``ops/compact.unpermute``) puts the radiance back in the lanes' order at
-the end.  Every shape stays the batch's and nothing between the first
+Before every bounce after the first, kernel K5
+(``ops/compact.compact_for_bounce``) stably partitions the lane state, the
+live lanes first, carrying each lane's original index and gathering the
+bounce's uniforms through it, as the JAX package's
+``_sort_state_by_active`` does; every bounce then runs over all B lanes, a
+dead lane fetching nothing in the traversal and leaving its state as it is
+in the shading, and one scatter (``ops/compact.unpermute``) puts the
+radiance back in the lanes' order at the end.  With a gradient the
+compaction makes no autograd node: the bounce's K4 and next-event half take
+the throughput and the radiance from before it as their differentiable
+inputs, and their backwards store each row's gradients back where the row
+came from (``ops/compact.Lanes``).  Every shape stays the batch's and nothing between the first
 bounce and the last reads the card from the host (the live counts stay on
 the card until ``trace_paths_census`` reads them once), so a frame can be
 captured in a CUDA graph.  The JAX package's TPU scheduling (tiles,
@@ -32,9 +36,11 @@ on scenes with alpha-holed textures, and its block-model variant K2q on
 scenes with models; shadow walks take one K1 / K2 traversal on
 ``shadow_binary`` scenes (every texel alpha exactly 1, no quad models) and
 the stateful walk K3s (K2q's mode 3 with models) otherwise.  A scene's
-analytic primitives (kernel K7, ``models/prims.intersect_prims``) compete
-with the octree hit, the nearer winning, and attenuate shadow rays by the
-nearest one's factor.  Gradients flow into the atlas texels and the
+analytic primitives (K7's scan) compete with the octree hit, the nearer
+winning, and attenuate shadow rays by the nearest one's factor: on the card
+the bounce's scan runs inside K4's forward and the shadow rays' inside
+``nee_setup``; ``models/prims.intersect_prims`` (kernel K7) serves a single
+walk (``shadow_attenuation``).  Gradients flow into the atlas texels and the
 material table through the shading and through the attenuation, which is
 recomputed from the walk's recorded surfaces; the traversals and the
 primitive scan are detached.
@@ -49,7 +55,7 @@ import torch
 from ..models.prims import intersect_prims
 from ..models.scene import MAX_DIST, Scene
 from ..ops import nee as nee_mod
-from ..ops.compact import compact, unpermute
+from ..ops.compact import compact_for_bounce, unpermute
 from ..ops.nee import nee
 from ..ops.random import philox_uniforms
 from ..ops.shade import shade, sky_radiance  # noqa: F401 (sky_radiance: this module's name since the port began)
@@ -160,10 +166,10 @@ def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool):
     """Shade one resolved traversal: the base shading (sky on miss, lobe
     scatter and emission on hit) through kernel K4 (``ops/shade.shade``),
     then the sun and emitter NEE on diffuse bounces from its hand-off
-    through K4's next-event half (``ops/nee.nee``)."""
-    # analytic primitives compete with the octree hit; the nearer surface wins
-    prim = _prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
-    out = shade(scene, st, u, res, prim, is_first, may_scatter)
+    through K4's next-event half (``ops/nee.nee``).  Analytic primitives
+    compete with the octree hit, the nearer surface winning: K4 scans them
+    itself (it is given no K7 hit)."""
+    out = shade(scene, st, u, res, None, is_first, may_scatter)
     return dict(out.state, radiance=nee(scene, st, u, out))
 
 
@@ -188,13 +194,14 @@ def _bounce(scene: Scene, st, u, is_first: bool, may_scatter: bool):
 
 def _live_bounces(scene: Scene, st, uniforms, first: int, counts):
     """Bounces ``first..n_bounces-1`` over every lane, each after one K5
-    compaction (live lanes first); then the radiance back in the lanes'
-    order.  ``counts`` (n_bounces,) int32 on the lanes' device, or None,
+    compaction (live lanes first; with a gradient the state carries the
+    compaction's ``lanes`` into the bounce); then the radiance back in the
+    lanes' order.  ``counts`` (n_bounces,) int32 on the lanes' device, or None,
     takes the live count entering each of those bounces.  Returns the
     (B, 3) radiance."""
     n_bounces = uniforms.shape[1]
     for bounce in range(first, n_bounces):
-        st, u = compact(st, uniforms, bounce, counts)
+        st, u = compact_for_bounce(st, uniforms, bounce, counts)
         idx = st["idx"]
         st = dict(_bounce(scene, st, u, is_first=False, may_scatter=bounce + 1 < n_bounces), idx=idx)
     return unpermute(st["radiance"], st["idx"]) if "idx" in st else st["radiance"]

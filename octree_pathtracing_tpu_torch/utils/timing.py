@@ -16,7 +16,8 @@ of one or more checkouts of the port beside the PyTorch calls that compute
 the same functions (``torch.index_select``, ``torch.rand``), and the
 traversal kernels at the shapes the main paths give them::
 
-    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] [--k4 | --bounces | --k5 | --nee | --train] ROOT [ROOT ...]
+    python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] \
+        [--k4 | --bounces | --k5 | --nee | --train | --prims] ROOT [ROOT ...]
 
 Each ROOT is a directory holding ``octree_pathtracing_tpu_torch/`` (this
 checkout, or an older commit unpacked with ``git archive``); each is timed
@@ -61,7 +62,10 @@ times the next-event kernels alone (an A/B of their design): each of
 device on every bounce of one frame of the NEE, cutout, config-3 and, with
 ``--world``, world lines, then the light lines' frames and the headline's
 forward and fwd+bwd with their device activities.  ``--k4``
-times K4's rows and the headline frames alone (an A/B of K4's design);
+times K4's rows and the headline frames alone (an A/B of K4's design),
+with the primitives' share of the analytic scene's bounces (``_shade``
+and ``nee_setup`` with K7 apart or folded in, ``_prim_cases``; ``--prims``
+those rows alone);
 ``--bounces`` the bounce loop's rows alone: K1, K4 and the next-event
 kernels per bounce, the headline frames, K5's rows; ``--k5`` K5's rows and
 the headline frame's graph replay alone (an A/B of K5's design);
@@ -73,6 +77,7 @@ a CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -214,24 +219,32 @@ def shade_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
     return calls
 
 
+def compaction_hook(pathtracer):
+    """The name under which ``pathtracer``'s bounce loop calls K5:
+    ``compact_for_bounce`` since its backward was folded into the bounces',
+    ``compact`` in a checkout from before; None before K5."""
+    return next((n for n in ("compact_for_bounce", "compact") if hasattr(pathtracer, n)), None)
+
+
 def compact_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
     """The arguments ``(st, uniforms, bounce, counts)`` of every K5
     compaction one ``trace_paths`` frame makes (bounces 2 to n), each state
     detached and cloned as the compaction found it."""
     calls = []
-    real = pathtracer.compact
+    hook = compaction_hook(pathtracer)
+    real = getattr(pathtracer, hook)
 
     def recording(st, u, bounce, counts):
         calls.append(({k: None if v is None else v.detach().clone() for k, v in st.items()}, u, bounce,
                       None if counts is None else counts.clone()))
         return real(st, u, bounce, counts)
 
-    pathtracer.compact = recording
+    setattr(pathtracer, hook, recording)
     try:
         with torch.no_grad():
             pathtracer.trace_paths(scene, origins, dirs, uniforms)
     finally:
-        pathtracer.compact = real
+        setattr(pathtracer, hook, real)
     return calls
 
 
@@ -240,17 +253,19 @@ def shade_gradients(pathtracer, scene, origins, dirs, uniforms) -> list:
     ``trace_paths`` frame makes, as bench.py's step takes it (the mean
     radiance, with the atlas and the emittance taking gradient), in the
     forward's bounce order: ``(albedo, throughput, residual, emittance,
-    atlas shape, g_throughput, g_radiance, g_albedo, need)``.  Needs the
-    card: the CPU's backward runs the twin."""
+    atlas shape, g_throughput, g_radiance, g_albedo, need)``, and ``src``
+    last where the bounce followed a compaction whose backward K4's stores
+    (a checkout with the fold).  Needs the card: the CPU's backward runs the
+    twin."""
     from octree_pathtracing_tpu_torch.ops import shade as k4
     from octree_pathtracing_tpu_torch.parallel import apply_params
 
     calls = []
     real = k4._backward_cuda
 
-    def recording(*a):
-        calls.append(a)
-        return real(*a)
+    def recording(*a, **kw):
+        calls.append(a + (kw["src"],) if "src" in kw else a)
+        return real(*a, **kw)
 
     p = {"atlas": scene.atlas.detach().clone().requires_grad_(True),
          "emittance": scene.materials.emittance.detach().clone().requires_grad_(True)}
@@ -260,6 +275,31 @@ def shade_gradients(pathtracer, scene, origins, dirs, uniforms) -> list:
     finally:
         k4._backward_cuda = real
     return calls[::-1]
+
+
+@contextlib.contextmanager
+def unfolded(pathtracer):
+    """The bounce loop of ``pathtracer`` as it ran before K7 and K5's
+    backward were folded into the kernels that read their results: each
+    bounce's K7 launch handed to K4 (the forward variant that reads it),
+    the next-event walks' K7 launch over every shadow ray (``nee_setup``
+    writes no primitive slots), and the compaction as an autograd node whose
+    backward is ``compact_backward`` (``ops/compact.compact``).  The folded
+    route is held to it: the same radiance and gradients, bit for bit."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+
+    real_shade, real_compact = pathtracer._shade, pathtracer.compact_for_bounce
+
+    def shade_with_k7(scene, st, u, res, is_first, may_scatter):
+        prim = pathtracer._prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
+        out = pathtracer.shade(scene, st, u, res, prim, is_first, may_scatter)
+        return dict(out.state, radiance=pathtracer.nee(scene, st, u, out, prim_slots=False))
+
+    pathtracer._shade, pathtracer.compact_for_bounce = shade_with_k7, k5.compact
+    try:
+        yield
+    finally:
+        pathtracer._shade, pathtracer.compact_for_bounce = real_shade, real_compact
 
 
 def _bits_differ(a, b):
@@ -403,8 +443,19 @@ def check_nee(call, g_radiance=None, label: str = "") -> dict:
     b = int(st["cur_mat"].shape[0])
     k_rays = k._setup_cuda(c)
     r_rays = k.nee_setup_reference(scene, plan, *c[2:])
-    setup = _gate([(f, getattr(k_rays, f), getattr(r_rays, f)) for f in k.NeeRays._fields], plan.faces * b,
-                  label, "nee_setup")
+    setup = _gate([(f, getattr(k_rays, f), getattr(r_rays, f)) for f in k.NeeRays._fields
+                   if getattr(r_rays, f) is not None], plan.faces * b, label, "nee_setup")
+    if getattr(k_rays, "p_hit", None) is not None and b:  # K7's scan folded in: its slots against K7 on every cast row
+        from octree_pathtracing_tpu_torch.models.prims import intersect_prims
+
+        k7 = intersect_prims(scene.prims, k_rays.origin, k_rays.dir, 1024.0)
+        cast, fb = k_rays.active, plan.faces * b
+        differ = {f: int((_bits_differ(a.view(torch.uint8).reshape(fb, -1), c.view(torch.uint8).reshape(fb, -1))
+                          & cast).sum()) for f, a, c in zip(("hit", "t", "mat", "uv"), k_rays.prim[:4], k7[:4])}
+        if any(differ.values()) or bool(k_rays.p_hit[~cast].any()):
+            raise AssertionError(f"nee_setup's primitive slots disagree with K7 on {label}: cast rows not bit-equal "
+                                 f"per field {differ}")
+        setup["prim_rows"] = int(cast.sum())
     walk, prim = k.nee_walks(scene, plan, k_rays)
     tp, rad, alb = st["throughput"].detach(), out.state["radiance"].detach(), out.albedo.detach()
     k_out, k_res = k._resolve_cuda(c, k_rays, walk, prim, tp, rad, alb, True)
@@ -518,24 +569,72 @@ def replay_ms(graph, replays: int = 20) -> list:
     return times
 
 
-def profile_launches(fn, tries: int = 3) -> dict:
-    """{"kernels", "memsets", "memcpys"}: the device activities torch.profiler
-    records over one call of ``fn`` (which synchronizes the card).  A
-    session can drop activities (or record none at all), so ``tries``
-    sessions are taken and the fullest one counts."""
+def profiled_names(fn) -> list:
+    """The names of the device activities torch.profiler records over one
+    call of ``fn`` (which synchronizes the card), in order.  A session can
+    drop the first activities after it starts (on the card, a long-running
+    process's sessions have dropped a frame's first two to six), so each
+    session runs ``fn`` twice, the calls parted by spin kernels, and only
+    what follows the last spin kernel, the second call, is returned."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(10000)
+        fn()
+        for _ in range(4):
+            torch.cuda._sleep(10000)
+        fn()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spins = [i for i, n in enumerate(names) if "spin" in n.lower()]
+    return names[spins[-1] + 1:] if spins else []
+
+
+def profile_launches(fn, tries: int = 3, ours: tuple = (), expect_ours: int | None = None) -> dict:
+    """{"kernels", "memsets", "memcpys", "sessions"}: the device activities
+    torch.profiler records over one call of ``fn`` (which synchronizes the
+    card; :func:`profiled_names`); where ``ours`` is given, also "ours",
+    the kernels whose names hold one of ``ours``, and "others", the names of
+    the rest.  ``tries`` sessions are taken and the fullest one counts.
+    ``expect_ours``: how many of ``ours`` one call launches (their wrappers'
+    counts); sessions then go on, up to ``4 * tries``, until one shows
+    exactly that many, and the fullest of those counts ("ours" says whether
+    one did)."""
+
+    def summary(names):
+        n_ours = sum(any(k in n for k in ours) for n in names)
+        return (expect_ours is None or n_ours == expect_ours, len(names)), n_ours
+
     fn()
-    names = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-        got = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(got) > len(names):
-            names = got
-    memsets = sum(n.startswith("Memset") for n in names)
-    memcpys = sum(n.startswith("Memcpy") for n in names)
-    return {"kernels": len(names) - memsets - memcpys, "memsets": memsets, "memcpys": memcpys}
+    best, best_key, sessions = [], (False, -1), 0
+    while sessions < tries or (not best_key[0] and sessions < 4 * tries):
+        sessions += 1
+        names = profiled_names(fn)
+        key = summary(names)[0]
+        if key > best_key:
+            best, best_key = names, key
+    memsets = sum(n.startswith("Memset") for n in best)
+    memcpys = sum(n.startswith("Memcpy") for n in best)
+    out = {"kernels": len(best) - memsets - memcpys, "memsets": memsets, "memcpys": memcpys, "sessions": sessions}
+    if ours:
+        out["ours"] = summary(best)[1]
+        out["others"] = [n for n in best if not (n.startswith(("Memset", "Memcpy")) or any(k in n for k in ours))]
+    return out
+
+
+def kernel_names(root=None) -> tuple:
+    """The names of the port's own CUDA kernels (every ``__global__``
+    function of ``csrc/*.cu`` under the package at ``root``, by default
+    this one), as torch.profiler shows them within each kernel's name."""
+    import glob
+    import re
+
+    root = root or os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    names = set()
+    for path in glob.glob(os.path.join(root, "csrc", "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(\w+\)\s+)?(\w+)\s*\(", f.read()))
+    return tuple(sorted(names))
 
 
 def radiance_digest(radiance) -> str:
@@ -619,9 +718,94 @@ def _shade_cases(dev, cache_dir) -> dict:
         out[f"headline {name}"] = {"host_ms": statistics.median(times), "host_ms_runs": times,
                                    **profile_launches(synced)}
     out["headline frame forward"]["radiance_sha256"] = radiance_digest(pathtracer.trace_paths(scene, o, d, u))
-    if hasattr(pathtracer, "compact"):  # since K5 the forward frame captures: its replays are its device time
+    if compaction_hook(pathtracer):  # since K5 the forward frame captures: its replays are its device time
         out["headline frame forward, CUDA graph replay"] = _graph_frame_case(scene, o, d, u)
     return out
+
+
+def _k4_cases(dev, cache_dir) -> dict:
+    """``--k4``: K4's rows of the headline (``_shade_cases``) and of the
+    analytic scene (``_prim_cases``)."""
+    out = _shade_cases(dev, cache_dir)
+    out.update(_prim_cases(dev, cache_dir))
+    return out
+
+
+def _prim_cases(dev, cache_dir, frames: bool = False) -> dict:
+    """The primitives' share of a bounce on the depth-9 analytic scene
+    (256x256, the uniforms of seed 1), whatever the checkout does with
+    them: under IMPORTANCE ``_shade`` on each bounce (K7 and K4, or K4 with
+    K7's scan folded in), by call and on the device; under HIGH_QUALITY
+    ``nee_setup`` on each bounce with K7 over its rays where the checkout
+    launches it apart (or ``nee_setup`` with the scan folded in).
+    ``frames`` (``--prims``): the two analytic lines' frames too
+    (``_light_lines``)."""
+    import dataclasses
+
+    from octree_pathtracing_tpu_torch.models import analytic_sphere_scene, pixel_grid_rays
+    from octree_pathtracing_tpu_torch.models.prims import intersect_prims
+    from octree_pathtracing_tpu_torch.models.sun import SunSampling
+    from octree_pathtracing_tpu_torch.ops import nee as nee_mod
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    scene, cam = analytic_sphere_scene(depth=9)
+    scene, cam = scene.to(dev), cam.to(dev)
+    o, d = pixel_grid_rays(cam, 256, 256)
+    u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
+    out = {}
+    for k, (_, st, uu, res, is_first, may_scatter) in enumerate(shade_calls(pathtracer, scene, o, d, u), start=1):
+        row = both(lambda st=st, uu=uu, res=res, f=is_first, m=may_scatter: pathtracer._shade(scene, st, uu, res, f, m))
+        out[f"K7 + K4 _shade analytic bounce {k}"] = dict(row, lanes=int(st["throughput"].shape[0]),
+                                                         live=int(st["active"].sum()))
+    hq = dataclasses.replace(scene, sun_sampling=SunSampling.high_quality())
+    for k, call in enumerate(nee_calls(pathtracer, hq, o, d, u), start=1):
+        sc, st, uu, sh = call[:4]
+        c = nee_mod._Call(sc, nee_mod.nee_plan(sc), st["cur_mat"], uu, sh.hitpoint, sh.normal, sh.mat, sh.diffuse_on)
+
+        def setup_and_k7(c=c):
+            rays = nee_mod._setup_cuda(c)
+            if getattr(rays, "p_hit", None) is None:  # K7 over the rays, as the walks launch it
+                intersect_prims(c.scene.prims, rays.origin, rays.dir, 1024.0)
+
+        out[f"nee_setup + K7 analytic_hq bounce {k}"] = dict(both(setup_and_k7), lanes=int(st["cur_mat"].shape[0]),
+                                                             live=int(st["active"].sum()))
+    if frames:
+        lines = tuple(x for x in LIGHT_LINES if x[1] == "analytic")
+        out.update(_light_lines(dev, cache_dir, None, lines, {"analytic": (scene, cam)}))
+    return out
+
+
+def _graph_fwd_bwd_case(scene, o, d, u) -> dict:
+    """bench.py's fwd+bwd step (the mean radiance into the atlas and the
+    emittance) captured whole in a CUDA graph: {"replay_ms" (the median),
+    "replay_ms_runs", "bit_equal" (a replay's radiance against the eager
+    step's), "grads_within_gate" (its gradients within rtol 1e-5 / atol
+    1e-7 of the eager step's: float atomics add in the schedule's order)}."""
+    import statistics
+
+    from octree_pathtracing_tpu_torch.parallel import apply_params
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    p = {"atlas": scene.atlas.detach().clone().requires_grad_(True),
+         "emittance": scene.materials.emittance.detach().clone().requires_grad_(True)}
+
+    def step():
+        for v in p.values():
+            v.grad = None
+        rad = pathtracer.trace_paths(apply_params(scene, p), o, d, u)
+        rad.mean().backward()
+        return rad
+
+    eager = step().detach().clone()
+    grads = {k: v.grad.clone() for k, v in p.items()}
+    graph, rad = capture_frame(step)
+    rad.detach().view(torch.uint8).fill_(0xFF)  # spoiled: the replays must write them again
+    for v in p.values():
+        v.grad.fill_(float("nan"))
+    times = replay_ms(graph)
+    close = all(torch.allclose(p[k].grad, g, rtol=1e-5, atol=1e-7) for k, g in grads.items())
+    return {"replay_ms": statistics.median(times), "replay_ms_runs": times,
+            "bit_equal": bool(torch.equal(rad.detach(), eager)), "grads_within_gate": close}
 
 
 def _graph_frame_case(scene, o, d, u) -> dict:
@@ -735,9 +919,10 @@ def _light_lines(dev, cache_dir, world, lines=LIGHT_LINES, scenes=None) -> dict:
     depth 9, the uniforms of seed 1), forward and with bench.py's backward:
     host ms (median of 5) and the device activities torch.profiler counts in
     one frame; in a checkout with the next-event kernels, also through their
-    plain version (``plain_nee``); in a checkout with K5, the forward
-    frame's CUDA graph replay (``graph``: its device floor, or the capture's
-    error).  ``world``: a region file, or None; ``lines``: (name, scene,
+    plain version (``plain_nee``); in a checkout with K5, each frame's CUDA
+    graph replay (``graph``: its device floor, or the capture's error; the
+    fwd+bwd step's with its gradients checked, ``_graph_fwd_bwd_case``).
+    ``world``: a region file, or None; ``lines``: (name, scene,
     sun, emitter sampling) of each frame; ``scenes``: {scene: (scene,
     camera)} on the card already built (the rest are built here)."""
     import dataclasses
@@ -794,12 +979,12 @@ def _light_lines(dev, cache_dir, world, lines=LIGHT_LINES, scenes=None) -> dict:
             row = {"host_ms": statistics.median(times), "host_ms_runs": times, **profile_launches(synced)}
             if step == "forward":
                 row["radiance_sha256"] = radiance_digest(pathtracer.trace_paths(sc, o, d, u))
-                if hasattr(pathtracer, "compact"):  # since K5: the frame's device floor, its graph's replay
-                    try:
-                        row["graph"] = _graph_frame_case(sc, o, d, u)
-                    except RuntimeError as e:  # said on the row: a host read in this line's frame
-                        torch.cuda.synchronize()
-                        row["graph"] = {"error": f"{type(e).__name__}: {e}"}
+            if compaction_hook(pathtracer):  # since K5: the frame's device floor, its graph's replay
+                try:
+                    row["graph"] = (_graph_frame_case if step == "forward" else _graph_fwd_bwd_case)(sc, o, d, u)
+                except RuntimeError as e:  # said on the row: a host read in this line's frame
+                    torch.cuda.synchronize()
+                    row["graph"] = {"error": f"{type(e).__name__}: {e}"}
             if nee_mod is not None and nee_mod.nee_plan(sc) is not None:
                 real = pathtracer.nee
                 pathtracer.nee = lambda *a: nee_mod.nee_reference(*a)[0]
@@ -1100,7 +1285,7 @@ def _time_train(dev, cache_dir) -> dict:
     return out
 
 
-MODES = ("--k4", "--bounces", "--k5", "--nee", "--train")
+MODES = ("--k4", "--bounces", "--k5", "--nee", "--train", "--prims")
 
 
 def main(argv=None) -> int:
@@ -1120,8 +1305,9 @@ def main(argv=None) -> int:
             if args[-1] == "--nee":
                 rows = _time_nee(dev, cache_dir, world)
             else:
-                rows = {"--k4": _shade_cases, "--bounces": _time_bounces, "--k5": _time_k5,
-                        "--train": _time_train}[args[-1]](dev, cache_dir)
+                rows = {"--k4": _k4_cases, "--bounces": _time_bounces, "--k5": _time_k5,
+                        "--train": _time_train,
+                        "--prims": lambda *a: _prim_cases(*a, frames=True)}[args[-1]](dev, cache_dir)
             result = {"package": os.path.dirname(port.__file__), "card": card_line(), **rows}
         else:
             result = _time_checkout(args[3] if args[2:3] == ["--world"] else None)

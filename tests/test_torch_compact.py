@@ -152,7 +152,7 @@ def test_the_bounce_loop_compacts_before_each_later_bounce(monkeypatch):
     o, d = pixel_grid_rays(cam, 8, 8)
     u = torch.from_numpy(np.random.default_rng(5).random((64, N_BOUNCES, 21), dtype=np.float32))
     seen, shaded, unpermuted = [], [], []
-    real_compact, real_shade, real_unpermute = tpt.compact, tpt._shade, tpt.unpermute
+    real_compact, real_shade, real_unpermute = tpt.compact_for_bounce, tpt._shade, tpt.unpermute
 
     def compact(st, uniforms, bounce, counts):
         out = real_compact(st, uniforms, bounce, counts)
@@ -164,7 +164,7 @@ def test_the_bounce_loop_compacts_before_each_later_bounce(monkeypatch):
         shaded.append(st["throughput"].shape[0])
         return real_shade(scene, st, *a)
 
-    monkeypatch.setattr(tpt, "compact", compact)
+    monkeypatch.setattr(tpt, "compact_for_bounce", compact)
     monkeypatch.setattr(tpt, "_shade", shade)
     monkeypatch.setattr(tpt, "unpermute", lambda *a: unpermuted.append(1) or real_unpermute(*a))
     radiance, live = tpt.trace_paths_census(scene, o, d, u)

@@ -737,12 +737,14 @@ def test_model_and_prim_frames_through_kernels_match_twins(cuda, monkeypatch, bu
         rad.mean().backward()
         return rad.detach(), p["atlas"].grad, p["emittance"].grad
 
-    before, p_before = _model_counts(), intersect_prims.launches
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    before, p_before, s_before = _model_counts(), intersect_prims.launches, k4.shade.launches
     got = run()
     if scene.models is not None:
         assert _model_counts()[0] > before[0] and _model_counts()[2] > before[2]
-    else:
-        assert intersect_prims.launches > p_before
+    else:  # K7's scan runs inside K4's forward and nee_setup: no K7 launch
+        assert intersect_prims.launches == p_before and k4.shade.launches > s_before
     for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
                        ("traverse_shadow", traverse_shadow_reference),
                        ("intersect_prims", intersect_prims_reference)):
@@ -1213,7 +1215,9 @@ def test_shade_call_is_one_forward_kernel_and_at_most_two_backward_activities(cu
             before = k4.shade.launches
             names, made = activities(route)
             assert k4.shade.launches - before == made
-            assert names and set(names) == {"shade_forward_kernel(ForwardParams)"} and len(names) <= 10, names
+            # the terrain has no primitives: the variant without K7's scan
+            assert names and set(names) == {"void shade_forward_kernel<false>(ForwardParams)"} and len(names) <= 10, \
+                names
         before = k4.shade.backward_launches
         names, made = activities(lambda: k4._backward_cuda(*bwd_calls[k]))
         assert k4.shade.backward_launches - before == made
@@ -1484,7 +1488,8 @@ def test_nee_setup_is_bit_equal_to_its_plain_version(cuda, name, order, size):
         want = nee_mod.nee_setup_reference(scene, plan, *c[2:])
         assert nee_mod.nee.setup_launches == before + 1
         differ = {f: int(_bits_differ(getattr(got, f).reshape(plan.faces * n, -1),
-                                      getattr(want, f).reshape(plan.faces * n, -1)).sum()) for f in nee_mod.NeeRays._fields}
+                                      getattr(want, f).reshape(plan.faces * n, -1)).sum())
+                  for f in nee_mod.NeeRays._fields if getattr(want, f) is not None}  # K7's slots: their own test
         print(f"nee_setup {name} {order} {size} bounce {bounce}: {n} lanes x {plan.faces} faces, "
               f"{int(got.active.sum())} cast, rows not bit-equal {differ}")
         assert not any(differ.values()), (bounce, differ)
@@ -1994,10 +1999,11 @@ def _frame_case(dev, side=64):
 @pytest.mark.gpu
 def test_frame_through_k5_is_one_compaction_per_bounce_and_no_index_kernel(cuda):
     """torch.profiler over one forward and one fwd+bwd frame: one
-    ``compact_forward`` kernel before each bounce after the first, one
-    ``compact_backward`` per bounce of the backward, one unpermute each way,
-    and no ``nonzero``, indexing or ``index_put`` kernel and no copy from the
-    card to the host.  A profiler session can drop activities, so up to
+    ``compact_forward`` kernel before each bounce after the first, no
+    ``compact_backward`` (its work folded into the stores of K4's backward
+    and ``nee_backward``), one unpermute each way, and no ``nonzero``,
+    indexing or ``index_put`` kernel and no copy from the card to the
+    host.  A profiler session can drop activities, so up to
     five sessions are taken, until one records every K5 launch the
     wrappers counted."""
     from torch.profiler import ProfilerActivity, profile
@@ -2017,7 +2023,7 @@ def test_frame_through_k5_is_one_compaction_per_bounce_and_no_index_kernel(cuda)
         torch.cuda.synchronize()
 
     for fn, backward in ((fwd, False), (fwd_bwd, True)):
-        want = [4, 4 if backward else 0, 2 if backward else 1]
+        want = [4, 0, 2 if backward else 1]
         fn()
         for _ in range(5):
             before = (k5.compact.launches, k5.compact.backward_launches, k5.unpermute.launches,
@@ -2026,7 +2032,7 @@ def test_frame_through_k5_is_one_compaction_per_bounce_and_no_index_kernel(cuda)
                 fn()
             after = (k5.compact.launches, k5.compact.backward_launches, k5.unpermute.launches,
                      k5.unpermute.backward_launches)
-            assert tuple(a - b for a, b in zip(after, before)) == (4, 4 if backward else 0, 1, 1 if backward else 0)
+            assert tuple(a - b for a, b in zip(after, before)) == (4, 0, 1, 1 if backward else 0)
             names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
             lowered = [x.lower() for x in names]
             bad = [x for x in lowered if "nonzero" in x or "index" in x or "scatter" in x or "dtoh" in x
@@ -2069,3 +2075,296 @@ def test_frame_runs_without_a_sync_and_replays_from_a_cuda_graph(cuda, sampling)
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
+
+
+# ---- the folds: K7's scan inside K4's forward and nee_setup, K5's backward
+# inside the stores of K4's backward and nee_backward
+
+def _analytic_call(sun, n, dev, seed):
+    """The primary ``shade`` call of a frame over ``n`` lanes of the depth-5
+    analytic scene under ``sun``, as a later bounce with ~60% of its lanes
+    made dead (``_dead``), traversed as the bounce loop does and given no
+    K7 hit (the folded forward scans the primitives itself)."""
+    key = ("k4", "analytic")
+    if key not in _SCENES:
+        _SCENES[key] = _k4_scene("analytic")
+    sc, cam = _SCENES[key]
+    sc = dataclasses.replace(sc, sun_sampling=getattr(SunSampling, sun)()).to(dev)
+    side = max(256, math.isqrt(n - 1) + 1)
+    o, d = pixel_grid_rays(cam.to(dev), side, side)
+    g = torch.Generator().manual_seed(n)
+    pick = torch.randperm(o.shape[0], generator=g)[:n].to(dev)
+    u = torch.from_numpy(np.random.default_rng(n).random((n, 5, 21), dtype=np.float32)).to(dev)
+    calls = []
+    real = pathtracer.shade
+
+    def recording(*a):
+        calls.append(a)
+        return real(*a)
+
+    pathtracer.shade = recording
+    try:
+        with torch.no_grad():
+            pathtracer.trace_paths(sc, o[pick].contiguous(), d[pick].contiguous(), u)
+    finally:
+        pathtracer.shade = real
+    call = _dead(calls[0], seed)
+    return call[:4] + (None,) + call[5:]
+
+
+def _k7_of(call):
+    """K7's hit of the call's lanes (the standalone kernel), a dead lane's
+    masked to a miss as the folded scan sees it."""
+    scene, st = call[0], call[1]
+    hit, t, mat, uv, n = pathtracer._prim_hit(scene, st["origin"], st["dir"])
+    return hit & st["active"], t, mat, uv, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["65553", "slots + 1"])
+@pytest.mark.parametrize("sun", ["importance", "high_quality"])
+def test_folded_k4_is_bit_equal_to_k4_fed_by_the_standalone_k7(cuda, sun, size):
+    """K4's forward with K7's scan folded in against K4's forward fed by the
+    standalone K7 (its dead lanes masked to a miss): every output and the
+    residual bit for bit, on the analytic scene with ~60% dead lanes; and
+    against the plain version fed by K7's twin under ``check_shade``'s gate."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    if size == "slots + 1":
+        key = ("k4", "analytic")
+        if key not in _SCENES:
+            _SCENES[key] = _k4_scene("analytic")
+        n = _resident_slots(_SCENES[key][0].to(cuda)) + 1
+    else:
+        n = int(size)
+    call = _analytic_call(sun, n, cuda, 17)
+    dead = ~call[1]["active"]
+    assert 0.5 < float(dead.float().mean()) < 0.7
+    before = intersect_prims.launches
+    folded, f_res = k4._forward_cuda(k4._Call(*call), True)
+    assert intersect_prims.launches == before
+    prim = _k7_of(call)
+    assert bool(prim[0].any())  # the live lanes see the primitives
+    fed, r_res = k4._forward_cuda(k4._Call(*call[:4], prim, *call[5:]), True)
+    assert k4.launch_configs(call[0], n)["forward"]["variant"] == "scan"
+    for f in k4.STATE_KEYS:
+        assert torch.equal(folded.state[f].view(torch.uint8), fed.state[f].view(torch.uint8)), f
+    for f in ("albedo", "hitpoint", "normal", "mat", "diffuse_on"):
+        assert torch.equal(getattr(folded, f).view(torch.uint8), getattr(fed, f).view(torch.uint8)), f
+    assert torch.equal(f_res.ints, r_res.ints) and torch.equal(f_res.floats.view(torch.int32),
+                                                               r_res.floats.view(torch.int32))
+    _assert_k4_matches_twin(call, f"analytic {sun} folded, 60% dead, {size}")  # the twin scans with K7's twin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["1", "65536"])
+@pytest.mark.parametrize("dead", [False, True])
+def test_nee_setup_primitive_slots_are_bit_equal_to_k7_on_every_cast_row(cuda, size, dead):
+    """``nee_setup`` on the analytic scene under HIGH_QUALITY writes, beside
+    each cast shadow ray, K7's hit of that ray bit for bit (the standalone
+    kernel on the rays it wrote), and a miss beside each ray not cast; the
+    walks then launch no K7."""
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+
+    n = int(size)
+    scene, st, u, out, _ = _nee_calls("analytic_hq", n, cuda)[0]
+    if dead:
+        res = pathtracer._trace(scene, st["origin"], st["dir"])
+        call = _dead((scene, st, u, res, None, True, True), 9)
+        st = call[1]
+        with torch.no_grad():
+            out = k4.shade(*call)
+    plan = nee_mod.nee_plan(scene)
+    c = nee_mod._Call(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
+    rays = nee_mod._setup_cuda(c)
+    assert rays.p_hit is not None
+    k7 = intersect_prims(scene.prims, rays.origin, rays.dir, 1024.0)
+    cast = rays.active
+    for name, a, b in zip(("hit", "t", "mat", "uv"), rays.prim[:4], k7[:4]):
+        assert torch.equal(a[cast].view(torch.uint8), b[cast].view(torch.uint8)), name
+    assert not bool(rays.p_hit[~cast].any()) and bool(torch.isinf(rays.p_t[~cast]).all())
+    if n > 1:
+        assert bool(rays.p_hit.any())
+    before = intersect_prims.launches
+    walk, prim = nee_mod.nee_walks(scene, plan, rays)
+    assert prim[0] is rays.p_hit and intersect_prims.launches == before
+
+
+def _tiled(x, times):
+    return x.repeat((times,) + (1,) * (x.dim() - 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [65536, 2097152])
+def test_backwards_through_src_are_bit_equal_to_the_unfolded_route(cuda, lanes):
+    """K4's backward and ``nee_backward`` storing through ``src`` against the
+    same backwards storing in place, then ``compact_backward`` through
+    ``pos``: the throughput's and the radiance's gradients bit for bit, the
+    atlas and emittance gradients as the kernels sum them (K4's float
+    atomics within rtol 1e-5 / atol 1e-7, ``nee_backward``'s float64 sums
+    bit for bit), on a config-3 bounce's lanes, repeated to ``lanes``."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.utils.timing import check_nee, check_shade
+
+    times = lanes // 65536
+    scene, st, u, out, g = _nee_calls("config3", 65536, cuda)[1]
+    res = pathtracer._trace(scene, st["origin"], st["dir"], st["active"])
+    call = (scene, st, u, res, None, False, True)
+    gen = torch.Generator().manual_seed(lanes)
+    cot = [(torch.rand((65536, k), generator=gen) + 0.5).to(cuda) for k in (3, 3, 4)]
+    k4_args = list(check_shade(call, cot, label="config3 bounce 2")["backward_args"])
+    nee_args = list(check_nee((scene, st, u, out), g, "config3 bounce 2")["args"]["backward"])
+    for args, lane_args in ((k4_args, (0, 1, 5, 6, 7)), (nee_args, (0, 1, 7))):
+        for i in lane_args:
+            if args[i] is not None:
+                args[i] = _tiled(args[i], times).contiguous()
+    k4_args[2] = k4.ShadeResidual(*(_tiled(x, times) for x in k4_args[2]))
+    nee_args[2] = nee_mod.NeeResidual(*(_tiled(x.transpose(0, 1), times).transpose(0, 1).contiguous()
+                                        for x in nee_args[2]))
+    src = torch.randperm(lanes, generator=gen).to(cuda, torch.int32)
+    pos = torch.empty_like(src)
+    pos[src.long()] = torch.arange(lanes, device=cuda, dtype=torch.int32)
+    before = k5.compact.backward_launches
+    d_tp, d_rad, d_atlas, d_emit = k4._backward_cuda(*k4_args, src=src)
+    n_tp, n_rad, n_alb, n_atlas, n_emit = nee_mod._backward_cuda(*nee_args, src=src)
+    assert k5.compact.backward_launches == before
+    w_tp, w_rad, w_atlas, w_emit = k4._backward_cuda(*k4_args)
+    w_tp, w_rad = k5._backward_cuda(pos, w_tp, w_rad)
+    v_tp, _, v_alb, v_atlas, v_emit = nee_mod._backward_cuda(*nee_args)
+    v_tp = k5._backward_cuda(pos, v_tp, None)[0]
+    for a, b in ((d_tp, w_tp), (d_rad, w_rad), (n_tp, v_tp), (n_alb, v_alb), (n_atlas, v_atlas), (n_emit, v_emit)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    torch.testing.assert_close(d_atlas, w_atlas, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(d_emit, w_emit, rtol=1e-5, atol=1e-7)
+
+
+def _frame_kernels(fn):
+    """The kernels torch.profiler records over ``fn()`` by name (the
+    fullest of five sessions, each counting the second of two calls:
+    ``utils/timing.profiled_names``, since a session can drop the first
+    activities of the first)."""
+    from octree_pathtracing_tpu_torch.utils.timing import profiled_names
+
+    best = []
+    fn()
+    for _ in range(5):
+        names = profiled_names(fn)
+        if len(names) > len(best):
+            best = names
+    return best
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("line", ["analytic", "analytic_hq", "terrain_fwd_bwd", "config3_fwd_bwd"])
+def test_frames_launch_no_k7_and_no_compact_backward(cuda, line):
+    """A frame through the folds against the same frame through the route
+    before them (``utils/timing.unfolded``): the same radiance bit for bit
+    and (with a gradient) the same atlas and emittance gradients within
+    rtol 1e-5 / atol 1e-7 (K4's backward adds them with float atomics in
+    the schedule's order; the elements not bit-equal are printed); no K7
+    kernel and no ``compact_backward`` among its kernels; and the kernels
+    the route before it launched and the folds do not are those two and
+    the copy that made the primaries dense for K7 (its first bounce's
+    rays), nothing else, with no kernel of its own."""
+    from octree_pathtracing_tpu_torch.utils.timing import unfolded
+
+    if line.startswith("analytic"):
+        sc, cam = analytic_sphere_scene(depth=5)
+        sc = dataclasses.replace(sc, sun_sampling=SunSampling.high_quality() if line == "analytic_hq"
+                                 else SunSampling.importance())
+    else:
+        sc, cam = minecraft_chunk_scene(depth=5)
+        if line.startswith("config3"):
+            sc = emitters.with_emitter_sampling(dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()),
+                                                "one")
+    sc, cam = sc.to(cuda), cam.to(cuda)
+    o, d = pixel_grid_rays(cam, 64, 64)
+    u = torch.from_numpy(np.random.default_rng(21).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    grad = line.endswith("fwd_bwd")
+
+    def frame():
+        if not grad:
+            return pathtracer.trace_paths(sc, o, d, u), None
+        p = {"atlas": sc.atlas.clone().requires_grad_(True),
+             "emittance": sc.materials.emittance.clone().requires_grad_(True)}
+        rad = pathtracer.trace_paths(apply_params(sc, p), o, d, u)
+        rad.mean().backward()
+        return rad.detach(), {k: v.grad for k, v in p.items()}
+
+    def synced():
+        frame()
+        torch.cuda.synchronize()
+
+    got, got_g = frame()
+    folded = _frame_kernels(synced)
+    with unfolded(pathtracer):
+        want, want_g = frame()
+        before = _frame_kernels(synced)
+    from collections import Counter
+
+    def kinds(names):  # K4's forward and nee_setup by kernel, whichever variant (K7's scan folded in or not)
+        return Counter(x.replace("<true>", "").replace("<false>", "") if "shade_forward_kernel" in x
+                       or "nee_setup_kernel" in x else x for x in names)
+
+    gone, new = kinds(before) - kinds(folded), kinds(folded) - kinds(before)
+    print(f"{line}: kernels only before the folds {dict(gone)}; only through them {dict(new)}")
+    assert torch.equal(got, want)
+    if grad:
+        for k in got_g:
+            print(f"{line} {k} gradient: {int((got_g[k] != want_g[k]).sum())} elements not bit-equal")
+            torch.testing.assert_close(got_g[k], want_g[k], rtol=1e-5, atol=1e-7)
+    k7 = sum("prims_intersect_kernel" in x for x in before)
+    k5b = sum("compact_backward_kernel" in x for x in before)
+    print(f"{line}: {len(folded)} device activities through the folds, {len(before)} before them "
+          f"({k7} K7, {k5b} compact_backward)")
+    assert not any("prims_intersect_kernel" in x or "compact_backward_kernel" in x for x in folded)
+    assert (k7 > 0) == line.startswith("analytic") and (k5b == 4) == grad
+    copies = sum(n for x, n in gone.items() if "direct_copy_kernel" in x)
+    assert not new and copies <= 1 and sum(gone.values()) == k7 + k5b + copies
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sun", ["importance", "high_quality"])
+def test_analytic_frames_replay_from_a_cuda_graph(cuda, sun):
+    """The analytic scene's forward frame (K4's scanning variant, and under
+    HIGH_QUALITY ``nee_setup``'s) and its fwd+bwd frame (the backwards
+    storing through ``src``) captured in CUDA graphs: each replay, its
+    outputs spoiled before it, bit-equal to the eager frame (the gradients
+    within rtol 1e-5 / atol 1e-7: float atomics add in the schedule's
+    order)."""
+    from octree_pathtracing_tpu_torch.utils.timing import capture_frame
+
+    sc, cam = analytic_sphere_scene(depth=5)
+    sc = dataclasses.replace(sc, sun_sampling=getattr(SunSampling, sun)()).to(cuda)
+    o, d = pixel_grid_rays(cam.to(cuda), 64, 64)
+    u = torch.from_numpy(np.random.default_rng(22).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    eager = pathtracer.trace_paths(sc, o, d, u)
+    graph, out = capture_frame(lambda: pathtracer.trace_paths(sc, o, d, u))
+    for _ in range(2):
+        out.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    p = {"atlas": sc.atlas.clone().requires_grad_(True),
+         "emittance": sc.materials.emittance.clone().requires_grad_(True)}
+
+    def step():
+        for v in p.values():
+            v.grad = None
+        rad = pathtracer.trace_paths(apply_params(sc, p), o, d, u)
+        rad.mean().backward()
+        return rad
+
+    rad_eager = step().detach().clone()
+    grads = {k: v.grad.clone() for k, v in p.items()}
+    graph, rad = capture_frame(step)
+    for _ in range(2):
+        rad.detach().view(torch.uint8).fill_(0xFF)
+        for v in p.values():
+            v.grad.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(rad.detach(), rad_eager)
+        for k, v in p.items():
+            torch.testing.assert_close(v.grad, grads[k], rtol=1e-5, atol=1e-7)

@@ -169,12 +169,13 @@ def test_forward_is_one_setup_and_one_resolve_on_two_ray_allocations(lib, n, gra
     assert faces == 2 and len(rays) == 1
     assert (len(lib.setup), len(lib.resolve)) == ((1, 1) if n else (0, 0))
     assert (k.nee.setup_launches, k.nee.resolve_launches) == tuple(x + (1 if n else 0) for x in before)
-    r = rays[0]
-    carved = [getattr(r, f) for f in k.NeeRays._fields if f != "scale"]
-    base = r.origin.untyped_storage().data_ptr()
+    assert rays[0].prim is None  # a scene without primitives: no scan, no slots for it
+    r = rays[0][:8]
+    carved = [x for f, x in zip(k.NeeRays._fields, r) if f != "scale"]
+    base = rays[0].origin.untyped_storage().data_ptr()
     assert all(x.untyped_storage().data_ptr() == base for x in carved)  # views of one buffer
-    assert r.scale.untyped_storage().data_ptr() != base
-    assert r.scale.untyped_storage().nbytes() == 4 * faces * n  # the saved part: an allocation of its own
+    assert rays[0].scale.untyped_storage().data_ptr() != base
+    assert rays[0].scale.untyped_storage().nbytes() == 4 * faces * n  # the saved part: an allocation of its own
     # the rays, their scale, the radiance out, and the residual's ints with a gradient
     assert ops.count("empty") == (3 if grad in (None, "no_grad") else 4), ops.names
     assert ops.count("zero", "fill", "copy", "clone") == 0, ops.names
@@ -188,7 +189,7 @@ def test_forward_is_one_setup_and_one_resolve_on_two_ray_allocations(lib, n, gra
         assert tables is entry.tables_ref and flags is entry.flags_ref and lib.resolve[0][1] is entry.tables_ref
         named = dict(zip(k.SETUP_SLOTS, slots))
         assert named["u_stride"] == 5 * N_UNIFORMS  # the uniforms read with their block's row stride
-        assert [named[f] for f in k.NeeRays._fields] == [x.data_ptr() for x in r]
+        assert [named[f] for f in k.NeeRays._fields] == [x.data_ptr() for x in r] + [None] * 4
         assert (lib.resolve[0][4] == 0) == (grad in (None, "no_grad"))  # the residual only with a gradient
     if grad in (None, "no_grad"):  # no autograd node
         assert rad.grad_fn is None and not rad.requires_grad
@@ -354,12 +355,14 @@ def test_refusals_name_the_wrong_input(lib):
         assert k.nee.setup_launches == before
 
 
+@pytest.mark.parametrize("prims", [False, True])
 @pytest.mark.parametrize("fb", [1, 7, 65553])
-def test_ray_layout_is_aligned_and_disjoint(fb):
-    n_bytes, parts = k._ray_layout(fb)
+def test_ray_layout_is_aligned_and_disjoint(fb, prims):
+    n_bytes, parts = k._ray_layout(fb, prims)
     item = {0: 4, 1: 4, 2: 1}
     spans = sorted((p[4], p[4] + int(np.prod(p[1])) * item[p[3]]) for p in parts.values())
-    assert len(spans) == len(k.NeeRays._fields) - 1
+    # every field but scale; K7's four only where the scene has primitives
+    assert len(spans) == len(k.NeeRays._fields) - 1 - (0 if prims else 4)
     assert all(start % 16 == 0 for start, _ in spans) and spans[-1][1] <= n_bytes
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
