@@ -64,9 +64,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    - K8 on the plant field's 65,025 plants as a world-space soup of 260,100
      quads (``build_bvh``, leaves of 2), against the 256x256 plant
      primaries, without and with a ``t_init`` (the octree hit's t): hit, t
-     and payload bit for bit, by call and on the device, its bound counted
-     from the twin's walk; then K8's main path, one
-     ``bvh_intersect_quads`` call through the entry point.
+     and payload bit for bit, by call and on the device, with its launch
+     (the stack's entries in shared memory, registers, stack frame), the
+     node rows it reads a ray (the root's and two per expansion) and two
+     bounds from the twin's walk: those rows, and the rows with the twin's
+     re-read on every pop; then K8's main path, one ``bvh_intersect_quads``
+     call through the entry point.
    - K4's forward and backward on the lanes of each bounce of one headline
      frame (the 65,536 primaries, then bounces 2-5's whole batches, their
      live lanes first and their dead lanes passed through; the backward of
@@ -77,7 +80,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      field by field), the backward (on the kernel's forward outputs) within
      rtol 1e-5 / atol 1e-7 of the backward twin; by call and on the device,
      each row with the variant its launch took, the backward through
-     ``src`` with its own bound.
+     ``src`` with its own bound.  Bounce 5 as the main path shades it: K4
+     given the compaction's ``idx`` stores the frame's radiance in the
+     lanes' order (the final unpermute folded in), and its backward reads
+     the cotangent there; both bit for bit against K4 in row order with the
+     standalone ``unpermute_kernel`` (its gather for the backward), timed
+     beside that route with their own bounds (the row ``shade (unpermute
+     stores)``); the same for ``nee_resolve`` and ``nee_backward`` on the
+     NEE line's last bounce (``nee_resolve (unpermute stores)``).
    - K4's forward with K7's scan folded in on the lanes of each bounce of
      one frame of the depth-9 analytic scene (IMPORTANCE, 65,536 lanes):
      against its twin (which scans with K7's plain version) under K4's
@@ -99,7 +109,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    - K5, ``utils/timing.check_compact``: ``compact_forward`` against
      ``compact_reference`` on every output (the state, the carried index,
      the bounce's uniforms, ``pos``, the live count), ``compact_backward``,
-     the unpermute and its backward against theirs, all bit for bit, on the
+     the standalone unpermute and its backward (a direct caller's; no main
+     path launches them) against theirs, all bit for bit, on the
      compactions of one headline frame (bounces 2-5), its bounce-2 state
      repeated to 1,048,576 and 2,097,152 lanes, a branched frame's 64x64 x
      10 lanes, 1 lane and a batch with no live lane; by call and on the
@@ -208,13 +219,16 @@ run a twin (the twins' entry points are counted, K4's, the next-event
 half's and K5's too); every light-sampling path must have launched ``nee_setup``
 and ``nee_resolve``, and ``nee_backward`` where a gradient is taken; the
 Renderer and every line of phases 5, 6, 6a, 6b, 6c and 8d K5's forward and
-unpermute, and with a gradient the unpermute's backward and K4's backward
-storing through the compaction's ``src`` (``nee_backward`` too on a light
-line); every path on a scene with primitives K4's forward with K7's scan
-(and ``nee_setup`` with it where the scene samples light).  No main path
-may launch K7 (``prims_intersect``) or ``compact_backward``: their work is
-folded into the kernels that read their results, and phase 2 alone holds
-them against their plain versions.  Each line prints its kernels, fills
+the last bounce's radiance stored at the lanes' index (K4's forward on a
+scene that samples no light, ``nee_resolve`` on one that does), and with a
+gradient that writer's backward reading the cotangent there and K4's
+backward storing through the compaction's ``src`` (``nee_backward`` too on a
+light line); every path on a scene with primitives K4's forward with K7's
+scan (and ``nee_setup`` with it where the scene samples light).  No main
+path may launch K7 (``prims_intersect``), ``compact_backward`` or the
+unpermute either way: their work is folded into the kernels that read
+their results, and phase 2 alone holds them against their plain
+versions.  Each line prints its kernels, fills
 and copies per frame (torch.profiler), held against the wrappers' own
 counts over the same call: each session counts the second of two calls
 (a session can drop the first activities after it starts), a session that
@@ -384,11 +398,29 @@ KERNELS = {
                   "octree_pathtracing_tpu/render/pathtracer.py:1016"),
     "unpermute_backward": ("octree_pathtracing_tpu_torch/csrc/compact.cu",
                            "octree_pathtracing_tpu/render/pathtracer.py:1016"),
+    # the last bounce's writer of the radiance with the unpermute folded into
+    # its stores (and its backward's loads): the unpermute's work on the
+    # main paths, K4's on a scene that samples no light, nee_resolve's on one
+    # that does
+    "shade (unpermute stores)": ("octree_pathtracing_tpu_torch/csrc/shade.cu",
+                                 "octree_pathtracing_tpu/render/pathtracer.py:1016"),
+    "nee_resolve (unpermute stores)": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
+                                       "octree_pathtracing_tpu/render/pathtracer.py:1016"),
 }
 K5_KERNELS = ("compact_forward", "compact_backward", "unpermute", "unpermute_backward")
 # what a fwd+bwd main path launches of K5 (compact_backward's work is in
 # the stores of K4's backward and nee_backward)
-K5_PATH = ("compact_forward", "unpermute", "unpermute_backward", "shade_backward (src stores)")
+K5_PATH = ("compact_forward", "shade_backward (src stores)")
+
+
+def unpermute_fold(light: bool, grad: bool) -> tuple:
+    """The counters a frame's last bounce must show where it stores the
+    final radiance in the lanes' order (the unpermute folded in): K4's
+    forward on a scene that samples no light, ``nee_resolve`` on one that
+    does, and with a gradient their backwards reading the cotangent so."""
+    writer = "nee_resolve" if light else "shade"
+    reader = "nee_backward" if light else "shade_backward"
+    return (f"{writer} (unpermute stores)",) + ((f"{reader} (unpermute reads)",) if grad else ())
 # K5 per lane: the state's rows (origin, dir, throughput, radiance), flags
 # (active, specular), medium and carried index, read once and written once;
 # pos written; the bounce's 21 uniform words read and written
@@ -521,54 +553,14 @@ def write_survival_region(path: str, seed: int, n_chunks: int) -> dict:
     return dict(info, seconds=time.perf_counter() - t0, cached=False)
 
 
-def plant_soup(scene):
-    """The plants of a ``plant_scene`` as a world-space quad soup: each plant
-    voxel's cross quads offset to its corner.  Returns (origins, us, vs,
-    materials) as numpy arrays."""
-    from octree_pathtracing_tpu_torch.octree import enumerate_leaves, unpack_nodes
-    from octree_pathtracing_tpu_torch.ops.traversal import FLAG_SIMPLE
-
-    mask, data = unpack_nodes(scene.nodes.cpu().numpy())
-    pos, _, val = enumerate_leaves(mask, data, scene.root, scene.depth)
-    m = scene.models
-    model = m.leaf_model.numpy()[val]
-    quad = (m.flags.numpy()[model] & FLAG_SIMPLE) == 0
-    pos, model = pos[quad], model[quad]
-    start, count = m.quad_start.numpy()[model], m.quad_count.numpy()[model]
-    qi = (start[:, None] + np.arange(int(count.max()))[None, :])[np.arange(int(count.max()))[None, :] < count[:, None]]
-    corner = np.repeat(pos.astype(np.float32), count, axis=0)
-    return (m.quads.origin.numpy()[qi] + corner, m.quads.u.numpy()[qi], m.quads.v.numpy()[qi],
-            m.quads.material_id.numpy()[qi])
-
-
 def build_plant_bvh(path: str, depth: int) -> dict:
-    """``build_bvh`` (leaves of 2) over the boxes of ``plant_scene(depth)``'s
-    quad soup, padded by 1e-4, saved to ``path`` (an .npz with the soup);
-    where ``path`` holds the build of the same soup it is loaded instead.
-    Returns {"plants", "quads", "seconds", "cached"}."""
-    import hashlib
-
+    """``utils/timing.plant_bvh_file`` in a host process of its own: the
+    BVH of ``plant_scene(depth)``'s quad soup, built or loaded from
+    ``path``.  Returns {"plants", "quads", "seconds", "cached"}."""
     sys.modules["jax"] = None
-    from octree_pathtracing_tpu_torch.models import plant_scene
-    from octree_pathtracing_tpu_torch.ops.bvh import build_bvh
+    from octree_pathtracing_tpu_torch.utils.timing import plant_bvh_file
 
-    scene, _ = plant_scene(depth=depth)
-    o, u, v, mat = plant_soup(scene)
-    digest = hashlib.sha256(b"".join(np.ascontiguousarray(x).tobytes() for x in (o, u, v, mat))).hexdigest()
-    if os.path.exists(path):
-        with np.load(path) as z:
-            if str(z["digest"]) == digest:
-                return dict(plants=len(o) // 4, quads=len(o), seconds=float(z["seconds"]), cached=True)
-    corners = np.stack([o, o + u, o + v, o + u + v])
-    t0 = time.perf_counter()
-    bvh = build_bvh(corners.min(0) - 1e-4, corners.max(0) + 1e-4)
-    seconds = time.perf_counter() - t0
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp.npz"
-    np.savez(tmp, digest=digest, seconds=seconds, o=o, u=u, v=v, mat=mat,
-             **{f: getattr(bvh, f).numpy() for f in ("node_min", "node_max", "left", "right", "prim_order")})
-    os.replace(tmp, path)
-    return dict(plants=len(o) // 4, quads=len(o), seconds=seconds, cached=False)
+    return plant_bvh_file(path, depth)[0]
 
 
 def _in_child(fn, out_json: str, *args):
@@ -666,6 +658,8 @@ def shade_bound(call, out, resid, grad: bool):
     # K7's scan folded in (primitives and no K7 hit given): the tables once,
     # the scan's arithmetic on each live lane, and no K7 hit read
     scan = scene.prims is not None and call[4] is None
+    if len(call) > 7 and call[7] is not None:  # a frame's last bounce: idx read, the radiance stored through it
+        per_lane += 4
     texels, mats, code = resid.ints.unbind(-1)
     m, ml = scene.materials, mats.long()
     scat = out.state["active"]
@@ -695,7 +689,7 @@ def shade_bound(call, out, resid, grad: bool):
     return bound(n_bytes, n_ops) + (u_words,)
 
 
-def shade_backward_bound(args, src=None):
+def shade_backward_bound(args, src=None, idx=None):
     """K4's backward bound on one call's arguments (those of
     ``ops/shade._backward_cuda``), by the pointers the call passes and the
     lanes that need them: every lane's residual words; the albedo and the
@@ -705,7 +699,9 @@ def shade_backward_bound(args, src=None):
     it is wanted; the emittance of the emitting lanes' materials; and the
     atlas and emittance gradients, dense outputs, written once.  ``src``
     (the main path's call after a compaction): its 4 B a lane, and the
-    radiance cotangent read on every lane and written back at ``src``."""
+    radiance cotangent read on every lane and written back at ``src``;
+    ``idx`` (a frame's last bounce): its 4 B a lane, the cotangent read
+    through it."""
     albedo, throughput, resid, emittance, atlas_shape, g_tp, g_rad, g_alb, need = args
     lanes = int(resid.ints.shape[0])
     _, mats, code = resid.ints.unbind(-1)
@@ -716,6 +712,8 @@ def shade_backward_bound(args, src=None):
     if g_tp is not None:
         n_bytes += lanes * 12 + n_diff * 4
     if src is not None:
+        n_bytes += lanes * 4
+    if idx is not None:
         n_bytes += lanes * 4
     if g_rad is not None and src is not None:  # read on every lane, moved to its row
         n_bytes += lanes * 24 + (n_miss * 12 if need[0] else 0) + int(mats[emit_on].unique().numel()) * 4
@@ -749,13 +747,15 @@ def prim_bound(prims, lanes: int):
     return bound(lanes * PRIM_RAY_BYTES + prim_table_bytes(prims), lanes * prim_scan_ops(prims))
 
 
-def nee_bounds(chk) -> dict:
+def nee_bounds(chk, idx: bool = False) -> dict:
     """The next-event kernels' bounds on one ``utils/timing.check_nee``
     result: {kernel: (bound_ms, bound_by)}.  Each counts its lanes' and
     faces' inputs and outputs (NEE_* above), the walk record entries and
     primitive hits its cast faces read, the distinct texels, supercell rows
     and emitter materials they name, and the dense gradients once, against
-    its arithmetic by face and slot."""
+    its arithmetic by face and slot.  ``idx`` (a frame's last bounce, the
+    unpermute folded in): ``nee_resolve`` reads 4 B more a lane, and
+    ``nee_backward`` 4 B more and writes the radiance's 12."""
     import torch
 
     from octree_pathtracing_tpu_torch.ops import nee as k
@@ -808,10 +808,12 @@ def nee_bounds(chk) -> dict:
     texels = torch.cat([slots[used], ints[em_cast, -2]]).unique().numel()
     e_mats = ints[em_cast, -1].unique().numel()
     n_slots = int(used.sum())
-    resolve = bound(b * NEE_RESOLVE_LANE_BYTES + fb + 8 * n_cast + 8 * n_cast_em + rec + 16 * int(texels)
+    lane_bytes = NEE_RESOLVE_LANE_BYTES + (4 if idx else 0)
+    resolve = bound(b * lane_bytes + fb + 8 * n_cast + 8 * n_cast_em + rec + 16 * int(texels)
                     + 4 * int(e_mats), n_cast * OPS_NEE_RESOLVE_FACE + n_slots * OPS_NEE_SLOT)
     data = scene.atlas.data if hasattr(scene.atlas, "sizes") else scene.atlas
-    backward = bound(b * NEE_BWD_LANE_BYTES + 4 * fb + NEE_RESID_BYTES * n_cast + 16 * int(texels)
+    bwd_lane_bytes = NEE_BWD_LANE_BYTES + (16 if idx else 0)
+    backward = bound(b * bwd_lane_bytes + 4 * fb + NEE_RESID_BYTES * n_cast + 16 * int(texels)
                      + 4 * int(e_mats) + data.numel() * 4 + scene.materials.emittance.numel() * 4,
                      n_cast * OPS_NEE_BWD_FACE + n_slots * OPS_NEE_BWD_SLOT)
     return {"nee_setup": setup, "nee_resolve": resolve, "nee_backward": backward}
@@ -856,7 +858,6 @@ def main() -> int:
         bvh_intersect_quads,
         bvh_intersect_reference,
         quad_prim_fn,
-        tree_depth,
     )
     from octree_pathtracing_tpu_torch.ops import random as prandom
     from octree_pathtracing_tpu_torch.ops import traversal
@@ -934,13 +935,20 @@ def main() -> int:
         "nee_setup (K7 scan)": (nee_mod.nee, "scan_setup_launches"),
         "shade_backward (src stores)": (shade_mod.shade, "src_backward_launches"),
         "nee_backward (src stores)": (nee_mod.nee, "src_backward_launches"),
+        # the final unpermute: of the launches above, the last bounce's
+        # writer of the radiance storing it at idx, its backward reading there
+        "shade (unpermute stores)": (shade_mod.shade, "idx_launches"),
+        "nee_resolve (unpermute stores)": (nee_mod.nee, "idx_resolve_launches"),
+        "shade_backward (unpermute reads)": (shade_mod.shade, "idx_backward_launches"),
+        "nee_backward (unpermute reads)": (nee_mod.nee, "idx_backward_launches"),
     }
     # folded into the kernels that read their results: no main path launches them
-    FOLDED = ("prims_intersect", "compact_backward")
+    FOLDED = ("prims_intersect", "compact_backward", "unpermute", "unpermute_backward")
     PORT_KERNELS = kernel_names()  # the port's own kernels by name, found among a session's activities
     # the counters of launches already counted under another name (a fold's variant of a kernel)
     SUBSET_COUNTERS = ("shade (K7 scan)", "nee_setup (K7 scan)", "shade_backward (src stores)",
-                       "nee_backward (src stores)")
+                       "nee_backward (src stores)", "shade (unpermute stores)", "nee_resolve (unpermute stores)",
+                       "shade_backward (unpermute reads)", "nee_backward (unpermute reads)")
     # the twins' own entry points, counted so that a main path can show it ran none
     twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0, "K4 backward twin": 0,
                   "nee_setup twin": 0, "nee_resolve twin": 0, "nee_backward twin": 0, "K5 twin": 0,
@@ -995,10 +1003,11 @@ def main() -> int:
         for name in twin_calls:
             twin_calls[name] = 0
 
-    def twin_backward(*a, src=None):
-        """K4's backward twin; after a compaction each row's gradients moved
-        to the row it came from, as the kernel stores them."""
-        d = shade_mod.shade_backward_reference(*a)
+    def twin_backward(*a, src=None, idx=None):
+        """K4's backward twin; on a frame's last bounce the radiance
+        cotangent read at ``idx``, and after a compaction each row's
+        gradients moved to the row it came from, as the kernel does."""
+        d = shade_mod.shade_backward_reference(*a, idx=idx)
         return d if src is None else (*compact_mod.store_at_src_reference(src, *d[:2]), *d[2:])
 
     @contextlib.contextmanager
@@ -1013,7 +1022,7 @@ def main() -> int:
     def nee_plain():
         """K4's next-event half through its plain versions, differentiated by
         autograd (the eager path the light lines ran before its kernels)."""
-        with mock.patch.object(pathtracer, "nee", lambda *a: nee_mod.nee_reference(*a)[0]):
+        with mock.patch.object(pathtracer, "nee", lambda *a, **kw: nee_mod.nee_reference(*a, **kw)[0]):
             yield
 
     @contextlib.contextmanager
@@ -1027,8 +1036,7 @@ def main() -> int:
                 mock.patch.object(nee_mod, "traverse_alpha", traverse_alpha_reference), \
                 mock.patch.object(nee_mod, "traverse_shadow", traverse_shadow_reference), \
                 mock.patch.object(nee_mod, "intersect_prims", intersect_prims_reference), \
-                mock.patch.object(pathtracer, "compact_for_bounce", k5_plain), \
-                mock.patch.object(pathtracer, "unpermute", real_k5["unpermute_reference"]):
+                mock.patch.object(pathtracer, "compact_for_bounce", k5_plain):
             yield
 
     def k5_plain(st, uniforms, bounce, counts):
@@ -1275,14 +1283,59 @@ def main() -> int:
     # with the cotangents that a real fwd+bwd of the same frame hands each
     # bounce (bench.py's mean-radiance loss, the atlas and the emittance
     # taking gradient)
+    def unpermute_row(call, k_out, k_res, bwd_args, cot, src_k, f_err, f_t, f_bound):
+        """The headline's last bounce as the main path shades it: K4 given
+        the compaction's idx stores its radiance in the lanes' order, and its
+        backward reads the cotangent there (through src too), each bit-equal
+        to K4 storing in row order, then the standalone unpermute (and the
+        unpermute's gather, then the backward); timed beside that route."""
+        idx_k = call[7]
+        rows_call = call[:7]
+        k_rows = shade_mod._forward_cuda(rows_call, False)[0]
+        unp = compact_mod._unpermute_cuda(k_rows.state["radiance"], idx_k, True)
+        if not torch.equal(k_out.state["radiance"].view(torch.int32), unp.view(torch.int32)):
+            raise AssertionError("K4 storing the last bounce's radiance at idx disagrees with K4 + unpermute")
+        g_lane = cot[1]
+        gathered = compact_mod._unpermute_cuda(g_lane, idx_k, False)
+        rows_args = list(bwd_args)
+        rows_args[6] = gathered
+        d_fold = shade_mod._backward_cuda(*bwd_args, src=src_k, idx=idx_k)
+        d_rows = shade_mod._backward_cuda(*rows_args, src=src_k)
+        if not all((a is None and b is None) or (a is not None and b is not None and torch.equal(
+                a.view(torch.int32), b.view(torch.int32))) for a, b in zip(d_fold[:2], d_rows[:2])):
+            raise AssertionError("K4's backward reading the cotangent at idx disagrees with the unpermute's gather "
+                                 "then K4's backward")
+        rows_t = both(lambda: shade_mod.shade(*rows_call))
+        unp_t = both(lambda: compact_mod._unpermute_cuda(k_rows.state["radiance"], idx_k, True))
+        b_t = both(lambda: shade_mod._backward_cuda(*bwd_args, src=src_k, idx=idx_k))
+        b_rows = both(lambda: shade_mod._backward_cuda(*rows_args, src=src_k))
+        gat_t = both(lambda: compact_mod._unpermute_cuda(g_lane, idx_k, False))
+        b_bound = shade_backward_bound(bwd_args, src_k, idx_k)
+        lanes = int(idx_k.shape[0])
+        results["shade (unpermute stores)"] = row = dict(
+            lanes=lanes, max_abs_err=f_err, ms=f_t["call_ms"], device_ms=f_t["device_ms"],
+            plain_ms=call_ms(lambda: real_shade_twin(*call), 5), bound_ms=f_bound[0], bound_by=f_bound[1],
+            library_ms=None, unfolded_ms=rows_t["call_ms"] + unp_t["call_ms"],
+            unfolded_device_ms=rows_t["device_ms"] + unp_t["device_ms"], row_order_device_ms=rows_t["device_ms"],
+            unpermute_device_ms=unp_t["device_ms"], backward_ms=b_t["call_ms"], backward_device_ms=b_t["device_ms"],
+            backward_bound_ms=b_bound[0], backward_bound_by=b_bound[1],
+            unfolded_backward_device_ms=gat_t["device_ms"] + b_rows["device_ms"])
+        log(f"  K4 on the headline's last bounce storing its radiance at idx (the unpermute folded in), bit-equal to "
+            f"K4 in row order + unpermute_kernel, forward and backward: call {row['ms']!r} ms, device "
+            f"{row['device_ms']!r} ms, bound {row['bound_ms']!r} ms ({row['bound_by']}); the route before: K4 "
+            f"{row['row_order_device_ms']!r} + unpermute {row['unpermute_device_ms']!r} ms on the device; its "
+            f"backward through src and idx {row['backward_device_ms']!r} ms (bound {row['backward_bound_ms']!r}), "
+            f"before: gather {gat_t['device_ms']!r} + backward through src {b_rows['device_ms']!r} ms [{card}]")
+
     k4_rows = {"shade": {}, "shade_backward": {}}
     k4_grads = shade_gradients(pathtracer, scene, prim[4], prim[5], frame_u)
     k4_calls = shade_calls(pathtracer, scene, prim[4], prim[5], frame_u)
     if len(k4_grads) != len(k4_calls):
         raise AssertionError(f"K4: {len(k4_calls)} forward calls but {len(k4_grads)} backward calls in one frame")
     for k, (rec, grad_args) in enumerate(zip(k4_calls, k4_grads), start=1):
-        sc_k, st_k, u_k, res_k, is_first, may_scatter = rec
-        call = (sc_k, st_k, u_k, res_k, None, is_first, may_scatter)
+        sc_k, st_k, u_k, res_k, is_first, may_scatter = rec[:6]
+        idx_k = rec[6] if len(rec) > 6 else None  # the last bounce: the final unpermute folded into K4's stores
+        call = (sc_k, st_k, u_k, res_k, None, is_first, may_scatter, idx_k)
         lanes, live_k = int(st_k["throughput"].shape[0]), int(st_k["active"].sum())
         cot, need = grad_args[5:8], grad_args[8]
         chk = check_shade(call, cot, need, f"headline bounce {k}")
@@ -1295,6 +1348,8 @@ def main() -> int:
             f"{list(need)}, max abs err {chk['backward_err']!r}")
         f_t = both(lambda: shade_mod.shade(*call))
         f_bound = shade_bound(call, k_out, k_res, grad=False)
+        if idx_k is not None:
+            unpermute_row(call, k_out, k_res, bwd_args, cot, grad_args[9], chk["forward_err"], f_t, f_bound)
         b_t = both(lambda: shade_mod._backward_cuda(*bwd_args))
         b_bound = shade_backward_bound(bwd_args)
         # the main path's backward after a compaction stores through its src
@@ -1521,7 +1576,64 @@ def main() -> int:
         sc, camera = (scene, cam) if which == "terrain" else (cut, cut_cam)
         nee_phase2(line, high_quality(sc, sampling), camera, frame_u)
     nee_results()
-    del frame_u
+
+    # nee_resolve on the NEE line's last bounce as the main path calls it:
+    # given the compaction's idx it stores the frame's final radiance in the
+    # lanes' order, and nee_backward reads the cotangent there; each
+    # bit-equal to the same kernel in row order with the standalone
+    # unpermute (its gather), and timed beside that route
+    lo, ld = pixel_grid_rays(cam, WIDTH, HEIGHT)
+    *_, (sc5, st5, u5, res5, first5, scatter5, idx5) = shade_calls(pathtracer, high_quality(scene), lo, ld, frame_u)
+    out5 = shade_mod.shade(sc5, st5, u5, res5, None, first5, scatter5)  # K4 stores in row order on a light line
+    chk = check_nee((sc5, st5, u5, out5), None, "the NEE line's last bounce")
+    c5 = chk["args"]["resolve"][0]
+    r_args = chk["args"]["resolve"][1:]
+    fold_rad = nee_mod._resolve_cuda(c5, *r_args, None, idx5)[0]
+    rows_rad = nee_mod._resolve_cuda(c5, *r_args)[0]
+    if not torch.equal(fold_rad.view(torch.int32),
+                       compact_mod._unpermute_cuda(rows_rad, idx5, True).view(torch.int32)):
+        raise AssertionError("nee_resolve storing the last bounce's radiance at idx disagrees with nee_resolve + "
+                             "unpermute")
+    rays5, walk5, prim5, tp5, rad5, alb5 = r_args[:6]
+
+    def plain_fold():
+        return real_nee["nee_resolve"](c5.scene, c5.plan, rays5, walk5, prim5, alb5, tp5, rad5, c5.cur_mat, False,
+                                       idx5)[0]
+
+    fold_err = float((fold_rad - plain_fold()).abs().max())
+    b_args = list(chk["args"]["backward"])
+    g5 = b_args[7]
+    rows_b = list(b_args)
+    rows_b[7] = compact_mod._unpermute_cuda(g5, idx5, False)
+    d_fold = nee_mod._backward_cuda(*b_args, idx=idx5)
+    d_rows = nee_mod._backward_cuda(*rows_b)
+    if not all((a is None and b is None) or (a is not None and b is not None and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))) for a, b in zip(d_fold, d_rows)):
+        raise AssertionError("nee_backward reading the cotangent at idx disagrees with the unpermute's gather then "
+                             "nee_backward")
+    bounds5 = nee_bounds(chk, idx=True)
+    f_t = both(lambda: nee_mod._resolve_cuda(c5, *r_args, None, idx5))
+    rows_t = both(lambda: nee_mod._resolve_cuda(c5, *r_args))
+    unp_t = both(lambda: compact_mod._unpermute_cuda(rows_rad, idx5, True))
+    b_t = both(lambda: nee_mod._backward_cuda(*b_args, idx=idx5))
+    b_rows = both(lambda: nee_mod._backward_cuda(*rows_b))
+    gat_t = both(lambda: compact_mod._unpermute_cuda(g5, idx5, False))
+    results["nee_resolve (unpermute stores)"] = row = dict(
+        lanes=int(idx5.shape[0]), max_abs_err=fold_err, ms=f_t["call_ms"], device_ms=f_t["device_ms"],
+        plain_ms=call_ms(plain_fold, 5), bound_ms=bounds5["nee_resolve"][0], bound_by=bounds5["nee_resolve"][1],
+        library_ms=None, unfolded_ms=rows_t["call_ms"] + unp_t["call_ms"],
+        unfolded_device_ms=rows_t["device_ms"] + unp_t["device_ms"], row_order_device_ms=rows_t["device_ms"],
+        unpermute_device_ms=unp_t["device_ms"], backward_ms=b_t["call_ms"], backward_device_ms=b_t["device_ms"],
+        backward_bound_ms=bounds5["nee_backward"][0], backward_bound_by=bounds5["nee_backward"][1],
+        unfolded_backward_device_ms=gat_t["device_ms"] + b_rows["device_ms"])
+    log(f"  nee_resolve on the NEE line's last bounce storing its radiance at idx (the unpermute folded in), "
+        f"bit-equal to nee_resolve in row order + unpermute_kernel, forward and backward; against its plain version "
+        f"max abs err {fold_err!r}: call {row['ms']!r} ms, device {row['device_ms']!r} ms, bound {row['bound_ms']!r} "
+        f"ms ({row['bound_by']}); the route before: nee_resolve {row['row_order_device_ms']!r} + unpermute "
+        f"{row['unpermute_device_ms']!r} ms on the device; nee_backward reading the cotangent at idx "
+        f"{row['backward_device_ms']!r} ms (bound {row['backward_bound_ms']!r}), before: gather "
+        f"{gat_t['device_ms']!r} + nee_backward {b_rows['device_ms']!r} ms [{card}]")
+    del frame_u, chk, d_fold, d_rows, out5, st5, res5
 
     # P2 on the bench's uniform block and on ragged sizes, bit for bit: one
     # not a multiple of the grid's stride (2 blocks of 4 outputs per thread)
@@ -1842,14 +1954,15 @@ def main() -> int:
     scan_grads = shade_gradients(pathtracer, ana_imp, po, pd, ana_u)
     scan_rows = {}
     for k, (rec, grad_args) in enumerate(zip(shade_calls(pathtracer, ana_imp, po, pd, ana_u), scan_grads), start=1):
-        sc_k, st_k, u_k, res_k, is_first, may_scatter = rec
-        call = (sc_k, st_k, u_k, res_k, None, is_first, may_scatter)
+        sc_k, st_k, u_k, res_k, is_first, may_scatter = rec[:6]
+        idx_k = rec[6] if len(rec) > 6 else None  # the last bounce: its radiance stored at idx
+        call = (sc_k, st_k, u_k, res_k, None, is_first, may_scatter, idx_k)
         lanes, live_k = int(st_k["throughput"].shape[0]), int(st_k["active"].sum())
         if shade_mod.launch_configs(sc_k, lanes)["forward"]["variant"] != "scan":
             raise AssertionError("K4 did not take its variant with K7's scan on the analytic scene")
         chk = check_shade(call, grad_args[5:8], grad_args[8], f"analytic bounce {k}, K7's scan folded in")
         hit7 = pathtracer._prim_hit(sc_k, st_k["origin"], st_k["dir"])
-        fed_call = (sc_k, st_k, u_k, res_k, (hit7[0] & st_k["active"], *hit7[1:]), is_first, may_scatter)
+        fed_call = (sc_k, st_k, u_k, res_k, (hit7[0] & st_k["active"], *hit7[1:]), is_first, may_scatter, idx_k)
         fed, fed_res = shade_mod._forward_cuda(shade_mod._Call(*fed_call), True)
         pairs = [(f, chk["out"].state[f], fed.state[f]) for f in shade_mod.STATE_KEYS]
         pairs += [(f, getattr(chk["out"], f), getattr(fed, f)) for f in ("albedo", "hitpoint", "normal", "mat",
@@ -1889,7 +2002,7 @@ def main() -> int:
         quads = make_quads(z["o"], z["u"], z["v"], z["mat"]).to(dev)
     log(f"  K8: plant_scene(depth={DEPTH}) holds {bvh_info['plants']} plants, {bvh_info['quads']} quads; "
         f"build_bvh {bvh_info['seconds']:.2f} s on the host{' (cached)' if bvh_info['cached'] else ''}: "
-        f"{bvh.n_nodes} nodes, tree depth {tree_depth(bvh)} (the stack holds 64)")
+        f"{bvh.n_nodes} nodes, tree depth {bvh.depth}; the kernel's launch {bvh_mod.launch_attributes(bvh)}")
     bo, bd = pprim[4], pprim[5]
     t_octree = torch.where(k_res.hit, k_res.t, float("inf")).contiguous()  # quads nearer than the octree's hit
     err_k8, work8 = 0.0, {}
@@ -1902,17 +2015,28 @@ def main() -> int:
         if any(unequal.values()):
             raise AssertionError(f"K8 disagrees with its twin on the plant primaries ({label})")
     k8t = both(lambda: bvh_intersect_quads(bvh, quads, bo, bd))
-    k8_bytes = (WIDTH * HEIGHT * BVH_RAY_BYTES + work8["nodes"] * BVH_NODE_BYTES
-                + work8["interior"] * 2 * BVH_NODE_BYTES + work8["prims"] * QUAD_ROW_BYTES)
-    k8_bound = bound(k8_bytes, (work8["nodes"] + 2 * work8["interior"]) * OPS_PER_BOX + work8["prims"] * OPS_PER_QUAD)
+    # the rows the kernel reads: each ray the root's, each expansion its two
+    # children's (a pop reads none); the twin's walk, as the JAX one, reads a
+    # row on every pop besides
+    rays8 = WIDTH * HEIGHT
+    rows8, twin_rows8 = rays8 + 2 * work8["interior"], work8["nodes"] + 2 * work8["interior"]
+    quad_bytes8 = work8["prims"] * QUAD_ROW_BYTES
+    k8_bound = bound(rays8 * BVH_RAY_BYTES + rows8 * BVH_NODE_BYTES + quad_bytes8,
+                     rows8 * OPS_PER_BOX + work8["prims"] * OPS_PER_QUAD)
+    reread_bound = bound(rays8 * BVH_RAY_BYTES + twin_rows8 * BVH_NODE_BYTES + quad_bytes8,
+                         twin_rows8 * OPS_PER_BOX + work8["prims"] * OPS_PER_QUAD)
     results["bvh_intersect"] = dict(
         max_abs_err=0.0, ms=k8t["call_ms"], device_ms=k8t["device_ms"],
         plain_ms=call_ms(lambda: bvh_intersect_reference(bvh, bo, bd, quad_prim_fn(quads)), 1),
-        bound_ms=k8_bound[0], bound_by=k8_bound[1], library_ms=None)
+        bound_ms=k8_bound[0], bound_by=k8_bound[1], library_ms=None, rows_per_ray=rows8 / rays8,
+        twin_rows_per_ray=twin_rows8 / rays8, reread_bound_ms=reread_bound[0], tree_depth=bvh.depth,
+        stack_entries=bvh.depth + 1)
     log(f"  K8 call {k8t['call_ms']!r} ms, device {k8t['device_ms']!r} ms ({k8t['device_by']}); twin "
-        f"{results['bvh_intersect']['plain_ms']!r} ms; bound {k8_bound[0]!r} ms ({k8_bound[1]}: {work8['nodes']} node "
-        f"rows, {work8['interior']} interior visits reading 2 child rows, {work8['prims']} quad rows) on the "
-        f"{WIDTH}x{HEIGHT} plant primaries; no PyTorch call computes this [{card}]")
+        f"{results['bvh_intersect']['plain_ms']!r} ms; bound {k8_bound[0]!r} ms ({k8_bound[1]}: {rows8} node rows, "
+        f"{rows8 / rays8!r} a ray: the root's and {work8['interior']} expansions' 2 child rows; {work8['prims']} quad "
+        f"rows); the bound counting the twin's re-reads on every pop ({twin_rows8} rows, {twin_rows8 / rays8!r} a "
+        f"ray) {reread_bound[0]!r} ms, on the {WIDTH}x{HEIGHT} plant primaries; no PyTorch call computes this "
+        f"[{card}]")
     # K8's main path: the entry point a caller uses, once
     reset_counts()
     hit8 = bvh_intersect_quads(bvh, quads, bo, bd)[0]
@@ -1943,7 +2067,8 @@ def main() -> int:
         while r.step():
             torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    read_counts("the Renderer", ("esvo_traverse", "philox_uniforms", "shade", "compact_forward", "unpermute"))
+    read_counts("the Renderer", ("esvo_traverse", "philox_uniforms", "shade", "compact_forward")
+                + unpermute_fold(False, False))
     frame = r.framebuffer
     log(f"  passes {passes}; spp {r.spp}; {render_s:.2f} s")
     if r.spp != 20 or {p[0] for p in passes} != {"render_pass", "render_pass_branched"}:
@@ -2036,7 +2161,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if i:  # the first run is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
-    read_counts("the forward frame", ("esvo_traverse", "shade", "compact_forward", "unpermute"))
+    read_counts("the forward frame", ("esvo_traverse", "shade", "compact_forward") + unpermute_fold(False, False))
     frame_ms = statistics.median(times)
     rays_nominal = WIDTH * HEIGHT * N_BOUNCES
     rays_live = int(live.sum())
@@ -2083,7 +2208,8 @@ def main() -> int:
         torch.cuda.synchronize()
         if i:  # the first run is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
-    read_counts("the fwd+bwd step", ("esvo_traverse", "shade", "shade_backward") + K5_PATH)
+    read_counts("the fwd+bwd step",
+                ("esvo_traverse", "shade", "shade_backward") + K5_PATH + unpermute_fold(False, True))
     fwdbwd_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated(dev)
     if not (bool(torch.isfinite(g_atlas).all()) and bool(torch.isfinite(g_emit).all())
@@ -2161,10 +2287,11 @@ def main() -> int:
         rays_live = int(live.sum())
         for step, fn in (("forward", lambda: trace_paths(sc, lo, ld, fu)),
                          ("fwd+bwd", lambda: fwdbwd(sc, lo, ld, fu))):
-            need = required + ("shade", "compact_forward", "unpermute") + (("nee_setup", "nee_resolve") if light else ())
+            need = (required + ("shade", "compact_forward") + (("nee_setup", "nee_resolve") if light else ())
+                    + unpermute_fold(light, step == "fwd+bwd"))
             need += (("shade (K7 scan)",) + (("nee_setup (K7 scan)",) if light else ())) if prims else ()
             if step == "fwd+bwd":  # compact_backward's work in the stores of K4's backward and nee_backward
-                need += (("shade_backward", "shade_backward (src stores)", "unpermute_backward")
+                need += (("shade_backward", "shade_backward (src stores)")
                          + (("nee_backward", "nee_backward (src stores)") if light else ()))
             reset_counts()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2219,12 +2346,13 @@ def main() -> int:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         read_counts(f"the {label} frame, forward and fwd+bwd, under set_sync_debug_mode('error')",
-                    ("esvo_traverse", "shade", "shade_backward") + K5_PATH)
+                    ("esvo_traverse", "shade", "shade_backward") + K5_PATH + unpermute_fold(label != "headline", True))
         log(f"  {label}: forward and fwd+bwd ran with the sync debug mode at 'error': no host read")
     eager = trace_paths(scene, fo, fd, fu)
     reset_counts()
     graph, replayed = capture_frame(lambda: trace_paths(scene, fo, fd, fu))
-    read_counts("the captured headline forward frame", ("esvo_traverse", "shade", "compact_forward", "unpermute"))
+    read_counts("the captured headline forward frame", ("esvo_traverse", "shade", "compact_forward")
+                + unpermute_fold(False, False))
     replayed.view(torch.uint8).fill_(0xFF)  # spoiled: the replays must write it again
     graph_runs = replay_ms(graph)
     torch.cuda.synchronize()
@@ -2284,10 +2412,10 @@ def main() -> int:
             f"within rtol 1e-5 / atol 1e-7 [{card}]")
 
     fwd_bwd_replay("the headline", scene, ("esvo_traverse", "shade", "shade_backward", "shade_backward (src stores)",
-                                           "compact_forward", "unpermute", "unpermute_backward"))
+                                           "compact_forward") + unpermute_fold(False, True))
     fwd_bwd_replay("config 3", high_quality(scene, "one"),
                    ("esvo_traverse", "shade", "shade_backward", "shade_backward (src stores)",
-                    "nee_backward (src stores)", "compact_forward", "unpermute", "unpermute_backward") + NEE_KERNELS)
+                    "nee_backward (src stores)", "compact_forward") + NEE_KERNELS + unpermute_fold(True, True))
     against_unfolded("headline", "forward", lambda: trace_paths(scene, fo, fd, fu))
     against_unfolded("headline", "fwd+bwd", lambda: fwdbwd(scene, fo, fd, fu))
 

@@ -64,12 +64,18 @@
 // left; so every slot that can attenuate is read first, each round of the
 // chain for all slots at once, and the fold runs in registers after them.
 // A face that no lane of a warp casts is skipped by the whole warp, and a
-// residual row is written as two 16-byte stores.
+// residual row is written as two 16-byte stores.  On a frame's last bounce
+// it writes the frame's final radiance, and stores row i's at row idx[i]
+// (the lane's own index, which K5 carries): the unpermute after the bounce
+// loop, folded into the store.  Every lane of the batch stores its row,
+// whatever its faces, so every output row is written once.
 //
 // nee_backward, per lane: from the radiance cotangent, the throughput's
 // and the shading point's albedo's gradients (the albedo's reach the atlas
 // through K4's backward; after a compaction the throughput's is stored at
-// row src[i], compact_backward's gather folded into the store); the
+// row src[i], compact_backward's gather folded into the store; on a frame's
+// last bounce the cotangent is read at row idx[i], the unpermute's gather
+// folded into the load, and handed on to K4's radiance at row i); the
 // blockers' rgba and the emitter's rgb are summed into the atlas gradient,
 // the emitter's emission into the emittance's.  It re-reads the texels the residual names and walks
 // nothing again.  The two sums are float64: under ALL a bounce adds 3 E
@@ -258,6 +264,7 @@ struct Walk {  // the binary walk's first hit or the stateful walk's record, and
 enum ResolveSlot {
   R_ALBEDO, R_THROUGHPUT, R_RADIANCE, R_CUR_MAT, R_ON, R_MAX_T, R_SCALE, R_E_TEXEL, R_E_MAT,
   R_HIT, R_T, R_FACE_ID, R_UV, R_LEAF_VALUE, R_COUNT, R_MATS, R_UU, R_VV, R_TS, R_P_HIT, R_P_T, R_P_MAT, R_P_UV,
+  R_IDX,  // the final bounce's lane order: row i's radiance is stored at row idx[i]; null: at row i
   R_OUT_RADIANCE, R_RESID, R_THROUGHPUT_STRIDE, R_RADIANCE_STRIDE, N_RESOLVE_SLOTS
 };
 
@@ -274,6 +281,7 @@ struct ResolveParams {
   const int* e_texel;
   const int* e_mat;
   Walk wk;
+  const int* idx;  // null: row i's radiance goes to row i
   float* out_rad;
   int* resid;  // (F * B, RESID_INTS), 16-byte aligned; null: not wanted
   long long throughput_stride, radiance_stride;
@@ -286,6 +294,9 @@ enum BackwardSlot {
   B_ATLAS, B_EMITTANCE, B_SUN_EMITTANCE, B_G_RADIANCE, B_ALBEDO, B_THROUGHPUT, B_RESID, B_SCALE,
   B_D_THROUGHPUT, B_D_ALBEDO, B_D_ATLAS, B_D_EMITTANCE, B_SUM_ATLAS, B_SUM_EMITTANCE,
   B_SRC,  // after a compaction: lane i's throughput gradient goes to row src[i]; null: to row i
+  // a frame's last bounce: row i's radiance cotangent is read at row
+  // idx[i] (null: at row i) and, where wanted, written to row i of d_rad
+  B_IDX, B_D_RADIANCE,
   N_BACKWARD_SLOTS
 };
 
@@ -305,6 +316,8 @@ struct BackwardParams {
   double* sum_atlas;  // the per-card scratch: zero on entry, zero again on exit
   double* sum_emit;
   const int* src;     // null: the throughput gradient of lane i goes to row i
+  const int* idx;     // null: the radiance cotangent of lane i is read at row i
+  float* d_rad;       // the cotangent read through idx, in row order (null: not wanted, or no idx)
   long long n_texels;
   int n_emit, n, sun, em_mode, faces;
 };
@@ -767,6 +780,7 @@ __global__ void __launch_bounds__(kThreads) nee_resolve_kernel(const __grid_cons
   if (i0 - (threadIdx.x & 31) >= p.n) return;  // the whole warp lies past the batch
   const bool valid = i0 < p.n;
   const long long i = valid ? i0 : 0, n = p.n;
+  const long long out_row = p.idx != nullptr ? (long long)__ldg(p.idx + i) : i;
   const float4 alb4 = reinterpret_cast<const float4*>(p.albedo)[i];
   const float alb[3] = {alb4.x, alb4.y, alb4.z};
   float tp[3], rad[3], acc[3] = {0.0f, 0.0f, 0.0f};
@@ -812,7 +826,7 @@ __global__ void __launch_bounds__(kThreads) nee_resolve_kernel(const __grid_cons
   if (!valid) return;
   if (fl.em_mode != EM_NONE)
     for (int c = 0; c < 3; ++c) rad[c] = rad[c] + tp[c] * acc[c];
-  for (int c = 0; c < 3; ++c) p.out_rad[3 * i + c] = rad[c];
+  for (int c = 0; c < 3; ++c) p.out_rad[3 * out_row + c] = rad[c];
 }
 
 // ---- nee_backward
@@ -851,8 +865,9 @@ __device__ void backward_lane(const BackwardParams& p, long long i, bool valid, 
     alb[0] = alb4.x;
     alb[1] = alb4.y;
     alb[2] = alb4.z;
+    const long long gi = p.idx != nullptr ? (long long)__ldg(p.idx + i) : i;
     for (int c = 0; c < 3; ++c) {
-      g[c] = p.g_rad[3 * i + c];
+      g[c] = p.g_rad[3 * gi + c];
       h[c] = g[c] * p.throughput[3 * i + c];
     }
   }
@@ -962,6 +977,8 @@ __device__ void backward_lane(const BackwardParams& p, long long i, bool valid, 
   }
   if (p.d_alb != nullptr)
     reinterpret_cast<float4*>(p.d_alb)[i] = make_float4(da[0], da[1], da[2], 0.0f);
+  if (p.d_rad != nullptr)  // the radiance's pass-through, in the rows K4 wrote it
+    for (int c = 0; c < 3; ++c) p.d_rad[3 * i + c] = g[c];
 }
 
 // The lanes, grid-stride (every lane of a block in every round, so the
@@ -1128,6 +1145,7 @@ extern "C" int nee_resolve(int n, const NeeTables* tables, const NeeFlags* flags
   p.wk.p_t = (const float*)slots[R_P_T];
   p.wk.p_mat = (const int*)slots[R_P_MAT];
   p.wk.p_uv = (const float*)slots[R_P_UV];
+  p.idx = (const int*)slots[R_IDX];
   p.out_rad = (float*)slots[R_OUT_RADIANCE];
   p.resid = (int*)slots[R_RESID];
   p.throughput_stride = (long long)(intptr_t)slots[R_THROUGHPUT_STRIDE];
@@ -1158,6 +1176,9 @@ extern "C" int nee_backward(int n, const void* const* slots, int n_slots, long l
   p.sum_atlas = p.d_atlas == nullptr ? nullptr : (double*)slots[B_SUM_ATLAS];
   p.sum_emit = p.d_emit == nullptr ? nullptr : (double*)slots[B_SUM_EMITTANCE];
   p.src = (const int*)slots[B_SRC];
+  p.idx = (const int*)slots[B_IDX];
+  p.d_rad = (float*)slots[B_D_RADIANCE];
+  if (p.d_rad != nullptr && p.idx == nullptr) return (int)cudaErrorInvalidValue;
   p.n_texels = n_texels;
   p.n_emit = n_emit;
   p.n = n;

@@ -1,6 +1,8 @@
 // The quad table and `Quad::hit`, shared by the quad-model accept of
-// traversal.cu (K2q) and the primitive scan of prims.cuh (K7, and its
-// copies folded into K4's forward and nee_setup).
+// traversal.cu (K2q), the primitive scan of prims.cuh (K7, and its copies
+// folded into K4's forward and nee_setup) and the BVH walk of bvh.cu (K8,
+// which reads a leaf's quad rows before it tests them: quad_load, then
+// quad_test).
 //
 // The arithmetic is ops/geometry.py `quad_hit` operation for operation.
 // Where the JAX package's CPU path fuses a multiply into an add (a dot
@@ -46,32 +48,51 @@ struct QuadTable {
   int count;
 };
 
-// Quad q against the ray o + t dir (o already in the quad's frame).
-// Returns whether it is hit in (0, t_next] from the front inside the quad,
-// with its t and texture coordinates.
+// One quad's row (84 bytes with its id): what quad_test reads.
+struct QuadRow {
+  float o[3], u[3], v[3], w[3], n[3];
+  float d, ur[2], vr[2];
+};
+
+__device__ __forceinline__ void quad_load(const QuadTable& qt, int q, QuadRow& r) {
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = __ldg(qt.origin + 3 * q + a);
+    r.u[a] = __ldg(qt.u + 3 * q + a);
+    r.v[a] = __ldg(qt.v + 3 * q + a);
+    r.w[a] = __ldg(qt.w + 3 * q + a);
+    r.n[a] = __ldg(qt.normal + 3 * q + a);
+  }
+  r.d = __ldg(qt.d + q);
+  r.ur[0] = __ldg(qt.u_range + 2 * q);
+  r.ur[1] = __ldg(qt.u_range + 2 * q + 1);
+  r.vr[0] = __ldg(qt.v_range + 2 * q);
+  r.vr[1] = __ldg(qt.v_range + 2 * q + 1);
+}
+
+// The quad of row `r` against the ray o + t dir (o already in the quad's
+// frame).  Returns whether it is hit in (0, t_next] from the front inside
+// the quad, with its t and texture coordinates.
+__device__ __forceinline__ bool quad_test(const QuadRow& r, const float o[3], const float dir[3], float t_next,
+                                          float& t, float& uu, float& vv) {
+  float denom = dot3(dir, r.n);
+  t = (r.d - dot3(r.n, o)) / denom;
+  float p[3], c[3], e[3];
+  for (int a = 0; a < 3; ++a) p[a] = fma_f32(dir[a], t, o[a]) - r.o[a];
+  cross3(p, r.v, c);
+  cross3(r.u, p, e);
+  float alpha = dot3(r.w, c);
+  float beta = dot3(r.w, e);
+  uu = fma_f32(alpha, r.ur[1] - r.ur[0], r.ur[0]);
+  vv = fma_f32(beta, r.vr[1] - r.vr[0], r.vr[0]);
+  return denom < -QUAD_EPSILON_F && t > 0.0f && t <= t_next && alpha >= 0.0f &&
+         alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
+}
+
+// Quad q against the ray o + t dir: its row read, then tested.
 __device__ __forceinline__ bool quad_hit(const QuadTable& qt, int q, const float o[3],
                                          const float dir[3], float t_next, float& t,
                                          float& uu, float& vv) {
-  float qo[3], qu[3], qv[3], qw[3], qn[3];
-  for (int a = 0; a < 3; ++a) {
-    qo[a] = __ldg(qt.origin + 3 * q + a);
-    qu[a] = __ldg(qt.u + 3 * q + a);
-    qv[a] = __ldg(qt.v + 3 * q + a);
-    qw[a] = __ldg(qt.w + 3 * q + a);
-    qn[a] = __ldg(qt.normal + 3 * q + a);
-  }
-  float denom = dot3(dir, qn);
-  t = (__ldg(qt.d + q) - dot3(qn, o)) / denom;
-  float p[3], c[3], e[3];
-  for (int a = 0; a < 3; ++a) p[a] = fma_f32(dir[a], t, o[a]) - qo[a];
-  cross3(p, qv, c);
-  cross3(qu, p, e);
-  float alpha = dot3(qw, c);
-  float beta = dot3(qw, e);
-  float ur0 = __ldg(qt.u_range + 2 * q), ur1 = __ldg(qt.u_range + 2 * q + 1);
-  float vr0 = __ldg(qt.v_range + 2 * q), vr1 = __ldg(qt.v_range + 2 * q + 1);
-  uu = fma_f32(alpha, ur1 - ur0, ur0);
-  vv = fma_f32(beta, vr1 - vr0, vr0);
-  return denom < -QUAD_EPSILON_F && t > 0.0f && t <= t_next && alpha >= 0.0f &&
-         alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
+  QuadRow r;
+  quad_load(qt, q, r);
+  return quad_test(r, o, dir, t_next, t, uu, vv);
 }

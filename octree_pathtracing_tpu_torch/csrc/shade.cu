@@ -50,6 +50,16 @@
 // compact_backward's gather, folded into these stores (every row is
 // written, so nothing is filled).
 //
+// The final unpermute: on a frame's last bounce of a scene that samples no
+// light, this forward writes the frame's final radiance, and it stores row
+// i's at row idx[i] (the lane's own index, which K5 carries): the scatter
+// that put the radiance back in the lanes' order after the bounce loop,
+// folded into the store (every row i is stored, the dead lanes' radiance
+// passed through, so every output row is written once).  Its backward reads
+// the radiance cotangent at row idx[i], the unpermute's gather folded into
+// the load.  The other outputs stay in row order: nothing reads them after
+// the last bounce.
+//
 // What bounds them: bytes.  Per lane the forward reads about 170 bytes (the
 // state, 21 uniforms, the hit) and a texel and a material row from tables
 // that stay in L2, and writes about 120 (the state, the hand-off, the
@@ -206,6 +216,7 @@ enum LaneSlot {
   S_HIT, S_T, S_FACE_ID, S_UV, S_LEAF_VALUE,
   S_Q_FOUND, S_Q_MAT, S_Q_UV, S_Q_NORMAL, S_Q_T,  // the quad surfaces: null without quad models
   S_P_HIT, S_P_T, S_P_MAT, S_P_UV, S_P_NORMAL,    // the primitive hit: null without primitives
+  S_IDX,  // the final bounce's lane order: row i's radiance is stored at row idx[i]; null: at row i
   S_ORIGIN_STRIDE, S_DIR_STRIDE, S_THROUGHPUT_STRIDE, S_RADIANCE_STRIDE, S_U_STRIDE,
   S_OUT_ORIGIN, S_OUT_DIR, S_OUT_THROUGHPUT, S_OUT_RADIANCE, S_OUT_ACTIVE, S_OUT_SPECULAR, S_OUT_CUR_MAT,
   S_OUT_ALBEDO, S_OUT_HITPOINT, S_OUT_NORMAL, S_OUT_MAT, S_OUT_DIFFUSE_ON,
@@ -218,6 +229,7 @@ enum BackwardSlot {
   B_G_THROUGHPUT, B_G_RADIANCE, B_G_ALBEDO, B_ALBEDO, B_THROUGHPUT, B_RESID_I, B_RESID_F, B_EMITTANCE,
   B_D_THROUGHPUT, B_D_ATLAS, B_D_EMITTANCE,
   B_SRC, B_D_RADIANCE,  // after a compaction: row i's gradients go to lane src[i]; null: to row i
+  B_IDX,  // the final bounce's lane order: row i's radiance cotangent is read at row idx[i]; null: at row i
   N_BACKWARD_SLOTS
 };
 
@@ -246,7 +258,8 @@ struct BackwardParams {
   float* d_atlas;
   float* d_emit;
   const int* src;  // null: the gradients of row i go to row i
-  float* d_rad;    // the radiance cotangent moved to src (null: not wanted, or no src)
+  float* d_rad;    // the radiance cotangent moved to src or from idx (null: not wanted, or neither given)
+  const int* idx;  // null: the radiance cotangent of row i is read at row i
   int n;
 };
 
@@ -587,6 +600,11 @@ __device__ void shade_lane(const ForwardParams& p, const Tables& tab, const Prim
                            long long i, const LaneIn& L) {
   const ShadeTables& tb = p.tb;
   const ShadeFlags& fl = p.fl;
+  // where the new radiance goes: idx[i] on a frame's last bounce, else i
+  // (read here, after the block's barrier, so that no register holds it
+  // across the scan and the staging)
+  const int* idx = static_cast<const int*>(p.in[S_IDX]);
+  const long long rad_row = idx != nullptr ? (long long)__ldg(idx + i) : i;
   float o[3], d[3], tp[3], rad[3];
   for (int c = 0; c < 3; ++c) {
     o[c] = L.o[c];
@@ -742,7 +760,7 @@ __device__ void shade_lane(const ForwardParams& p, const Tables& tab, const Prim
   store3(out[S_OUT_ORIGIN - S_OUT_ORIGIN], i, o[0], o[1], o[2]);
   store3(out[S_OUT_DIR - S_OUT_ORIGIN], i, d[0], d[1], d[2]);
   store3(out[S_OUT_THROUGHPUT - S_OUT_ORIGIN], i, tp[0], tp[1], tp[2]);
-  store3(out[S_OUT_RADIANCE - S_OUT_ORIGIN], i, rad[0], rad[1], rad[2]);
+  store3(out[S_OUT_RADIANCE - S_OUT_ORIGIN], rad_row, rad[0], rad[1], rad[2]);
   store3(out[S_OUT_HITPOINT - S_OUT_ORIGIN], i, hp[0], hp[1], hp[2]);
   store3(out[S_OUT_NORMAL - S_OUT_ORIGIN], i, nrm[0], nrm[1], nrm[2]);
   if (out[S_OUT_RESID_I - S_OUT_ORIGIN] != nullptr) {
@@ -816,10 +834,14 @@ __device__ void backward_lane(const BackwardParams& p, long long i, float da[4],
   if (p.g_alb != nullptr)
     for (int c = 0; c < 4; ++c) da[c] = p.g_alb[4 * i + c];
   de = 0.0f;
+  // the radiance cotangent of row i: at row idx[i] on a frame's last bounce
+  float g_rad[3] = {0.0f, 0.0f, 0.0f};
   if (p.g_rad != nullptr) {
+    const long long gi = p.idx != nullptr ? (long long)__ldg(p.idx + i) : i;
+    for (int c = 0; c < 3; ++c) g_rad[c] = p.g_rad[3 * gi + c];
     float e = emit_on ? __ldg(p.emittance + mat) : 0.0f;
     for (int c = 0; c < 3; ++c) {
-      float g = p.g_rad[3 * i + c];
+      float g = g_rad[c];
       if (miss) dt[c] = dt[c] + g * p.resid_f[3 * i + c];
       if (emit_on) {
         dt[c] = dt[c] + g * (a[c] * a[c] * e);
@@ -849,7 +871,7 @@ __device__ void backward_lane(const BackwardParams& p, long long i, float da[4],
   if (p.d_tp != nullptr)
     for (int c = 0; c < 3; ++c) p.d_tp[3 * o + c] = dt[c];
   if (p.d_rad != nullptr)
-    for (int c = 0; c < 3; ++c) p.d_rad[3 * o + c] = p.g_rad[3 * i + c];
+    for (int c = 0; c < 3; ++c) p.d_rad[3 * o + c] = g_rad[c];
 }
 
 // The warp's lanes that hold one key (>= 0), summed by the first of them
@@ -1043,7 +1065,9 @@ extern "C" int shade_backward(int n, const void* const* slots, int n_slots, void
   p.d_emit = (float*)slots[B_D_EMITTANCE];
   p.src = (const int*)slots[B_SRC];
   p.d_rad = (float*)slots[B_D_RADIANCE];
-  if (p.d_rad != nullptr && (p.src == nullptr || p.g_rad == nullptr)) return (int)cudaErrorInvalidValue;
+  p.idx = (const int*)slots[B_IDX];
+  if (p.d_rad != nullptr && ((p.src == nullptr && p.idx == nullptr) || p.g_rad == nullptr))
+    return (int)cudaErrorInvalidValue;
   p.n = n;
   LaunchConfig cfg;
   int rc = grid_config(2, n, kBwdThreads, 0, &cfg);

@@ -10,9 +10,11 @@ payload.  So the port has two entry points:
 
 - :func:`bvh_intersect_quads` walks a BVH over a world-space
   :class:`~.geometry.QuadSoA`: CUDA tensors launch kernel K8
-  (``csrc/bvh.cu``, one thread per ray) and count the launch in
-  ``bvh_intersect_quads.launches``; CPU tensors run the twin.  There is no
-  fallback from one to the other.
+  (``csrc/bvh.cu``, one thread per ray, its stack in shared memory) and
+  count the launch in ``bvh_intersect_quads.launches``; CPU tensors run the
+  twin.  There is no fallback from one to the other: a tree deeper than
+  the kernel's stack (``STACK_CAPACITY`` entries a ray, the tree's depth
+  + 1 needed) is refused.
 - :func:`bvh_intersect_reference` is the plain-torch twin in the JAX
   callback form, one stack per lane; :func:`quad_prim_fn` gives it the quad
   callback (``geometry.quad_hit``, whose fused rounding equals the JAX CPU
@@ -26,7 +28,10 @@ interior node pushes the far child, then the near one (the child box
 entered first, ties to the left), so the near one pops first.  The stack
 holds ``MAX_STACK`` entries: pushes beyond it are dropped, and a pop beyond
 it reads the last entry (the JAX walk's gather differs there; no tree of
-the port comes near that depth, see :func:`tree_depth`).
+the port comes near that depth, see :func:`tree_depth`).  The kernel makes
+the same decisions on the same floats, but reads each node row once: a
+parent slab-tests both children fully and carries what a child's visit
+needs, so a pop reads no row (``csrc/bvh.cu``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -43,6 +49,9 @@ from .geometry import QuadSoA, QuadTable, quad_hit
 
 MAX_STACK = 64
 LEAF_FLAG = 1 << 30
+# entries per ray that K8's stack in shared memory can hold (csrc/bvh.cu
+# kMaxStack): a walk of a tree of depth D needs at most D + 1
+STACK_CAPACITY = 64
 
 
 @dataclasses.dataclass
@@ -60,6 +69,11 @@ class BVH:
     def n_nodes(self) -> int:
         return int(self.left.shape[0])
 
+    @cached_property
+    def depth(self) -> int:
+        """:func:`tree_depth`, computed once per BVH (and kept by :meth:`to`)."""
+        return tree_depth(self)
+
     @classmethod
     def from_arrays(cls, node_min, node_max, left, right, prim_order) -> "BVH":
         node_min = torch.as_tensor(np.asarray(node_min, np.float32))
@@ -71,7 +85,10 @@ class BVH:
         return cls(node_min, node_max, left, right, torch.as_tensor(np.asarray(prim_order, np.int32)), rows)
 
     def to(self, device) -> "BVH":
-        return BVH(*(x.to(device) for x in dataclasses.astuple(self)))
+        moved = BVH(*(x.to(device) for x in dataclasses.astuple(self)))
+        if "depth" in self.__dict__:
+            moved.depth = self.depth
+        return moved
 
 
 def build_bvh(prim_min: np.ndarray, prim_max: np.ndarray, leaf_size: int = 2) -> BVH:
@@ -236,8 +253,10 @@ def _library():
     # no FMA contraction: the twin rounds every multiply and add on its own
     lib = load_library("bvh", ("-fmad=false",))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.bvh_intersect.argtypes = [vp, vp, ci, ctypes.POINTER(QuadTable), vp, vp, vp, ci, vp, vp, vp, vp]
+    lib.bvh_intersect.argtypes = [vp, vp, ci, ctypes.POINTER(QuadTable), vp, vp, vp, ci, ci, vp, vp, vp, vp]
     lib.bvh_intersect.restype = ci
+    lib.bvh_intersect_attributes.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.bvh_intersect_attributes.restype = ci
     lib.bvh_error_string.argtypes = [ci]
     lib.bvh_error_string.restype = ctypes.c_char_p
     return lib
@@ -263,8 +282,25 @@ def _check_cuda(bvh: BVH, quads: QuadSoA, origins, dirs, t_init):
             raise ValueError(f"bvh_intersect_quads: {msg}")
 
 
+def stack_entries(bvh: BVH) -> int:
+    """The stack entries per ray K8 launches ``bvh`` with: its depth + 1.
+    Raises where that exceeds ``STACK_CAPACITY``."""
+    entries = bvh.depth + 1
+    if entries > STACK_CAPACITY:
+        raise ValueError(f"bvh_intersect_quads: the tree is {bvh.depth} levels deep, and K8's stack holds "
+                         f"{STACK_CAPACITY} entries a ray (depth + 1 needed)")
+    return entries
+
+
+def _uses_kernels(x) -> bool:
+    """Whether ``x``'s device runs K8 (a CUDA tensor) rather than the twin
+    (a CPU tensor)."""
+    return x.is_cuda
+
+
 def _intersect_cuda(bvh: BVH, quads: QuadSoA, origins, dirs, t_init):
     _check_cuda(bvh, quads, origins, dirs, t_init)
+    entries = stack_entries(bvh)
     b = origins.shape[0]
     hit = origins.new_empty((b,), dtype=torch.bool)
     t = origins.new_empty((b,))
@@ -276,7 +312,7 @@ def _intersect_cuda(bvh: BVH, quads: QuadSoA, origins, dirs, t_init):
     rc = on_current_stream(lib.bvh_intersect, origins.get_device(), bvh.rows.data_ptr(),
                            bvh.prim_order.data_ptr(), bvh.prim_order.shape[0], ctypes.byref(table),
                            origins.data_ptr(), dirs.data_ptr(), None if t_init is None else t_init.data_ptr(),
-                           b, hit.data_ptr(), t.data_ptr(), payload.data_ptr())
+                           b, entries, hit.data_ptr(), t.data_ptr(), payload.data_ptr())
     if rc != 0:
         raise RuntimeError(f"bvh_intersect launch failed: {lib.bvh_error_string(rc).decode()}")
     bvh_intersect_quads.launches += 1
@@ -287,10 +323,11 @@ def bvh_intersect_quads(bvh: BVH, quads: QuadSoA, origins, dirs, t_init=None):
     """The nearest world-space quad per lane through ``bvh`` (built over the
     quads' boxes): (hit (B,), t (B,), payload (B,) int32 quad id, -1 on a
     miss); t is ``t_init`` (inf when None) on a miss.  CUDA tensors launch
-    kernel K8 and count the launch in ``bvh_intersect_quads.launches``; CPU
-    tensors run :func:`bvh_intersect_reference` with :func:`quad_prim_fn`.
-    Any other device raises."""
-    if origins.is_cuda:
+    kernel K8 and count the launch in ``bvh_intersect_quads.launches`` (a
+    tree deeper than its stack raises, :func:`stack_entries`); CPU tensors
+    run :func:`bvh_intersect_reference` with :func:`quad_prim_fn`.  Any
+    other device raises."""
+    if _uses_kernels(origins):
         return _intersect_cuda(bvh, quads, origins, dirs, t_init)
     if origins.device.type == "cpu":
         return bvh_intersect_reference(bvh, origins, dirs, quad_prim_fn(quads), t_init)
@@ -298,3 +335,20 @@ def bvh_intersect_quads(bvh: BVH, quads: QuadSoA, origins, dirs, t_init=None):
 
 
 bvh_intersect_quads.launches = 0
+
+
+def launch_attributes(bvh: BVH, device=None) -> dict:
+    """How K8 launches ``bvh`` on the current card (or ``device``):
+    {"threads" (per block), "stack_entries" (per thread, in shared memory),
+    "capacity" (the most entries a launch can give), "smem_bytes" (per
+    block), "registers" (per thread), "stack_frame_bytes" (local memory),
+    "resident_blocks_per_sm"}."""
+    entries = stack_entries(bvh)
+    lib = _library()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.bvh_intersect_attributes(entries, out)
+    if rc != 0:
+        raise RuntimeError(f"bvh_intersect attributes failed: {lib.bvh_error_string(rc).decode()}")
+    return dict(threads=out[0], stack_entries=entries, capacity=out[1], smem_bytes=entries * 12 * out[0],
+                registers=out[2], stack_frame_bytes=out[3], resident_blocks_per_sm=out[4])

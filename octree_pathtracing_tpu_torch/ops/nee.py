@@ -40,7 +40,12 @@ CUDA tensors through :class:`NeeFunction`, and the plain versions on CPU
 tensors; there is no fallback from one to the other.  After a compaction
 (the state's ``lanes``, ``ops/compact.Lanes``) the differentiable
 throughput is the one from before it, and the backward stores each lane's
-throughput gradient at the row it came from (``lanes.src``).
+throughput gradient at the row it came from (``lanes.src``).  On a frame's
+last bounce ``nee_resolve`` writes the frame's final radiance: given the
+compaction's ``idx`` it stores row ``i``'s at row ``idx[i]`` (the lanes' own
+order, the unpermute after the bounce loop folded into the store), and
+``nee_backward`` reads the radiance cotangent at row ``idx[i]`` and hands it
+on to K4's radiance in row order.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from ..models.sun import random_sun_direction
 from ..utils.cuda_build import on_current_stream
 from . import compact as k5
 from . import shade as k4
-from .shade import _atlas_data, _ptr, resolve_hit
+from .shade import _atlas_data, _folds, _ptr, resolve_hit
 from .shading import EPSILON, N_UNIFORMS, OFFSET, U_EM1, U_EM2, U_EM_PICK, U_SUBSURFACE, U_SUN1, U_SUN2
 from .texture import Atlas, sample_atlas, texel_index
 from .traversal import K_SURFACES, traverse, traverse_alpha, traverse_shadow
@@ -397,36 +402,43 @@ def _nee_terms(scene: Scene, plan: NeePlan, rays: NeeRays, walk, prim, albedo, c
 
 
 def nee_resolve_reference(scene: Scene, plan: NeePlan, rays: NeeRays, walk, prim, albedo, throughput, radiance,
-                          cur_mat, want_resid: bool = True):
+                          cur_mat, want_resid: bool = True, idx=None):
     """Plain twin of ``nee_resolve`` (any device): the radiance K4 wrote plus
     ``throughput * (sun + emitters)``, differentiable in the atlas, the
-    emittance, the albedo, the throughput and the radiance.  Returns (radiance
-    (B, 3), :class:`NeeResidual` or None)."""
+    emittance, the albedo, the throughput and the radiance; row ``i`` at row
+    ``idx[i]`` where ``idx`` is given (a frame's last bounce,
+    ``ops/compact.unpermute_reference``).  Returns (radiance (B, 3),
+    :class:`NeeResidual` or None)."""
     sun_nee, sun_on, em_acc, ints = _nee_terms(scene, plan, rays, walk, prim, albedo, cur_mat, want_resid)
     if sun_nee is not None:
         radiance = radiance + torch.where(sun_on[:, None], throughput * sun_nee, 0.0)
     if em_acc is not None:
         radiance = radiance + throughput * em_acc
+    if idx is not None:
+        radiance = k5.unpermute_reference(radiance, idx)
     b = cur_mat.shape[0]
     return radiance, (NeeResidual(ints, rays.scale.reshape(plan.faces, b)) if want_resid else None)
 
 
-def nee_reference(scene: Scene, st: dict, u, out):
+def nee_reference(scene: Scene, st: dict, u, out, idx=None):
     """The next-event half of one bounce through the plain versions (the
     walks through their wrappers): K4's hand-off ``out`` (``Shaded``) and
     the incoming state ``st`` in, (radiance (B, 3), :class:`NeeResidual`)
     out; differentiable by autograd like the eager code it is (after a
     compaction, ``st["lanes"]``, the throughput rows are gathered from the
-    throughput before it, so that its gradient reaches that)."""
+    throughput before it, so that its gradient reaches that).  ``idx``: as
+    :func:`nee`'s."""
     plan = nee_plan(scene)
     if plan is None:
+        _no_plan_for(idx)
         return out.state["radiance"], None
     rays = nee_setup_reference(scene, plan, st["cur_mat"], u, out.hitpoint, out.normal, out.mat, out.diffuse_on)
     walk, prim = nee_walks(scene, plan, rays)
     tp, lanes = st["throughput"], st.get("lanes")
     if lanes is not None:  # row j came from lane src[j]: the same rows, differentiable in the lanes' throughput
         tp = lanes.throughput[lanes.src.long()]
-    return nee_resolve_reference(scene, plan, rays, walk, prim, out.albedo, tp, out.state["radiance"], st["cur_mat"])
+    return nee_resolve_reference(scene, plan, rays, walk, prim, out.albedo, tp, out.state["radiance"], st["cur_mat"],
+                                 idx=idx)
 
 
 def _sum3(x):
@@ -435,7 +447,7 @@ def _sum3(x):
 
 
 def nee_backward_reference(albedo, throughput, resid: NeeResidual, atlas, emittance, sun_emittance, plan: NeePlan,
-                           g_radiance, need=(True, True, True, True, True)):
+                           g_radiance, need=(True, True, True, True, True), idx=None):
     """Plain twin of ``nee_backward`` (any device): the gradients of one
     bounce's next-event terms from the radiance cotangent, written out as
     formulas.  ``albedo`` (B, 4) and ``throughput`` (B, 3) are the forward's
@@ -447,7 +459,12 @@ def nee_backward_reference(albedo, throughput, resid: NeeResidual, atlas, emitta
     emittance): the albedo's alpha takes none; the blockers' texels take
     rgba, the emitters' texels rgb, the emitters' materials the emittance.
     The last two are summed in float64 (as the kernel sums them: under ALL
-    ~10^7 terms can fall on one material) and returned in float32."""
+    ~10^7 terms can fall on one material) and returned in float32.  ``idx``:
+    the forward's (a frame's last bounce), whose radiance cotangent row
+    ``i`` is read at row ``idx[i]`` (``ops/compact.unpermute_backward_reference``);
+    the radiance's gradient is then that gathered cotangent, in row order."""
+    if idx is not None:
+        g_radiance = k5.unpermute_backward_reference(g_radiance, idx)
     b = albedo.shape[0]
     flat = atlas.reshape(-1, 4)
     g = g_radiance
@@ -539,26 +556,26 @@ class NeeFunction(torch.autograd.Function):
     versions.  ``lanes`` (after a compaction): (the compacted throughput
     rows the kernels read, ``ops/compact.Lanes``); the throughput given is
     then the one from before the compaction, and the backward moves its
-    gradient back through it."""
+    gradient back through it.  ``idx`` (a frame's last bounce): the radiance
+    returned is in the lanes' own order, and so is its cotangent."""
 
     @staticmethod
-    def forward(ctx, throughput, radiance, albedo, atlas, emittance, call: _Call, entry=None, lanes=None):
+    def forward(ctx, throughput, radiance, albedo, atlas, emittance, call: _Call, entry=None, lanes=None, idx=None):
         want_grad = any(ctx.needs_input_grad[:5])
         cuda = _uses_kernels(throughput)
         rows = throughput if lanes is None else lanes[0]
         if cuda:
-            out, resid = _forward_cuda(call, rows, radiance, albedo, want_grad, entry)
+            out, resid = _forward_cuda(call, rows, radiance, albedo, want_grad, entry, idx)
         else:
             c = call
             rays = nee_setup_reference(c.scene, c.plan, c.cur_mat, c.u, c.hitpoint, c.normal, c.mat, c.diffuse_on)
             walk, prim = nee_walks(c.scene, c.plan, rays)
             out, resid = nee_resolve_reference(c.scene, c.plan, rays, walk, prim, albedo, rows, radiance,
-                                               c.cur_mat, want_grad)
+                                               c.cur_mat, want_grad, idx)
         ctx.set_materialize_grads(False)
         if want_grad:
-            moved = () if lanes is None else (lanes[1].src,)
             ctx.save_for_backward(albedo, rows, resid.ints, resid.scale, atlas, emittance, call.scene.sun.emittance,
-                                  *moved)
+                                  None if lanes is None else lanes[1].src, idx)
             ctx.plan = call.plan
         return out
 
@@ -566,17 +583,17 @@ class NeeFunction(torch.autograd.Function):
     def backward(ctx, g_radiance):
         need = ctx.needs_input_grad[:5]
         if g_radiance is None:
-            return (None,) * 8
-        albedo, throughput, ints, scale, atlas, emittance, sun_emittance, *moved = ctx.saved_tensors
+            return (None,) * 9
+        albedo, throughput, ints, scale, atlas, emittance, sun_emittance, src, idx = ctx.saved_tensors
         args = (albedo, throughput, NeeResidual(ints, scale), atlas, emittance, sun_emittance, ctx.plan,
                 g_radiance, need)
         if _uses_kernels(albedo):
-            d = _backward_cuda(*args, src=moved[0]) if moved else _backward_cuda(*args)
+            d = _backward_cuda(*args, **_folds(src, idx))
         else:
-            d = nee_backward_reference(*args)
-            if moved:  # each row's gradient back at the lane it came from, as the kernel stores it
-                d = (*k5.store_at_src_reference(moved[0], d[0]), *d[1:])
-        return (*d, None, None, None)
+            d = nee_backward_reference(*args, idx=idx)
+            if src is not None:  # each row's gradient back at the lane it came from, as the kernel stores it
+                d = (*k5.store_at_src_reference(src, d[0]), *d[1:])
+        return (*d, None, None, None, None)
 
 
 def _uses_kernels(x) -> bool:
@@ -630,7 +647,23 @@ def _check_no_other_grad(no_grad: tuple, u, out):
                      f"and emittance; {bad} require grad")
 
 
-def nee(scene: Scene, st: dict, u, out, prim_slots: bool = True):
+def _no_plan_for(idx):
+    """Raise where a caller hands the final bounce's ``idx`` to the
+    next-event half of a scene that samples no light: K4 writes the final
+    radiance there, and it must be the one given ``idx``."""
+    if idx is not None:
+        raise ValueError("nee: the scene samples no light, so K4 writes the final radiance; give idx to K4 "
+                         "(ops/shade.shade), not to nee")
+
+
+def samples_light(scene: Scene) -> bool:
+    """Whether a bounce of ``scene`` runs the next-event kernels (it has
+    a plan, one cached lookup): then ``nee_resolve`` writes a bounce's
+    radiance, otherwise K4 does."""
+    return _scene_plan(scene) is not None
+
+
+def nee(scene: Scene, st: dict, u, out, prim_slots: bool = True, idx=None):
     """The next-event half of one bounce (see the module's text): the new
     radiance (B, 3) from the incoming state ``st`` (with ``lanes`` after a
     compaction: the differentiable throughput is then ``lanes.throughput``),
@@ -650,9 +683,16 @@ def nee(scene: Scene, st: dict, u, out, prim_slots: bool = True):
     five differentiated that requires grad.  ``prim_slots=False`` (on the
     card, a scene with primitives): ``nee_setup`` writes no primitive slots
     and the walks launch K7 over every shadow ray, the route before K7 was
-    folded into ``nee_setup``, kept to compare the two."""
+    folded into ``nee_setup``, kept to compare the two.  ``idx`` ((B,)
+    int32, the compaction's carried lane index; a frame's last bounce on a
+    scene that samples light): the radiance is returned in the lanes' own
+    order, row ``i``'s at row ``idx[i]`` (counted in
+    ``nee.idx_resolve_launches`` and, for the backward, in
+    ``nee.idx_backward_launches``); on a scene that samples no light it
+    raises, since K4 writes the radiance there (:func:`samples_light`)."""
     plan = _scene_plan(scene)
     if plan is None:
+        _no_plan_for(idx)
         return out.state["radiance"]
     tp = st["throughput"]
     dev = tp.device
@@ -671,8 +711,8 @@ def nee(scene: Scene, st: dict, u, out, prim_slots: bool = True):
     if not cuda or (torch.is_grad_enabled() and (tp_in.requires_grad or rad.requires_grad or albedo.requires_grad
                                                  or atlas.requires_grad or emittance.requires_grad)):
         return NeeFunction.apply(tp_in, rad, albedo, atlas, emittance, call, entry,
-                                 None if lanes is None else (tp, lanes))
-    return _forward_cuda(call, tp, rad, albedo, False, entry)[0]
+                                 None if lanes is None else (tp, lanes), idx)
+    return _forward_cuda(call, tp, rad, albedo, False, entry, idx)[0]
 
 
 nee.setup_launches = 0
@@ -680,6 +720,8 @@ nee.resolve_launches = 0
 nee.backward_launches = 0
 nee.scan_setup_launches = 0  # of nee.setup_launches: the variant with K7's scan folded in
 nee.src_backward_launches = 0  # of nee.backward_launches: storing through a compaction's src
+nee.idx_resolve_launches = 0  # of nee.resolve_launches: storing the radiance at idx (the unpermute folded in)
+nee.idx_backward_launches = 0  # of nee.backward_launches: reading the radiance cotangent at idx
 
 
 # ---- the CUDA kernels
@@ -717,7 +759,8 @@ SETUP_SLOTS = SETUP_IN + ("u_stride",) + NeeRays._fields
 SETUP_ARRAY = ctypes.c_void_p * len(SETUP_SLOTS)
 # nee_backward's slot array (``enum BackwardSlot``)
 BACKWARD_SLOTS = ("atlas", "emittance", "sun_emittance", "g_radiance", "albedo", "throughput", "resid", "scale",
-                  "d_throughput", "d_albedo", "d_atlas", "d_emittance", "sum_atlas", "sum_emittance", "src")
+                  "d_throughput", "d_albedo", "d_atlas", "d_emittance", "sum_atlas", "sum_emittance", "src", "idx",
+                  "d_radiance")
 BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
 # nee_resolve's slot array (``enum ResolveSlot``): the lane's inputs, the
 # rays' fields it reads, the walks' records (null where the walk made none),
@@ -725,7 +768,8 @@ BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
 RESOLVE_IN = ("albedo", "throughput", "radiance", "cur_mat")
 WALK_FIELDS = ("hit", "t", "face_id", "uv", "leaf_value", "count", "mats", "uu", "vv", "ts")
 RESOLVE_SLOTS = (RESOLVE_IN + ("on", "max_t", "scale", "e_texel", "e_mat") + WALK_FIELDS
-                 + ("p_hit", "p_t", "p_mat", "p_uv", "out_radiance", "resid", "throughput_stride", "radiance_stride"))
+                 + ("p_hit", "p_t", "p_mat", "p_uv", "idx", "out_radiance", "resid", "throughput_stride",
+                    "radiance_stride"))
 RESOLVE_ARRAY = ctypes.c_void_p * len(RESOLVE_SLOTS)
 
 
@@ -983,11 +1027,12 @@ def _checked_resolve_inputs(ins: tuple, b: int, dev) -> tuple:
 
 
 def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, albedo, want_grad: bool,
-                  entry: _SceneEntry | None = None):
+                  entry: _SceneEntry | None = None, idx=None):
     """``nee_resolve`` on the card over the walks' records: (radiance (B, 3),
     :class:`NeeResidual` or None).  The scene's cached entry, the inputs
     checked in one pass, one allocation each for the radiance and the
-    residual, one entry-point call."""
+    residual, one entry-point call; the radiance of row ``i`` stored at row
+    ``idx[i]`` where ``idx`` is given (a frame's last bounce)."""
     plan = call.plan
     b = throughput.shape[0]
     dev = throughput.device
@@ -995,6 +1040,10 @@ def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, 
     if entry.device != dev or rays.active.device != dev:
         raise ValueError("nee: every input must be on the lanes' card")
     alb, tp, rad, cur_mat = _checked_resolve_inputs((albedo, throughput, radiance, call.cur_mat), b, dev)
+    if idx is not None:
+        idx = _dense(idx, (b,), _I32, "idx")
+        if idx.device != dev:
+            raise ValueError("nee: every input must be on the lanes' card")
     out = torch.empty((b, 3), dtype=_F32, device=dev)
     resid = None
     if want_grad:
@@ -1009,21 +1058,24 @@ def _resolve_cuda(call: _Call, rays: NeeRays, walk, prim, throughput, radiance, 
     p_ptrs = (None,) * 4 if prim is None else tuple(_ptr(x) for x in prim[:4])
     slots = RESOLVE_ARRAY(alb.data_ptr(), tp.data_ptr(), rad.data_ptr(), cur_mat.data_ptr(), rays.active.data_ptr(),
                           rays.max_t.data_ptr(), rays.scale.data_ptr(), rays.e_texel.data_ptr(),
-                          rays.e_mat.data_ptr(), *w_ptrs, *p_ptrs, out.data_ptr(),
+                          rays.e_mat.data_ptr(), *w_ptrs, *p_ptrs, _ptr(idx), out.data_ptr(),
                           None if resid is None else resid.ints.data_ptr(), tp.stride(0), rad.stride(0))
     _launch("nee_resolve", _library().nee_resolve, dev.index, b, entry.tables_ref, entry.flags_ref, slots,
             len(RESOLVE_SLOTS))
     nee.resolve_launches += 1
+    nee.idx_resolve_launches += idx is not None
     return out, resid
 
 
-def _forward_cuda(call: _Call, throughput, radiance, albedo, want_grad: bool, entry: _SceneEntry | None = None):
-    """The forward on the card: ``nee_setup``, the walks, ``nee_resolve``,
-    the scene's entry looked up once."""
+def _forward_cuda(call: _Call, throughput, radiance, albedo, want_grad: bool, entry: _SceneEntry | None = None,
+                  idx=None):
+    """The forward on the card: ``nee_setup``, the walks, ``nee_resolve``
+    (storing the radiance through ``idx`` where given), the scene's entry
+    looked up once."""
     entry = _scene_entry(call.scene, call.plan) if entry is None else entry
     rays = _setup_cuda(call, entry)
     walk, prim = nee_walks(call.scene, call.plan, rays)
-    return _resolve_cuda(call, rays, walk, prim, throughput, radiance, albedo, want_grad, entry)
+    return _resolve_cuda(call, rays, walk, prim, throughput, radiance, albedo, want_grad, entry, idx)
 
 
 # per card: the backward's float64 sums (the atlas's entries, then the
@@ -1049,21 +1101,28 @@ def _scratch(dev, words: int):
 
 
 def _backward_cuda(albedo, throughput, resid: NeeResidual, atlas, emittance, sun_emittance, plan: NeePlan,
-                   g_radiance, need, src=None):
+                   g_radiance, need, src=None, idx=None):
     """``nee_backward`` on the card: one launch that sums the atlas and
     emittance gradients in the card's float64 scratch and writes them
     dense in float32 (no fill, no conversion); the lane gradients one
     allocation, the table gradients another.  ``src`` ((B,) int32, after a
     compaction): the throughput's gradient of lane ``i`` is stored at row
-    ``src[i]``, the rows from before the compaction (every row written)."""
+    ``src[i]``, the rows from before the compaction (every row written).
+    ``idx`` ((B,) int32, a frame's last bounce): lane ``i``'s radiance
+    cotangent is read at row ``idx[i]``, and the radiance's gradient is that
+    cotangent in row order, written by the kernel (a third part of the lane
+    gradients' allocation)."""
     b = albedo.shape[0]
     dev = albedo.device
     g = _dense(g_radiance if g_radiance.is_contiguous() else g_radiance.contiguous(), (b, 3), _F32,
                "the radiance cotangent")
     tp = throughput if throughput.is_contiguous() else throughput.contiguous()
-    lanes = torch.empty(7 * b if need[0] or need[2] else 0, dtype=_F32, device=dev)
+    moves_rad = idx is not None and need[1]
+    lanes = torch.empty((7 * b if need[0] or need[2] else 0) + (3 * b if moves_rad else 0), dtype=_F32, device=dev)
     d_tp = lanes.as_strided((b, 3), (3, 1), 4 * b) if need[0] else None
     d_alb = lanes.as_strided((b, 4), (4, 1), 0) if need[2] else None
+    d_rad = (lanes.as_strided((b, 3), (3, 1), 7 * b if need[0] or need[2] else 0) if moves_rad
+             else g_radiance if need[1] else None)
     n_atlas, n_emit = atlas.numel(), emittance.numel()
     d_atlas = d_emit = None
     sums = (None, None)
@@ -1076,15 +1135,17 @@ def _backward_cuda(albedo, throughput, resid: NeeResidual, atlas, emittance, sun
         scratch = _scratch(dev, n_atlas + n_emit)
         base = scratch.data_ptr()
         sums = (base if need[3] else None, base + 8 * n_atlas if need[4] else None)
-    if any(need[i] for i in (0, 2, 3, 4)) and (b > 0 or d_atlas is not None or d_emit is not None):
+    if (any(need[i] for i in (0, 2, 3, 4)) or moves_rad) and (b > 0 or d_atlas is not None or d_emit is not None):
         slots = BACKWARD_ARRAY(atlas.data_ptr(), emittance.data_ptr(), sun_emittance.data_ptr(), g.data_ptr(),
                                albedo.data_ptr(), tp.data_ptr(), resid.ints.data_ptr(), resid.scale.data_ptr(),
-                               _ptr(d_tp), _ptr(d_alb), _ptr(d_atlas), _ptr(d_emit), *sums, _ptr(src))
+                               _ptr(d_tp), _ptr(d_alb), _ptr(d_atlas), _ptr(d_emit), *sums, _ptr(src), _ptr(idx),
+                               _ptr(d_rad) if moves_rad else None)
         _launch("nee_backward", _library().nee_backward, dev.index, b, slots, len(BACKWARD_SLOTS), n_atlas // 4,
                 n_emit, int(plan.sun), EM_MODES.get(plan.emitters, 0), plan.faces)
         nee.backward_launches += 1
         nee.src_backward_launches += src is not None
-    return d_tp, (g_radiance if need[1] else None), d_alb, d_atlas, d_emit
+        nee.idx_backward_launches += idx is not None
+    return d_tp, d_rad, d_alb, d_atlas, d_emit
 
 
 def backward_config(b: int, atlas_shape, n_emit: int, device=None) -> dict:

@@ -34,7 +34,12 @@ After a compaction (``ops/compact.compact_for_bounce``) the state carries
 ``lanes``: the differentiable throughput and radiance are then the ones
 from before the compaction, and the backward stores each row's gradients
 at the row it came from (``lanes.src``), so the compaction's own backward
-never runs.
+never runs.  On a frame's last bounce of a scene that samples no light K4
+writes the frame's final radiance: given the compaction's ``idx`` it
+stores row ``i``'s new radiance at row ``idx[i]`` (the lanes' own order,
+the unpermute after the bounce loop folded into the store), and its
+backward reads the radiance cotangent at row ``idx[i]``; every other output
+stays in row order.
 
 The forward leaves a residual for the backward (24 bytes per lane): the
 linear index of the texel read, the hit material and a lane code (miss,
@@ -239,12 +244,15 @@ def scan_prims_reference(scene: Scene, st: dict):
     return hit & st["active"], t, mat, uv, n
 
 
-def shade_reference(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool):
+def shade_reference(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool, idx=None):
     """Plain-torch twin of the forward kernel (any device): the base shading
     of one bounce.  ``st`` holds ``STATE_KEYS``; ``u`` is (B, N_UNIFORMS);
     ``res`` the traversal's ``HitResult`` (with ``quad`` on a scene with
     quad models); ``prim`` K7's (hit, t, mat, uv, normal), or None: on a
     scene with primitives, :func:`scan_prims_reference` of the lanes.
+    ``idx`` ((B,) int32, a frame's last bounce): the new radiance's row
+    ``i`` at row ``idx[i]`` (``ops/compact.unpermute_reference``), the other
+    outputs in row order.
 
     Returns (:class:`Shaded`, :class:`ShadeResidual`)."""
     if prim is None and scene.prims is not None:
@@ -287,6 +295,8 @@ def shade_reference(scene: Scene, st: dict, u, res, prim, is_first: bool, may_sc
         specular=torch.where(upd & sc["clears_specular"], False, st["specular"]),
         cur_mat=torch.where(upd & sc["enters"], mat, st["cur_mat"]),
     )
+    if idx is not None:
+        state["radiance"] = k5.unpermute_reference(radiance, idx)
     out = Shaded(state, albedo, hitpoint, n, mat.to(torch.int32), sc["do_diff"] & can_scatter)
 
     lobe = torch.where(sc["do_metal"], LOBE_METAL,
@@ -302,17 +312,22 @@ def shade_reference(scene: Scene, st: dict, u, res, prim, is_first: bool, may_sc
 
 
 def shade_backward_reference(albedo, throughput, resid: ShadeResidual, emittance, atlas_shape,
-                             g_throughput, g_radiance, g_albedo, need=(True, True, True, True)):
+                             g_throughput, g_radiance, g_albedo, need=(True, True, True, True), idx=None):
     """Plain-torch twin of the backward kernel (any device): the gradients
     of one bounce's base shading, from the cotangents of the new throughput,
     the new radiance and the hand-off albedo (each None for zero), written
     out as formulas.  ``albedo`` and ``throughput`` are the forward's albedo
     and incoming throughput, ``resid`` its residual.  ``need``: which of
     (throughput, radiance, atlas, emittance) to return (None otherwise).
+    ``idx``: the forward's (a frame's last bounce), whose radiance cotangent
+    row ``i`` is read at row ``idx[i]``
+    (``ops/compact.unpermute_backward_reference``).
 
     Returns (d throughput (B, 3), d radiance (B, 3), d atlas ``atlas_shape``,
     d emittance (M,)): the atlas gradient scatter-added into the texel each
     lane read, the emittance gradient into the lane's material."""
+    if idx is not None and g_radiance is not None:
+        g_radiance = k5.unpermute_backward_reference(g_radiance, idx)
     texel, mat, code = resid.ints.long().unbind(-1)
     miss = (code & CODE_MISS) != 0
     emit_on = (code & CODE_EMIT) != 0
@@ -361,6 +376,7 @@ class _Call(NamedTuple):
     prim: tuple | None
     is_first: bool
     may_scatter: bool
+    idx: torch.Tensor | None = None  # a frame's last bounce: the new radiance's row i at row idx[i]
 
 
 class ShadeFunction(torch.autograd.Function):
@@ -373,7 +389,9 @@ class ShadeFunction(torch.autograd.Function):
     carries ``lanes`` (``ops/compact.Lanes``) the throughput and the
     radiance given are those from before the compaction, the kernels read
     the state's compacted rows, and the backward stores each row's
-    gradients at the lane it came from (``lanes.src``)."""
+    gradients at the lane it came from (``lanes.src``).  Where the call
+    gives ``idx`` (a frame's last bounce) the new radiance is in the lanes'
+    own order, and so is its cotangent."""
 
     @staticmethod
     def forward(ctx, throughput, radiance, atlas, emittance, call: _Call):
@@ -388,26 +406,32 @@ class ShadeFunction(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         if want_grad:
             lanes = call.st.get("lanes")
-            moved = () if lanes is None else (lanes.src,)
             # the rows the kernel read: the compacted ones where the state was compacted
-            ctx.save_for_backward(out.albedo, call.st["throughput"], resid.ints, resid.floats, emittance, *moved)
+            ctx.save_for_backward(out.albedo, call.st["throughput"], resid.ints, resid.floats, emittance,
+                                  None if lanes is None else lanes.src, call.idx)
             ctx.atlas_shape = tuple(atlas.shape)
         return outputs
 
     @staticmethod
     def backward(ctx, *grads):
-        albedo, throughput, ints, floats, emittance, *moved = ctx.saved_tensors
+        albedo, throughput, ints, floats, emittance, src, idx = ctx.saved_tensors
         g_tp, g_rad, g_alb = grads[2], grads[3], grads[7]
         need = ctx.needs_input_grad[:4]
         resid = ShadeResidual(ints, floats)
         args = (albedo, throughput, resid, emittance, ctx.atlas_shape, g_tp, g_rad, g_alb, need)
         if _uses_kernels(albedo):
-            d = _backward_cuda(*args, src=moved[0]) if moved else _backward_cuda(*args)
+            d = _backward_cuda(*args, **_folds(src, idx))
         else:
-            d = shade_backward_reference(*args)
-            if moved:  # each row's gradients back at the lane it came from, as the kernel stores them
-                d = (*k5.store_at_src_reference(moved[0], d[0], d[1]), *d[2:])
+            d = shade_backward_reference(*args, idx=idx)
+            if src is not None:  # each row's gradients back at the lane it came from, as the kernel stores them
+                d = (*k5.store_at_src_reference(src, d[0], d[1]), *d[2:])
         return (*d, None)
+
+
+def _folds(src, idx) -> dict:
+    """The backward's keyword arguments for what the forward folded in: a
+    compaction's ``src`` and the final bounce's ``idx``, each where given."""
+    return {k: v for k, v in (("src", src), ("idx", idx)) if v is not None}
 
 
 def _uses_kernels(x) -> bool:
@@ -448,7 +472,7 @@ def _check_no_other_grad(scene: Scene, st: dict, u, res, prim):
                      f"{bad} require grad")
 
 
-def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool) -> Shaded:
+def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: bool, idx=None) -> Shaded:
     """One bounce's base shading (see the module's text).  CUDA tensors
     launch the forward kernel, counted in ``shade.launches`` (and in
     ``shade.scan_launches`` where it scans the primitives), and the
@@ -464,8 +488,13 @@ def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: boo
     ``st["lanes"]`` where the state carries it) the call goes through
     :class:`ShadeFunction`; otherwise it launches the forward alone, with
     no autograd node and no residual.  Both give the same outputs bit for
-    bit.  Any other device raises, and so does a tensor other than those
-    four that requires grad while grad mode is on."""
+    bit.  ``idx`` ((B,) int32, the compaction's carried lane index; a frame's
+    last bounce on a scene that samples no light): the new radiance is
+    returned in the lanes' own order, row ``i``'s at row ``idx[i]``
+    (counted in ``shade.idx_launches`` and, for the backward, in
+    ``shade.idx_backward_launches``).  Any other device raises, and so does
+    a tensor other than those four that requires grad while grad mode is
+    on."""
     tp = st["throughput"]
     dev = tp.device
     if dev.type not in ("cuda", "cpu"):
@@ -477,17 +506,19 @@ def shade(scene: Scene, st: dict, u, res, prim, is_first: bool, may_scatter: boo
         tp_in, rad_in = (tp, st["radiance"]) if lanes is None else (lanes.throughput, lanes.radiance)
         if tp_in.requires_grad or rad_in.requires_grad or atlas.requires_grad or emittance.requires_grad:
             out = ShadeFunction.apply(tp_in, rad_in, atlas, emittance,
-                                      _Call(scene, st, u, res, prim, bool(is_first), bool(may_scatter)))
+                                      _Call(scene, st, u, res, prim, bool(is_first), bool(may_scatter), idx))
             return Shaded(dict(zip(STATE_KEYS, out[:7])), *out[7:])
     if _uses_kernels(tp):
-        return _forward_cuda((scene, st, u, res, prim, bool(is_first), bool(may_scatter)), False)[0]
-    return shade_reference(scene, st, u, res, prim, bool(is_first), bool(may_scatter))[0]
+        return _forward_cuda((scene, st, u, res, prim, bool(is_first), bool(may_scatter), idx), False)[0]
+    return shade_reference(scene, st, u, res, prim, bool(is_first), bool(may_scatter), idx)[0]
 
 
 shade.launches = 0
 shade.backward_launches = 0
 shade.scan_launches = 0  # of shade.launches: the variant with K7's scan folded in
 shade.src_backward_launches = 0  # of shade.backward_launches: storing through a compaction's src
+shade.idx_launches = 0  # of shade.launches: storing the radiance at idx (the unpermute folded in)
+shade.idx_backward_launches = 0  # of shade.backward_launches: reading the radiance cotangent at idx
 
 
 # ---- the CUDA kernels
@@ -525,13 +556,13 @@ class _Flags(ctypes.Structure):
 # the outputs' pointers.
 IN_SLOTS = ("origin", "dir", "throughput", "radiance", "active", "specular", "cur_mat", "u",
             "hit", "t", "face_id", "uv", "leaf_value",
-            "q_found", "q_mat", "q_uv", "q_normal", "q_t", "p_hit", "p_t", "p_mat", "p_uv", "p_normal")
+            "q_found", "q_mat", "q_uv", "q_normal", "q_t", "p_hit", "p_t", "p_mat", "p_uv", "p_normal", "idx")
 STRIDE_SLOTS = ("origin_stride", "dir_stride", "throughput_stride", "radiance_stride", "u_stride")
 OUT_SLOTS = STATE_KEYS + ("albedo", "hitpoint", "normal", "mat", "diffuse_on", "resid_i", "resid_f")
 N_LANE_SLOTS = len(IN_SLOTS) + len(STRIDE_SLOTS) + len(OUT_SLOTS)
 # the backward's slot array (``enum BackwardSlot``)
 BACKWARD_SLOTS = ("g_throughput", "g_radiance", "g_albedo", "albedo", "throughput", "resid_i", "resid_f",
-                  "emittance", "d_throughput", "d_atlas", "d_emittance", "src", "d_radiance")
+                  "emittance", "d_throughput", "d_atlas", "d_emittance", "src", "d_radiance", "idx")
 LANE_ARRAY = ctypes.c_void_p * N_LANE_SLOTS
 BACKWARD_ARRAY = ctypes.c_void_p * len(BACKWARD_SLOTS)
 
@@ -710,9 +741,9 @@ def _carve(b: int, want_grad: bool, dev):
     return outs, [None if v is None else bases[v[5]] + v[4] for v in views]
 
 
-def _lane_inputs(scene: Scene, st: dict, u, res, prim) -> tuple:
+def _lane_inputs(scene: Scene, st: dict, u, res, prim, idx=None) -> tuple:
     """The forward's inputs in ``IN_SLOTS``' order (None where the scene
-    has no quad models or the call no primitives)."""
+    has no quad models, the call no primitives or no ``idx``)."""
     if scene.has_quad_models:
         q = res.quad
         if q is None:
@@ -722,7 +753,7 @@ def _lane_inputs(scene: Scene, st: dict, u, res, prim) -> tuple:
         quad = (None,) * 5
     return (st["origin"], st["dir"], st["throughput"], st["radiance"], st["active"], st["specular"],
             st["cur_mat"], u, res.hit, res.t, res.face_id, res.uv, res.leaf_value, *quad,
-            *((None,) * 5 if prim is None else prim))
+            *((None,) * 5 if prim is None else prim), idx)
 
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
@@ -730,7 +761,7 @@ _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 _IN_SPEC = ((_F32, -3), (_F32, -3), (_F32, -3), (_F32, -3), (_BOOL, 0), (_BOOL, 0), (_I32, 0), (_F32, -N_UNIFORMS),
             (_BOOL, 0), (_F32, 0), (_I32, 0), (_F32, 2), (_I32, 0),
             (_BOOL, 0), (_I32, 0), (_F32, 2), (_F32, 3), (_F32, 0),
-            (_BOOL, 0), (_F32, 0), (_I32, 0), (_F32, 2), (_F32, 3))
+            (_BOOL, 0), (_F32, 0), (_I32, 0), (_F32, 2), (_F32, 3), (_I32, 0))
 
 
 @functools.lru_cache(maxsize=256)
@@ -765,9 +796,10 @@ def _checked_inputs(ins: tuple, b: int, dev):
 def _forward_cuda(call, want_grad: bool):
     """The forward kernel on ``call`` (``_Call``'s fields): one output
     allocation, one entry-point call; the variant with K7's scan folded in
-    where the scene has primitives and the call gives no K7 hit.  Returns
+    where the scene has primitives and the call gives no K7 hit; the
+    radiance stored at ``idx`` where the call gives it.  Returns
     (:class:`Shaded`, :class:`ShadeResidual` or None)."""
-    scene, st, u, res, prim, is_first, may_scatter = call
+    scene, st, u, res, prim, is_first, may_scatter, idx = _Call(*call)
     tp = st["throughput"]
     b = tp.shape[0]
     dev = tp.device
@@ -776,7 +808,7 @@ def _forward_cuda(call, want_grad: bool):
     entry = _scene_entry(scene)
     if entry.device != dev:
         raise ValueError("shade: every input must be on the lanes' card")
-    ins = _checked_inputs(_lane_inputs(scene, st, u, res, prim), b, dev)
+    ins = _checked_inputs(_lane_inputs(scene, st, u, res, prim, idx), b, dev)
     outs, out_ptrs = _carve(b, want_grad, dev)
     out = Shaded(dict(zip(STATE_KEYS, outs[:7])), *outs[7:12])
     resid = ShadeResidual(outs[12], outs[13]) if want_grad else None
@@ -792,25 +824,29 @@ def _forward_cuda(call, want_grad: bool):
         raise RuntimeError(f"shade_forward launch failed: {lib.shade_error_string(rc).decode()}")
     shade.launches += 1
     shade.scan_launches += scan
+    shade.idx_launches += idx is not None
     return out, resid
 
 
 def _backward_cuda(albedo, throughput, resid: ShadeResidual, emittance, atlas_shape,
-                   g_throughput, g_radiance, g_albedo, need, src=None):
+                   g_throughput, g_radiance, g_albedo, need, src=None, idx=None):
     """The backward kernel: the atlas and emittance gradients carved from
     one zero-filled allocation (one fill), one entry-point call.  ``src``
     ((B,) int32, after a compaction): the throughput's gradient and the
     radiance's pass-through are stored at row ``src[i]``, the rows from
-    before the compaction (every row written, so no fill)."""
+    before the compaction (every row written, so no fill).  ``idx`` ((B,)
+    int32, a frame's last bounce): row ``i``'s radiance cotangent is read at
+    row ``idx[i]``."""
     b = albedo.shape[0]
     dev = albedo.device
     g_tp, g_rad, g_alb = (None if g is None else _dense(g.contiguous(), (b, k), torch.float32, f"the {name} cotangent")
                           for g, k, name in ((g_throughput, 3, "throughput"), (g_radiance, 3, "radiance"),
                                              (g_albedo, 4, "albedo")))
     d_tp = torch.empty((b, 3), dtype=torch.float32, device=dev) if need[0] else None
-    # the radiance's pass-through: the cotangent itself, or moved to src's rows by the kernel
+    # the radiance's pass-through: the cotangent itself, or moved (from idx's rows, to src's) by the kernel
     d_rad = g_radiance if need[1] else None
-    if src is not None and d_rad is not None:
+    moves_rad = (src is not None or idx is not None) and d_rad is not None
+    if moves_rad:
         d_rad = torch.empty((b, 3), dtype=torch.float32, device=dev)
     d_atlas = d_emit = None
     if need[2] or need[3]:
@@ -821,18 +857,19 @@ def _backward_cuda(albedo, throughput, resid: ShadeResidual, emittance, atlas_sh
             d_atlas = zeros.as_strided(atlas_shape, (h * w * 4, w * 4, 4, 1))
         if need[3]:
             d_emit = zeros.as_strided(emittance.shape, (1,), n_atlas)
-    moves_rad = src is not None and d_rad is not None
     if b > 0 and (need[0] or need[2] or need[3] or moves_rad):
         lib = _library()
         tp = throughput.contiguous()
         slots = BACKWARD_ARRAY(_ptr(g_tp), _ptr(g_rad), _ptr(g_alb), albedo.data_ptr(), tp.data_ptr(),
                                resid.ints.data_ptr(), resid.floats.data_ptr(), emittance.data_ptr(), _ptr(d_tp),
-                               _ptr(d_atlas), _ptr(d_emit), _ptr(src), _ptr(d_rad) if moves_rad else None)
+                               _ptr(d_atlas), _ptr(d_emit), _ptr(src), _ptr(d_rad) if moves_rad else None,
+                               _ptr(idx))
         rc = on_current_stream(lib.shade_backward, dev.index, b, slots, len(BACKWARD_SLOTS))
         if rc != 0:
             raise RuntimeError(f"shade_backward launch failed: {lib.shade_error_string(rc).decode()}")
         shade.backward_launches += 1
         shade.src_backward_launches += src is not None
+        shade.idx_backward_launches += idx is not None
     return d_tp, d_rad, d_atlas, d_emit
 
 

@@ -19,8 +19,12 @@ live lanes first, carrying each lane's original index and gathering the
 bounce's uniforms through it, as the JAX package's
 ``_sort_state_by_active`` does; every bounce then runs over all B lanes, a
 dead lane fetching nothing in the traversal and leaving its state as it is
-in the shading, and one scatter (``ops/compact.unpermute``) puts the
-radiance back in the lanes' order at the end.  With a gradient the
+in the shading.  The last bounce's writer of the radiance (K4 on a scene
+that samples no light, ``nee_resolve`` on one that does) is given the
+carried index and stores each row's radiance back in the lanes' own order,
+and its backward reads the cotangent there: the scatter JAX makes after the
+loop (``.at[idx].set``), folded into those stores, so no frame launches
+``ops/compact.unpermute``.  With a gradient the
 compaction makes no autograd node: the bounce's K4 and next-event half take
 the throughput and the radiance from before it as their differentiable
 inputs, and their backwards store each row's gradients back where the row
@@ -55,7 +59,7 @@ import torch
 from ..models.prims import intersect_prims
 from ..models.scene import MAX_DIST, Scene
 from ..ops import nee as nee_mod
-from ..ops.compact import compact_for_bounce, unpermute
+from ..ops.compact import compact_for_bounce
 from ..ops.nee import nee
 from ..ops.random import philox_uniforms
 from ..ops.shade import shade, sky_radiance  # noqa: F401 (sky_radiance: this module's name since the port began)
@@ -162,15 +166,20 @@ def _init_state(origins, dirs):
     )
 
 
-def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool):
+def _shade(scene: Scene, st, u, res, is_first: bool, may_scatter: bool, idx=None):
     """Shade one resolved traversal: the base shading (sky on miss, lobe
     scatter and emission on hit) through kernel K4 (``ops/shade.shade``),
     then the sun and emitter NEE on diffuse bounces from its hand-off
     through K4's next-event half (``ops/nee.nee``).  Analytic primitives
     compete with the octree hit, the nearer surface winning: K4 scans them
-    itself (it is given no K7 hit)."""
-    out = shade(scene, st, u, res, None, is_first, may_scatter)
-    return dict(out.state, radiance=nee(scene, st, u, out))
+    itself (it is given no K7 hit).  ``idx`` (a frame's last bounce after a
+    compaction, the lanes' carried index): the returned radiance is in the
+    lanes' own order, stored so by whichever of the two writes it last (the
+    next-event half where the scene samples light, else K4); every other
+    field stays in row order."""
+    light = idx is not None and nee_mod.samples_light(scene)
+    out = shade(scene, st, u, res, None, is_first, may_scatter, None if light else idx)
+    return dict(out.state, radiance=nee(scene, st, u, out, idx=idx if light else None))
 
 
 def _emitter_nee(scene: Scene, st, u, base_on, hitpoint, n, albedo):
@@ -185,26 +194,28 @@ def _emitter_nee(scene: Scene, st, u, base_on, hitpoint, n, albedo):
     return nee_mod._nee_terms(scene, plan, rays, walk, prim, albedo, st["cur_mat"], False)[2]
 
 
-def _bounce(scene: Scene, st, u, is_first: bool, may_scatter: bool):
+def _bounce(scene: Scene, st, u, is_first: bool, may_scatter: bool, idx=None):
     # the first bounce starts all active; later ones run over the whole
     # batch, and the traversal fetches nothing for a dead lane
     res = _trace(scene, st["origin"], st["dir"], None if is_first else st["active"])
-    return _shade(scene, st, u, res, is_first, may_scatter)
+    return _shade(scene, st, u, res, is_first, may_scatter, idx)
 
 
 def _live_bounces(scene: Scene, st, uniforms, first: int, counts):
     """Bounces ``first..n_bounces-1`` over every lane, each after one K5
     compaction (live lanes first; with a gradient the state carries the
-    compaction's ``lanes`` into the bounce); then the radiance back in the
-    lanes' order.  ``counts`` (n_bounces,) int32 on the lanes' device, or None,
-    takes the live count entering each of those bounces.  Returns the
-    (B, 3) radiance."""
+    compaction's ``lanes`` into the bounce); the last one is given the
+    compaction's ``idx`` and returns the radiance in the lanes' own order.
+    ``counts`` (n_bounces,) int32 on the lanes' device, or None, takes the
+    live count entering each of those bounces.  Returns the (B, 3)
+    radiance."""
     n_bounces = uniforms.shape[1]
     for bounce in range(first, n_bounces):
         st, u = compact_for_bounce(st, uniforms, bounce, counts)
         idx = st["idx"]
-        st = dict(_bounce(scene, st, u, is_first=False, may_scatter=bounce + 1 < n_bounces), idx=idx)
-    return unpermute(st["radiance"], st["idx"]) if "idx" in st else st["radiance"]
+        last = bounce + 1 == n_bounces
+        st = dict(_bounce(scene, st, u, False, not last, idx if last else None), idx=idx)
+    return st["radiance"]
 
 
 def _frame(scene: Scene, origins, dirs, uniforms):

@@ -17,7 +17,7 @@ the same functions (``torch.index_select``, ``torch.rand``), and the
 traversal kernels at the shapes the main paths give them::
 
     python3 octree_pathtracing_tpu_torch/utils/timing.py [--out FILE] [--world FILE] \
-        [--k4 | --bounces | --k5 | --nee | --train | --prims] ROOT [ROOT ...]
+        [--k4 | --bounces | --k5 | --nee | --train | --prims | --k8] ROOT [ROOT ...]
 
 Each ROOT is a directory holding ``octree_pathtracing_tpu_torch/`` (this
 checkout, or an older commit unpacked with ``git archive``); each is timed
@@ -70,7 +70,8 @@ those rows alone);
 kernels per bounce, the headline frames, K5's rows; ``--k5`` K5's rows and
 the headline frame's graph replay alone (an A/B of K5's design);
 ``--train`` chip_smoke.py's phase-7 training commands with their peak
-device memory.  The depth-9
+device memory; ``--k8`` kernel K8 on the depth-9 plant field's quad soup
+(``_time_k8``).  The depth-9
 octrees are cached under ``build/scenes`` of this file's checkout.  Needs
 a CUDA card.
 """
@@ -199,10 +200,12 @@ def bounce_rays(pathtracer, scene, origins, dirs, uniforms) -> list:
 
 def shade_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
     """The arguments ``(scene, st, u, res, is_first, may_scatter)`` of every
-    ``_shade`` call one ``trace_paths`` frame makes, in order: the primary
-    bounce's lanes, then each later bounce's: since K5 the whole batch, its
-    live lanes first (``int(st["active"].sum())`` of them); in a checkout
-    from before K5, the live sub-batch."""
+    ``_shade`` call one ``trace_paths`` frame makes, in order, and ``idx``
+    seventh where the checkout gives the last bounce the lanes' index (the
+    unpermute folded into the last bounce's stores; None on the other
+    bounces): the primary bounce's lanes, then each later bounce's: since
+    K5 the whole batch, its live lanes first (``int(st["active"].sum())`` of
+    them); in a checkout from before K5, the live sub-batch."""
     calls = []
     real = pathtracer._shade
 
@@ -253,10 +256,11 @@ def shade_gradients(pathtracer, scene, origins, dirs, uniforms) -> list:
     ``trace_paths`` frame makes, as bench.py's step takes it (the mean
     radiance, with the atlas and the emittance taking gradient), in the
     forward's bounce order: ``(albedo, throughput, residual, emittance,
-    atlas shape, g_throughput, g_radiance, g_albedo, need)``, and ``src``
-    last where the bounce followed a compaction whose backward K4's stores
-    (a checkout with the fold).  Needs the card: the CPU's backward runs the
-    twin."""
+    atlas shape, g_throughput, g_radiance, g_albedo, need)``, then ``src``
+    where the checkout folds the compaction's backward into K4's stores (the
+    compaction's, or None on the first bounce) and ``idx`` where it folds the
+    final unpermute into the last bounce's (None on the other bounces).
+    Needs the card: the CPU's backward runs the twin."""
     from octree_pathtracing_tpu_torch.ops import shade as k4
     from octree_pathtracing_tpu_torch.parallel import apply_params
 
@@ -264,7 +268,7 @@ def shade_gradients(pathtracer, scene, origins, dirs, uniforms) -> list:
     real = k4._backward_cuda
 
     def recording(*a, **kw):
-        calls.append(a + (kw["src"],) if "src" in kw else a)
+        calls.append(a + tuple(kw[k] for k in ("src", "idx") if k in kw))
         return real(*a, **kw)
 
     p = {"atlas": scene.atlas.detach().clone().requires_grad_(True),
@@ -279,27 +283,82 @@ def shade_gradients(pathtracer, scene, origins, dirs, uniforms) -> list:
 
 @contextlib.contextmanager
 def unfolded(pathtracer):
-    """The bounce loop of ``pathtracer`` as it ran before K7 and K5's
-    backward were folded into the kernels that read their results: each
-    bounce's K7 launch handed to K4 (the forward variant that reads it),
-    the next-event walks' K7 launch over every shadow ray (``nee_setup``
-    writes no primitive slots), and the compaction as an autograd node whose
-    backward is ``compact_backward`` (``ops/compact.compact``).  The folded
-    route is held to it: the same radiance and gradients, bit for bit."""
+    """The bounce loop of ``pathtracer`` as it ran before K7, K5's backward
+    and the final unpermute were folded into the kernels that read their
+    results: each bounce's K7 launch handed to K4 (the forward variant that
+    reads it), the next-event walks' K7 launch over every shadow ray
+    (``nee_setup`` writes no primitive slots), the compaction as an
+    autograd node whose backward is ``compact_backward``
+    (``ops/compact.compact``), and the last bounce storing its radiance in
+    row order, then ``ops/compact.unpermute`` (the standalone kernel, and
+    its gather back in the backward).  The folded route is held to it: the
+    same radiance, bit for bit, and the same gradients."""
     from octree_pathtracing_tpu_torch.ops import compact as k5
 
     real_shade, real_compact = pathtracer._shade, pathtracer.compact_for_bounce
 
-    def shade_with_k7(scene, st, u, res, is_first, may_scatter):
+    def shade_with_k7(scene, st, u, res, is_first, may_scatter, idx=None):
         prim = pathtracer._prim_hit(scene, st["origin"], st["dir"]) if scene.prims is not None else None
         out = pathtracer.shade(scene, st, u, res, prim, is_first, may_scatter)
-        return dict(out.state, radiance=pathtracer.nee(scene, st, u, out, prim_slots=False))
+        radiance = pathtracer.nee(scene, st, u, out, prim_slots=False)
+        return dict(out.state, radiance=radiance if idx is None else k5.unpermute(radiance, idx))
 
     pathtracer._shade, pathtracer.compact_for_bounce = shade_with_k7, k5.compact
     try:
         yield
     finally:
         pathtracer._shade, pathtracer.compact_for_bounce = real_shade, real_compact
+
+
+def plant_soup(scene):
+    """The plants of a ``plant_scene`` as a world-space quad soup: each plant
+    voxel's cross quads offset to its corner.  Returns (origins, us, vs,
+    materials) as numpy arrays."""
+    from octree_pathtracing_tpu_torch.octree import enumerate_leaves, unpack_nodes
+    from octree_pathtracing_tpu_torch.ops.traversal import FLAG_SIMPLE
+
+    mask, data = unpack_nodes(scene.nodes.cpu().numpy())
+    pos, _, val = enumerate_leaves(mask, data, scene.root, scene.depth)
+    m = scene.models
+    model = m.leaf_model.numpy()[val]
+    quad = (m.flags.numpy()[model] & FLAG_SIMPLE) == 0
+    pos, model = pos[quad], model[quad]
+    start, count = m.quad_start.numpy()[model], m.quad_count.numpy()[model]
+    qi = (start[:, None] + np.arange(int(count.max()))[None, :])[np.arange(int(count.max()))[None, :] < count[:, None]]
+    corner = np.repeat(pos.astype(np.float32), count, axis=0)
+    return (m.quads.origin.numpy()[qi] + corner, m.quads.u.numpy()[qi], m.quads.v.numpy()[qi],
+            m.quads.material_id.numpy()[qi])
+
+
+def plant_bvh_file(path: str, depth: int):
+    """``build_bvh`` (leaves of 2) over the boxes of ``plant_scene(depth)``'s
+    quad soup, padded by 1e-4, saved to ``path`` (an .npz with the soup);
+    where ``path`` holds the build of the same soup it is loaded instead.
+    Returns ({"plants", "quads", "seconds", "cached"}, the scene and its
+    camera).  Host work only (about a minute of numpy at depth 9)."""
+    import hashlib
+    import time
+
+    from octree_pathtracing_tpu_torch.models import plant_scene
+    from octree_pathtracing_tpu_torch.ops.bvh import build_bvh
+
+    scene, cam = plant_scene(depth=depth)
+    o, u, v, mat = plant_soup(scene)
+    digest = hashlib.sha256(b"".join(np.ascontiguousarray(x).tobytes() for x in (o, u, v, mat))).hexdigest()
+    if os.path.exists(path):
+        with np.load(path) as z:
+            if str(z["digest"]) == digest:
+                return dict(plants=len(o) // 4, quads=len(o), seconds=float(z["seconds"]), cached=True), scene, cam
+    corners = np.stack([o, o + u, o + v, o + u + v])
+    t0 = time.perf_counter()
+    bvh = build_bvh(corners.min(0) - 1e-4, corners.max(0) + 1e-4)
+    seconds = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, digest=digest, seconds=seconds, o=o, u=u, v=v, mat=mat,
+             **{f: getattr(bvh, f).numpy() for f in ("node_min", "node_max", "left", "right", "prim_order")})
+    os.replace(tmp, path)
+    return dict(plants=len(o) // 4, quads=len(o), seconds=seconds, cached=False), scene, cam
 
 
 def _bits_differ(a, b):
@@ -312,7 +371,9 @@ def _bits_differ(a, b):
 def check_shade(call, cot, need=(True, True, True, True), label: str = "") -> dict:
     """K4's acceptance gate on one ``shade`` call's arguments ``call``: the
     forward kernel against its twin on every output and the residual (at
-    most 0.1% of the lanes outside rtol 1e-5 / atol 1e-6), then the
+    most 0.1% of the lanes outside rtol 1e-5 / atol 1e-6; where the call
+    gives ``idx``, a frame's last bounce, the radiance stored through it
+    and the backward's radiance cotangent read through it), then the
     backward kernel against the backward twin on the kernel's own forward
     outputs, the cotangents ``cot`` (g_throughput, g_radiance, g_albedo,
     each None for zero) and the gradients ``need``, within rtol 1e-5 /
@@ -348,8 +409,9 @@ def check_shade(call, cot, need=(True, True, True, True), label: str = "") -> di
     scene, st = call[0], call[1]
     data = scene.atlas.data if hasattr(scene.atlas, "sizes") else scene.atlas
     args = (k_out.albedo, st["throughput"], k_res, scene.materials.emittance, tuple(data.shape), *cot, tuple(need))
-    got = k4._backward_cuda(*args)
-    want = k4.shade_backward_reference(*args)
+    folded = {"idx": call[7]} if len(call) > 7 and call[7] is not None else {}  # a frame's last bounce
+    got = k4._backward_cuda(*args, **folded)
+    want = k4.shade_backward_reference(*args, **folded)
     b_err = 0.0
     for name, x, y in zip(("throughput", "radiance", "atlas", "emittance"), got, want):
         if (x is None) != (y is None):
@@ -367,16 +429,17 @@ def nee_calls(pathtracer, scene, origins, dirs, uniforms) -> list:
     (``ops/nee.nee``) of one ``trace_paths`` frame taken with bench.py's
     gradient (the mean radiance into the atlas and the emittance), in
     order, each followed by the radiance cotangent its backward received
-    (None where it received none)."""
+    (None where it received none; on the last bounce of a checkout that
+    folds the final unpermute into it, in the lanes' order)."""
     from octree_pathtracing_tpu_torch.ops import nee as k
     from octree_pathtracing_tpu_torch.parallel import apply_params
 
     calls, real, real_bwd = [], pathtracer.nee, k.NeeFunction.backward
     cots = []
 
-    def recording(*a):
+    def recording(*a, **kw):
         calls.append(a)
-        return real(*a)
+        return real(*a, **kw)
 
     def recording_bwd(ctx, g):
         cots.append(g)
@@ -682,14 +745,14 @@ def _shade_cases(dev, cache_dir) -> dict:
                 "emittance": scene.materials.emittance.detach().clone().requires_grad_(True)}
 
     out = {}
-    for k, (_, st, uu, res, is_first, may_scatter) in enumerate(shade_calls(pathtracer, scene, o, d, u), start=1):
-        def fwd(st=st, uu=uu, res=res, is_first=is_first, may_scatter=may_scatter):
-            return pathtracer._shade(scene, st, uu, res, is_first, may_scatter)
+    for k, (_, st, uu, res, *flags) in enumerate(shade_calls(pathtracer, scene, o, d, u), start=1):
+        def fwd(st=st, uu=uu, res=res, flags=flags):
+            return pathtracer._shade(scene, st, uu, res, *flags)
 
-        def fwd_bwd(st=st, uu=uu, res=res, is_first=is_first, may_scatter=may_scatter):
+        def fwd_bwd(st=st, uu=uu, res=res, flags=flags):
             sp = apply_params(scene, params())
             s = dict(st, throughput=st["throughput"].clone().requires_grad_(True))
-            r = pathtracer._shade(sp, s, uu, res, is_first, may_scatter)
+            r = pathtracer._shade(sp, s, uu, res, *flags)
             (r["throughput"].sum() + r["radiance"].sum()).backward()
 
         row = both(fwd)
@@ -753,8 +816,8 @@ def _prim_cases(dev, cache_dir, frames: bool = False) -> dict:
     o, d = pixel_grid_rays(cam, 256, 256)
     u = pathtracer.draw_uniforms(1, 0, 256 * 256, 5, dev)
     out = {}
-    for k, (_, st, uu, res, is_first, may_scatter) in enumerate(shade_calls(pathtracer, scene, o, d, u), start=1):
-        row = both(lambda st=st, uu=uu, res=res, f=is_first, m=may_scatter: pathtracer._shade(scene, st, uu, res, f, m))
+    for k, (_, st, uu, res, *flags) in enumerate(shade_calls(pathtracer, scene, o, d, u), start=1):
+        row = both(lambda st=st, uu=uu, res=res, flags=flags: pathtracer._shade(scene, st, uu, res, *flags))
         out[f"K7 + K4 _shade analytic bounce {k}"] = dict(row, lanes=int(st["throughput"].shape[0]),
                                                          live=int(st["active"].sum()))
     hq = dataclasses.replace(scene, sun_sampling=SunSampling.high_quality())
@@ -987,7 +1050,7 @@ def _light_lines(dev, cache_dir, world, lines=LIGHT_LINES, scenes=None) -> dict:
                     row["graph"] = {"error": f"{type(e).__name__}: {e}"}
             if nee_mod is not None and nee_mod.nee_plan(sc) is not None:
                 real = pathtracer.nee
-                pathtracer.nee = lambda *a: nee_mod.nee_reference(*a)[0]
+                pathtracer.nee = lambda *a, **kw: nee_mod.nee_reference(*a, **kw)[0]
                 try:
                     row["plain_nee"] = profile_launches(synced)
                 finally:
@@ -1262,6 +1325,43 @@ def _time_bounces(dev, cache_dir) -> dict:
     return out
 
 
+def _time_k8(dev, cache_dir) -> dict:
+    """``--k8``: kernel K8 on the depth-9 plant field's quad soup (its BVH
+    built once into ``cache_dir``, ``plant_bvh_file``) against the 256x256
+    plant primaries, without and with the octree hit's t as ``t_init``:
+    hit, t and payload bit for bit against the twin, then by call and on
+    the device, with the rows the twin's walk reads (a row on every pop, two
+    on every expansion) and the fewest the same walk needs (the root's, two
+    on every expansion)."""
+    from octree_pathtracing_tpu_torch.models import pixel_grid_rays
+    from octree_pathtracing_tpu_torch.ops import bvh as k8
+    from octree_pathtracing_tpu_torch.ops.geometry import make_quads
+    from octree_pathtracing_tpu_torch.render import pathtracer
+
+    path = os.path.join(cache_dir, "plant_bvh_d9.npz")
+    info, scene, cam = plant_bvh_file(path, 9)
+    with np.load(path) as z:
+        bvh = k8.BVH.from_arrays(z["node_min"], z["node_max"], z["left"], z["right"], z["prim_order"]).to(dev)
+        quads = make_quads(z["o"], z["u"], z["v"], z["mat"]).to(dev)
+    scene, cam = scene.to(dev), cam.to(dev)
+    o, d = (x.contiguous() for x in pixel_grid_rays(cam, 256, 256))
+    res = pathtracer._trace(scene, o, d)
+    out = {}
+    for label, t_init in (("", None), (", t_init the octree's hit", torch.where(res.hit, res.t, float("inf")))):
+        stats = {}
+        k = k8.bvh_intersect_quads(bvh, quads, o, d, t_init)
+        r = k8.bvh_intersect_reference(bvh, o, d, k8.quad_prim_fn(quads), t_init, stats=stats)
+        if not all(torch.equal(a, b) for a, b in zip(k, r)):
+            raise AssertionError(f"K8 disagrees with its twin on the plant primaries{label}")
+        row = both(lambda t_init=t_init: k8.bvh_intersect_quads(bvh, quads, o, d, t_init))
+        b = o.shape[0]
+        row.update(lanes=b, quads=info["quads"], hits=int(k[0].sum()), tree_depth=k8.tree_depth(bvh),
+                   twin_rows=stats["nodes"] + 2 * stats["interior"], fewest_rows=b + 2 * stats["interior"],
+                   quads_tested=stats["prims"])
+        out[f"K8 plant primaries{label}"] = row
+    return out
+
+
 def _time_train(dev, cache_dir) -> dict:
     """``--train``: chip_smoke.py's phase-7 commands, ``cli train`` on the
     depth-9 chunk and cutout scenes (8 views at 512x512, 3 steps), each
@@ -1285,7 +1385,7 @@ def _time_train(dev, cache_dir) -> dict:
     return out
 
 
-MODES = ("--k4", "--bounces", "--k5", "--nee", "--train", "--prims")
+MODES = ("--k4", "--bounces", "--k5", "--nee", "--train", "--prims", "--k8")
 
 
 def main(argv=None) -> int:
@@ -1306,7 +1406,7 @@ def main(argv=None) -> int:
                 rows = _time_nee(dev, cache_dir, world)
             else:
                 rows = {"--k4": _k4_cases, "--bounces": _time_bounces, "--k5": _time_k5,
-                        "--train": _time_train,
+                        "--train": _time_train, "--k8": _time_k8,
                         "--prims": lambda *a: _prim_cases(*a, frames=True)}[args[-1]](dev, cache_dir)
             result = {"package": os.path.dirname(port.__file__), "card": card_line(), **rows}
         else:
@@ -1382,6 +1482,10 @@ def main(argv=None) -> int:
         if "fetch_max" in extra:  # the same rays and fetches in every checkout
             cells += (f" || fetches max {extra['fetch_max']} p50 {extra['fetch_p50']!r} "
                       f"p99 {extra['fetch_p99']!r}")
+        if "twin_rows" in extra:  # K8: the same rays and walk in every checkout
+            cells += (f" || {extra['quads']} quads, depth {extra['tree_depth']}, hits {extra['hits']}; node rows "
+                      f"the twin's walk reads {extra['twin_rows']}, the fewest {extra['fewest_rows']}; quads "
+                      f"tested {extra['quads_tested']}")
         print(f"{name}: {cells}", flush=True)
     if out_file:
         os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)

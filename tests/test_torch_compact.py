@@ -143,33 +143,38 @@ def test_compact_and_unpermute_refuse_what_they_do_not_take():
 
 def test_the_bounce_loop_compacts_before_each_later_bounce(monkeypatch):
     """``trace_paths`` on the CPU: one compaction before each bounce after
-    the first, over the whole batch with the live lanes first, one unpermute
-    at the end; every bounce shades all B lanes; the census counts agree
-    with the live lanes each compaction saw."""
+    the first, over the whole batch with the live lanes first; no unpermute
+    at the end: the last bounce alone is given the compaction's ``idx``
+    and returns the radiance in the lanes' order; every bounce shades all B
+    lanes; the census counts agree with the live lanes each compaction
+    saw."""
     from octree_pathtracing_tpu_torch.models import minecraft_chunk_scene, pixel_grid_rays
 
     scene, cam = minecraft_chunk_scene(depth=3)
     o, d = pixel_grid_rays(cam, 8, 8)
     u = torch.from_numpy(np.random.default_rng(5).random((64, N_BOUNCES, 21), dtype=np.float32))
-    seen, shaded, unpermuted = [], [], []
-    real_compact, real_shade, real_unpermute = tpt.compact_for_bounce, tpt._shade, tpt.unpermute
+    seen, shaded, unpermuted, given = [], [], [], []
+    real_compact, real_shade, real_unpermute = tpt.compact_for_bounce, tpt._shade, k5.unpermute
 
     def compact(st, uniforms, bounce, counts):
         out = real_compact(st, uniforms, bounce, counts)
         live = int(st["active"].sum())
-        seen.append((bounce, live, bool(out[0]["active"][:live].all()), bool((~out[0]["active"][live:]).all())))
+        seen.append((bounce, live, bool(out[0]["active"][:live].all()), bool((~out[0]["active"][live:]).all()),
+                     out[0]["idx"]))
         return out
 
     def shade(scene, st, *a):
         shaded.append(st["throughput"].shape[0])
+        given.append(a[4] if len(a) > 4 else None)
         return real_shade(scene, st, *a)
 
     monkeypatch.setattr(tpt, "compact_for_bounce", compact)
     monkeypatch.setattr(tpt, "_shade", shade)
-    monkeypatch.setattr(tpt, "unpermute", lambda *a: unpermuted.append(1) or real_unpermute(*a))
+    monkeypatch.setattr(k5, "unpermute", lambda *a: unpermuted.append(1) or real_unpermute(*a))
     radiance, live = tpt.trace_paths_census(scene, o, d, u)
     assert [s[0] for s in seen] == [1, 2, 3, 4] and all(s[2] and s[3] for s in seen)
     assert live.tolist() == [64] + [s[1] for s in seen]
-    assert shaded == [64] * N_BOUNCES and unpermuted == [1]
+    assert shaded == [64] * N_BOUNCES and unpermuted == []
+    assert all(g is None for g in given[:-1]) and given[-1] is seen[-1][4]  # the last compaction's idx
     monkeypatch.undo()
     assert torch.equal(radiance, tpt.trace_paths(scene, o, d, u))

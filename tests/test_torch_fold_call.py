@@ -8,7 +8,11 @@ loop's compaction returns ``src`` as an allocation of its own and makes no
 autograd node; a fwd+bwd over a compacted bounce calls no
 ``compact_backward``, and K4's backward and ``nee_backward`` receive
 ``src`` and store the gradient of the throughput from before the
-compaction.  The kernels themselves: test_torch_gpu.py.  No JAX here.
+compaction; the last bounce's writer of the radiance (K4 on a scene that
+samples no light, ``nee_resolve`` on one that does) receives the
+compaction's ``idx`` and its backward reads the cotangent through it, and
+no ``unpermute`` is called either way.  The kernels themselves:
+test_torch_gpu.py.  No JAX here.
 """
 
 import dataclasses
@@ -234,3 +238,32 @@ def test_cpu_route_gathers_the_gradients_through_pos(monkeypatch):
     assert len(calls) == 2 and all(c[0] is src for c in calls)  # K4's and the next-event half's
     gathered = [k5.compact_backward_reference(pos, c[1], None)[0] for c in calls]
     assert tp.grad is not None and torch.equal(tp.grad, gathered[0] + gathered[1])
+
+
+@pytest.mark.parametrize("sun", ["importance", "high_quality"])
+def test_the_last_bounce_stores_the_radiance_at_idx_and_calls_no_unpermute(lib, sun):
+    scene = _scene(sun)
+    light = sun == "high_quality"
+    st, u = _state(64, seed=5)
+    st = dict(st, throughput=st["throughput"].clone().requires_grad_(True))
+    before = (k5.unpermute.launches, k5.unpermute.backward_launches)
+    out = pathtracer._live_bounces(scene, st, u, 1, None)  # a block of 2 bounces: bounce 1 is the last
+    out.sum().backward()
+    assert not lib.named("unpermute") and (k5.unpermute.launches, k5.unpermute.backward_launches) == before
+    (fwd,) = lib.named("compact_forward")
+    idx = dict(zip(k5.FORWARD_SLOTS, fwd[1]))["out_idx"]
+    assert idx
+    (k4_fwd,) = lib.named("shade_forward")
+    (k4_bwd,) = lib.named("shade_backward")
+    k4_named = dict(zip(k4.BACKWARD_SLOTS, k4_bwd[1]))
+    assert dict(zip(k4.IN_SLOTS, k4_fwd[3]))["idx"] == (None if light else idx)
+    assert k4_named["idx"] == (None if light else idx)
+    if light:  # nee_resolve writes the final radiance; its backward hands K4 the cotangent in row order
+        (resolve,) = lib.named("nee_resolve")
+        (nee_bwd,) = lib.named("nee_backward")
+        nee_named = dict(zip(kn.BACKWARD_SLOTS, nee_bwd[1]))
+        assert dict(zip(kn.RESOLVE_SLOTS, resolve[3]))["idx"] == idx
+        assert nee_named["idx"] == idx and nee_named["d_radiance"]
+        assert k4_named["g_radiance"] == nee_named["d_radiance"]
+    else:
+        assert not lib.named("nee_resolve") and not lib.named("nee_backward")

@@ -114,7 +114,7 @@ def _plain_nee(monkeypatch):
     """The next-event half through its plain versions, differentiated by
     autograd, its walks through the traversal and K7 twins: the path the
     light lines ran before its kernels."""
-    monkeypatch.setattr(pathtracer, "nee", lambda *a: nee_mod.nee_reference(*a)[0])
+    monkeypatch.setattr(pathtracer, "nee", lambda *a, **kw: nee_mod.nee_reference(*a, **kw)[0])
     for name, twin in (("traverse", traverse_reference), ("traverse_alpha", traverse_alpha_reference),
                        ("traverse_shadow", traverse_shadow_reference),
                        ("intersect_prims", intersect_prims_reference)):
@@ -901,7 +901,9 @@ def _k4_calls(name, n, dev):
     """The arguments of every ``shade`` call of one 5-bounce frame over
     ``n`` lanes of ``name``'s 256x256 primaries (a seeded shuffle; a larger
     square grid where ``n`` is larger): the first is the primary bounce,
-    the second bounce 2's (the whole batch, its live lanes first)."""
+    the second bounce 2's (the whole batch, its live lanes first); the last
+    bounce's with the lanes' ``idx`` eighth (the unpermute folded into its
+    stores), the others without it."""
     key = ("k4", name)
     if key not in _SCENES:
         _SCENES[key] = _k4_scene(name)
@@ -915,7 +917,7 @@ def _k4_calls(name, n, dev):
     real = pathtracer.shade
 
     def recording(*a):
-        calls.append(a)
+        calls.append(a[:7] if len(a) > 7 and a[7] is None else a)
         return real(*a)
 
     pathtracer.shade = recording
@@ -1454,9 +1456,9 @@ def _forward_nee_calls(name, n, order, dev):
     u = torch.from_numpy(np.random.default_rng(n).random((n, 5, 21), dtype=np.float32)).to(dev)
     calls, real = [], pathtracer.nee
 
-    def recording(*a):
+    def recording(*a, **kw):
         calls.append(a)
-        return real(*a)
+        return real(*a, **kw)
 
     pathtracer.nee = recording
     try:
@@ -1619,6 +1621,8 @@ def test_one_nee_backward_activity_per_light_bounce_and_no_fill_or_copy(cuda):
     sampling: one ``nee_backward_kernel`` per bounce, and the same fills and
     copies in both (the next-event backward adds none); ``_backward_cuda``
     alone is one device activity."""
+    from octree_pathtracing_tpu_torch.utils.timing import profiled_names
+
     sc, cam = cutout_chunk_scene(depth=5)
     sc, cam = sc.to(cuda), cam.to(cuda)
     light = emitters.with_emitter_sampling(dataclasses.replace(sc, sun_sampling=SunSampling.high_quality()), "one")
@@ -1637,9 +1641,10 @@ def test_one_nee_backward_activity_per_light_bounce_and_no_fill_or_copy(cuda):
         loss().backward()
         best = []
         for _ in range(5):  # a profiler session can drop activities: the fullest counts
-            lo = loss()
+            losses = [loss(), loss()]
             torch.cuda.synchronize()
-            names = _profiled(lo.backward)
+            # the second of two backwards in one session (a session can drop the first activities of the first)
+            names = profiled_names(lambda: (losses.pop(0).backward(), torch.cuda.synchronize()))
             if len(names) > len(best):
                 best = names
         low = [x.lower() for x in best]
@@ -2001,7 +2006,8 @@ def test_frame_through_k5_is_one_compaction_per_bounce_and_no_index_kernel(cuda)
     """torch.profiler over one forward and one fwd+bwd frame: one
     ``compact_forward`` kernel before each bounce after the first, no
     ``compact_backward`` (its work folded into the stores of K4's backward
-    and ``nee_backward``), one unpermute each way, and no ``nonzero``,
+    and ``nee_backward``), no unpermute either way (folded into the last
+    bounce's radiance stores and its backward's loads), and no ``nonzero``,
     indexing or ``index_put`` kernel and no copy from the card to the
     host.  A profiler session can drop activities, so up to
     five sessions are taken, until one records every K5 launch the
@@ -2023,7 +2029,7 @@ def test_frame_through_k5_is_one_compaction_per_bounce_and_no_index_kernel(cuda)
         torch.cuda.synchronize()
 
     for fn, backward in ((fwd, False), (fwd_bwd, True)):
-        want = [4, 0, 2 if backward else 1]
+        want = [4, 0, 0]
         fn()
         for _ in range(5):
             before = (k5.compact.launches, k5.compact.backward_launches, k5.unpermute.launches,
@@ -2032,7 +2038,7 @@ def test_frame_through_k5_is_one_compaction_per_bounce_and_no_index_kernel(cuda)
                 fn()
             after = (k5.compact.launches, k5.compact.backward_launches, k5.unpermute.launches,
                      k5.unpermute.backward_launches)
-            assert tuple(a - b for a, b in zip(after, before)) == (4, 0, 1, 1 if backward else 0)
+            assert tuple(a - b for a, b in zip(after, before)) == (4, 0, 0, 0)
             names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
             lowered = [x.lower() for x in names]
             bad = [x for x in lowered if "nonzero" in x or "index" in x or "scatter" in x or "dtoh" in x
@@ -2263,10 +2269,11 @@ def test_frames_launch_no_k7_and_no_compact_backward(cuda, line):
     and (with a gradient) the same atlas and emittance gradients within
     rtol 1e-5 / atol 1e-7 (K4's backward adds them with float atomics in
     the schedule's order; the elements not bit-equal are printed); no K7
-    kernel and no ``compact_backward`` among its kernels; and the kernels
-    the route before it launched and the folds do not are those two and
-    the copy that made the primaries dense for K7 (its first bounce's
-    rays), nothing else, with no kernel of its own."""
+    kernel, no ``compact_backward`` and no unpermute among its kernels; and
+    the kernels the route before it launched and the folds do not are those
+    three (the unpermute once forward, once more with a gradient) and the
+    copy that made the primaries dense for K7 (its first bounce's rays),
+    nothing else, with no kernel of its own."""
     from octree_pathtracing_tpu_torch.utils.timing import unfolded
 
     if line.startswith("analytic"):
@@ -2316,12 +2323,14 @@ def test_frames_launch_no_k7_and_no_compact_backward(cuda, line):
             torch.testing.assert_close(got_g[k], want_g[k], rtol=1e-5, atol=1e-7)
     k7 = sum("prims_intersect_kernel" in x for x in before)
     k5b = sum("compact_backward_kernel" in x for x in before)
+    k5u = sum("unpermute_kernel" in x for x in before)
     print(f"{line}: {len(folded)} device activities through the folds, {len(before)} before them "
-          f"({k7} K7, {k5b} compact_backward)")
-    assert not any("prims_intersect_kernel" in x or "compact_backward_kernel" in x for x in folded)
-    assert (k7 > 0) == line.startswith("analytic") and (k5b == 4) == grad
+          f"({k7} K7, {k5b} compact_backward, {k5u} unpermute)")
+    assert not any("prims_intersect_kernel" in x or "compact_backward_kernel" in x or "unpermute_kernel" in x
+                   for x in folded)
+    assert (k7 > 0) == line.startswith("analytic") and (k5b == 4) == grad and k5u == (2 if grad else 1)
     copies = sum(n for x, n in gone.items() if "direct_copy_kernel" in x)
-    assert not new and copies <= 1 and sum(gone.values()) == k7 + k5b + copies
+    assert not new and copies <= 1 and sum(gone.values()) == k7 + k5b + k5u + copies
 
 
 @pytest.mark.gpu
@@ -2368,3 +2377,150 @@ def test_analytic_frames_replay_from_a_cuda_graph(cuda, sun):
         assert torch.equal(rad.detach(), rad_eager)
         for k, v in p.items():
             torch.testing.assert_close(v.grad, grads[k], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["terrain_d9", "nee", "analytic"])
+def test_last_bounce_stores_are_bit_equal_to_the_writer_then_the_unpermute(cuda, name):
+    """The last bounce of a 65,536-lane frame (the headline's depth-9
+    terrain under IMPORTANCE: K4 writes the radiance; the NEE line: the
+    terrain under HIGH_QUALITY, ``nee_resolve`` writes it; the analytic
+    scene: K4 with K7's scan) shaded with the compaction's ``idx`` against
+    the same bounce storing in row order, then the standalone
+    ``unpermute_kernel``: every output bit for bit; and backward, with a
+    cotangent that differs lane by lane, against the unpermute's gather
+    then the bounce's backwards: the incoming throughput's and radiance's
+    gradients bit for bit, the atlas's and emittance's within rtol 1e-5 /
+    atol 1e-7 (K4's float atomics add in the schedule's order)."""
+    from octree_pathtracing_tpu_torch.ops import compact as k5
+    from octree_pathtracing_tpu_torch.ops import shade as k4
+    from octree_pathtracing_tpu_torch.utils.timing import shade_calls
+
+    key = ("fold", name)
+    if key not in _SCENES:
+        _SCENES[key] = _nee_scene(name) if name == "nee" else _k4_scene(name)
+    sc, cam = (x.to(cuda) for x in _SCENES[key])
+    o, d = pixel_grid_rays(cam, 256, 256)
+    u = torch.from_numpy(np.random.default_rng(31).random((o.shape[0], 5, 21), dtype=np.float32)).to(cuda)
+    *_, (scene, st, uu, res, is_first, may_scatter, idx) = shade_calls(pathtracer, sc, o, d, u)
+    assert idx is not None and not may_scatter and idx.shape == (65536,)
+    light = nee_mod.samples_light(scene)
+    assert light == (name == "nee")
+    counts = (k4.shade.idx_launches, nee_mod.nee.idx_resolve_launches, k5.unpermute.launches)
+    folded = pathtracer._shade(scene, st, uu, res, is_first, may_scatter, idx)
+    assert (k4.shade.idx_launches - counts[0], nee_mod.nee.idx_resolve_launches - counts[1],
+            k5.unpermute.launches - counts[2]) == ((0, 1, 0) if light else (1, 0, 0))
+    rows = pathtracer._shade(scene, st, uu, res, is_first, may_scatter)
+    assert k5.unpermute.launches == counts[2]
+    want = k5.unpermute(rows["radiance"], idx)
+    assert torch.equal(folded["radiance"].view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(rows["radiance"], want)  # the lanes' order is not the rows'
+    for f in k4.STATE_KEYS[:3] + k4.STATE_KEYS[4:]:
+        assert torch.equal(folded[f], rows[f]), f
+
+    g = (torch.rand((65536, 3), generator=torch.Generator().manual_seed(32)) + 0.5).to(cuda)
+
+    def backward(fold):
+        p = {"atlas": scene.atlas.clone().requires_grad_(True),
+             "emittance": scene.materials.emittance.clone().requires_grad_(True)}
+        s = dict(st, throughput=st["throughput"].clone().requires_grad_(True),
+                 radiance=st["radiance"].clone().requires_grad_(True))
+        if fold:
+            rad = pathtracer._shade(apply_params(scene, p), s, uu, res, is_first, may_scatter, idx)["radiance"]
+        else:
+            rad = k5.unpermute(pathtracer._shade(apply_params(scene, p), s, uu, res, is_first, may_scatter)["radiance"],
+                               idx)
+        rad.backward(g)
+        return {"throughput": s["throughput"].grad, "radiance": s["radiance"].grad, **{k: v.grad for k, v in p.items()}}
+
+    before = (k4.shade.idx_backward_launches, nee_mod.nee.idx_backward_launches, k5.unpermute.backward_launches)
+    got = backward(True)
+    assert (k4.shade.idx_backward_launches - before[0], nee_mod.nee.idx_backward_launches - before[1],
+            k5.unpermute.backward_launches - before[2]) == ((0, 1, 0) if light else (1, 0, 0))
+    ref = backward(False)
+    assert k5.unpermute.backward_launches == before[2] + 1
+    for k in ("throughput", "radiance"):
+        assert torch.equal(got[k].view(torch.int32), ref[k].view(torch.int32)), k
+    for k in ("atlas", "emittance"):
+        print(f"{name} {k} gradient: {int((got[k] != ref[k]).sum())} elements not bit-equal")
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-7)
+    assert float(got["throughput"].abs().max()) > 0
+
+
+def _plant_soup_quads(depth: int):
+    """The plants of ``plant_scene(depth)`` as a world-space quad soup
+    (``utils/timing.plant_soup``), with a BVH built over their boxes (leaves
+    of 2)."""
+    from octree_pathtracing_tpu_torch.utils.timing import plant_soup
+
+    scene, cam = plant_scene(depth=depth)
+    o, u, v, mat = plant_soup(scene)
+    corners = np.stack([o, o + u, o + v, o + u + v])
+    bvh = build_bvh(corners.min(0) - 1e-4, corners.max(0) + 1e-4)
+    return scene, cam, bvh, make_quads(o, u, v, mat)
+
+
+@pytest.mark.gpu
+def test_bvh_kernel_matches_twin_on_the_plant_soup(cuda):
+    """K8 on a BVH built over a plant field's quads, against the plant
+    primaries (65,536 rays), without and with the octree's hit t as
+    ``t_init``: hit, t and payload bit for bit; its stack in shared memory
+    (no local-memory stack frame), the tree's depth + 1 entries a ray."""
+    from octree_pathtracing_tpu_torch.ops import bvh as k8
+
+    scene, cam, bvh, quads = _plant_soup_quads(6)
+    bvh, quads, scene, cam = bvh.to(cuda), quads.to(cuda), scene.to(cuda), cam.to(cuda)
+    o, d = (x.contiguous() for x in pixel_grid_rays(cam, 256, 256))
+    res = pathtracer._trace(scene, o, d)
+    attrs = k8.launch_attributes(bvh)
+    print(f"K8 on {bvh.prim_order.shape[0]} quads, depth {bvh.depth}: {attrs}")
+    assert attrs["stack_frame_bytes"] == 0 and attrs["stack_entries"] == bvh.depth + 1
+    for t_init in (None, torch.where(res.hit, res.t, float("inf")).contiguous()):
+        stats = {}
+        k = bvh_intersect_quads(bvh, quads, o, d, t_init)
+        r = bvh_intersect_reference(bvh, o, d, quad_prim_fn(quads), t_init, stats=stats)
+        torch.cuda.synchronize()
+        for f, a, b in zip(("hit", "t", "payload"), k, r):
+            assert torch.equal(a, b), f
+        print(f"t_init {t_init is not None}: hits {int(k[0].sum())}; the twin's walk {stats}; rows the kernel "
+              f"reads {o.shape[0] + 2 * stats['interior']} (the twin's {stats['nodes'] + 2 * stats['interior']})")
+        if t_init is None:  # the octree's own hit is the plant's, so few quads lie nearer than it
+            assert int(k[0].sum()) > 100
+
+
+@pytest.mark.gpu
+def test_bvh_kernel_refuses_a_tree_deeper_than_its_stack_and_fills_it_whole(cuda, monkeypatch):
+    """A chain of depth 63 (64 entries, the whole 48 KB of a block's stack)
+    walks bit-equal to the twin; depth 64 is refused before any launch, and
+    so is a tree deeper than a smaller capacity."""
+    from octree_pathtracing_tpu_torch.ops import bvh as k8
+
+    def chain(depth):  # each interior node: a leaf on the left, the rest of the chain on the right
+        left, right = [], []
+        for k in range(depth - 1):
+            left += [2 * k + 1, k8.LEAF_FLAG | k]
+            right += [2 * k + 2, 1]
+        left.append(k8.LEAF_FLAG | (depth - 1))
+        right.append(1)
+        lo = np.tile(np.float32([[-1.0, -1.0, -1.0]]), (len(left), 1))
+        return k8.BVH.from_arrays(lo, -lo, left, right, np.arange(depth) % 64).to(cuda)
+
+    rng = np.random.default_rng(41)
+    quads = make_quads(*(rng.uniform(-1, 1, (64, 3)).astype(np.float32) for _ in range(3)),
+                       np.zeros(64, np.int32)).to(cuda)
+    o = torch.from_numpy(rng.uniform(-3, 3, (4096, 3)).astype(np.float32)).to(cuda)
+    d = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32)).to(cuda)
+    deep = chain(63)
+    assert k8.launch_attributes(deep)["stack_entries"] == k8.STACK_CAPACITY
+    k = bvh_intersect_quads(deep, quads, o, d)
+    r = bvh_intersect_reference(deep, o, d, quad_prim_fn(quads))
+    for f, a, b in zip(("hit", "t", "payload"), k, r):
+        assert torch.equal(a, b), f
+    assert int(k[0].sum()) > 0
+    before = bvh_intersect_quads.launches
+    with pytest.raises(ValueError, match="64 levels deep"):
+        bvh_intersect_quads(chain(64), quads, o, d)
+    monkeypatch.setattr(k8, "STACK_CAPACITY", 8)
+    with pytest.raises(ValueError, match="8 levels deep.*holds 8 entries"):
+        bvh_intersect_quads(chain(8), quads, o, d)
+    assert bvh_intersect_quads.launches == before
