@@ -19,8 +19,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    P1 (``csrc/gather.cu``, row gather), K4 (``csrc/shade.cu``, hit
    resolve and shade, forward and backward), K4's next-event half with
    K6 (``csrc/nee.cu``: ``nee_setup``, ``nee_resolve``, ``nee_backward``)
-   and K5 (``csrc/compact.cu``: ``compact_forward``, ``compact_backward``,
-   the unpermute and its backward); and, beside them, the C++ region
+   K5 (``csrc/compact.cu``: ``compact_forward``, ``compact_backward``,
+   the unpermute and its backward) and K10 (``csrc/preview.cu``, the
+   preview's resolve and flat shade); and, beside them, the C++ region
    parser with g++ (host code: where it does not build, the numpy parser
    reads regions, as in the JAX package, and the line says why); ptxas's
    report of every kernel (registers, stack frame, spills), the
@@ -138,6 +139,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    --width 256 --height 256 --spp 20 --sun high_quality --device cuda``;
    the frame must be finite with a positive mean, and K2q (modes 1 and 3)
    and P2 must have been launched and no twin run;
+3d. the preview at the reference window (``RenderConfig``'s 1280x720),
+   depth 9: ``preview_image`` on the chunk (K1), the cutout (K2) and the
+   plant field (K2q), and ``cli preview --world`` on phase 8's region;
+   each must launch its walk and K10 once, and no twin; K10's output on
+   that call equal to its twin's on every pixel bit for bit; the
+   preview's eager ms (median of 5 after a warm-up), K10 by call and on
+   the device (graph replays of the call repeated, its inputs in L2, and
+   of 3 copies of its inputs in turn, read from HBM) beside its bound (the
+   bytes the call's data needs: the hit flag and output of every pixel,
+   the direction of a miss, the walk's fields of a hit, each distinct
+   texel once, over the memory rate) and its twin;
+3e. checkpoint and resume: ``cli render --scene chunk --depth 9`` at
+   256x256 and 4 spp with ``--checkpoint``, then ``--resume`` to 8 spp:
+   bit-equal to an uninterrupted 8-spp render;
 4. frame parity: one 64x64, 5-bounce frame of each depth-9 scene from a
    fixed uniform block, through the kernels and through the twins, with the
    IMPORTANCE sun and with HIGH_QUALITY + ``EmitterSampling.ONE``, and of
@@ -208,10 +223,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    train --world`` at 2 views of 128x128 for 2 steps.  The kernels each
    path must launch follow the scene's flags (the palette's textures are
    never transparent enough to reject a hit, so the bounces run K1; leaves,
-   glass and water make the sun walks K3s).
+   glass and water make the sun walks K3s);
+9. the sharded steps: two ranks spawned by ``torch.multiprocessing``
+   (gloo, ``tcp://localhost``) share the card, after phase 1 built every
+   library; each runs ``sharded_rank`` on the headline (depth 9, 256x256
+   lanes, S = 2 from P2, 5 bounces): ``sharded_render`` in the layouts
+   (dp = 2, sp = 1) and (dp = 1, sp = 2), each equal to the unsharded
+   ``trace_paths`` average within rtol and atol 1e-6; ``sharded_train_step``
+   at S = 1 (dp = 2): the loss and gradients the same on both ranks and
+   within rtol 1e-5 / atol 1e-7 of the unsharded step's; each rank's
+   frame, all-reduce and step ms; the ranks' launches count with the main
+   paths'.
 
-The launch counts of the main paths (phases 3, 3b, 3c, 5, 6, 6a, 6b, 6c,
-7, 8 and K8's walk in phase 2) are
+The launch counts of the main paths (phases 3, 3b, 3c, 3d, 3e, 5, 6, 6a,
+6b, 6c, 7, 8, 9 and K8's walk in phase 2) are
 set to 0 just before each path and read just after; the kernels'
 comparisons with their twins do not count.  Every path must have launched
 K4's forward, and its backward where a gradient is taken, and no path may
@@ -406,6 +431,9 @@ KERNELS = {
                                  "octree_pathtracing_tpu/render/pathtracer.py:1016"),
     "nee_resolve (unpermute stores)": ("octree_pathtracing_tpu_torch/csrc/nee.cu",
                                        "octree_pathtracing_tpu/render/pathtracer.py:1016"),
+    # K10: the preview's resolve, texel and flat shade or sky (render/preview.py:33-39, models/sun.py:219)
+    "preview_shade": ("octree_pathtracing_tpu_torch/csrc/preview.cu",
+                      "octree_pathtracing_tpu/render/preview.py:33"),
 }
 K5_KERNELS = ("compact_forward", "compact_backward", "unpermute", "unpermute_backward")
 # what a fwd+bwd main path launches of K5 (compact_backward's work is in
@@ -427,6 +455,17 @@ def unpermute_fold(light: bool, grad: bool) -> tuple:
 K5_STATE_BYTES = 48 + 2 + 4 + 4
 K5_LANE_BYTES = 2 * K5_STATE_BYTES + 4 + 2 * 84
 NEE_KERNELS = ("nee_setup", "nee_resolve", "nee_backward")
+# K10, what a call's data needs: per pixel its hit flag and its output; per
+# miss its direction; per hit its face, uv and leaf (and the quad flag on a
+# scene with quad models); per quad hit the quad's material, uv and normal
+PREVIEW_PIXEL_BYTES = 1 + 12
+PREVIEW_MISS_BYTES = 12
+PREVIEW_HIT_BYTES = 4 + 8 + 4
+PREVIEW_QUAD_BYTES = 4 + 8 + 12
+# phase 3d's frame: the reference window (RenderConfig's 1280x720)
+PREVIEW_W, PREVIEW_H = 1280, 720
+# phase 9: the sharded steps' samples per pixel (render, train step)
+SHARD_S, SHARD_TRAIN_S = 2, 1
 # the block-model and primitive lines at bench.py's shapes: (name, scene, sun)
 MODEL_CELLS = (("plant", "plant", "high_quality"), ("analytic", "analytic", "importance"),
                ("analytic_hq", "analytic", "high_quality"))
@@ -568,6 +607,112 @@ def _in_child(fn, out_json: str, *args):
     result = fn(*args)
     with open(out_json, "w") as f:
         json.dump(result, f)
+
+
+def counter_table() -> dict:
+    """Each kernel's launch count as its wrapper keeps it: name -> (the
+    wrapper, the attribute).  K2q's three modes count apart from K2, K3r and
+    K3s in ``model_launches``."""
+    from octree_pathtracing_tpu_torch.models.prims import intersect_prims
+    from octree_pathtracing_tpu_torch.ops import compact as compact_mod
+    from octree_pathtracing_tpu_torch.ops import nee as nee_mod
+    from octree_pathtracing_tpu_torch.ops import shade as shade_mod
+    from octree_pathtracing_tpu_torch.ops.bvh import bvh_intersect_quads
+    from octree_pathtracing_tpu_torch.ops.gather import row_gather
+    from octree_pathtracing_tpu_torch.ops.preview import preview_shade
+    from octree_pathtracing_tpu_torch.ops.random import philox_uniforms
+    from octree_pathtracing_tpu_torch.ops.traversal import traverse, traverse_alpha, traverse_record, traverse_shadow
+
+    return {
+        "esvo_traverse": (traverse, "launches"), "esvo_traverse_alpha": (traverse_alpha, "launches"),
+        "esvo_traverse_record": (traverse_record, "launches"),
+        "esvo_traverse_shadow": (traverse_shadow, "launches"),
+        "philox_uniforms": (philox_uniforms, "launches"), "row_gather": (row_gather, "launches"),
+        "esvo_traverse_models (mode 1)": (traverse_alpha, "model_launches"),
+        "esvo_traverse_models (mode 2)": (traverse_record, "model_launches"),
+        "esvo_traverse_models (mode 3)": (traverse_shadow, "model_launches"),
+        "prims_intersect": (intersect_prims, "launches"),
+        "bvh_intersect": (bvh_intersect_quads, "launches"),
+        "shade": (shade_mod.shade, "launches"), "shade_backward": (shade_mod.shade, "backward_launches"),
+        "nee_setup": (nee_mod.nee, "setup_launches"), "nee_resolve": (nee_mod.nee, "resolve_launches"),
+        "nee_backward": (nee_mod.nee, "backward_launches"),
+        "compact_forward": (compact_mod.compact, "launches"),
+        "compact_backward": (compact_mod.compact, "backward_launches"),
+        "unpermute": (compact_mod.unpermute, "launches"),
+        "unpermute_backward": (compact_mod.unpermute, "backward_launches"),
+        # the folds: of the launches above, K4's forward and nee_setup with
+        # K7's scan inside, K4's backward and nee_backward storing through a
+        # compaction's src (compact_backward's work)
+        "shade (K7 scan)": (shade_mod.shade, "scan_launches"),
+        "nee_setup (K7 scan)": (nee_mod.nee, "scan_setup_launches"),
+        "shade_backward (src stores)": (shade_mod.shade, "src_backward_launches"),
+        "nee_backward (src stores)": (nee_mod.nee, "src_backward_launches"),
+        # the final unpermute: of the launches above, the last bounce's
+        # writer of the radiance storing it at idx, its backward reading there
+        "shade (unpermute stores)": (shade_mod.shade, "idx_launches"),
+        "nee_resolve (unpermute stores)": (nee_mod.nee, "idx_resolve_launches"),
+        "shade_backward (unpermute reads)": (shade_mod.shade, "idx_backward_launches"),
+        "nee_backward (unpermute reads)": (nee_mod.nee, "idx_backward_launches"),
+        "preview_shade": (preview_shade, "launches"),
+    }
+
+
+def sharded_rank(scene, origins, dirs, uniforms, target, render_sp, train_sp, train_samples):
+    """What each rank of phase 9 runs, on the card, with its kernels' launch
+    counts (every count set to 0 first): ``sharded_render`` of the
+    sample-major batch on the mesh of each ``sp`` of ``render_sp``, the
+    whole image assembled, then ``sharded_train_step`` on the mesh of each
+    ``sp`` of ``train_sp`` against ``target`` on the first
+    ``train_samples`` samples.  Each step is timed on the second of two
+    calls, and one all-reduce of the rank's slice after the render.
+    Returns {"rank", "render": {sp: image}, "render_ms", "all_reduce_ms",
+    "train": {sp: (loss, grads)}, "train_ms", "launches"}."""
+    import torch
+    import torch.distributed as dist
+    from octree_pathtracing_tpu_torch.ops.texture import Atlas
+    from octree_pathtracing_tpu_torch.parallel import (assemble_image, global_ray_batch, make_mesh, sharded_render,
+                                                       sharded_train_step)
+
+    table = counter_table()
+    for fn, attr in table.values():
+        setattr(fn, attr, 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(dev)
+    scene = scene.to(dev)
+    out = {"rank": dist.get_rank(), "render": {}, "render_ms": {}, "all_reduce_ms": {}, "train": {},
+           "train_ms": {}}
+    for sp in render_sp:
+        mesh = make_mesh(sp=sp)
+        o, d, u = global_ray_batch(mesh, (origins, dirs, uniforms), dev)
+        for _ in range(2):  # the first call warms up
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            local = sharded_render(mesh, scene, o, d, u)
+            torch.cuda.synchronize(dev)
+        out["render_ms"][sp] = (time.perf_counter() - t0) * 1e3
+        out["render"][sp] = assemble_image(mesh, local).cpu().numpy()
+        probe = torch.zeros_like(local)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if mesh.size > 1:
+            dist.all_reduce(probe)
+        torch.cuda.synchronize(dev)
+        out["all_reduce_ms"][sp] = (time.perf_counter() - t0) * 1e3
+    atlas = scene.atlas.data if isinstance(scene.atlas, Atlas) else scene.atlas
+    params = {"atlas": atlas, "emittance": scene.materials.emittance}
+    for sp in train_sp:
+        mesh = make_mesh(sp=sp)
+        o, d, u, tgt = global_ray_batch(mesh, tuple(x[:train_samples] for x in (origins, dirs, uniforms, target)),
+                                        dev)
+        for _ in range(2):  # the first call warms up
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss, grads = sharded_train_step(mesh, scene, params, o, d, u, tgt)
+            torch.cuda.synchronize(dev)
+        out["train_ms"][sp] = (time.perf_counter() - t0) * 1e3
+        out["train"][sp] = (float(loss), {k: g.cpu().numpy() for k, g in grads.items()})
+    out["launches"] = {name: getattr(fn, attr) for name, (fn, attr) in table.items()}
+    return out
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -747,6 +892,23 @@ def prim_bound(prims, lanes: int):
     return bound(lanes * PRIM_RAY_BYTES + prim_table_bytes(prims), lanes * prim_scan_ops(prims))
 
 
+def preview_bound(scene, res):
+    """K10's bound on one call, the bytes this call's data needs
+    (``PREVIEW_*_BYTES``) and each distinct texel the hits read, once
+    (16 B); its arithmetic is far below the float32 rate."""
+    from octree_pathtracing_tpu_torch.ops.shade import resolve_hit
+    from octree_pathtracing_tpu_torch.ops.texture import texel_index
+
+    lanes, hits = int(res.hit.shape[0]), int(res.hit.sum())
+    mat, uv, _, _ = resolve_hit(scene, None, None, res)
+    layer = scene.materials.texture_index[mat.long()]
+    texels = texel_index(scene.atlas, layer, uv[:, 0], uv[:, 1])[res.hit].unique().numel()
+    n_bytes = lanes * PREVIEW_PIXEL_BYTES + (lanes - hits) * PREVIEW_MISS_BYTES + hits * PREVIEW_HIT_BYTES
+    if res.quad is not None:
+        n_bytes += hits + int((res.quad.found & res.hit).sum()) * PREVIEW_QUAD_BYTES
+    return bound(n_bytes + texels * 16, 0) + (texels,)
+
+
 def nee_bounds(chk, idx: bool = False) -> dict:
     """The next-event kernels' bounds on one ``utils/timing.check_nee``
     result: {kernel: (bound_ms, bound_by)}.  Each counts its lanes' and
@@ -852,6 +1014,7 @@ def main() -> int:
     from octree_pathtracing_tpu_torch.ops import shade as shade_mod
     from octree_pathtracing_tpu_torch.ops import nee as nee_mod
     from octree_pathtracing_tpu_torch.ops import compact as compact_mod
+    from octree_pathtracing_tpu_torch.ops import preview as preview_mod
     from octree_pathtracing_tpu_torch.ops import gather
     from octree_pathtracing_tpu_torch.ops.bvh import (
         BVH,
@@ -909,39 +1072,7 @@ def main() -> int:
         unfolded,
     )
 
-    # each kernel's launch count, as its wrapper keeps it (K2q's three modes
-    # count apart from K2, K3r and K3s in ``model_launches``)
-    counters = {
-        "esvo_traverse": (traverse, "launches"), "esvo_traverse_alpha": (traverse_alpha, "launches"),
-        "esvo_traverse_record": (traverse_record, "launches"),
-        "esvo_traverse_shadow": (traverse_shadow, "launches"),
-        "philox_uniforms": (philox_uniforms, "launches"), "row_gather": (row_gather, "launches"),
-        "esvo_traverse_models (mode 1)": (traverse_alpha, "model_launches"),
-        "esvo_traverse_models (mode 2)": (traverse_record, "model_launches"),
-        "esvo_traverse_models (mode 3)": (traverse_shadow, "model_launches"),
-        "prims_intersect": (intersect_prims, "launches"),
-        "bvh_intersect": (bvh_intersect_quads, "launches"),
-        "shade": (shade_mod.shade, "launches"), "shade_backward": (shade_mod.shade, "backward_launches"),
-        "nee_setup": (nee_mod.nee, "setup_launches"), "nee_resolve": (nee_mod.nee, "resolve_launches"),
-        "nee_backward": (nee_mod.nee, "backward_launches"),
-        "compact_forward": (compact_mod.compact, "launches"),
-        "compact_backward": (compact_mod.compact, "backward_launches"),
-        "unpermute": (compact_mod.unpermute, "launches"),
-        "unpermute_backward": (compact_mod.unpermute, "backward_launches"),
-        # the folds: of the launches above, K4's forward and nee_setup with
-        # K7's scan inside, K4's backward and nee_backward storing through a
-        # compaction's src (compact_backward's work)
-        "shade (K7 scan)": (shade_mod.shade, "scan_launches"),
-        "nee_setup (K7 scan)": (nee_mod.nee, "scan_setup_launches"),
-        "shade_backward (src stores)": (shade_mod.shade, "src_backward_launches"),
-        "nee_backward (src stores)": (nee_mod.nee, "src_backward_launches"),
-        # the final unpermute: of the launches above, the last bounce's
-        # writer of the radiance storing it at idx, its backward reading there
-        "shade (unpermute stores)": (shade_mod.shade, "idx_launches"),
-        "nee_resolve (unpermute stores)": (nee_mod.nee, "idx_resolve_launches"),
-        "shade_backward (unpermute reads)": (shade_mod.shade, "idx_backward_launches"),
-        "nee_backward (unpermute reads)": (nee_mod.nee, "idx_backward_launches"),
-    }
+    counters = counter_table()
     # folded into the kernels that read their results: no main path launches them
     FOLDED = ("prims_intersect", "compact_backward", "unpermute", "unpermute_backward")
     PORT_KERNELS = kernel_names()  # the port's own kernels by name, found among a session's activities
@@ -950,7 +1081,8 @@ def main() -> int:
                        "nee_backward (src stores)", "shade (unpermute stores)", "nee_resolve (unpermute stores)",
                        "shade_backward (unpermute reads)", "nee_backward (unpermute reads)")
     # the twins' own entry points, counted so that a main path can show it ran none
-    twin_calls = {"traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0, "K4 backward twin": 0,
+    twin_calls = {"preview twin": 0, "traversal twin": 0, "K7 twin": 0, "K8 twin": 0, "K4 twin": 0,
+                  "K4 backward twin": 0,
                   "nee_setup twin": 0, "nee_resolve twin": 0, "nee_backward twin": 0, "K5 twin": 0,
                   "K5 backward twin": 0, "unpermute twin": 0, "unpermute backward twin": 0}
     real_walk, real_prims_twin = traversal._walk_reference, prims_mod.intersect_prims_reference
@@ -996,6 +1128,8 @@ def main() -> int:
     bvh_mod.bvh_intersect_reference = counting_bvh_twin
     shade_mod.shade_reference = counting_shade_twin
     shade_mod.shade_backward_reference = counting_shade_bwd_twin
+    real_preview_twin = preview_mod.preview_shade_reference
+    preview_mod.preview_shade_reference = counting("preview twin", real_preview_twin)
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -1150,7 +1284,7 @@ def main() -> int:
                for a in (("traversal", traversal._library), ("uniforms", prandom._library),
                          ("gather", gather._library), ("prims", prims_mod._library), ("bvh", bvh_mod._library),
                          ("shade", shade_mod._library), ("nee", nee_mod._library),
-                         ("compact", compact_mod._library))]
+                         ("compact", compact_mod._library), ("preview", preview_mod._library))]
     threads.append(threading.Thread(target=build_native))
     for th in threads:
         th.start()
@@ -1158,7 +1292,7 @@ def main() -> int:
         th.join()
     if errors:
         raise errors[0]
-    log(f"phase 1 build: the eight libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
+    log(f"phase 1 build: the nine libraries loaded in {time.perf_counter() - t0:.2f} s; the C++ region "
         f"parser {native_build['result']}")
     for name, lib in builds.items():
         info = lib.build_info
@@ -2130,6 +2264,114 @@ def main() -> int:
         raise AssertionError("the plant frame is not finite with a positive mean at 20 spp")
     log(f"  spp {r.spp}; frame mean {float(frame.mean())!r}, finite; {render_s:.2f} s with the scene build [{card}]")
 
+    # ---- 3d. the preview at the reference window: the walk, then K10
+    from octree_pathtracing_tpu_torch.render import preview as preview_render
+
+    preview_calls = []  # (scene, dirs, walk, out) of each K10 call on a preview path
+    preview_frames = []  # (scene, camera, width, height) of each preview_image call
+    real_preview_image = preview_render.preview_image
+
+    def recording_preview_shade(sc, d, res):
+        out = preview_mod.preview_shade(sc, d, res)
+        preview_calls.append((sc, d, res, out))
+        return out
+
+    def recording_preview_image(*a):
+        preview_frames.append(a)
+        return real_preview_image(*a)
+
+    def walk_kernel(sc) -> str:
+        if sc.opaque_only:
+            return "esvo_traverse"
+        return "esvo_traverse_models (mode 1)" if sc.models is not None else "esvo_traverse_alpha"
+
+    preview_rows = {}
+
+    def preview_line(label: str, run):
+        """``run()`` draws one preview through the entry point; then K10 is
+        held against its twin on every pixel and timed on that call's walk,
+        and the preview itself is timed eager (median of 5 after a warm-up)."""
+        preview_calls.clear()
+        preview_frames.clear()
+        reset_counts()
+        with mock.patch.object(preview_render, "preview_shade", recording_preview_shade), \
+                mock.patch.object(preview_render, "preview_image", recording_preview_image):
+            img = run()
+        torch.cuda.synchronize()
+        sc, d, res, out = preview_calls[-1]
+        read_counts(f"the preview of {label}", (walk_kernel(sc), "preview_shade"))
+        if preview_mod.preview_shade.launches != 1:
+            raise AssertionError(f"the preview of {label} launched K10 {preview_mod.preview_shade.launches} times")
+        want = real_preview_twin(sc, d, res)
+        unequal = int((out != want).any(dim=1).sum())
+        err = float((out - want).abs().max())
+        if unequal or tuple(img.shape) != (PREVIEW_H, PREVIEW_W, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"the preview of {label}: K10 differs from its twin on {unequal} pixels "
+                                 f"(max abs {err!r}), or the frame is not a finite {PREVIEW_W}x{PREVIEW_H}")
+        sc_f, cam_f, w_f, h_f = preview_frames[-1]
+        eager = host_ms(lambda: real_preview_image(sc_f, cam_f, w_f, h_f))
+        k10 = both(lambda: preview_mod.preview_shade(sc, d, res))
+        # the same call on 3 copies of its inputs in turn: ~115 MB (~150 with
+        # quads) > the 50 MB L2, so each call reads its inputs from HBM as
+        # the bound counts them, where the repeated call finds them in L2
+        copies = [(d.clone(), res._replace(quad=None if res.quad is None else type(res.quad)(*(x.clone() for x in res.quad)),
+                                           **{f: getattr(res, f).clone() for f in ("hit", "face_id", "uv", "leaf_value")}))
+                  for _ in range(3)]
+        turn = iter(range(10**9))
+        cold, _ = device_ms(lambda: preview_mod.preview_shade(sc, *copies[next(turn) % 3]))
+        del copies
+        b_ms, b_by, texels = preview_bound(sc, res)
+        row = dict(lanes=int(d.shape[0]), hits=int(res.hit.sum()), texels=texels, max_abs_err=err,
+                   ms=k10["call_ms"], device_ms=cold, device_ms_l2=k10["device_ms"],
+                   plain_ms=call_ms(lambda: real_preview_twin(sc, d, res), 5),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, preview_ms=statistics.median(eager))
+        preview_rows[label] = row
+        log(f"  {label}: {row['hits']} of {row['lanes']} pixels hit, {texels} distinct texels; K10 bit-equal to its "
+            f"twin on every pixel; preview {row['preview_ms']!r} ms eager (median of {len(eager)}: "
+            f"{[round(t, 3) for t in eager]}); K10 call {row['ms']!r} ms, device {row['device_ms']!r} ms over 3 "
+            f"copies of its inputs in turn, {row['device_ms_l2']!r} ms repeating one call (its inputs in L2) "
+            f"({k10['device_by']}), bound {b_ms!r} ms ({b_by}), twin {row['plain_ms']!r} ms [{card}]")
+
+    log(f"phase 3d preview at {PREVIEW_W}x{PREVIEW_H} (RenderConfig's window), depth {DEPTH}")
+    for label, sc, camera in (("chunk", scene, cam), ("cutout", cut, cut_cam), ("plant", plant, plant_cam)):
+        preview_line(label, lambda: preview_render.preview_image(sc, camera, PREVIEW_W, PREVIEW_H))
+    child_result("world")  # the region file, written by the host process phase 0 started
+    argv = ["preview", "--world", world_path, "--depth", str(WORLD_DEPTH), "--width", str(PREVIEW_W),
+            "--height", str(PREVIEW_H), "--device", "cuda", "-o", os.path.join(out_dir, "world_preview.ppm")]
+    log(f"  cli {' '.join(argv)}")
+    parsed = cli.build_parser().parse_args(argv)
+    preview_line("world", lambda: parsed.fn(parsed))
+    preview_calls.clear()
+    preview_frames.clear()
+    results["preview_shade"] = dict(preview_rows["chunk"], lines=preview_rows,
+                                    max_abs_err=max(r["max_abs_err"] for r in preview_rows.values()))
+
+    # ---- 3e. checkpoint and resume through the CLI
+    ck = os.path.join(out_dir, "resume_ck.npz")
+    common = ["--scene", "chunk", "--depth", str(DEPTH), "--width", str(WIDTH), "--height", str(HEIGHT),
+              "--device", "cuda"]
+    resumed = {}
+    for name, spp, extra in (("checkpointed", 4, ["--checkpoint", ck]), ("resumed", 8, ["--resume", ck]),
+                             ("uninterrupted", 8, [])):
+        argv = ["render", *common, "--spp", str(spp), *extra, "-o", os.path.join(out_dir, f"resume_{name}.ppm")]
+        if name == "checkpointed":
+            log(f"phase 3e checkpoint and resume: cli {' '.join(argv)}")
+        else:
+            log(f"  cli {' '.join(argv)}")
+        parsed = cli.build_parser().parse_args(argv)
+        reset_counts()
+        r = parsed.fn(parsed)
+        torch.cuda.synchronize()
+        read_counts(f"cli render ({name})", ("esvo_traverse", "philox_uniforms", "shade", "compact_forward"))
+        resumed[name] = r
+    a, b = resumed["resumed"], resumed["uninterrupted"]
+    if not (os.path.exists(ck) and a.spp == b.spp == 8 and a.counter == b.counter
+            and torch.equal(a.framebuffer, b.framebuffer)):
+        raise AssertionError("the frame resumed from a 4-spp checkpoint is not the uninterrupted 8-spp frame")
+    log(f"  resumed from 4 to {a.spp} spp (draw counter {a.counter}): bit-equal to the uninterrupted frame, "
+        f"mean {float(a.framebuffer.mean())!r}; the checkpoint {os.path.getsize(ck)} bytes")
+    del resumed, a, b, r
+
     # ---- 4. frame parity: kernel paths against twin paths
     w = h = 64
     u = torch.from_numpy(np.random.default_rng(7).random((w * h, N_BOUNCES, 21), dtype=np.float32)).to(dev)
@@ -2578,6 +2820,65 @@ def main() -> int:
         raise AssertionError(f"world training failed: losses {res.losses}")
     log(f"  losses {res.losses}; wall s per step {res.step_seconds}; whole command {wall:.2f} s with the scene "
         f"build; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
+
+    # ---- 9. the sharded steps: two ranks share the card through gloo
+    from octree_pathtracing_tpu_torch.parallel import render_loss, spawn_ranks
+
+    b9 = WIDTH * HEIGHT
+    o9, d9 = pixel_grid_rays(cam, WIDTH, HEIGHT)
+    reset_counts()
+    u9 = pathtracer.draw_uniforms(9, 0, SHARD_S * b9, N_BOUNCES, dev).reshape(SHARD_S, b9, N_BOUNCES, -1)
+    torch.cuda.synchronize()
+    read_counts("phase 9's uniforms", ("philox_uniforms",))
+    o9s, d9s = o9[None].expand(SHARD_S, b9, 3).contiguous(), d9[None].expand(SHARD_S, b9, 3).contiguous()
+    t9 = torch.full((SHARD_S, b9, 3), 0.25, device=dev)
+    log(f"phase 9 sharded steps: 2 ranks spawned (torch.multiprocessing, gloo) on one card, the headline "
+        f"(depth {DEPTH}, {WIDTH}x{HEIGHT} lanes, S = {SHARD_S}, {N_BOUNCES} bounces), the libraries built in "
+        f"phase 1")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharded_rank, 2, "gloo", (scene_cpu, o9s.cpu(), d9s.cpu(), u9.cpu(), t9.cpu(), (1, 2), (1,),
+                                                  SHARD_TRAIN_S), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    want = sum(trace_paths(scene, o9, d9, u9[k]) for k in range(SHARD_S)) / SHARD_S
+    p9 = {"atlas": scene.atlas.detach().requires_grad_(True),
+          "emittance": scene.materials.emittance.detach().requires_grad_(True)}
+    n9 = SHARD_TRAIN_S
+    flat9 = lambda x: x[:n9].reshape((n9 * b9,) + tuple(x.shape[2:]))  # noqa: E731
+    loss9 = render_loss(scene, p9, flat9(o9s), flat9(d9s), flat9(u9), flat9(t9))
+    g9 = dict(zip(("atlas", "emittance"), torch.autograd.grad(loss9, [p9["atlas"], p9["emittance"]])))
+    want_np = want.cpu().numpy()
+    for r in ranks:
+        for sp in (1, 2):
+            err = float(np.abs(r["render"][sp] - want_np).max())
+            if not np.allclose(r["render"][sp], want_np, rtol=1e-6, atol=1e-6):
+                raise AssertionError(f"rank {r['rank']}'s sharded render (sp = {sp}) differs from the unsharded "
+                                     f"average by up to {err!r}")
+        loss_r, grads_r = r["train"][1]
+        if not np.isclose(loss_r, float(loss9.detach()), rtol=1e-5, atol=1e-7) or not all(
+                np.allclose(grads_r[k], g9[k].cpu().numpy(), rtol=1e-5, atol=1e-7) for k in g9):
+            raise AssertionError(f"rank {r['rank']}'s sharded train step differs from the unsharded step")
+        log(f"  rank {r['rank']}: render (dp = 2, sp = 1) {r['render_ms'][1]!r} ms, (dp = 1, sp = 2) "
+            f"{r['render_ms'][2]!r} ms a frame (both ranks on the card at once); one "
+            f"all-reduce of its slice {r['all_reduce_ms'][1]!r} / {r['all_reduce_ms'][2]!r} ms; train step "
+            f"(dp = 2) {r['train_ms'][1]!r} ms, loss {loss_r!r} (each the second of two calls) [{card}]")
+    a, b = ranks[0]["train"][1], ranks[1]["train"][1]
+    if a[0] != b[0] or not all(np.array_equal(a[1][k], b[1][k]) for k in a[1]):
+        raise AssertionError("the two ranks' losses or gradients differ")
+    launches9 = Counter()
+    for r in ranks:
+        launches9.update(r["launches"])
+    for name in counters:
+        main_path_launches[name] += launches9[name]
+    required9 = ("esvo_traverse", "shade", "shade_backward", "compact_forward", "shade (unpermute stores)",
+                 "shade_backward (src stores)")
+    missing = [n for n in required9 if launches9[n] <= 0]
+    folded = [n for n in FOLDED if launches9[n]]
+    if missing or folded:
+        raise AssertionError(f"the ranks never launched {missing}, or launched {folded}")
+    log(f"  both layouts equal the unsharded average (rtol and atol 1e-6), the train step's loss and gradients "
+        f"the unsharded step's (rtol 1e-5, atol 1e-7) and each other; unsharded loss {float(loss9.detach())!r}; the "
+        f"ranks' launches {dict((k, v) for k, v in launches9.items() if v)}; {spawn_s:.1f} s with the spawn")
+    del ranks, want, p9, g9, loss9
 
     # K2q's row counts its three modes' launches
     main_path_launches["esvo_traverse_models"] = sum(main_path_launches[m] for m in model_modes)

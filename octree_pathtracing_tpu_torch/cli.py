@@ -1,8 +1,14 @@
-"""Command line: render, train and info.
+"""Command line: render, preview, train and info.
 
 Usage:
   python -m octree_pathtracing_tpu_torch.cli render --scene chunk --depth 9 \\
       --width 256 --height 256 --spp 20 -o build/chunk.ppm
+  python -m octree_pathtracing_tpu_torch.cli render --scene chunk --depth 9 \\
+      --spp 4 --checkpoint build/ck.npz -o build/chunk4.ppm
+  python -m octree_pathtracing_tpu_torch.cli render --scene chunk --depth 9 \\
+      --spp 8 --resume build/ck.npz -o build/chunk8.ppm
+  python -m octree_pathtracing_tpu_torch.cli preview --scene cutout --depth 9 \\
+      --width 1280 --height 720 -o build/cutout_preview.ppm
   python -m octree_pathtracing_tpu_torch.cli render --scene cutout --depth 9 \\
       --sun high_quality --emitter-sampling one -o build/cutout.ppm
   python -m octree_pathtracing_tpu_torch.cli train --scene chunk --depth 9 \\
@@ -13,6 +19,9 @@ Usage:
   python -m octree_pathtracing_tpu_torch.cli render --world path/to/r.0.0.mca \
       --depth 9 --width 256 --height 256 --spp 20 -o build/world.ppm
 
+``render --checkpoint`` writes the renderer's progressive state after the
+last pass, ``--resume`` continues from one to ``--spp``.  ``preview`` is
+the flat-shaded one-pass frame (no path tracing, no primitives).
 ``--world`` takes a region file or a world directory (every
 ``region/*.mca``, stitched); ``--pack`` a resource-pack directory, whose
 block models and textures then replace the built-in color palette (loading
@@ -107,6 +116,10 @@ def cmd_render(args):
         seed=args.seed,
         n_bounces=args.bounces,
     )
+    if args.resume:
+        from .io.checkpoint import load_render_checkpoint
+
+        load_render_checkpoint(args.resume, r)
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     while True:
         t0 = time.perf_counter()
@@ -122,9 +135,37 @@ def cmd_render(args):
             wall_s=time.perf_counter() - t0,
             device=dev_name,
         )
+    if args.checkpoint:
+        from .io.checkpoint import save_render_checkpoint
+
+        save_render_checkpoint(args.checkpoint, r)
     path = save_image(args.output, r.framebuffer)
     print(f"wrote {path} at {r.spp} spp on {dev_name}")
     return r
+
+
+def cmd_preview(args):
+    """Render the flat-shaded preview frame and write it.  Returns the
+    (H, W, 3) linear frame on the device."""
+    import torch
+
+    from .io.image import save_image
+    from .render.preview import preview_image
+    from .utils.metrics import METRICS
+
+    dev = _device(args.device)
+    dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    with METRICS.phase("scene_build", scene=args.world or args.scene, depth=args.depth):
+        scene, camera = _build_scene(args)
+    t0 = time.perf_counter()
+    img = preview_image(scene.to(dev), camera.to(dev), args.width, args.height)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    METRICS.emit("preview", lanes=args.width * args.height, wall_s=round(time.perf_counter() - t0, 4),
+                 device=dev_name)
+    path = save_image(args.output, img)
+    print(f"wrote {path} on {dev_name}")
+    return img
 
 
 def orbit_cameras(depth: int, n_views: int):
@@ -210,8 +251,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="block-light NEE: 'one' samples one face of one emissive leaf per diffuse "
                         "bounce, 'one_block' all faces of one leaf, 'all' all faces of every leaf "
                         "(models/emitters.py); 'none' turns it off; 'scene' keeps the scene's own")
+    r.add_argument("--checkpoint", default="", help="write the progressive state here after the last pass")
+    r.add_argument("--resume", default="", help="continue from a checkpoint to --spp")
     r.add_argument("--device", default="", help="torch device (default: cuda; cpu runs the kernels' twins)")
     r.set_defaults(fn=cmd_render)
+
+    v = sub.add_parser("preview")
+    common(v)
+    v.add_argument("--device", default="", help="torch device (default: cuda; cpu runs the kernels' twins)")
+    v.set_defaults(fn=cmd_preview)
 
     t = sub.add_parser("train")
     common(t)

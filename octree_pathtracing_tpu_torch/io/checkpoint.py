@@ -1,9 +1,19 @@
-"""Array checkpoints (port of ``save_arrays`` / ``load_arrays`` of
-``io/checkpoint.py``): a nested dict of tensors or arrays as one ``.npz``
-whose keys are the dotted paths.  The render checkpoints are not ported
-yet (ROADMAP queue 1, item 8)."""
+"""Render and array checkpoints (port of ``io/checkpoint.py``), each one
+``.npz`` whose keys are dotted paths.
+
+A render checkpoint holds a ``render.Renderer``'s progressive state: the
+framebuffer, ``current_spp``, the seed and the Philox draw ``counter``
+(which takes the place of the JAX renderer's pass index), ``meta_json``
+(the resolution and target spp, for inspection) and any ``extra.*``
+payload.  Loading it into a Renderer of the same resolution and continuing
+gives the frame an uninterrupted render gives, bit for bit.  Array
+checkpoints hold a nested dict of tensors or arrays (e.g. trained
+parameters).
+"""
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -31,6 +41,39 @@ def _unflatten(flat: dict) -> dict:
             d = d.setdefault(p, {})
         d[parts[-1]] = v
     return root
+
+
+def save_render_checkpoint(path: str, renderer, extra: dict | None = None):
+    """Write ``renderer``'s progressive state (and ``extra``) to ``path``."""
+    payload = {
+        "framebuffer": renderer.framebuffer.detach().cpu().numpy(),
+        "current_spp": np.asarray(renderer.current_spp),
+        "counter": np.asarray(renderer.counter),
+        "seed": np.asarray(renderer.seed),
+    }
+    if extra:
+        _flatten("extra", extra, payload)
+    meta = dict(width=renderer.width, height=renderer.height, target_spp=renderer.target_spp)
+    payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez_compressed(path, **payload)
+
+
+def load_render_checkpoint(path: str, renderer) -> dict:
+    """Restore a checkpoint into ``renderer`` (its framebuffer onto the
+    renderer's device); returns the extra payload.  The renderer's own
+    ``target_spp`` stays: it is configuration, not progressive state, so
+    resuming a 4-spp checkpoint with a target of 8 renders 4 more."""
+    with np.load(path, allow_pickle=False) as z:
+        fb = z["framebuffer"]
+        if fb.shape[:2] != (renderer.height, renderer.width):
+            raise ValueError(f"checkpoint resolution {fb.shape[1]}x{fb.shape[0]} is not the renderer's "
+                             f"{renderer.width}x{renderer.height}")
+        renderer.framebuffer = torch.from_numpy(fb).to(renderer.framebuffer.device)
+        renderer.current_spp = int(z["current_spp"])
+        renderer.counter = int(z["counter"])
+        renderer.seed = int(z["seed"])
+        extra_flat = {k[len("extra."):]: z[k] for k in z.files if k.startswith("extra.")}
+    return _unflatten(extra_flat)
 
 
 def save_arrays(path: str, tree: dict):

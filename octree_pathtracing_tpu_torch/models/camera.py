@@ -1,7 +1,9 @@
-"""Perspective camera — vectorized ray generation (port of
+"""Thin-lens perspective camera — vectorized ray generation (port of
 ``models/camera.py``).  ``d = cot(fov/2)``, ``right = direction x up``,
 pixel coordinates normalized to the [-1, 1] box of the longer image axis
-with the reference's pixel-centre convention."""
+with the reference's pixel-centre convention; depth of field from an
+aperture disk aimed at the focal plane (:func:`get_rays_dof`), and the
+camera controls :func:`move_camera` and :func:`rotate_camera`."""
 
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ class Camera:
     direction: torch.Tensor  # (3,) unit
     up: torch.Tensor  # (3,) unit, orthogonal to direction
     fov: float = float(np.radians(70.0))
+    aperture: float = 0.0  # the lens radius; 0 is a pinhole
+    focal_distance: float = 0.0
 
     @staticmethod
     def look_at(eye, center, up=(0.0, 1.0, 0.0), fov_radians=float(np.radians(70.0))):
@@ -65,6 +69,46 @@ def get_rays(camera: Camera, xn, yn):
     dirs = _normalize(dirs)
     origins = camera.eye.expand(dirs.shape)
     return origins, dirs
+
+
+def get_rays_dof(camera: Camera, xn, yn, u1, u2):
+    """Thin-lens rays with depth of field: origins on the aperture disk,
+    aimed at the point of the pinhole ray at ``focal_distance``.  ``u1, u2``:
+    (B,) uniforms of the lens sample.  A camera without aperture gives
+    :func:`get_rays`' rays."""
+    origins, dirs = get_rays(camera, xn, yn)
+    if float(camera.aperture) <= 0.0:
+        return origins, dirs
+    right = _cross(camera.direction, camera.up)
+    focal_point = origins + dirs * camera.focal_distance
+    r = torch.sqrt(u1) * camera.aperture
+    theta = 2.0 * np.pi * u2
+    offset = right[None, :] * (r * torch.cos(theta))[:, None] + camera.up[None, :] * (r * torch.sin(theta))[:, None]
+    new_origins = origins + offset
+    return new_origins, _normalize(focal_point - new_origins)
+
+
+def move_camera(camera: Camera, forward=0.0, strafe=0.0, vertical=0.0) -> Camera:
+    """Translate the eye along the view direction, the right vector and the
+    world's up (the reference's WASD / space / shift moves)."""
+    right = _normalize(_cross(camera.direction, camera.up))
+    world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=camera.eye.device)
+    eye = camera.eye + camera.direction * forward + right * strafe + world_up * vertical
+    return dataclasses.replace(camera, eye=eye)
+
+
+def rotate_camera(camera: Camera, yaw: float, pitch: float) -> Camera:
+    """Point the camera by absolute yaw and pitch (radians), the pitch
+    clamped to +-80 degrees, the up vector rebuilt upright."""
+    pitch = float(np.clip(pitch, -np.radians(80.0), np.radians(80.0)))
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    dev = camera.eye.device
+    direction = _normalize(torch.tensor([cp * sy, sp, cp * cy], dtype=torch.float32, device=dev))
+    world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    right = _normalize(_cross(direction, world_up))
+    up = _normalize(_cross(right, direction))
+    return dataclasses.replace(camera, direction=direction, up=up)
 
 
 def pixel_grid_rays(camera: Camera, width: int, height: int, jitter=None):

@@ -1,10 +1,13 @@
-"""Scenes carried over from the JAX package as numpy arrays.
+"""Scenes and cameras carried over from the JAX package as numpy arrays.
 
 :func:`scene_from_numpy` builds this port's :class:`Scene` from plain
 arrays; :func:`scene_from_jax_arrays` reads them off a scene of
 ``octree_pathtracing_tpu`` (any object with its attribute layout — no jax
-import is needed, ``np.asarray`` does the transfer).  The tests use both to
-feed the two packages the same scene.
+import is needed, ``np.asarray`` does the transfer).  :func:`camera_from_numpy`
+builds a :class:`Camera` from a JAX camera's arrays and lens settings.  The
+tests use them to feed the two packages the same scene and camera.  An
+edited pool (``octree.EditableOctree.to_octree``) goes through
+:func:`scene_from_numpy` as any other.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from ..ops.geometry import QuadSoA
 from ..ops.texture import Atlas
 from ..ops.traversal import pack_nodes
 from .blockmodels import BlockModels
+from .camera import Camera
 from .emitters import EmitterTable
 from .materials import MaterialTable
 from .prims import Primitives
@@ -176,3 +180,11 @@ def scene_from_jax_arrays(jscene) -> Scene:
         prims=prims,
         has_quad_models=jscene.has_quad_models,
     )
+
+
+def camera_from_numpy(eye, direction, up, fov: float, aperture: float = 0.0, focal_distance: float = 0.0) -> Camera:
+    """Port camera from a JAX camera's (3,) arrays (``np.asarray`` of its
+    ``eye``, ``direction`` and ``up``) and its ``fov``, ``aperture`` and
+    ``focal_distance``."""
+    return Camera(eye=_t(eye, np.float32), direction=_t(direction, np.float32), up=_t(up, np.float32),
+                  fov=float(fov), aperture=float(aperture), focal_distance=float(focal_distance))

@@ -83,3 +83,8 @@ def gather_rows(m: MaterialTable, mat) -> dict:
 def air() -> dict:
     """Material id 0."""
     return dict(ior=DEFAULT_IOR, flags=0, texture_index=0)
+
+
+def has_flag(flags, bit):
+    """Whether each of ``flags`` has ``bit`` set."""
+    return (flags & bit) != 0

@@ -1,5 +1,6 @@
 """Sun + sky model (port of ``models/sun.py``): Chunky-style angular sun,
-sky colour constant and the sampling-strategy flag sets.  The basis vectors
+sky colour constant, the sampling-strategy flag sets and the preview's flat
+shading.  The basis vectors
 (su, sv, sw) are derived once at construction; every field is a float32
 tensor so a whole :class:`Sun` moves with ``.to(device)``."""
 
@@ -202,3 +203,10 @@ def random_sun_direction(sun: Sun, u1, u2):
         + sun.sv[None, :] * (torch.sin(phi) * sin_a)[:, None]
         + sun.sw[None, :] * cos_a[:, None]
     )
+
+
+def flat_shading(sun: Sun, normals, color):
+    """The preview's shading: ``color`` times the sun's emittance times
+    ``n . sw`` clamped below at AMBIENT.  (B, 3) normals and colours."""
+    shading = torch.clamp_min(normals @ sun.sw, AMBIENT)
+    return color * (sun.emittance[None, :3] * shading[:, None])

@@ -1,6 +1,7 @@
-"""Morton (Z-order) codes and the Morton flattening of a dense voxel grid
-(copy of the part of ``octree_pathtracing_tpu/octree/morton.py`` that the
-builders need)."""
+"""Morton (Z-order) codes, their inverse, and the Morton flattening of a
+dense voxel grid (copy of the host codecs of
+``octree_pathtracing_tpu/octree/morton.py``): 64-bit numpy codes of up to
+21 bits per axis."""
 
 from __future__ import annotations
 
@@ -27,11 +28,28 @@ def part_by_2(v: np.ndarray) -> np.ndarray:
     return x
 
 
+def compact_by_2(v: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`part_by_2`: gather every 3rd bit into the low 21."""
+    x = np.asarray(v, dtype=np.uint64) & _M64[5]
+    x = (x | (x >> np.uint64(2))) & _M64[4]
+    x = (x | (x >> np.uint64(4))) & _M64[3]
+    x = (x | (x >> np.uint64(8))) & _M64[2]
+    x = (x | (x >> np.uint64(16))) & _M64[1]
+    x = (x | (x >> np.uint64(32))) & _M64[0]
+    return x
+
+
 def encode_morton(x, y, z) -> np.ndarray:
     """Interleave three <= 21-bit coordinates into a Morton code: z takes the
     high bit of each triple, then y, then x (the child slot within an octant
     is ``x | y << 1 | z << 2``)."""
     return (part_by_2(z) << np.uint64(2)) | (part_by_2(y) << np.uint64(1)) | part_by_2(x)
+
+
+def decode_morton(code) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x, y, z): the inverse of :func:`encode_morton`."""
+    c = np.asarray(code, dtype=np.uint64)
+    return compact_by_2(c), compact_by_2(c >> np.uint64(1)), compact_by_2(c >> np.uint64(2))
 
 
 def morton_order_dense(grid: np.ndarray) -> np.ndarray:

@@ -20,6 +20,12 @@ def srgb_to_linear(c):
     return torch.clamp(c, 0.0, 1.0).pow(GAMMA)
 
 
+def linear_to_srgb(c):
+    """Linear -> display: the simple power gamma 1/2.2, not the piecewise
+    sRGB curve."""
+    return torch.clamp(c, 0.0, 1.0).pow(1.0 / GAMMA)
+
+
 def float_to_u8(img) -> np.ndarray:
     """Linear float image (array or tensor) -> gamma-compressed u8
     (simple power gamma 1/2.2, not piecewise)."""

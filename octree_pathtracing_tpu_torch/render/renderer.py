@@ -6,7 +6,12 @@ the wavefront path trace, and the running-average update
 device, with the reference's branch-count warmup schedule.  Every random
 draw (pixel jitter and uniform block) is ``philox_uniforms(seed, counter)``
 on that device: the renderer keeps an integer seed and a draw counter and
-no generator state, and each draw takes the next counter.
+no generator state, and each draw takes the next counter.  So the
+progressive state is the framebuffer, the spp, the seed and the counter,
+which ``io/checkpoint.save_render_checkpoint`` writes and
+``load_render_checkpoint`` restores.  The controls are the reference's
+renderer messages as methods: ``reset``, ``set_target_spp``,
+``set_camera`` (which resets) and ``render`` (passes until the target).
 """
 
 from __future__ import annotations
@@ -118,6 +123,14 @@ class Renderer:
         self.current_spp = 0
         self.counter = 0
 
+    def set_target_spp(self, spp: int):
+        self.target_spp = spp
+
+    def set_camera(self, camera: Camera):
+        """Move the camera; the accumulated frame starts over."""
+        self.camera = camera
+        self.reset()
+
     @property
     def spp(self) -> int:
         return self.current_spp
@@ -137,6 +150,16 @@ class Renderer:
             self.framebuffer, self.current_spp = render_pass(*args)
         self.counter += 2 * n  # at most two draws per sample: jitter and uniforms
         return True
+
+    def render(self, passes: int | None = None):
+        """Run passes until ``target_spp`` (or ``passes`` of them); returns
+        the linear float framebuffer."""
+        count = 0
+        while self.step():
+            count += 1
+            if passes is not None and count >= passes:
+                break
+        return self.framebuffer
 
     def get_image(self) -> np.ndarray:
         """Gamma-compressed u8 frame."""

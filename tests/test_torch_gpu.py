@@ -14,7 +14,10 @@ and the path tracer's frame and gradients through the kernels against the
 same through the twins, with and without light sampling, block models and
 primitives, and on a world read from a region file; a headline frame
 replayed from a CUDA graph bit-equal to the eager one, and run with the
-card's sync debug mode set to raise.
+card's sync debug mode set to raise; K10 (the preview's shading,
+``csrc/preview.cu``) bit-equal to its twin at 65,536 lanes on the three
+preview scenes; two spawned ranks sharing the card through gloo for the
+sharded render and train step.
 
 Every test here is marked ``gpu`` and skips where there is no card.  The
 file imports no jax (the machine with the card has none), so it runs there
@@ -2524,3 +2527,111 @@ def test_bvh_kernel_refuses_a_tree_deeper_than_its_stack_and_fills_it_whole(cuda
     with pytest.raises(ValueError, match="8 levels deep.*holds 8 entries"):
         bvh_intersect_quads(chain(8), quads, o, d)
     assert bvh_intersect_quads.launches == before
+
+
+# ---- K10, the preview's shading kernel, and the sharded steps on the card
+
+
+def _preview_case(name, dev):
+    """(scene, dirs, walk) of 65,536 lanes: the 256x256 primaries of a
+    preview scene, the first 4,096 of them moved above the scene and aimed
+    around the sun so that the sun's window is in the batch."""
+    from octree_pathtracing_tpu_torch.render.pathtracer import _trace
+
+    build = {"chunk": minecraft_chunk_scene, "cutout": cutout_chunk_scene, "plant": plant_scene}[name]
+    scene, cam = build(depth=6)
+    scene, cam = scene.to(dev), cam.to(dev)
+    o, d = pixel_grid_rays(cam, 256, 256)
+    o, d = o.clone(), d.clone()
+    rng = np.random.default_rng(17)
+    jit = torch.from_numpy(rng.normal(0.0, 0.08, (4096, 3)).astype(np.float32)).to(dev)
+    sun = scene.sun.sw[None, :] + jit
+    d[:4096] = sun / torch.linalg.norm(sun, dim=1, keepdim=True)
+    o[:4096] = torch.tensor([32.0, 256.0, 32.0], device=dev)
+    return scene, d, _trace(scene, o, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["chunk", "cutout", "plant"])
+def test_preview_kernel_matches_twin(cuda, name):
+    """K10 equals its twin bit for bit on every pixel, one launch a call;
+    the plant field's walk hands it K2q's quad surfaces."""
+    from octree_pathtracing_tpu_torch.ops.preview import preview_shade, preview_shade_reference
+
+    scene, d, res = _preview_case(name, cuda)
+    assert (res.quad is not None) == (name == "plant")
+    before = preview_shade.launches
+    got = preview_shade(scene, d, res)
+    torch.cuda.synchronize()
+    assert preview_shade.launches == before + 1
+    want = preview_shade_reference(scene, d, res)
+    assert got.shape == (65536, 3) and torch.equal(got, want), float((got - want).abs().max())
+    hit = res.hit
+    assert bool(hit.any()) and bool((~hit).any())
+    sky = torch.tensor([0.5, 0.7, 1.0], device=cuda)
+    assert bool((got[~hit] != sky).any(dim=1).any())  # the sun's window was drawn
+    quad = None if res.quad is None else type(res.quad)(*(x[:0] for x in res.quad))
+    empty = preview_shade(scene, d[:0], res._replace(quad=quad, **{f: getattr(res, f)[:0] for f in
+                                                                   ("hit", "face_id", "uv", "leaf_value")}))
+    assert empty.shape == (0, 3) and preview_shade.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_preview_kernel_refuses_what_it_does_not_take(cuda):
+    from octree_pathtracing_tpu_torch.ops.preview import preview_shade
+
+    scene, d, res = _preview_case("plant", cuda)
+    with pytest.raises(ValueError, match="quad"):
+        preview_shade(scene, d, res._replace(quad=None))
+    with pytest.raises(ValueError, match="face_id"):
+        preview_shade(scene, d, res._replace(face_id=res.face_id.long()))
+
+
+@pytest.mark.gpu
+def test_preview_image_on_the_card_launches_k10(cuda):
+    from octree_pathtracing_tpu_torch.ops.preview import preview_shade
+    from octree_pathtracing_tpu_torch.render.preview import preview_image
+
+    scene, cam = cutout_chunk_scene(depth=5)
+    k2, k10 = traverse_alpha.launches, preview_shade.launches
+    img = preview_image(scene.to(cuda), cam.to(cuda), 64, 48)
+    torch.cuda.synchronize()
+    assert img.shape == (48, 64, 3) and img.is_cuda and bool(torch.isfinite(img).all())
+    assert traverse_alpha.launches == k2 + 1 and preview_shade.launches == k10 + 1
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card_through_gloo(cuda):
+    """Two spawned ranks (gloo) run the sharded render in both layouts and
+    the train step on the card, after this process built every library:
+    the image equals the unsharded average within rtol and atol 1e-6, the
+    loss and gradients the unsharded step's within rtol 1e-5 / atol 1e-7."""
+    from octree_pathtracing_tpu_torch.ops import compact, preview, shade
+    from octree_pathtracing_tpu_torch.ops import traversal as traversal_mod
+    from octree_pathtracing_tpu_torch.parallel import render_loss, spawn_ranks
+    from torch_sharded_rank import rank_steps
+    from octree_pathtracing_tpu_torch.render import trace_paths
+
+    for lib in (traversal_mod._library, prandom._library, shade._library, nee_mod._library, compact._library,
+                preview._library):
+        lib()
+    scene, cam = minecraft_chunk_scene(depth=5)
+    o, d = pixel_grid_rays(cam, 32, 32)
+    s, b, nb = 2, o.shape[0], 2
+    u = torch.from_numpy(np.random.default_rng(9).random((s, b, nb, 21), dtype=np.float32))
+    O, D = o[None].expand(s, b, 3).contiguous(), d[None].expand(s, b, 3).contiguous()
+    tgt = torch.full((s, b, 3), 0.25)
+    ranks = spawn_ranks(rank_steps, 2, "gloo", (scene, O, D, u, tgt, (1, 2), (1, 2), "cuda"), timeout=300)
+    sc = scene.to(cuda)
+    want = sum(trace_paths(sc, o.to(cuda), d.to(cuda), u[k].to(cuda)) for k in range(s)).cpu().numpy() / s
+    p = {"atlas": sc.atlas.detach().requires_grad_(True), "emittance": sc.materials.emittance.detach().requires_grad_(True)}
+    flat = lambda x: x.reshape((s * b,) + tuple(x.shape[2:])).to(cuda)  # noqa: E731
+    loss = render_loss(sc, p, flat(O), flat(D), flat(u), flat(tgt))
+    grads = torch.autograd.grad(loss, [p["atlas"], p["emittance"]])
+    for r in ranks:
+        for sp in (1, 2):
+            np.testing.assert_allclose(r["render"][sp], want, rtol=1e-6, atol=1e-6)
+            got_loss, g = r["train"][sp]
+            assert got_loss == pytest.approx(float(loss), rel=1e-5, abs=1e-7)
+            np.testing.assert_allclose(g["atlas"], grads[0].cpu().numpy(), rtol=1e-5, atol=1e-7)
+            np.testing.assert_allclose(g["emittance"], grads[1].cpu().numpy(), rtol=1e-5, atol=1e-7)

@@ -1,8 +1,9 @@
 """The port runs where jax and the JAX package are absent (the machine with
 the card has neither): jax-blocked CLI render (with and without light
-sampling) and train runs (on the terrain's cutout and on block models), a
-render of a region file (``--world``), and a source scan for imports of jax
-or of ``octree_pathtracing_tpu``.  Without ``--device`` the CLI asks for the card
+sampling), preview, checkpoint and resume, and train runs (on the
+terrain's cutout and on block models), a render of a region file
+(``--world``), and a source scan for imports of jax or of
+``octree_pathtracing_tpu``.  Without ``--device`` the CLI asks for the card
 and fails where there is none."""
 
 import os
@@ -224,6 +225,60 @@ def test_compact_module_runs_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "live" in proc.stdout
     assert os.path.exists(os.path.join(PORT, "ops", "compact.py"))  # among the sources the scan below reads
+
+
+_PREVIEW_RESUME = """
+import sys
+sys.modules["jax"] = None
+sys.modules["octree_pathtracing_tpu"] = None
+from octree_pathtracing_tpu_torch.cli import main
+out, ck = sys.argv[1], sys.argv[2]
+main(["preview", "--scene", "plant", "--depth", "3", "--width", "8", "--height", "6", "--device", "cpu",
+      "-o", out + "/preview.ppm"])
+common = ["--scene", "cutout", "--depth", "3", "--width", "8", "--height", "6", "--device", "cpu"]
+main(["render", *common, "--spp", "2", "--checkpoint", ck, "-o", out + "/a.ppm"])
+main(["render", *common, "--spp", "4", "--resume", ck, "-o", out + "/b.ppm"])
+main(["render", *common, "--spp", "4", "-o", out + "/c.ppm"])
+assert open(out + "/b.ppm", "rb").read() == open(out + "/c.ppm", "rb").read()
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+"""
+
+
+def test_cli_preview_and_resume_with_jax_blocked(tmp_path):
+    """``cli preview`` on the plant field (K2q's walk, K10's twin) and a
+    render checkpointed at 2 spp and resumed to 4, equal to a 4-spp render
+    byte for byte, with neither jax nor the JAX package importable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _PREVIEW_RESUME, str(tmp_path), str(tmp_path / "ck.npz")],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("on cpu") == 4 and "at 4 spp" in proc.stdout
+    header = b"P6\n8 6\n255\n"
+    data = (tmp_path / "preview.ppm").read_bytes()
+    assert data.startswith(header) and len(data) == len(header) + 8 * 6 * 3
+
+
+def test_cli_preview_without_device_fails_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["preview", "--scene", "room", "--depth", "3", "-o", str(tmp_path / "out")])
+
+
+# the driver surface's modules, which the scan below reads with every other
+DRIVER_MODULES = ("config.py", "ops/preview.py", "render/preview.py", "render/testimages.py", "octree/edit.py",
+                  "utils/mathx.py", "utils/bits.py", "utils/colors.py", "parallel/mesh.py", "parallel/distributed.py",
+                  "parallel/shard.py", "io/checkpoint.py")
+
+
+@pytest.mark.parametrize("module", DRIVER_MODULES)
+def test_source_scan_covers_the_driver_modules(module):
+    """Each driver module is a Python file under the port's package (the
+    scan walks them all) and names neither jax nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert os.path.isfile(path)
+    text = open(path).read()
+    assert not re.search(r"^\s*(import|from)\s+(jax|octree_pathtracing_tpu)\b(?!_torch)", text, re.M)
 
 
 def test_no_port_source_imports_jax():
