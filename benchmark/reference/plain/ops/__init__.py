@@ -1,0 +1,1 @@
+"""Frozen plain versions: see ``benchmark/reference/plain/__init__.py``."""
